@@ -1,0 +1,11 @@
+"""zamba2-2.7b — [hybrid] 54L d_model=2560 32H (GQA kv=32) d_ff=10240
+vocab=32000, ssm_state=64 — Mamba2 backbone + ONE shared-weight attention
+block applied every 6 layers [arXiv:2411.15242; hf]."""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="zamba2-2.7b", family="hybrid",
+    n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=10240, vocab_size=32000, head_dim=80,
+    ssm_state=64, ssm_head_dim=64, attn_every=6,
+)
