@@ -19,7 +19,21 @@ Phases, each fatal on failure (nothing is caught):
   5. parity: a served bf16 stream teacher-forced through the same model with
      the plain attention, and fp32 engine streams against a sequential
      single-request reference with the plain attention;
-  6. ``repro_torch.launch.serve`` at full width.
+  6. ``repro_torch.launch.serve`` at full width;
+  7. holds the flash attention kernels, forward and backward, against the
+     plain version and autograd through it on the card (fp32 at 1e-4, bf16
+     at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
+     llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), a ragged T,
+     T = 1 and a non-causal T != S, and times kernel, plain version and
+     SDPA at the training shape, forward and backward;
+  8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
+     ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
+     checks falling finite losses and that every layer's attention went
+     through the kernels (2 x 30 forward and 30 backward launches a step);
+     profiles one train step;
+  9. train parity: one step's loss and gradients with the kernels against
+     the plain attention (fp32 at 4 layers, bf16 at the full config), and
+     two identical 2-step runs with bit-identical losses.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -54,6 +68,32 @@ BF16_LOGIT_ATOL = 0.15
 # fp32: a greedy stream may differ only after a step where the reference's
 # top-2 margin is under this (sums in another order, ~1e-6 relative).
 FP32_TIE_MARGIN = 1e-3
+# Flash attention shapes (name, B, T, S, Hq, Hkv, hd, causal); the first is
+# the training shape the train phase runs.
+FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
+                ("llama-3.2-1b", 2, 2048, 2048, 32, 8, 64, True),
+                ("llama-3.1-8b hd 128", 1, 2048, 2048, 32, 8, 128, True),
+                ("ragged T 1000", 2, 1000, 1000, 9, 3, 64, True),
+                ("T 1", 4, 1, 1, 9, 3, 64, True),
+                ("full T != S", 2, 300, 700, 8, 2, 128, False)]
+# Forward and dq, dk, dv against autograd through the plain version.
+# fp32: sums in another order only. bf16: both accumulate in fp32 and round
+# the results once; the kernel also rounds P and dS to bf16 as tensor-core
+# operands and reads the bf16 O in rowsum(dO * O), each a 2^-9 relative
+# difference in one term of a sum.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TRAIN_STEPS = 6
+TRAIN_B, TRAIN_T = 8, 2048
+# Train parity, kernel against the plain attention on the same params and
+# batch. fp32 (4 layers, B 2, T 1024): sums in another order only; per leaf
+# max |dg| <= 1e-4 of the leaf's max |g|, loss within 1e-5 relative. bf16
+# (full config): both paths accumulate attention in fp32 and round O and
+# the gradients to bf16 (the kernel P and dS too), so they differ by
+# single-ulp flips (2^-8 relative) that 30 layers carry on; the loss (~10.8) may move by 2^-8 of
+# itself, 0.04, and each leaf's gradient by 5% in relative L2 norm, where a
+# wrong mask, scale or group sum moves it by order 1.
+FP32_LOSS_RTOL, FP32_GRAD_TOL = 1e-5, 1e-4
+BF16_LOSS_ATOL, BF16_GRAD_RTOL = 0.04, 0.05
 
 
 def log(msg: str) -> None:
@@ -376,6 +416,233 @@ def parity_fp32(cfg, rng):
         "sequential plain-attention reference")
 
 
+# --------------------------------------------------------------- phase 7 --
+def flash_inputs(B, T, S, Hq, Hkv, hd, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=DEV
+                                   ).to(dtype)
+    return r(B, T, Hq, hd), r(B, S, Hkv, hd), r(B, S, Hkv, hd), \
+        r(B, T, Hq, hd)
+
+
+def check_flash_attention():
+    """Forward against the plain version, dq/dk/dv against autograd
+    through it, fp32 and bf16, at every shape of FLASH_SHAPES."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    rows = []
+    for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(FLASH_SHAPES):
+        row = {"shape": name, "B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv,
+               "hd": hd, "causal": causal}
+        for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, dtype, SEED + i)
+            out, lse = fk.flash_attention_fwd(q, k, v, causal)
+            grads = fk.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            torch.cuda.synchronize()
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = ref.flash_attention_ref(*leaves, causal=causal)
+            want.backward(do)
+            torch.cuda.synchronize()
+            row[f"fwd_err_{key}"] = max_err(out, want, TOL[dtype])
+            row[f"bwd_err_{key}"] = max(
+                max_err(g, w.grad, GRAD_TOL[dtype])
+                for g, w in zip(grads, leaves))
+        log(f"[kernel] flash_attention check {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def time_flash_attention():
+    """Kernel, plain version and SDPA at the training shape in bf16:
+    forward, forward + backward (autograd) and, for the kernel, the
+    backward launch alone. The backward of the plain version and of SDPA
+    is their forward + backward less their forward."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    _, B, T, S, Hq, Hkv, hd, _ = FLASH_SHAPES[0]
+    q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, torch.bfloat16, SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    impls = {
+        "": (lambda q, k, v: fk.flash_attention(q, k, v), do),
+        "plain_": (lambda q, k, v: ref.flash_attention_ref(q, k, v,
+                                                           causal=True), do),
+        "library_": (lambda q, k, v: sdpa(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), do.transpose(1, 2))}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    times = {}
+    for key, (f, grad_out) in impls.items():
+        fwd = lambda i, f=f: f(q, k, v)
+        both = lambda i, f=f, g=grad_out: torch.autograd.grad(
+            f(*leaves), leaves, g)
+        times[f"{key}fwd_ms"] = device_ms(fwd, 10)
+        times[f"{key}fwd_eager_ms"] = eager_ms(fwd, 10)
+        times[f"{key}fwd_bwd_ms"] = device_ms(both, 5)
+        times[f"{key}fwd_bwd_eager_ms"] = eager_ms(both, 5)
+        times[f"{key}bwd_ms"] = times[f"{key}fwd_bwd_ms"] - \
+            times[f"{key}fwd_ms"]
+    out, lse = fk.flash_attention_fwd(q, k, v, True)
+    bwd = lambda i: fk.flash_attention_bwd(q, k, v, out, lse, do, True)
+    times["bwd_ms"] = device_ms(bwd, 5)
+    times["bwd_eager_ms"] = eager_ms(bwd, 5)
+    elt = 2
+    io = (2 * B * T * Hq * hd + 2 * B * S * Hkv * hd) * elt   # q, k, v, out
+    flops = 4 * B * Hq * hd * T * (T + 1) // 2
+    bounds = {}
+    for key, nbytes, ops in (
+            ("fwd", io + 4 * B * Hq * T, flops),
+            # reads q, k, v, out, dout, lse; writes dq, dk, dv
+            ("bwd", 2 * io + B * T * Hq * hd * elt + 4 * B * Hq * T,
+             2.5 * flops)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_FLOPS_PER_S * 1e3
+        bounds[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
+        bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
+            else "operations"
+    row = {"shape": FLASH_SHAPES[0][0], **times, **bounds}
+    log(f"[kernel] flash_attention timing {json.dumps(row)}")
+    return row
+
+
+# --------------------------------------------------------------- phase 8 --
+def train_full_width(cfg):
+    """``launch.train`` at full width; returns the run's result and the
+    flash kernels' launches in it."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats()
+    fk.flash_attention_fwd.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    result = train.main(["--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+                         "--lr", "3e-3", "--warmup", "2", "--ckpt-every",
+                         "0", "--log-every", "1", "--seed", str(SEED)])
+    launches = (fk.flash_attention_fwd.launches,
+                fk.flash_attention_bwd.launches)
+    losses = result["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    # remat="block" runs every layer's forward again in the backward
+    passes = 2 if cfg.remat == "block" else 1
+    want = (passes * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"flash_attention launches (fwd, bwd) "
+                             f"{launches}, want {want}")
+    step_ms = float(np.mean(result["step_s"][1:])) * 1e3
+    stats = {"arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_T,
+             "steps": TRAIN_STEPS, "step_ms_after_first": step_ms,
+             "first_step_ms": result["step_s"][0] * 1e3,
+             "tokens_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
+             "losses": losses, "grad_norms": result["grad_norms"],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "flash_fwd_launches": launches[0],
+             "flash_bwd_launches": launches[1]}
+    log(f"[train] {json.dumps(stats)}")
+    return stats, launches
+
+
+def fresh_training(cfg, flash_attention=None):
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from repro_torch.train.train_step import (build_train_step,
+                                              init_train_state)
+    kw = {} if flash_attention is None else \
+        {"flash_attention": flash_attention}
+    model = DenseLM(cfg, device=DEV, **kw)
+    opt = build_optimizer(OptimizerConfig(peak_lr=3e-3, warmup=2,
+                                          total_steps=100))
+    state = init_train_state(model, opt, torch.Generator(device=DEV)
+                             .manual_seed(SEED))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_T, TRAIN_B,
+                                  seed=SEED), device=DEV)
+    return model, state, build_train_step(model, opt), data
+
+
+def profile_train_step(cfg, step_ms):
+    """One train step under the profiler: device busy time by kernel
+    against the step time of the train phase (host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+    _, state, step, data = fresh_training(cfg)
+    for i in range(2):
+        state, m = step(state, data.batch(i))
+        float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, data.batch(2))
+        float(m["loss"])
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy_ms = sum(ms for _, _, ms in kernels)
+    top = sorted(kernels, key=lambda k: -k[2])[:8]
+    stats = {"train_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
+             "device_idle_share": 1 - busy_ms / step_ms,
+             "top_kernels_per_step": [[name[:80], calls, ms]
+                                      for name, calls, ms in top]}
+    log(f"[profile train] {json.dumps(stats)}")
+
+
+# --------------------------------------------------------------- phase 9 --
+def train_parity(cfg):
+    """One step's loss and gradients, kernel against plain attention."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import value_and_grad
+    cfg32 = replace(cfg, n_layers=4, param_dtype=torch.float32,
+                    compute_dtype=torch.float32)
+    for label, c, B, T in (("fp32", cfg32, 2, 1024),
+                           ("bf16", cfg, TRAIN_B, TRAIN_T)):
+        model = DenseLM(c, device=DEV)
+        plain = DenseLM(c, device=DEV,
+                        flash_attention=ref.flash_attention_ref)
+        params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+        batch = SyntheticLM(DataConfig(c.vocab_size, T, B, seed=SEED + 1),
+                            device=DEV).batch(0)
+        loss, grads = value_and_grad(model.loss_fn, params, batch)
+        want_loss, want = value_and_grad(plain.loss_fn, params, batch)
+        dloss = abs(float(loss) - float(want_loss))
+        worst = 0.0
+        for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+            g, w = g.float(), w.float()
+            if label == "fp32":
+                err = ((g - w).abs().max() / w.abs().max()).item()
+            else:
+                err = ((g - w).norm() / w.norm()).item()
+            worst = max(worst, err)
+        stats = {"dtype": label, "layers": c.n_layers, "B": B, "T": T,
+                 "loss": float(loss), "plain_loss": float(want_loss),
+                 "abs_dloss": dloss, "worst_leaf_grad_err": worst}
+        log(f"[parity train] {json.dumps(stats)}")
+        if label == "fp32" and (dloss > FP32_LOSS_RTOL * abs(float(want_loss))
+                                or worst > FP32_GRAD_TOL):
+            raise AssertionError(f"fp32 train parity off: {stats}")
+        if label == "bf16" and (dloss > BF16_LOSS_ATOL
+                                or worst > BF16_GRAD_RTOL):
+            raise AssertionError(f"bf16 train parity off: {stats}")
+        del model, plain, params, grads, want
+
+
+def deterministic_runs(cfg):
+    """Two identical 2-step runs: bit-identical losses and grad norms."""
+    runs = []
+    for _ in range(2):
+        _, state, step, data = fresh_training(cfg)
+        run = []
+        for i in range(2):
+            state, m = step(state, data.batch(i))
+            run.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(run)
+        del state
+    if runs[0] != runs[1]:
+        raise AssertionError(f"two identical runs differ: {runs}")
+    log(f"[parity train] two 2-step runs bit-identical: {runs[0]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -396,7 +663,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = build.build(["decode_attention"])
+    logs = build.build(["decode_attention", "flash_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -421,6 +688,13 @@ def main() -> int:
     serve.main(["--arch", "smollm-135m", "--requests", "8", "--max-new",
                 "16", "--slots", "8", "--max-len", "512"])
 
+    flash_rows = check_flash_attention()
+    timing = time_flash_attention()
+    train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
+    profile_train_step(smollm, train_stats["step_ms_after_first"])
+    train_parity(smollm)
+    deterministic_runs(smollm)
+
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -431,6 +705,18 @@ def main() -> int:
                 "bound_ms": served["bound_ms"],
                 "bound_by": served["bound_by"],
                 "library_ms": served["library_ms"]}]
+    for name, launches in (("fwd", fwd_launches), ("bwd", bwd_launches)):
+        kernels.append({
+            "name": f"flash_attention_{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:23",
+            "launches": launches,
+            "max_abs_err": flash_rows[0][f"{name}_err_bf16"],
+            "ms": timing[f"{name}_ms"],
+            "plain_ms": timing[f"plain_{name}_ms"],
+            "bound_ms": timing[f"{name}_bound_ms"],
+            "bound_by": timing[f"{name}_bound_by"],
+            "library_ms": timing[f"library_{name}_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,19 @@ import torch
 
 from . import ref
 from .decode_attention import decode_attention as _decode_cuda
+from .flash_attention import flash_attention as _flash_cuda
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """On the CPU the reference's XLA route: ``chunked_attention`` from
+    1024 query positions on (no S^2 scores), the plain version below."""
+    if q.device.type == "cpu":
+        if q.shape[1] >= 1024:
+            from repro_torch.models.attention import chunked_attention
+            return chunked_attention(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _flash_cuda(q, k, v, causal=causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,11 +1,12 @@
-"""GQA attention for serving: decode and prefill into the slot cache.
+"""GQA attention: training and prefill without a cache, decode and
+prefill into the slot cache.
 
 Counterpart of ``repro/models/attention.py``. Shapes follow the
 (B, T, H, hd) convention; KV caches are slot-contiguous (B, L_max, H_kv, hd)
-with per-sequence valid lengths. Decode goes through the kernel seam
+with per-sequence valid lengths. Causal self-attention without a cache
+(the training loss) and decode go through the kernel seam
 (``kernels/ops.py``); prefill into the cache is plain PyTorch, as it is XLA
-in the reference. The branch without a cache (flash attention, training)
-and cross-attention come with later slices.
+in the reference. Cross-attention comes with the enc-dec slice.
 """
 from __future__ import annotations
 
@@ -28,12 +29,14 @@ class AttnParams(NamedTuple):
     wo: torch.Tensor     # (Hq*hd, d)
 
 
-def init_attn(generator: torch.Generator, cfg: ArchConfig,
-              device=None) -> AttnParams:
+def init_attn(generator: torch.Generator, cfg: ArchConfig, device=None,
+              lead: tuple[int, ...] = ()) -> AttnParams:
+    """``lead``: leading axes the matrices are stacked on (the layers)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     shapes = ((d, hq * hd), (d, hkv * hd), (d, hkv * hd), (hq * hd, d))
-    return AttnParams(*(dense_init(generator, s, dtype=cfg.param_dtype,
-                                   device=device) for s in shapes))
+    return AttnParams(*(dense_init(generator, (*lead, *s), in_axis=len(lead),
+                                   dtype=cfg.param_dtype, device=device)
+                        for s in shapes))
 
 
 def _kv_mask(Tq: int, Tk: int, causal: bool, q_offset: int,
@@ -103,12 +106,18 @@ def gqa_scores_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
+                    causal: bool = True,
+                    positions: torch.Tensor | None = None,
                     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
                     cache_index: torch.Tensor | None = None,
-                    cross_kv=None,
+                    cross_kv=None, use_rope: bool = True,
                     decode_attention: Callable = kops.decode_attention,
-                    ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """One attention sublayer (no residual/norm) over a slot cache:
+                    flash_attention: Callable = kops.flash_attention,
+                    ) -> tuple[torch.Tensor,
+                               tuple[torch.Tensor, torch.Tensor] | None]:
+    """One attention sublayer (no residual/norm). Modes:
+      * train/prefill (no cache): self-attention over x, causal with
+        ``Tq == Tk`` through ``flash_attention``, else plain attention;
       * decode (T == 1): write K/V at ``cache_index``, then attend with
         ``lengths = cache_index + 1`` through ``decode_attention``;
       * prefill into the cache (T > 1): write, then plain attention,
@@ -117,15 +126,11 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     K/V are written into the cache tensors IN PLACE (the reference returns
     new buffers). As ``jax.lax.dynamic_update_slice`` does, the write
     position is clamped to ``max_len - T``, so an idle slot whose index ran
-    past the end overwrites its last row. Returns (out, (K, V)).
+    past the end overwrites its last row. Returns (out, (K, V) or None).
     """
     if cross_kv is not None:
         raise NotImplementedError("cross-attention comes with the enc-dec "
                                   "slice of the port")
-    if kv_cache is None:
-        raise NotImplementedError("attention without a cache (flash "
-                                  "attention) comes with the training slice "
-                                  "of the port")
     B, T, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.compute_dtype
@@ -133,28 +138,43 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     k = (x @ p.wk.to(cd)).reshape(B, T, hkv, hd)
     v = (x @ p.wv.to(cd)).reshape(B, T, hkv, hd)
 
-    ck, cv = kv_cache                     # (B, L_max, Hkv, hd)
-    S = ck.shape[1]
-    idx = cache_index if cache_index is not None else torch.zeros(
-        (B,), dtype=torch.int32, device=x.device)
     steps = torch.arange(T, device=x.device)
-    sin, cos = rope_angles(idx[:, None] + steps[None, :], hd, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    idx = None
+    if kv_cache is not None:
+        idx = cache_index if cache_index is not None else torch.zeros(
+            (B,), dtype=torch.int32, device=x.device)
+    if positions is None:
+        positions = steps[None, :] if idx is None else \
+            idx[:, None] + steps[None, :]
+    if use_rope:
+        sin, cos = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
 
-    rows = idx.clamp(0, S - T)[:, None] + steps[None, :]       # (B, T)
-    batch = torch.arange(B, device=x.device)[:, None]
-    ck[batch, rows] = k
-    cv[batch, rows] = v
-    if T == 1:
-        # every valid cached position is <= the current one, so the
-        # length mask alone is exact (no causal matrix needed)
-        out = decode_attention(q[:, 0], ck, cv, idx + 1)[:, None]
-    elif T >= 1024:
-        out = chunked_attention(q, ck, cv, causal=True, kv_len=idx + T)
+    new_cache = None
+    if kv_cache is None:
+        if causal and q.shape[1] == k.shape[1]:
+            # the training hot path: the flash kernel on the card
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = gqa_scores_attention(q, k, v, causal=causal)
     else:
-        # prefill-into-cache (idx == 0 per slot-allocation contract)
-        out = gqa_scores_attention(q, ck, cv, causal=True, q_offset=0,
-                                   kv_len=idx + T)
+        ck, cv = kv_cache                     # (B, L_max, Hkv, hd)
+        S = ck.shape[1]
+        rows = idx.clamp(0, S - T)[:, None] + steps[None, :]     # (B, T)
+        batch = torch.arange(B, device=x.device)[:, None]
+        ck[batch, rows] = k
+        cv[batch, rows] = v
+        new_cache = (ck, cv)
+        if T == 1:
+            # every valid cached position is <= the current one, so the
+            # length mask alone is exact (no causal matrix needed)
+            out = decode_attention(q[:, 0], ck, cv, idx + 1)[:, None]
+        elif T >= 1024:
+            out = chunked_attention(q, ck, cv, causal=True, kv_len=idx + T)
+        else:
+            # prefill-into-cache (idx == 0 per slot-allocation contract)
+            out = gqa_scores_attention(q, ck, cv, causal=True, q_offset=0,
+                                       kv_len=idx + T)
     out = out.reshape(B, T, hq * hd) @ p.wo.to(cd)
-    return out, (ck, cv)
+    return out, new_cache

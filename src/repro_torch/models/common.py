@@ -1,8 +1,9 @@
-"""Shared model substrate: config, norms, RoPE, initializers.
+"""Shared model substrate: config, norms, RoPE, initializers, the loss.
 
-Counterpart of ``repro/models/common.py``. Parameters are plain tensors;
-layers are per-layer structures in a list (the reference stacks them on
-axis 0 for ``lax.scan``; here the trunk is a Python loop).
+Counterpart of ``repro/models/common.py``. Parameters are plain tensors in
+dicts and NamedTuples; per-layer leaves are stacked on axis 0 as the
+reference stacks them for ``lax.scan`` (the trunk is a Python loop over
+views of them), so that the optimizer sees the same shapes.
 """
 from __future__ import annotations
 
@@ -127,6 +128,47 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     s, c = sin[..., None, :], cos[..., None, :]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c],
                      dim=-1).to(x.dtype)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a param tree in the reference's flattening order:
+    dict keys sorted, tuple and NamedTuple fields in order, None empty."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure), in ``tree_leaves`` order, keeping dicts,
+    lists, tuples and NamedTuples; None stays None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return None if tree is None else fn(tree, *rest)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL in fp32. labels: integer, mask: optional {0,1}."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def count_params(params) -> int:
+    return sum(p.numel() for p in tree_leaves(params))
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,

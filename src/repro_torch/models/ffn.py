@@ -17,10 +17,11 @@ class MLPParams(NamedTuple):
 
 
 def init_mlp(generator: torch.Generator, d: int, ff: int, dtype,
-             device=None) -> MLPParams:
-    return MLPParams(dense_init(generator, (d, ff), dtype=dtype, device=device),
-                     dense_init(generator, (d, ff), dtype=dtype, device=device),
-                     dense_init(generator, (ff, d), dtype=dtype, device=device))
+             device=None, lead: tuple[int, ...] = ()) -> MLPParams:
+    """``lead``: leading axes the matrices are stacked on (the layers)."""
+    return MLPParams(*(dense_init(generator, (*lead, *s), in_axis=len(lead),
+                                  dtype=dtype, device=device)
+                       for s in ((d, ff), (d, ff), (ff, d))))
 
 
 def swiglu(p: MLPParams, x: torch.Tensor, compute_dtype) -> torch.Tensor:

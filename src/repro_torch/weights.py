@@ -5,8 +5,8 @@ Takes a flat dict of numpy arrays keyed by path, ``"embed"``,
 ``"layers/norm1"``, as a JAX param pytree flattens with
 ``jax.tree_util.tree_flatten_with_path``. The port never sees a JAX type.
 
-Layouts: the reference stacks per-layer arrays on axis 0; they are split
-into the port's list of layers. Matrices keep the reference's (in, out)
+Layouts: per-layer arrays stay stacked on axis 0, as in the reference (so
+the port's optimizer sees the reference's shapes). Matrices keep the reference's (in, out)
 layout and are applied as ``x @ w`` (no transpose into ``nn.Linear``).
 """
 from __future__ import annotations
@@ -41,15 +41,10 @@ def dense_params_from_flat(flat: dict[str, np.ndarray], cfg: ArchConfig,
             raise ValueError(f"{path}: {t.shape[0]} layers stacked, config "
                              f"has {cfg.n_layers}")
 
-    def layer(i: int) -> DenseLayer:
-        attn = AttnParams(*(stacked[f"layers/attn/{n}"][i]
-                            for n in AttnParams._fields))
-        mlp = MLPParams(*(stacked[f"layers/mlp/{n}"][i]
-                          for n in MLPParams._fields))
-        return DenseLayer(attn, mlp, stacked["layers/norm1"][i],
-                          stacked["layers/norm2"][i])
-
-    return {"embed": stacked["embed"],
-            "layers": [layer(i) for i in range(cfg.n_layers)],
+    layers = DenseLayer(
+        AttnParams(*(stacked[f"layers/attn/{n}"] for n in AttnParams._fields)),
+        MLPParams(*(stacked[f"layers/mlp/{n}"] for n in MLPParams._fields)),
+        stacked["layers/norm1"], stacked["layers/norm2"])
+    return {"embed": stacked["embed"], "layers": layers,
             "final_norm": stacked["final_norm"],
             "lm_head": stacked["lm_head"]}

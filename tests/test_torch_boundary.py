@@ -56,18 +56,22 @@ def no_card():
 
 def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.transformer import DenseLM, build_model
     cfg = get_config("smollm-135m").reduced()
     for make in (lambda: DenseLM(cfg), lambda: build_model(cfg),
-                 lambda: serve.main(["--reduced", "--requests", "1"])):
+                 lambda: serve.main(["--reduced", "--requests", "1"]),
+                 lambda: train.main(["--reduced", "--steps", "1",
+                                     "--ckpt-every", "0"])):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
-    from repro_torch.kernels import build, decode_attention
+    from repro_torch.kernels import build, decode_attention, flash_attention
     assert decode_attention.decode_attention.launches >= 0
+    assert flash_attention.flash_attention_fwd.launches >= 0
+    assert flash_attention.flash_attention_bwd.launches >= 0
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
