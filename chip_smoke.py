@@ -6,12 +6,15 @@
 Phases, each fatal on failure (nothing is caught):
   1. the card's name and power limit (``nvidia-smi``); TF32 off for
      matrix products and cuDNN, so fp32 results compare in full fp32;
-  2. builds every kernel of the served path from ``src/repro_torch/kernels/
-     csrc`` with ``nvcc`` (one process per source, started together);
-  3. holds each kernel against its plain PyTorch version on the card at the
-     decode shapes of smollm-135m and llama-3.2-1b (B 8, S 2048; lengths 0,
-     1, S and past S among them), fp32 at 1e-4 and bf16 at 2e-2, and times
-     kernel, plain version and a library call at the served shape;
+  2. builds every kernel of the served and trained paths from
+     ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
+     three sources, started together) and prints each kernel's registers,
+     shared memory and spills;
+  3. holds the decode kernel against its plain PyTorch version on the card
+     at the decode shapes of smollm-135m, llama-3.2-1b and zamba2-2.7b
+     (hd 80), and at the head dims of phi3-mini (96) and kimi-k2 (112)
+     (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
+     bf16 at 2e-2, and times kernel, plain version and a library call;
   4. serves 16 requests at the full width of smollm-135m in bf16 through
      ``ServingEngine`` (8 slots, max_len 2048, prompts of 8 to 1500 tokens,
      32 new tokens, one request submitted mid-flight) and checks that every
@@ -23,9 +26,10 @@ Phases, each fatal on failure (nothing is caught):
   7. holds the flash attention kernels, forward and backward, against the
      plain version and autograd through it on the card (fp32 at 1e-4, bf16
      at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
-     llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), a ragged T,
-     T = 1 and a non-causal T != S, and times kernel, plain version and
-     SDPA at the training shape, forward and backward;
+     llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
+     dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
+     ragged T, T = 1 and a non-causal T != S, and times kernel, plain
+     version and SDPA at the training shape, forward and backward;
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
      ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
      checks falling finite losses and that every layer's attention went
@@ -33,7 +37,27 @@ Phases, each fatal on failure (nothing is caught):
      profiles one train step;
   9. train parity: one step's loss and gradients with the kernels against
      the plain attention (fp32 at 4 layers, bf16 at the full config), and
-     two identical 2-step runs with bit-identical losses.
+     two identical 2-step runs with bit-identical losses;
+ 10. holds the SSD scan kernel against the chunked plain version (2e-4)
+     and the sequential recurrence (y 2e-4, state 1e-3) in fp32 at the
+     prefill shapes of mamba2-1.3b and zamba2-2.7b, a single chunk of 37
+     tokens at B 8, a nonzero initial state and the sweep of
+     ``tests/test_kernels.py``; checks chunk-size invariance; times kernel
+     and plain version at the mamba2 prefill shape;
+ 11. serves 16 requests at the full width of mamba2-1.3b in bf16 (8 slots,
+     max_len 2048, prompts of 8 to 256, 512, 1024 and 1536 tokens, 32 new
+     tokens, one submitted mid-flight), checks 48 scan launches a
+     prefill, and profiles decode steps and a prefill;
+ 12. the same for zamba2-2.7b: 54 scan launches a prefill, 9
+     ``decode_attention`` launches a decode step (hd 80);
+ 13. parity of both families as in phase 5, with the plain scan and the
+     plain attention (fp32 streams at 4 layers of mamba2, 12 of zamba2),
+     with controls beside the bf16 check (the kernels at batch 1, the
+     sequential scan, for zamba2 the plain scan with the decode attention
+     kernel) and a planted fault the check must catch (a neighbouring
+     request's SSM state), and an fp32 prefill of 1536 tokens at full
+     depth, kernels against plain versions;
+ 14. ``repro_torch.launch.serve --arch mamba2-1.3b``.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -59,12 +83,27 @@ DEV = "cuda"
 # operations / the rate for the inputs' type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12           # fp32 FMAs on the CUDA cores (same sheet)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16 served logits against the same model with the plain attention: the
 # two paths round K/V, q and the residual stream to bf16 at other places
 # (batch of 8 against a batch of 1, decode kernel against plain einsums),
 # and 30 layers carry that rounding (~2^-8 relative) into logits of size ~1.
 BF16_LOGIT_ATOL = 0.15
+# The same for mamba2-1.3b and zamba2-2.7b against the plain scan and
+# attention. These bf16 models amplify any fp32-level change: summing the
+# scan in the sequential order instead of the chunked plain version's
+# moves their logits by up to 0.195 (H100 runs), as much as the scan kernel
+# does (0.20 for mamba2), since 48 or 54 layers of bf16 rounding act on it
+# and the fp32 SSM state keeps each decode step's difference for all later
+# steps. The hybrid has a second such seam: the plain scan with the decode
+# attention kernel moves its logits by up to 0.30, the two kernels together
+# by up to 0.334 (H100 runs). A neighbouring request's SSM state, planted as
+# a fault, moves them by 5.8 to 6.7, and the check fails unless it does by
+# more than the tolerance. The kernels are held to the plain versions in
+# fp32 as well: at full depth on a 1536-token prefill (1e-2; 2.5e-5
+# measured for mamba2) and by equal greedy streams at reduced depth.
+BF16_SSM_LOGIT_ATOL = 0.5
 # fp32: a greedy stream may differ only after a step where the reference's
 # top-2 margin is under this (sums in another order, ~1e-6 relative).
 FP32_TIE_MARGIN = 1e-3
@@ -73,6 +112,9 @@ FP32_TIE_MARGIN = 1e-3
 FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("llama-3.2-1b", 2, 2048, 2048, 32, 8, 64, True),
                 ("llama-3.1-8b hd 128", 1, 2048, 2048, 32, 8, 128, True),
+                ("zamba2-2.7b hd 80", 2, 1024, 1024, 32, 32, 80, True),
+                ("phi3-mini hd 96", 1, 1024, 1024, 32, 32, 96, True),
+                ("kimi-k2 hd 112", 1, 1024, 1024, 64, 8, 112, True),
                 ("ragged T 1000", 2, 1000, 1000, 9, 3, 64, True),
                 ("T 1", 4, 1, 1, 9, 3, 64, True),
                 ("full T != S", 2, 300, 700, 8, 2, 128, False)]
@@ -156,7 +198,7 @@ def device_ms(fn, n: int) -> float:
 def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
     """Kernel against plain on the card in fp32 and bf16, then timings in
     bf16 over L layers of cache (more bytes than the 50 MB L2 holds, as a
-    decode step finds them)."""
+    decode step finds them); L = 0 checks only."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     dev = torch.device(DEV)
@@ -176,6 +218,13 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
         errs[dtype] = max_err(got, want, TOL[dtype])
         if not torch.all(got[0] == 0):
             raise AssertionError("length 0 must give zeros")
+    row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+           "lengths": lengths.tolist(),
+           "max_abs_err_fp32": errs[torch.float32],
+           "max_abs_err_bf16": errs[torch.bfloat16]}
+    if not L:
+        log(f"[kernel] decode_attention check {json.dumps(row)}")
+        return row
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     q = torch.randn((L, B, Hq, hd), generator=gen, device=dev
                     ).to(torch.bfloat16)
@@ -204,28 +253,60 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
     flops = 4 * valid * Hq * hd
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
-           "lengths": lengths.tolist(),
-           "max_abs_err_fp32": errs[torch.float32],
-           "max_abs_err_bf16": errs[torch.bfloat16],
-           **times, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row.update(times, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     log(f"[kernel] decode_attention {json.dumps(row)}")
     return row
 
 
-# --------------------------------------------------------------- phase 4 --
+# ----------------------------------------------------------- phases 4, 11 --
+def prompt_lengths(cfg, rng):
+    """16 served prompt lengths; [1] and [3] are the long and the short
+    stream that ``parity_bf16`` checks. The SSM families take at most one
+    chunk (256) or a multiple of it, as the reference asserts."""
+    if cfg.family == "dense":
+        return np.concatenate([[8, 1500, 1024, 300],
+                               rng.integers(8, 1500, 12)])
+    return np.concatenate([[8, 1536, 1024, 256, 512],
+                           rng.integers(9, 256, 11)])
+
+
+def plain_model(cfg):
+    """The family's model with the plain versions at every kernel seam."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.transformer import DenseLM, HybridLM, MambaLM
+    if cfg.family == "dense":
+        return DenseLM(cfg, device=DEV,
+                       decode_attention=ref.decode_attention_ref)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, device=DEV, ssd_scan=ref.ssd_scan_ref)
+    return HybridLM(cfg, device=DEV, ssd_scan=ref.ssd_scan_ref,
+                    decode_attention=ref.decode_attention_ref)
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """The serving kernels' launch counts, set to 0 first if ``reset``."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ssd_scan as sk
+    counters = {"decode_attention": dk.decode_attention,
+                "ssd_scan": sk.ssd_scan_fwd}
+    if reset:
+        for fn in counters.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in counters.items()}
+
+
 def serve_full_width(cfg, rng):
     """Serves 16 requests at full width in bf16. Returns the model, its
     params, the requests, each decode step's logits with the slot map it
-    ran under, and the kernel's launches in the run."""
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.models.transformer import DenseLM
+    ran under, and the kernels' launches in the run: ``decode_attention``
+    on every attention layer of every decode step, ``ssd_scan`` on every
+    SSM layer of every prefill."""
+    from repro_torch.models.transformer import build_model
     from repro_torch.serve.engine import Request, ServingEngine
-    model = DenseLM(cfg, device=DEV)
+    model = build_model(cfg, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
-    lens = np.concatenate([[8, 1500, 1024, 300],
-                           rng.integers(8, 1500, 12)])
+    lens = prompt_lengths(cfg, rng)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
 
@@ -248,7 +329,7 @@ def serve_full_width(cfg, rng):
     model.decode = recording_decode
     reqs = [Request(p, max_new_tokens=32, tenant=f"tenant-{i % 4}")
             for i, p in enumerate(prompts)]
-    decode_attention.launches = 0
+    launch_counts(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs[:-1]:
@@ -259,36 +340,59 @@ def serve_full_width(cfg, rng):
         done.extend(eng.step())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = decode_attention.launches
+    launches = launch_counts()
     model.decode = plain_decode
 
     if len(done) != len(reqs) or not all(r.done for r in reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     if not bool(finite):
         raise AssertionError("non-finite logits in a served decode step")
-    if launches != cfg.n_layers * eng.steps or eng.steps == 0:
-        raise AssertionError(f"decode_attention launched {launches} times "
-                             f"in {eng.steps} steps of {cfg.n_layers} layers")
-    stats = {"requests": len(done), "prompt_tokens": int(lens.sum()),
+    attn_layers = {"dense": cfg.n_layers, "ssm": 0,
+                   "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}
+    want = {"decode_attention": attn_layers[cfg.family] * eng.steps,
+            "ssd_scan": 0 if cfg.family == "dense" else
+            cfg.n_layers * len(reqs)}
+    if launches != want or eng.steps == 0:
+        raise AssertionError(f"launches {launches} in {eng.steps} steps and "
+                             f"{len(reqs)} prefills, want {want}")
+    stats = {"arch": cfg.name, "requests": len(done),
+             "prompt_tokens": int(lens.sum()),
              "tokens_generated": eng.tokens_generated,
              "engine_steps": eng.steps, "wall_s": wall,
              "tok_per_s": eng.tokens_generated / wall,
              "mean_occupancy": eng.tokens_generated / (eng.steps * B),
-             "decode_attention_launches": launches}
+             **{f"{k}_launches": v for k, v in launches.items()}}
     log(f"[serve] {json.dumps(stats)}")
     return model, params, reqs, records, launches
+
+
+def device_kernels(prof, per: int) -> list:
+    """(name, calls, device ms) of every CUDA kernel in a profile, per
+    ``per`` repetitions, largest first."""
+    kernels = [(e.key, e.count / per, e.self_device_time_total / per / 1e3)
+               for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    return sorted(kernels, key=lambda k: -k[2])
 
 
 def where_the_time_goes(model, params, rng, n_steps=10):
     """Decode steps of a full engine by host clock, then the same number of
     steps under the profiler for device busy time by kernel; prefill time
-    of one request at a few prompt lengths."""
+    of one request at a few prompt lengths, and the longest prefill under
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request, ServingEngine
+    cfg = model.cfg
+    if cfg.family == "dense":
+        lens, prefill_lens = (8, 1500, 1024, 300, 500, 700, 900, 100), \
+            (1500, 1024, 300)
+    else:
+        lens, prefill_lens = (8, 1536, 1024, 256, 512, 100, 200, 37), \
+            (1536, 1024, 256)
     eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
-    for n in (8, 1500, 1024, 300, 500, 700, 900, 100):
-        eng.submit(Request(rng.integers(0, model.cfg.vocab_size, n)
+    for n in lens:
+        eng.submit(Request(rng.integers(0, cfg.vocab_size, n)
                            .astype(np.int32), max_new_tokens=4 * n_steps))
     for _ in range(3):
         eng.step()
@@ -298,19 +402,16 @@ def where_the_time_goes(model, params, rng, n_steps=10):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count / n_steps,
-                e.self_device_time_total / n_steps / 1e3)
-               for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    kernels = device_kernels(prof, n_steps)
     busy_ms = sum(ms for _, _, ms in kernels)
     prefill_ms = {}
-    for n in (1500, 1024, 300):
-        tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, n),
+    for n in prefill_lens:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
                                  device=DEV)[None]
         cache = model.init_cache(1, S)
         torch.cuda.synchronize()
@@ -318,22 +419,43 @@ def where_the_time_goes(model, params, rng, n_steps=10):
         model.prefill(params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
         prefill_ms[n] = (time.perf_counter() - t0) * 1e3
-    top = sorted(kernels, key=lambda k: -k[2])[:6]
-    stats = {"decode_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
+    n = prefill_lens[0]
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                             device=DEV)[None]
+    cache = model.init_cache(1, S)
+    with profile(activities=activities) as prof:
+        model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+    prefill_kernels = device_kernels(prof, 1)
+    stats = {"arch": cfg.name, "decode_step_ms": step_ms,
+             "device_busy_ms_per_step": busy_ms,
              "device_idle_share": 1 - busy_ms / step_ms,
              "top_kernels_per_step": [[name[:60], calls, ms]
-                                      for name, calls, ms in top],
-             "prefill_ms": prefill_ms}
+                                      for name, calls, ms in kernels[:6]],
+             "prefill_ms": prefill_ms,
+             f"prefill_{n}_device_busy_ms":
+                 sum(ms for _, _, ms in prefill_kernels),
+             "prefill_top_kernels": [[name[:60], calls, ms] for
+                                     name, calls, ms in prefill_kernels[:4]]}
     log(f"[profile] {json.dumps(stats)}")
 
 
-# --------------------------------------------------------------- phase 5 --
-def teacher_forced_logits(model, params, prompt, generated):
+# ----------------------------------------------------------- phases 5, 13 --
+def teacher_forced_logits(model, params, prompt, generated,
+                          state_from=None):
     """(n - 1, V) logits of the decode steps of one stream of n tokens, fed
-    its own tokens, on a one-slot cache."""
+    its own tokens, on a one-slot cache. ``state_from``, another prompt,
+    plants a fault: the SSM state its prefill leaves replaces the stream's
+    own before the first decode step, as a slot mix-up would."""
     cache = model.init_cache(1, S)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=DEV)
     _, cache = model.prefill(params, {"tokens": tokens[None]}, cache)
+    if state_from is not None:
+        other = torch.as_tensor(np.asarray(state_from, np.int64), device=DEV)
+        _, wrong = model.prefill(params, {"tokens": other[None]},
+                                 model.init_cache(1, S))
+        for leaf, bad in zip(cache["state"], wrong["state"]):
+            leaf.copy_(bad)
     out = []
     for tok in generated[:-1]:
         logits, cache = model.decode(
@@ -342,49 +464,118 @@ def teacher_forced_logits(model, params, prompt, generated):
     return torch.stack(out)
 
 
-def parity_bf16(cfg, params, reqs, records):
-    from repro_torch.kernels import ref
-    from repro_torch.models.transformer import DenseLM
-    plain = DenseLM(cfg, device=DEV,
-                    decode_attention=ref.decode_attention_ref)
-    worst, checked = 0.0, 0
-    for req in (reqs[1], reqs[3], reqs[-1]):     # 1500, 300 and mid-flight
+def parity_bf16(model, params, reqs, records):
+    """Served logits (batch of 8, kernels) against the same stream
+    teacher-forced at batch 1 with the plain versions. For the SSM families
+    also controls, each against the plain versions at batch 1: the kernels
+    at batch 1, the sequential scan, for the hybrid the plain scan with the
+    decode attention kernel; and a planted fault, a neighbouring request's
+    SSM state, which the check must catch."""
+    cfg = model.cfg
+    plain = plain_model(cfg)
+    tol = BF16_LOGIT_ATOL if cfg.family == "dense" else BF16_SSM_LOGIT_ATOL
+    controls = {}
+    if cfg.family != "dense":
+        from repro_torch.kernels import ref
+        from repro_torch.models.transformer import HybridLM
+        controls["kernels at batch 1"] = model
+        # the plain model with the scan summed in the sequential order: how
+        # far an fp32 reordering of the scan alone moves bf16 logits
+        sequential = plain_model(cfg)
+        sequential.ssd_scan = lambda u, loga, Bm, Cm, *, chunk, h0=None: \
+            ref.ssd_ref(u, loga, Bm, Cm, h0=h0)
+        controls["sequential scan"] = sequential
+        if cfg.family == "hybrid":
+            controls["plain scan, decode_attention kernel"] = HybridLM(
+                cfg, device=DEV, ssd_scan=ref.ssd_scan_ref)
+    worst, fault_least, checked = 0.0, float("inf"), 0
+    for i in (1, 3, len(reqs) - 1):              # long, short, mid-flight
+        req = reqs[i]
         served = torch.stack([lg[req.slot] for slots, lg in records
-                              if slots.get(req.slot) == req.req_id])
+                              if slots.get(req.slot) == req.req_id]).float()
         forced = teacher_forced_logits(plain, params, req.prompt,
-                                       req.generated)
+                                       req.generated).float()
         if served.shape != forced.shape:
             raise AssertionError(f"{served.shape} served steps, "
                                  f"{forced.shape} teacher-forced")
-        err = (served.float() - forced.float()).abs().amax(dim=-1)
-        top2 = forced.float().topk(2, dim=-1).values
+        err = (served - forced).abs().amax(dim=-1)
+        top2 = forced.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         agree = served.argmax(-1) == forced.argmax(-1)
-        log(f"[parity bf16] req {req.req_id} prompt {len(req.prompt)}: "
-            f"max |dlogit| {err.max().item():.4f}, argmax agrees "
-            f"{int(agree.sum())}/{len(agree)}, min margin "
-            f"{margin.min().item():.4f}")
-        if err.max().item() > BF16_LOGIT_ATOL:
+        readings = ""
+        if cfg.family != "dense":
+            for name, m in controls.items():
+                got = teacher_forced_logits(m, params, req.prompt,
+                                            req.generated).float()
+                readings += (f", {name} "
+                             f"{(got - forced).abs().max().item():.4f}")
+            neighbour = reqs[(i + 1) % len(reqs)]
+            faulty = teacher_forced_logits(plain, params, req.prompt,
+                                           req.generated,
+                                           state_from=neighbour.prompt)
+            fault = (served - faulty.float()).abs().max().item()
+            fault_least = min(fault_least, fault)
+            readings += f"; planted fault (req {neighbour.req_id}'s " \
+                        f"state) {fault:.4f}"
+        log(f"[parity bf16] {cfg.name} req {req.req_id} prompt "
+            f"{len(req.prompt)}: max |dlogit| {err.max().item():.4f}, argmax "
+            f"agrees {int(agree.sum())}/{len(agree)}, min margin "
+            f"{margin.min().item():.4f}{readings}")
+        if err.max().item() > tol:
             raise AssertionError(f"bf16 logits off by {err.max().item()}")
-        if not bool(agree[margin > BF16_LOGIT_ATOL].all()):
+        if not bool(agree[margin > tol].all()):
             raise AssertionError("argmax differs where the margin exceeds "
                                  "the tolerance")
         worst, checked = max(worst, err.max().item()), checked + len(err)
-    return worst, checked
+    log(f"[parity bf16] {cfg.name}: {checked} teacher-forced steps, max "
+        f"|dlogit| {worst:.4f} (tol {tol})"
+        + (f", planted fault at least {fault_least:.4f}"
+           if cfg.family != "dense" else ""))
+    if cfg.family != "dense" and fault_least <= tol:
+        raise AssertionError(f"a neighbouring request's state moved logits "
+                             f"by only {fault_least} (tol {tol}): the check "
+                             f"cannot see it")
 
 
-def parity_fp32(cfg, rng):
-    from repro_torch.kernels import ref
-    from repro_torch.models.transformer import DenseLM
-    from repro_torch.serve.engine import Request, ServingEngine
+def prefill_fp32_full_depth(cfg, rng):
+    """One fp32 prefill of 1536 tokens at full depth, with the kernels and
+    with the plain versions: logits and every SSM state. The two sum in
+    another order only (~1e-6 relative a layer); a wrong scan or state
+    moves them by order 1."""
+    from repro_torch.models.transformer import build_model
     cfg32 = replace(cfg, param_dtype=torch.float32,
                     compute_dtype=torch.float32)
-    model = DenseLM(cfg32, device=DEV)
+    model, plain = build_model(cfg32, device=DEV), plain_model(cfg32)
     params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
-    plain = DenseLM(cfg32, device=DEV,
-                    decode_attention=ref.decode_attention_ref)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, 1536),
+                             device=DEV)[None]
+    got, cache = model.prefill(params, {"tokens": tokens},
+                               model.init_cache(1, S))
+    want, want_cache = plain.prefill(params, {"tokens": tokens},
+                                     plain.init_cache(1, S))
+    stats = {"arch": cfg.name, "layers": cfg.n_layers,
+             "logits_err": max_err(got, want, 1e-2),
+             "ssm_state_err": max_err(cache["state"].ssm,
+                                      want_cache["state"].ssm, 1e-2),
+             "logits_max": want.abs().max().item()}
+    log(f"[parity fp32 prefill] {json.dumps(stats)}")
+
+
+def parity_fp32(cfg, rng, n_layers=None):
+    """fp32 engine streams at ``n_layers`` (all by default) against the
+    sequential single-request reference with the plain versions."""
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serve.engine import Request, ServingEngine
+    cfg32 = replace(cfg, param_dtype=torch.float32,
+                    compute_dtype=torch.float32,
+                    n_layers=n_layers or cfg.n_layers)
+    model = build_model(cfg32, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    plain = plain_model(cfg32)
+    lens = (8, 1100, 400, 57, 700) if cfg.family == "dense" else \
+        (8, 1024, 256, 57, 512)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (8, 1100, 400, 57, 700)]
+               for n in lens]
     reqs = [Request(p, max_new_tokens=16) for p in prompts]
     ServingEngine(model, params, n_slots=4, max_len=S).run(reqs)
     equal = 0
@@ -412,8 +603,9 @@ def parity_fp32(cfg, rng):
                     f"{[t for t, _ in want]} (margin {margin:.3e})")
         else:
             equal += 1
-    log(f"[parity fp32] {equal}/{len(reqs)} greedy streams equal the "
-        "sequential plain-attention reference")
+    log(f"[parity fp32] {cfg.name} at {cfg32.n_layers} layers: {equal}/"
+        f"{len(reqs)} greedy streams equal the sequential reference with the "
+        "plain versions")
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -643,6 +835,94 @@ def deterministic_runs(cfg):
     log(f"[parity train] two 2-step runs bit-identical: {runs[0]}")
 
 
+# -------------------------------------------------------------- phase 10 --
+# (name, B, T, H, P, N, Q, h0): the prefill shapes of the two served
+# families first, the timed one at [0]; then a single chunk of 37 tokens at
+# B 8, an initial state over several chunks, the sweep of
+# tests/test_kernels.py:130-135.
+SSD_SHAPES = [("mamba2-1.3b prefill", 1, 2048, 64, 64, 128, 256, False),
+              ("zamba2-2.7b prefill", 1, 2048, 80, 64, 64, 256, False),
+              ("single chunk T 37", 8, 37, 64, 64, 128, 37, False),
+              ("h0, 3 chunks", 2, 768, 64, 64, 128, 256, True),
+              ("sweep 1", 1, 32, 2, 16, 8, 8, False),
+              ("sweep 2", 2, 64, 3, 16, 8, 16, False),
+              ("sweep 3", 1, 128, 4, 32, 16, 32, False),
+              ("sweep 4", 2, 64, 1, 64, 64, 64, False)]
+# fp32 against the chunked plain version: the same products summed in
+# another order; against the sequential recurrence the state gets 1e-3, as
+# tests/test_kernels.py:148 allows.
+SSD_TOL, SSD_STATE_TOL = 2e-4, 1e-3
+
+
+def ssd_inputs(B, T, H, P, N, h0, seed):
+    """The reference test's distributions: u ~ 0.5 N, loga ~ -U(0, 0.5),
+    B and C ~ 0.3 N, h0 ~ N."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    loga = -0.5 * torch.rand((B, T, H), generator=gen, device=DEV)
+    return (0.5 * r(B, T, H, P), loga, 0.3 * r(B, T, N), 0.3 * r(B, T, N),
+            r(B, H, N, P) if h0 else None)
+
+
+def check_ssd_scan():
+    """The kernel against the chunked plain version and the sequential
+    recurrence at every shape of SSD_SHAPES; chunk 64 against chunk 256."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rows = []
+    for i, (name, B, T, H, P, N, Q, h0) in enumerate(SSD_SHAPES):
+        u, loga, Bm, Cm, init = ssd_inputs(B, T, H, P, N, h0, SEED + i)
+        y, state = ssd_scan(u, loga, Bm, Cm, chunk=Q, h0=init)
+        torch.cuda.synchronize()
+        y_c, s_c = ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q, h0=init)
+        y_s, s_s = ref.ssd_ref(u, loga, Bm, Cm, h0=init)
+        row = {"shape": name, "B": B, "T": T, "H": H, "P": P, "N": N,
+               "chunk": Q, "h0": h0,
+               "y_err_chunked": max_err(y, y_c, SSD_TOL),
+               "state_err_chunked": max_err(state, s_c, SSD_TOL),
+               "y_err_sequential": max_err(y, y_s, SSD_TOL),
+               "state_err_sequential": max_err(state, s_s, SSD_STATE_TOL)}
+        if i == 0:
+            y64, s64 = ssd_scan(u, loga, Bm, Cm, chunk=64, h0=init)
+            row["chunk_64_vs_256_y_err"] = max_err(y64, y, SSD_TOL)
+            row["chunk_64_vs_256_state_err"] = max_err(s64, state, SSD_TOL)
+        log(f"[kernel] ssd_scan check {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def time_ssd_scan():
+    """Kernel and chunked plain version at the mamba2-1.3b prefill shape.
+    No single PyTorch call computes the scan, so there is no library
+    time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    name, B, T, H, P, N, Q, _ = SSD_SHAPES[0]
+    u, loga, Bm, Cm, _ = ssd_inputs(B, T, H, P, N, False, SEED)
+    calls = {"": lambda i: ssd_scan(u, loga, Bm, Cm, chunk=Q),
+             "plain_": lambda i: ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q)}
+    times = {}
+    for key, fn in calls.items():
+        times[f"{key}ms"] = device_ms(fn, 10)
+        times[f"{key}eager_ms"] = eager_ms(fn, 10)
+    # the model's chunked formulation: C B^T once per chunk, then for every
+    # head (C B^T * L) u, C h and B^T u; the causal mask leaves Q (Q + 1) / 2
+    # of each chunk's (Q, Q) products
+    nc, tri = T // Q, Q * (Q + 1) // 2
+    flops = 2 * B * nc * (tri * N + H * tri * P + 2 * H * Q * N * P)
+    nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
+                  + B * H * N * P)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    row = {"shape": name, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           **times, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan"}
+    log(f"[kernel] ssd_scan timing {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -663,24 +943,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = build.build(["decode_attention", "flash_attention"])
+    logs = build.build(["decode_attention", "flash_attention", "ssd_scan"])
     log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    smollm, llama = get_config("smollm-135m"), get_config("llama-3.2-1b")
+    smollm, llama, mamba, zamba = (get_config(a) for a in (
+        "smollm-135m", "llama-3.2-1b", "mamba2-1.3b", "zamba2-2.7b"))
     rows = [check_and_time_decode_attention(
-        c.name, c.n_heads, c.n_kv_heads, c.hd, c.n_layers, rng)
-        for c in (smollm, llama)]
+        c.name, c.n_heads, c.n_kv_heads, c.hd,
+        c.n_layers // max(c.attn_every, 1), rng)
+        for c in (smollm, llama, zamba)]
+    for arch in ("phi3-mini-3.8b", "kimi-k2-1t-a32b"):
+        c = get_config(arch)
+        check_and_time_decode_attention(c.name, c.n_heads, c.n_kv_heads,
+                                        c.hd, 0, rng)
 
-    model, params, reqs, records, launches = serve_full_width(smollm, rng)
+    model, params, reqs, records, counts = serve_full_width(smollm, rng)
+    launches = counts["decode_attention"]
     where_the_time_goes(model, params, rng)
-    worst, checked = parity_bf16(smollm, params, reqs, records)
-    log(f"[parity bf16] {checked} teacher-forced steps, max |dlogit| "
-        f"{worst:.4f} (tol {BF16_LOGIT_ATOL})")
+    parity_bf16(model, params, reqs, records)
     del model, params, records
     parity_fp32(smollm, rng)
 
@@ -694,6 +979,23 @@ def main() -> int:
     profile_train_step(smollm, train_stats["step_ms_after_first"])
     train_parity(smollm)
     deterministic_runs(smollm)
+
+    ssd_rows = check_ssd_scan()
+    ssd_timing = time_ssd_scan()
+    ssd_launches = 0
+    # fp32 parity at reduced depth: 4 SSM layers; 12 hybrid layers, two
+    # groups of attn_every 6
+    for cfg, depth in ((mamba, 4), (zamba, 12)):
+        model, params, reqs, records, counts = serve_full_width(cfg, rng)
+        ssd_launches += counts["ssd_scan"]
+        where_the_time_goes(model, params, rng)
+        parity_bf16(model, params, reqs, records)
+        del model, params, records
+        torch.cuda.empty_cache()
+        parity_fp32(cfg, rng, n_layers=depth)
+        prefill_fp32_full_depth(cfg, rng)
+    serve.main(["--arch", "mamba2-1.3b", "--requests", "8", "--max-new",
+                "16", "--slots", "8", "--max-len", "512"])
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",
@@ -717,6 +1019,15 @@ def main() -> int:
             "bound_ms": timing[f"{name}_bound_ms"],
             "bound_by": timing[f"{name}_bound_by"],
             "library_ms": timing[f"library_{name}_ms"]})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:24",
+        "launches": ssd_launches,
+        "max_abs_err": ssd_rows[0]["y_err_chunked"],
+        "ms": ssd_timing["ms"], "plain_ms": ssd_timing["plain_ms"],
+        "bound_ms": ssd_timing["bound_ms"],
+        "bound_by": ssd_timing["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

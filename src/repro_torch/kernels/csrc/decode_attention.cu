@@ -11,7 +11,8 @@
 // cache, no copy), last dimension contiguous; lengths (B,) int32 on the
 // device; out (B, Hq, hd) contiguous, allocated by the caller. Positions at
 // or past min(length, S) are masked and tiles wholly past them are not
-// read; length == 0 gives zeros. bf16 or fp32; hd 32, 64 or 128.
+// read; length == 0 gives zeros. bf16 or fp32; hd 32, 64, 80, 96, 112 or
+// 128 (the head dims of the repo's configs).
 //
 // Bound: the bytes it reads. A call must read the valid prefix of K and V
 // once, sum_b min(len_b, S) * Hkv * hd * 2 * sizeof(T) bytes, beside which q,
@@ -25,8 +26,9 @@
 // of that head in shared memory. Its 8 warps stride over the valid prefix in
 // tiles of 32 keys. In a tile each lane scores one key against the g rows
 // (16-byte loads along hd), the warp updates its own (m, l, acc) and then
-// accumulates p.V with each lane owning hd/32 output dimensions (coalesced
-// V rows, 8 rows loaded together). The warps' partials are combined in
+// accumulates p.V with each lane owning ceil(hd/32) output dimensions,
+// lane + 32 e, the ones at or past hd masked (hd 80, 96, 112); coalesced V
+// rows, 8 rows loaded together. The warps' partials are combined in
 // shared memory at the end.
 // Known limit: B * Hkv blocks (24 for smollm-135m at 8 slots) leave most of
 // the 132 SMs idle, so this kernel cannot reach the bandwidth bound at small
@@ -102,7 +104,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long v_sb, long long v_ss, long long v_sh,
                         float scale) {
   constexpr int kVec = Unpack<T>::kN;   // elements per 16-byte load
-  constexpr int kPerLane = HD / 32;     // output dimensions per lane
+  // output dimensions per lane: lane + 32 e, those at or past HD masked
+  constexpr int kPerLane = (HD + 31) / 32;
   __shared__ float q_s[kMaxGroup][HD];
   __shared__ float m_s[kWarps][kMaxGroup];
   __shared__ float l_s[kWarps][kMaxGroup];
@@ -182,7 +185,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const T* vrow = vb + (t * kTile + min(k0 + c, nk - 1)) * v_ss;
 #pragma unroll
         for (int e = 0; e < kPerLane; ++e) {
-          const float x = to_float(vrow[lane + 32 * e]);
+          const int d = lane + 32 * e;
+          const float x = d < HD ? to_float(vrow[d]) : 0.f;
           vf[c][e] = in ? x : 0.f;
         }
       }
@@ -210,7 +214,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l_s[warp][r] = lw;
       }
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) acc_s[warp][r][lane + 32 * e] = acc[r][e];
+      for (int e = 0; e < kPerLane; ++e)
+        if (lane + 32 * e < HD) acc_s[warp][r][lane + 32 * e] = acc[r][e];
     }
   }
   __syncthreads();
@@ -253,6 +258,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
     case 64: return launch<T, 64>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
+    case 112: return launch<T, 112>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
     case 128: return launch<T, 128>(q, k, v, lengths, out, B, Hkv, S, g, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }

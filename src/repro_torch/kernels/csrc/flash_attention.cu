@@ -13,7 +13,9 @@
 // hd); dk, dv (B, S, Hkv, hd); all read and written through their batch,
 // sequence and head strides, last dimension contiguous, rows 16-byte
 // aligned. lse and delta (B, Hq, T) fp32, contiguous. bf16 or fp32; hd 32,
-// 64 or 128; any T, S >= 1 (ragged tails are masked).
+// 64, 80, 96, 112 or 128 (multiples of 16, so the m16n8k16 fragments and
+// the 16-column thread tiles cover hd exactly); any T, S >= 1 (ragged
+// tails are masked).
 //
 // Bound: operations. At the training shape of smollm-135m (B 8, T 2048,
 // 9/3 heads, hd 64) the causal forward does 4 * B * Hq * hd * T^2 / 2 =
@@ -951,6 +953,9 @@ int run(bool backward, const Params& p, int hd, int dtype, void* stream) {
   switch (hd) {
     case 32: err = launch<32>(backward, dtype == 1, p, s); break;
     case 64: err = launch<64>(backward, dtype == 1, p, s); break;
+    case 80: err = launch<80>(backward, dtype == 1, p, s); break;
+    case 96: err = launch<96>(backward, dtype == 1, p, s); break;
+    case 112: err = launch<112>(backward, dtype == 1, p, s); break;
     case 128: err = launch<128>(backward, dtype == 1, p, s); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -18,7 +18,7 @@ import torch
 from . import build
 
 KERNEL = "decode_attention"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 MAX_GROUP = 8                      # kMaxGroup in the source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p

@@ -11,6 +11,7 @@ import torch
 from . import ref
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
+from .ssd_scan import ssd_scan as _ssd_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,3 +31,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths)
     return _decode_cuda(q, k, v, lengths)
+
+
+def ssd_scan(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int, h0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """On the CPU the chunked scan the reference's model runs
+    (``ssd_chunked``), written on (u, loga)."""
+    if u.device.type == "cpu":
+        return ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=chunk, h0=h0)
+    return _ssd_cuda(u, loga, Bm, Cm, chunk=chunk, h0=h0)

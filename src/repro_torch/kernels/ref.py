@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the hand-written kernels. The CPU runs these;
+"""Plain PyTorch versions of the hand-written kernels, and the sequential
+SSD recurrence as the oracle of the chunked scan. The CPU runs these;
 ``chip_smoke.py`` holds each kernel against them on the card."""
 from __future__ import annotations
 
@@ -50,3 +51,71 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
     return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def ssd_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, h0: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SEQUENTIAL SSD recurrence, one token at a time: the independent
+    oracle of the chunked scan (``repro/kernels/ref.py:ssd_ref``).
+    u: (B, T, H, P) dt-weighted inputs; loga: (B, T, H) log decay;
+    Bm/Cm: (B, T, N); h0: (B, H, N, P) or None for zeros.
+    Returns (y (B, T, H, P) in u's dtype, final state (B, H, N, P) fp32)."""
+    Bsz, T, H, P = u.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    uf, lf, bf, cf = u.float(), loga.float(), Bm.float(), Cm.float()
+    ys = []
+    for t in range(T):
+        a = torch.exp(lf[:, t])                                   # (B, H)
+        h = h * a[..., None, None] + torch.einsum("bn,bhp->bhnp", bf[:, t],
+                                                  uf[:, t])
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+def ssd_scan_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, *, chunk: int,
+                 h0: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan of ``repro/models/mamba2.py:ssd_chunked``
+    written on (u, loga), the plain version of the ``ssd_scan`` kernel:
+    per chunk of ``chunk`` tokens the segsum decay matrix L, the intra-chunk
+    product (C B^T * L) u, the chunk summaries B^T (u * decay to the end),
+    the inter-chunk recurrence from h0 and C h * exp(cum). Shapes as
+    ``ssd_ref``; ``T % chunk == 0``. Returns (y in u's dtype, final state
+    fp32). Differentiable through autograd."""
+    Bsz, T, H, P = u.shape
+    N = Bm.shape[-1]
+    if chunk <= 0 or T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    nc, Q = T // chunk, chunk
+    ur = u.float().reshape(Bsz, nc, Q, H, P)
+    la = loga.float().reshape(Bsz, nc, Q, H)
+    Br = Bm.float().reshape(Bsz, nc, Q, N)
+    Cr = Cm.float().reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(la, dim=2)                              # (B,nc,Q,H)
+
+    # intra-chunk: L[i, j] = exp(sum_{j<m<=i} loga[m]) for i >= j, else 0
+    CB = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
+    cum_h = torch.cumsum(la.movedim(-1, 2), dim=-1)            # (B,nc,H,Q)
+    seg = cum_h[..., :, None] - cum_h[..., None, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    L = torch.exp(torch.where(causal, seg, -torch.inf))       # (B,nc,H,Q,Q)
+    y_intra = torch.einsum("bcqk,bchqk,bckhp->bcqhp", CB, L, ur)
+
+    # chunk summaries and the sequential inter-chunk recurrence
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    S = torch.einsum("bckn,bckh,bckhp->bchnp", Br, decay_to_end, ur)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                  # (B,nc,H)
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)                       # the state entering chunk c
+        h = h * chunk_decay[:, c, :, None, None] + S[:, c]
+    y_inter = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cr,
+                           torch.stack(h_in, dim=1), torch.exp(cum))
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    return y.to(u.dtype), h

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --requests 16 --max-new 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --reduced --device cpu
 
 Boots the continuous-batching engine for one arch with seeded random
 weights, streams a batch of multi-tenant requests through it, and reports
@@ -42,9 +44,15 @@ def main(argv=None) -> dict:
     eng = ServingEngine(model, params, n_slots=args.slots,
                         max_len=args.max_len, seed=args.seed)
 
+    # 4 to 23 tokens; an SSM prompt at most one chunk, since a longer one
+    # must be a whole number of chunks (the reference asserts so)
+    max_prompt = 24
+    if cfg.family in ("ssm", "hybrid"):
+        max_prompt = min(max_prompt, cfg.ssm_chunk + 1)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rng.integers(0, cfg.vocab_size,
-                                 int(rng.integers(4, 24))).astype(np.int32),
+                                 int(rng.integers(4, max_prompt))
+                                 ).astype(np.int32),
                     max_new_tokens=args.max_new,
                     tenant=f"tenant-{i % 4}")
             for i in range(args.requests)]

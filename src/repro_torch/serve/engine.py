@@ -1,15 +1,18 @@
 """Continuous-batching serving engine (counterpart of
 ``repro/serve/engine.py``).
 
-A slot-based contiguous cache, (L, n_slots, max_len, H_kv, hd), with a
-free-slot allocator and per-slot valid lengths. Continuous batching admits
+A slot-based contiguous cache with a free-slot allocator and per-slot
+valid lengths: K/V of (L, n_slots, max_len, H_kv, hd) for the dense LM,
+SSM states of (L, n_slots, ...) for mamba2, and both for the hybrid, whose
+states are (groups, per_group, n_slots, ...). Continuous batching admits
 new requests into free slots between decode steps; one decode step always
-runs over all slots (idle slots are masked by their length and their index
-keeps advancing, as in the reference).
+runs over all slots (idle slots are masked by their length, their index
+keeps advancing and their states keep stepping, as in the reference).
 
 The cache is updated in place: an admitted request is prefilled straight
-into its slot, which is zeroed first, so the slot ends up as the
-reference's one-slot mini cache spliced into the big one.
+into its slot of every leaf (the model names each leaf's slot axis), which
+is zeroed first, so the slot ends up as the reference's one-slot mini
+cache spliced into the big one.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import tree_leaves, tree_map
 
 _req_ids = itertools.count()
 
@@ -63,18 +68,19 @@ class ServingEngine:
 
     def _prefill(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
         """Exact-length prefill of one request into ``slot``: the slot's
-        rows are zeroed, the prompt's K/V written to rows [0, T), and the
-        slot's length set to T. Returns the last position's logits (1, V)."""
+        slice of every cache leaf is zeroed, the prompt's K/V and states
+        written into it, and the slot's length set to T. Returns the last
+        position's logits (1, V)."""
         T = len(prompt)
         if not 0 < T <= self.max_len:
             raise ValueError(f"prompt length {T} not in [1, {self.max_len}]")
-        k = self.cache["k"][:, slot:slot + 1]
-        v = self.cache["v"][:, slot:slot + 1]
-        k.zero_()
-        v.zero_()
-        mini = {"k": k, "v": v,
-                "index": torch.zeros((1,), dtype=torch.int32,
-                                     device=self.device)}
+        axes = self.model.cache_slot_axes()
+        mini = tree_map(lambda leaf, axis: leaf.narrow(axis, slot, 1),
+                        {name: self.cache[name] for name in axes}, axes)
+        for leaf in tree_leaves(mini):
+            leaf.zero_()
+        mini["index"] = torch.zeros((1,), dtype=torch.int32,
+                                    device=self.device)
         tokens = torch.as_tensor(np.asarray(prompt, np.int64),
                                  device=self.device).reshape(1, T)
         logits, _ = self.model.prefill(self.params, {"tokens": tokens}, mini)

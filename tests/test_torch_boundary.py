@@ -57,9 +57,14 @@ def no_card():
 def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
-    from repro_torch.models.transformer import DenseLM, build_model
+    from repro_torch.models.transformer import (DenseLM, HybridLM, MambaLM,
+                                                build_model)
     cfg = get_config("smollm-135m").reduced()
+    ssm = get_config("mamba2-1.3b").reduced()
+    hybrid = get_config("zamba2-2.7b").reduced()
     for make in (lambda: DenseLM(cfg), lambda: build_model(cfg),
+                 lambda: MambaLM(ssm), lambda: build_model(ssm),
+                 lambda: HybridLM(hybrid), lambda: build_model(hybrid),
                  lambda: serve.main(["--reduced", "--requests", "1"]),
                  lambda: train.main(["--reduced", "--steps", "1",
                                      "--ckpt-every", "0"])):
@@ -68,8 +73,10 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
-    from repro_torch.kernels import build, decode_attention, flash_attention
+    from repro_torch.kernels import (build, decode_attention, flash_attention,
+                                     ssd_scan)
     assert decode_attention.decode_attention.launches >= 0
+    assert ssd_scan.ssd_scan_fwd.launches >= 0
     assert flash_attention.flash_attention_fwd.launches >= 0
     assert flash_attention.flash_attention_bwd.launches >= 0
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -20,7 +20,10 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 # (B, T, S, Hq, Hkv, hd, causal): GQA, T != S both ways, full attention
 CASES = [(2, 64, 64, 4, 2, 32, True), (1, 128, 128, 8, 2, 64, True),
          (2, 32, 64, 4, 1, 32, True), (2, 64, 32, 6, 3, 64, True),
-         (2, 64, 96, 6, 3, 32, False), (1, 32, 32, 2, 2, 128, False)]
+         (2, 64, 96, 6, 3, 32, False), (1, 32, 32, 2, 2, 128, False),
+         # head dims of zamba2 (80), phi3-mini (96) and kimi-k2 (112)
+         (1, 64, 64, 4, 4, 80, True), (2, 64, 96, 4, 2, 96, False),
+         (1, 64, 64, 8, 1, 112, True)]
 
 
 def make_inputs(B, T, S, Hq, Hkv, hd, seed):
@@ -144,7 +147,8 @@ CARD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,causal", CASES + [
     (2, 1000, 1000, 9, 3, 64, True), (3, 1, 1, 4, 2, 64, True),
     (2, 77, 200, 8, 2, 128, False), (1, 300, 130, 4, 4, 32, True),
-    (2, 256, 256, 32, 8, 128, True)])
+    (2, 256, 256, 32, 8, 128, True), (2, 1024, 1024, 32, 32, 80, True),
+    (1, 1024, 1024, 32, 32, 96, True), (1, 1024, 1024, 64, 8, 112, True)])
 def test_kernel_matches_plain_on_card(cuda, B, T, S, Hq, Hkv, hd, causal,
                                       dtype):
     q, k, v, dout = make_inputs(B, T, S, Hq, Hkv, hd, seed=T + S + hd)

@@ -18,6 +18,10 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SWEEP = [(1, 64, 4, 4, 32, 32), (3, 128, 8, 2, 32, 32),
          (2, 256, 16, 4, 64, 128), (4, 64, 4, 1, 16, 16)]
+# head dims that are not a multiple of 32: zamba2 (80), phi3-mini (96),
+# kimi-k2 (112)
+HEAD_DIM_CASES = [(2, 96, 4, 4, 80, 32), (3, 64, 8, 2, 96, 16),
+                  (2, 128, 8, 1, 112, 64)]
 
 
 def make_inputs(B, S, Hq, Hkv, hd, seed, lengths=None):
@@ -56,6 +60,16 @@ def reference(q, k, v, lengths, dtype, bk=None):
 @pytest.mark.parametrize("B,S,Hq,Hkv,hd,bk", SWEEP)
 def test_decode_attention_sweep(B, S, Hq, Hkv, hd, bk, dtype):
     q, k, v, lengths = make_inputs(B, S, Hq, Hkv, hd, seed=B * 1000 + S)
+    out = port(q, k, v, lengths, dtype)
+    pallas, oracle = reference(q, k, v, lengths, dtype, bk)
+    np.testing.assert_allclose(out, pallas, **TOL[dtype])
+    np.testing.assert_allclose(out, oracle, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,bk", HEAD_DIM_CASES)
+def test_decode_attention_head_dims(B, S, Hq, Hkv, hd, bk, dtype):
+    q, k, v, lengths = make_inputs(B, S, Hq, Hkv, hd, seed=hd * 10 + S)
     out = port(q, k, v, lengths, dtype)
     pallas, oracle = reference(q, k, v, lengths, dtype, bk)
     np.testing.assert_allclose(out, pallas, **TOL[dtype])
@@ -107,7 +121,8 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
     (8, 2048, 9, 3, 64), (8, 2048, 32, 8, 64), (3, 100, 8, 2, 32),
-    (2, 300, 8, 1, 128), (1, 64, 4, 4, 32)])
+    (2, 300, 8, 1, 128), (1, 64, 4, 4, 32), (8, 2048, 32, 32, 80),
+    (4, 700, 32, 32, 96), (3, 500, 64, 8, 112)])
 def test_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, hd, dtype):
     lengths = np.arange(B) * (S // max(B - 1, 1))
     lengths[-1] = S + 3
