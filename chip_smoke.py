@@ -14,7 +14,9 @@ Phases, each fatal on failure (nothing is caught):
      at the decode shapes of smollm-135m, llama-3.2-1b and zamba2-2.7b
      (hd 80), and at the head dims of phi3-mini (96) and kimi-k2 (112)
      (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
-     bf16 at 2e-2, and times kernel, plain version and a library call;
+     bf16 at 2e-2, repeated calls bit-identical, and times kernel, plain
+     version and a library call (with the split plan, the achieved GB/s
+     and the kernel on a head-major copy of the cache);
   4. serves 16 requests at the full width of smollm-135m in bf16 through
      ``ServingEngine`` (8 slots, max_len 2048, prompts of 8 to 1500 tokens,
      32 new tokens, one request submitted mid-flight) and checks that every
@@ -28,8 +30,11 @@ Phases, each fatal on failure (nothing is caught):
      at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
      llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
      dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
-     ragged T, T = 1 and a non-causal T != S, and times kernel, plain
-     version and SDPA at the training shape, forward and backward;
+     ragged T, T = 1 and a non-causal T != S (the bf16 forward on wgmma at
+     hd 64 and 128, on mma.sync at the others, the library's route table
+     checked against the wrapper's; repeated forwards bit-identical), and
+     times kernel, plain version and SDPA at the training shape, forward
+     and backward (with achieved TFLOP/s);
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
      ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
      checks falling finite losses and that every layer's attention went
@@ -199,8 +204,9 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
     """Kernel against plain on the card in fp32 and bf16, then timings in
     bf16 over L layers of cache (more bytes than the 50 MB L2 holds, as a
     decode step finds them); L = 0 checks only."""
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    decode_attention = dk.decode_attention
     dev = torch.device(DEV)
     lengths = np.concatenate([[0, 1, S, S + 5],
                               rng.integers(8, 1533, B - 4)]).astype(np.int32)
@@ -218,7 +224,12 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
         errs[dtype] = max_err(got, want, TOL[dtype])
         if not torch.all(got[0] == 0):
             raise AssertionError("length 0 must give zeros")
+        for _ in range(2):
+            if not torch.equal(decode_attention(q, kv[0], kv[1], lens), got):
+                raise AssertionError("repeated decode_attention calls differ")
+    splits, tps = dk.split_plan(B, Hkv, S, dk._sm_count(dev))
     row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+           "splits": splits, "tiles_per_split": tps,
            "lengths": lengths.tolist(),
            "max_abs_err_fp32": errs[torch.float32],
            "max_abs_err_bf16": errs[torch.bfloat16]}
@@ -247,6 +258,14 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
     for key, fn in calls.items():
         times[f"{key}ms"] = device_ms(fn, 3 * L)
         times[f"{key}eager_ms"] = eager_ms(fn, 3 * L)
+    # the same call on a head-major copy of the cache (each head's keys
+    # contiguous), which the kernel reads through its strides: how much the
+    # cache's (S, Hkv, hd) layout, a row of hd every Hkv * hd, costs it
+    kh, vh = (t.transpose(2, 3).contiguous().transpose(2, 3) for t in (k, v))
+    times["head_major_ms"] = device_ms(
+        lambda i: decode_attention(q[i % L], kh[i % L], vh[i % L], lens),
+        3 * L)
+    del kh, vh
     valid = int(np.minimum(lengths, S).sum())
     elt = 2
     nbytes = 2 * valid * Hkv * hd * elt + 2 * B * Hq * hd * elt + 4 * B
@@ -254,7 +273,8 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     row.update(times, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               achieved_gb_per_s=nbytes / times["ms"] / 1e6)
     log(f"[kernel] decode_attention {json.dumps(row)}")
     return row
 
@@ -625,11 +645,18 @@ def check_flash_attention():
     rows = []
     for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(FLASH_SHAPES):
         row = {"shape": name, "B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv,
-               "hd": hd, "causal": causal}
+               "hd": hd, "causal": causal,
+               "bf16_fwd_route": fk.fwd_route(torch.bfloat16, hd)}
         for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            if fk.library_fwd_route(dtype, hd) != fk.fwd_route(dtype, hd):
+                raise AssertionError(f"route table of the library and of "
+                                     f"the wrapper differ at {dtype} {hd}")
             q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, dtype, SEED + i)
             out, lse = fk.flash_attention_fwd(q, k, v, causal)
             grads = fk.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            again, again_lse = fk.flash_attention_fwd(q, k, v, causal)
+            if not (torch.equal(again, out) and torch.equal(again_lse, lse)):
+                raise AssertionError("repeated flash forwards differ")
             torch.cuda.synchronize()
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             want = ref.flash_attention_ref(*leaves, causal=causal)
@@ -691,7 +718,10 @@ def time_flash_attention():
         bounds[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
         bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
             else "operations"
-    row = {"shape": FLASH_SHAPES[0][0], **times, **bounds}
+    row = {"shape": FLASH_SHAPES[0][0],
+           "fwd_route": fk.fwd_route(torch.bfloat16, hd), **times, **bounds,
+           "fwd_tflop_per_s": flops / times["fwd_ms"] / 1e9,
+           "bwd_tflop_per_s": 2.5 * flops / times["bwd_ms"] / 1e9}
     log(f"[kernel] flash_attention timing {json.dumps(row)}")
     return row
 
@@ -723,6 +753,8 @@ def train_full_width(cfg):
     step_ms = float(np.mean(result["step_s"][1:])) * 1e3
     stats = {"arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_T,
              "steps": TRAIN_STEPS, "step_ms_after_first": step_ms,
+             "median_step_ms_after_first":
+                 float(np.median(result["step_s"][1:])) * 1e3,
              "first_step_ms": result["step_s"][0] * 1e3,
              "tokens_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
              "losses": losses, "grad_norms": result["grad_norms"],

@@ -23,18 +23,23 @@
 // the ~295 where the H100's tensor cores, not its memory, bind. The
 // backward does 2.5 times the work on about twice the bytes.
 //
-// Design: two routes with the same blocking, masks and outputs.
-// - bf16 (the training path) runs on the tensor cores: warp-level
-//   mma.sync m16n8k16, bf16 in and fp32 accumulate, for every product;
-//   4 warps own a 64-row tile, 16 rows each; see "bf16 on tensor cores".
+// Design: three routes with the same masks and outputs.
+// - The bf16 forward (the training path) at hd 64 and 128 runs on Hopper's
+//   warpgroup MMA: 128-row query tiles over two warpgroups, K/V tiles in a
+//   3-stage cp.async ring of 128-byte-swizzled panels, P from registers and
+//   V read untransposed; see "bf16 forward on wgmma".
+// - The rest of bf16 (the forward at hd 32, 80, 96, 112, and the backward)
+//   runs on warp-level mma.sync m16n8k16, bf16 in and fp32 accumulate, for
+//   every product; 4 warps own a 64-row tile, 16 rows each; see "bf16 on
+//   tensor cores".
 // - fp32 runs on the CUDA cores (fp32 FMAs, so that fp32 results hold to
 //   1e-4): 256 threads as 16 x 16, a thread owning 4 consecutive rows and
 //   the columns tx, tx + 16, ... of a tile; every product is "NT" (both
 //   operands row-major) or "NN" (the second indexed [k][col]) over shared
 //   memory with rows padded to hd + 1 floats, so that reads are broadcast
 //   or conflict-free.
-// Both, forward: one block per (64-row q tile, q head, b) carries
-// (m, l, acc) in registers over the 64-key tiles; the causal loop stops at
+// The forwards: one block per (q tile, q head, b) carries (m, l, acc) in
+// registers over the 64-key tiles; the causal loop stops at
 // the diagonal tile and masks inside it (the Pallas grid instead visits
 // every key block and skips the compute). Writes O in the input type and
 // the per-row log-sum-exp of the scaled scores in fp32 for the backward.
@@ -44,10 +49,11 @@
 // over the group stays in the block; the dQ kernel takes one block per
 // (q tile, q head, b). No atomics: every gradient is summed in one fixed
 // order, so a train step is bit-identical from run to run.
-// Known limits: mma.sync reaches a fraction of the card's bf16 rate (the
-// full rate needs wgmma with TMA-fed shared memory and warp specialisation);
-// tiles are loaded synchronously (no cp.async double buffering), and the
-// causal work per block is uneven (diagonal tiles are cheap).
+// Known limits: the backward's mma.sync reaches a fraction of the card's
+// bf16 rate and loads its tiles synchronously; the wgmma forward copies
+// with cp.async from its compute warps (no TMA producer warp, no register
+// split between producer and consumers) and waits for each product before
+// the softmax, overlapping them only across warpgroups.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -856,6 +862,334 @@ flash_dq_tc_kernel(const Params p) {
                      dq, p.scale);
 }
 
+// ------------------------------------------- bf16 forward on wgmma --
+// The bf16 forward for hd 64 and 128 (a whole number of 64-column panels),
+// on Hopper's warpgroup MMA. One block per (128-row query tile, q head, b),
+// the tiles issued in reverse (the heavy causal tiles first, the diagonal's
+// short ones at the tail): two warpgroups of 64 rows each. All 256 threads
+// copy Q once and K and V tiles of 64 keys with 16-byte cp.async into a ring
+// of 3 stages, so that two tiles load while one is computed; no producer
+// warp yet (a TMA producer warp is the next step). Each tile lands as
+// 64-column panels of 128-byte rows in the 128-byte swizzle (16-byte chunk c
+// of row r at chunk c ^ (r % 8), panels 1024-byte aligned), the layout TMA's
+// SWIZZLE_128B writes and wgmma's descriptors read:
+// - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
+//   K-major (rows along hd), hd / 16 products a tile;
+// - the online softmax in fp32 registers on exp2 of scale * log2(e) * S
+//   (one FMA and one ex2 an element), with the mask of the other kernels
+//   (`visible`) only on tiles that cross the diagonal or the end of S;
+// - O += P V: wgmma m64n64k16 with A = P from registers (the S accumulator
+//   rounded to bf16 is the A fragment, as in FlashAttention-3) and B = V
+//   from shared memory in its natural (key, d) layout, read MN-major (the
+//   transpose bit), one product per 16 keys and 64-column panel: no
+//   transposed copy of V.
+// A warpgroup skips the tiles past its own diagonal. O is written in bf16
+// through its strides, lse as the natural log-sum-exp of the scaled scores.
+// At hd 64 two blocks share an SM (registers capped at 128 a thread, 65 KB
+// of shared memory each), so that four warpgroups interleave their products
+// and softmaxes; hd 128 runs one block an SM.
+constexpr int kWgThreads = 256;        // two warpgroups
+constexpr int kWgRows = 64;            // query rows a warpgroup
+constexpr int kQRows = 2 * kWgRows;    // query rows a block
+constexpr int kKeys = 64;              // keys a stage: N of S = Q K^T
+constexpr int kWgStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMinusInf = -__builtin_huge_valf();
+
+// The bf16 forward's route by head dim, fixed: wgmma where hd is a whole
+// number of 64-column panels, mma.sync (flash_fwd_tc_kernel) otherwise.
+__host__ __device__ constexpr bool fwd_on_wgmma(int hd) { return hd % 64 == 0; }
+
+template <int HD> struct WgLayout {
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kQPanel = kQRows * 128;        // bytes of a Q panel
+  static constexpr int kKVPanel = kKeys * 128;        // bytes of a K/V panel
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kTileBytes = kPanels * kKVPanel;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
+  // + 1024: the dynamic shared memory is aligned up to 1024 bytes
+  static constexpr int kSmem = kQBytes + kWgStages * kStageBytes + 1024;
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of the (b, h) slice of a (B, L, H, HD) bf16 tensor
+// into 64-column swizzled panels of R rows at shared address dst; rows at or
+// past L are zero-filled.
+template <int HD, int R>
+__device__ __forceinline__ void load_panels(uint32_t dst, const bf16* base,
+                                            Strides st, int b, int h,
+                                            int row0, int L) {
+  constexpr int kC = HD / 8;                  // 16-byte chunks a row
+  const bf16* src = base + b * st.b + h * st.h;
+  for (int i = threadIdx.x; i < R * kC; i += kWgThreads) {
+    const int r = i / kC, c = i % kC;
+    const bool in = row0 + r < L;
+    const bf16* gp = in ? src + (long long)(row0 + r) * st.s + c * 8 : src;
+    const uint32_t off =
+        (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst + off), "l"(gp), "r"(in ? 16 : 0) : "memory");
+  }
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
+// 8-row groups 1024 bytes apart. The leading offset is unused by the K-major
+// operands and by an MN-major one of N = 64 (one swizzle atom wide); it is
+// set to the same 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// 2^x in one MUFU instruction (ex2(-inf) = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64 fp32) = A B (+ d when accumulate): A 64 x 16 and B 16 x 64
+// from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) += A B: A 64 x 16 bf16 from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B 16 x 64 from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, HD == 64 ? 2 : 1)
+flash_fwd_wgmma_kernel(const Params p) {
+  using L = WgLayout<HD>;
+  constexpr int kP = L::kPanels;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t q_sm = (raw + 1023) & ~1023u;
+  const uint32_t kv_sm = q_sm + L::kQBytes;
+
+  const int n_qt = (p.T + kQRows - 1) / kQRows, hb = p.Hq * p.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x % hb) / p.Hq;
+  const int q0 = qt * kQRows, hk = h / p.g;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int row_wg = q0 + kWgRows * wg;   // the warpgroup's first row
+  const int r0 = row_wg + 16 * w + g;     // this thread's rows: r0, r0 + 8
+
+  // key tiles of the block and of this warpgroup (up to the diagonal)
+  const int n_all = (p.S + kKeys - 1) / kKeys;
+  const int n_kt = p.causal
+      ? min(n_all, min(q0 + kQRows - 1, p.T - 1) / kKeys + 1) : n_all;
+  const int n_wg = row_wg >= p.T ? 0 : p.causal
+      ? min(n_all, min(row_wg + kWgRows - 1, p.T - 1) / kKeys + 1) : n_all;
+
+  const bf16* kg = static_cast<const bf16*>(p.k);
+  const bf16* vg = static_cast<const bf16*>(p.v);
+  load_panels<HD, kQRows>(q_sm, static_cast<const bf16*>(p.q), p.sq, b, h,
+                          q0, p.T);
+#pragma unroll
+  for (int i = 0; i < kWgStages - 1; ++i) {
+    if (i < n_kt) {
+      const uint32_t st = kv_sm + i * L::kStageBytes;
+      load_panels<HD, kKeys>(st, kg, p.sk, b, hk, i * kKeys, p.S);
+      load_panels<HD, kKeys>(st + L::kTileBytes, vg, p.sv, b, hk, i * kKeys,
+                             p.S);
+    }
+    cp_async_commit();
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, s[32];
+  float o[kP][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+  const uint32_t q_wg = q_sm + wg * kWgRows * 128;   // this warpgroup's Q
+  const float sl2 = p.scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kWgStages - 2>();
+    // this thread's copies of tile kt are done: make them visible to wgmma
+    // (the async proxy), then to every thread
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int nx = kt + kWgStages - 1;     // into the stage read at kt - 1
+    if (nx < n_kt) {
+      const uint32_t st = kv_sm + (nx % kWgStages) * L::kStageBytes;
+      load_panels<HD, kKeys>(st, kg, p.sk, b, hk, nx * kKeys, p.S);
+      load_panels<HD, kKeys>(st + L::kTileBytes, vg, p.sv, b, hk,
+                             nx * kKeys, p.S);
+    }
+    cp_async_commit();
+    if (kt >= n_wg) continue;              // uniform over the warpgroup
+
+    const uint32_t ks = kv_sm + (kt % kWgStages) * L::kStageBytes;
+    const uint32_t vs = ks + L::kTileBytes;
+    const int k0 = kt * kKeys;
+    wgmma_fence();
+    // descriptors as a base plus a constant offset (>> 4): the k-steps
+    // advance 32 bytes along a 128-byte row, then a panel
+    const uint64_t dq = sw128_desc(q_wg), dk = sw128_desc(ks);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(s, dq + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
+               dk + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
+               kk > 0);               // the first k-step overwrites s
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+
+    // s[4 j + 2 hf + e]: row r0 + 8 hf, key k0 + 8 j + 2 t + e. Only the
+    // tiles that cross the diagonal or the end of S are masked (to -inf, so
+    // that exp2 gives 0); m is kept in log2 units of the scaled scores, and
+    // p = 2^(s * scale * log2(e) - m) is one FMA and one ex2 an element.
+    if (!(k0 + kKeys <= p.S && (!p.causal || k0 + kKeys - 1 <= row_wg))) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!visible(p, r0 + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t +
+                                                     (i & 1)))
+          s[i] = kMinusInf;
+    }
+    float corr[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = kMinusInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      // every row sees key 0 in tile 0, so m is finite from then on; a row
+      // with no visible key yet keeps m = -1e30 and p = 0
+      const float m_new = fmaxf(m[hf], mx * sl2);
+      corr[hf] = ex2(m[hf] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hf + e];
+          x = ex2(fmaf(x, sl2, -m_new));
+          sum += x;
+        }
+      l[hf] = l[hf] * corr[hf] + sum;      // this thread's columns only
+      m[hf] = m_new;
+    }
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[pn][4 * j] *= corr[0];
+        o[pn][4 * j + 1] *= corr[0];
+        o[pn][4 * j + 2] *= corr[1];
+        o[pn][4 * j + 3] *= corr[1];
+      }
+    uint32_t a[4][4];                      // P as the A fragments of 16 keys
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) fence_acc(o[pn]);
+    wgmma_fence();
+    const uint64_t dv = sw128_desc(vs);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < kP; ++pn)
+        wgmma_rs(o[pn], a[kk],
+                 dv + ((pn * L::kKVPanel + kk * 16 * 128) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) fence_acc(o[pn]);
+  }
+  cp_async_wait<0>();
+
+  bf16* dst = static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float lsum = l[hf];
+    lsum += __shfl_xor_sync(kFull, lsum, 1);
+    lsum += __shfl_xor_sync(kFull, lsum, 2);
+    lsum = fmaxf(lsum, 1e-30f);
+    const int r = r0 + 8 * hf;
+    if (r < p.T) {
+      if (t == 0)
+        p.lse[((long long)b * p.Hq + h) * p.T + r] =
+            (m[hf] + log2f(lsum)) * kLn2;
+      const float inv = 1.f / lsum;
+#pragma unroll
+      for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + (long long)r * p.so.s + 64 * pn +
+                                       8 * j + 2 * t) =
+              pack_bf16(o[pn][4 * j + 2 * hf] * inv,
+                        o[pn][4 * j + 2 * hf + 1] * inv);
+    }
+  }
+}
+
 // --------------------------------------------------------------- launch --
 // The attribute calls run once per instantiation (function-local statics),
 // so that none falls inside a CUDA graph capture after the first launch.
@@ -906,6 +1240,20 @@ cudaError_t launch_fwd_tc(const Params& p, cudaStream_t stream) {
 }
 
 template <int HD>
+cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WgLayout<HD>::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks =
+      (long long)((p.T + kQRows - 1) / kQRows) * p.Hq * p.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<HD><<<(unsigned)blocks, kWgThreads,
+                               WgLayout<HD>::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
       flash_dkdv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -930,13 +1278,18 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores.
+// fp32 on the CUDA cores, bf16 on the tensor cores: the forward on wgmma
+// or mma.sync by the fixed table fwd_on_wgmma, the backward on mma.sync.
 template <int HD>
 cudaError_t launch(bool backward, bool bf16_in, const Params& p,
                    cudaStream_t stream) {
-  if (bf16_in)
-    return backward ? launch_bwd_tc<HD>(p, stream) : launch_fwd_tc<HD>(p, stream);
-  return backward ? launch_bwd<HD>(p, stream) : launch_fwd<HD>(p, stream);
+  if (!bf16_in)
+    return backward ? launch_bwd<HD>(p, stream) : launch_fwd<HD>(p, stream);
+  if (backward) return launch_bwd_tc<HD>(p, stream);
+  if constexpr (fwd_on_wgmma(HD))
+    return launch_fwd_wgmma<HD>(p, stream);
+  else
+    return launch_fwd_tc<HD>(p, stream);
 }
 
 Strides strides_at(const long long* st, int i) {
@@ -979,6 +1332,13 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   p.sq = strides_at(st, 0); p.sk = strides_at(st, 1);
   p.sv = strides_at(st, 2); p.so = strides_at(st, 3);
   return run(false, p, hd, dtype, stream);
+}
+
+// The forward's route for dtype (0 = fp32, 1 = bf16) and head dim, as
+// launch picks it: 0 = CUDA cores, 1 = mma.sync, 2 = wgmma.
+extern "C" int repro_flash_fwd_route(int hd, int dtype) {
+  if (dtype != 1) return 0;
+  return fwd_on_wgmma(hd) ? 2 : 1;
 }
 
 // strides: (batch, sequence, head) of q, k, v, out, dout, dq, dk, dv.

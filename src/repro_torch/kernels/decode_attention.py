@@ -5,9 +5,14 @@
 One new token per sequence against a slot-contiguous KV cache, GQA,
 per-sequence valid lengths. The kernel reads the layer's (B, S, Hkv, hd)
 slice of the (L, B, S, Hkv, hd) cache through its strides: unlike the Pallas
-wrapper there is no transposed copy per call. The plain version is
-``repro_torch.kernels.ref.decode_attention_ref``; ``ops.decode_attention``
-picks between the two by the device of the tensors.
+wrapper there is no transposed copy per call. It splits each sequence over
+``split_plan``'s blocks and merges their partials in the same launch, in a
+workspace and counters this module owns (one set per device and size, zeros
+at rest, never freed, so a captured CUDA graph keeps valid pointers; calls
+share them, so they run on one stream at a time). The plain version is
+``repro_torch.kernels.ref.decode_attention_ref``
+(``decode_attention_split_ref`` computes the kernel's partials and merge);
+``ops.decode_attention`` picks between the two by the device of the tensors.
 """
 from __future__ import annotations
 
@@ -20,20 +25,60 @@ from . import build
 KERNEL = "decode_attention"
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 MAX_GROUP = 8                      # kMaxGroup in the source
+TILE = 64                          # keys per pipeline stage (kTile)
+MAX_SPLITS = 256                   # kMaxSplits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_N_SM: dict[int, int] = {}
+_WORKSPACE: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _function():
     lib = build.load(KERNEL)
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 8 + [_L] * 8 + [ctypes.c_float, _P]
         fn.restype = _I
     return fn
+
+
+def split_plan(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
+    """(splits, tiles_per_split) for a call: split s of a sequence takes the
+    64-key tiles [s * tps, (s + 1) * tps). The host does not know the
+    lengths, so the plan comes from S, B * Hkv and the SM count alone: at
+    least two blocks per SM (``B * Hkv * splits >= 2 * n_sm``) where S has
+    that many tiles, one split once ``B * Hkv`` fills the card, and at most
+    ``MAX_SPLITS``. Every split starts before S. Tiles per split are a power
+    of two, which measured fastest at the served shapes
+    (``scripts/decode_split_sweep.py``)."""
+    n_tiles = -(-S // TILE)
+    want = min(n_tiles, max(1, -(-2 * n_sm // (B * Hkv))))
+    per = n_tiles // want
+    tps = max(1 << (per.bit_length() - 1), -(-n_tiles // MAX_SPLITS))
+    return -(-n_tiles // tps), tps
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _N_SM[idx]
+
+
+def _workspace(device: torch.device, n_float: int, n_count: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partials' fp32 workspace and the int32 counters, made with
+    ``torch.zeros`` once per (device, size) and kept: the kernel leaves the
+    counters at zero, so no call allocates or clears anything."""
+    key = (device, n_float, n_count)
+    if key not in _WORKSPACE:
+        _WORKSPACE[key] = (
+            torch.zeros(n_float, dtype=torch.float32, device=device),
+            torch.zeros(n_count, dtype=torch.int32, device=device))
+    return _WORKSPACE[key]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,13 +129,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, lengths)
     B, Hq, hd = q.shape
     _, S, Hkv, _ = k.shape
+    splits, tps = split_plan(B, Hkv, S, _sm_count(q.device))
+    ws, counters = _workspace(q.device, B * Hq * splits * (hd + 2), B * Hkv)
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
     fn = _function()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, hd,
-                 _DTYPES[q.dtype], q.stride(0), q.stride(1), k.stride(0),
+                 lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 counters.data_ptr(), B, Hq, Hkv, S, hd, _DTYPES[q.dtype],
+                 splits, tps, q.stride(0), q.stride(1), k.stride(0),
                  k.stride(1), k.stride(2), v.stride(0), v.stride(1),
                  v.stride(2), 1.0 / hd ** 0.5, stream)
     if err:

@@ -4,9 +4,10 @@
 
 q: (B, T, Hq, hd); k/v: (B, S, Hkv, hd); causal (``qpos >= kpos`` aligned
 at 0) or full; GQA with kv head ``h // (Hq // Hkv)``. bf16 runs on the
-tensor cores (``mma.sync``), fp32 on the CUDA cores. The kernels read and
-write every tensor through its strides, so q, k, v and dO need no
-transposed copy. ``FlashAttention`` is the ``torch.autograd.Function``
+tensor cores: the forward on ``wgmma`` at hd 64 and 128 and on ``mma.sync``
+at the other head dims (``fwd_route``), the backward on ``mma.sync``; fp32
+runs on the CUDA cores. The kernels read and write every tensor through
+its strides, so q, k, v and dO need no transposed copy. ``FlashAttention`` is the ``torch.autograd.Function``
 that the model differentiates: its forward saves q, k, v, O and the
 per-row log-sum-exp, its backward launches the delta pre-pass, the dK/dV
 and the dQ kernels. The plain version is
@@ -24,8 +25,26 @@ from . import build
 KERNEL = "flash_attention"
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FWD_ROUTES = ("cuda cores", "mma.sync", "wgmma")   # repro_flash_fwd_route
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The forward kernel a call takes, the fixed table of ``launch`` in
+    the source (``repro_flash_fwd_route``): fp32 on the CUDA cores; bf16 on
+    ``wgmma`` where hd is a whole number of 64-column panels (64, 128), on
+    ``mma.sync`` at hd 32, 80, 96 and 112."""
+    if dtype != torch.bfloat16:
+        return "cuda cores"
+    return "wgmma" if hd % 64 == 0 else "mma.sync"
+
+
+def library_fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The route the built library reports for (dtype, hd); builds it."""
+    fn = build.load(KERNEL).repro_flash_fwd_route
+    fn.argtypes, fn.restype = [_I, _I], _I
+    return FWD_ROUTES[fn(hd, _DTYPES[dtype])]
 
 
 def _functions():

@@ -53,6 +53,48 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, lengths: torch.Tensor,
+                               splits: int, tile: int) -> torch.Tensor:
+    """``decode_attention_ref`` computed as the split-KV kernel computes it:
+    split s takes keys [s * tile, (s + 1) * tile) (``tile`` is the kernel's
+    tiles per split times 64; ``splits * tile >= S``) and gives a partial
+    (m, l, acc) of its valid keys; the partials are then merged in split
+    order 0, 1, 2, ..., an empty split (l = 0) adding nothing, so that
+    ``length == 0`` gives exact zeros. Shapes and result as
+    ``decode_attention_ref``."""
+    B, Hq, hd = q.shape
+    _, S, Hkv, _ = k.shape
+    if splits * tile < S:
+        raise ValueError(f"{splits} splits of {tile} keys do not cover S={S}")
+    g = Hq // Hkv
+    n = splits * tile
+    pad = (0, 0, 0, 0, 0, n - S)                # keys past S, masked below
+    kf = torch.nn.functional.pad(k.float(), pad)
+    vf = torch.nn.functional.pad(v.float(), pad)
+    qg = q.reshape(B, Hkv, g, hd).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, kf) / math.sqrt(hd)
+    valid = torch.arange(n, device=q.device)[None, :] < \
+        lengths.clamp(0, S)[:, None]                            # (B, n)
+    valid = valid.reshape(B, 1, 1, splits, tile)
+    scores = scores.reshape(B, Hkv, g, splits, tile)
+    m = torch.where(valid, scores, NEG_INF).amax(dim=-1)        # (B,H,g,sp)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgst,bsthd->bhgsd", p,
+                       vf.reshape(B, splits, tile, Hkv, hd))
+    m_all = torch.where(l > 0, m, NEG_INF).amax(dim=-1)        # (B, H, g)
+    num = torch.zeros((B, Hkv, g, hd), dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, Hkv, g), dtype=torch.float32, device=q.device)
+    for s in range(splits):                      # the kernel's merge order
+        c = torch.where(l[..., s] > 0, torch.exp(m[..., s] - m_all), 0.0)
+        num = num + acc[..., s, :] * c[..., None]
+        den = den + l[..., s] * c
+    out = torch.where(den[..., None] > 0,
+                      num / den.clamp_min(1e-30)[..., None], 0.0)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
 def ssd_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
             Cm: torch.Tensor, h0: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:

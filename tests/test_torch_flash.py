@@ -216,3 +216,62 @@ def test_train_loss_and_gradients_kernel_against_plain_on_card(cuda):
     for g, w in zip(tree_leaves(grads), tree_leaves(want)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_forward_route_table(hd):
+    """The fixed route table of the forward: bf16 on wgmma at hd 64 and 128
+    (whole 64-column panels), on mma.sync at 32, 80, 96 and 112; fp32 on
+    the CUDA cores at every head dim."""
+    want = "wgmma" if hd in (64, 128) else "mma.sync"
+    assert fk.fwd_route(torch.bfloat16, hd) == want
+    assert fk.fwd_route(torch.float32, hd) == "cuda cores"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_library_route_table_matches(cuda, hd):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fk.library_fwd_route(dtype, hd) == fk.fwd_route(dtype, hd)
+
+
+def scaled_lse(q, k, causal):
+    """The natural log-sum-exp of the scaled scores, (B, Hq, T) fp32."""
+    B, T, Hq, hd = q.shape
+    _, S, Hkv, _ = k.shape
+    g = Hq // Hkv
+    qg = q.float().reshape(B, T, Hkv, g, hd)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) / hd ** 0.5
+    if causal:
+        mask = torch.arange(T, device=q.device)[:, None] >= \
+            torch.arange(S, device=q.device)[None, :]
+        s = torch.where(mask, s, -torch.inf)
+    return torch.logsumexp(s, dim=-1).reshape(B, Hq, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,causal", [
+    (8, 2048, 2048, 9, 3, 64, True), (2, 1000, 1000, 9, 3, 64, True),
+    (3, 1, 1, 4, 2, 64, True), (1, 130, 300, 4, 2, 64, True),
+    (2, 256, 256, 32, 8, 128, True), (2, 77, 200, 8, 2, 128, False),
+    (2, 300, 130, 4, 4, 128, True), (1, 1, 50, 2, 1, 128, False)])
+def test_wgmma_forward_out_and_lse_on_card(cuda, B, T, S, Hq, Hkv, hd,
+                                           causal):
+    """The bf16 forward at hd 64 and 128 (the wgmma route): O against the
+    plain version at 2e-2, lse against ``logsumexp`` of the scaled fp32
+    scores of the same bf16 inputs at 1e-3 (sums in another order and
+    exp2 for exp), and three calls bit-identical."""
+    assert fk.fwd_route(torch.bfloat16, hd) == "wgmma"
+    q, k, v, _ = (to_torch(a, "bfloat16", cuda) for a in
+                  make_inputs(B, T, S, Hq, Hkv, hd, seed=T + S + hd))
+    out, lse = fk.flash_attention_fwd(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    want_lse = scaled_lse(q, k, causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu(), want.float().cpu(),
+                               **CARD_TOL["bfloat16"])
+    np.testing.assert_allclose(lse.cpu(), want_lse.cpu(), rtol=1e-3,
+                               atol=1e-3)
+    for _ in range(2):
+        again, again_lse = fk.flash_attention_fwd(q, k, v, causal)
+        assert torch.equal(again, out) and torch.equal(again_lse, lse)

@@ -156,3 +156,76 @@ def test_kernel_reads_cache_slices_through_strides(cuda):
                                **TOL["bfloat16"])
     with pytest.raises(ValueError, match="head_dim"):
         dk.decode_attention(q[..., :48], k[..., :48], v[..., :48], lengths)
+
+
+def cache_slices(cuda, dtype, B, S, Hq, Hkv, hd, seed):
+    """q and layer 1 of a (2, L, B, S, Hkv, hd) cache: k and v read through
+    the cache's strides, as a decode step reads them."""
+    rng = np.random.default_rng(seed)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, 3, B, S, Hkv, hd), np.float32)).to(cuda, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, Hq, hd), np.float32)
+                         ).to(cuda, dtype)
+    return q, cache[0][1], cache[1][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,hd", [(9, 3, 64), (32, 32, 80)])
+def test_kernel_at_split_boundaries_on_card(cuda, Hq, Hkv, hd, dtype):
+    """Lengths at the edges of a 64-key tile and of a split (the plan's
+    tiles per split x 64, plus and minus one), 0, 1, S and past S, through
+    the cache's strides, against the plain version on contiguous copies."""
+    S = 2048
+    B = 12
+    splits, tps = dk.split_plan(B, Hkv, S, dk._sm_count(cuda))
+    edge = tps * dk.TILE
+    lengths = torch.tensor([63, 64, 65, edge - 1, edge, edge + 1, 0, 1, S,
+                            S + 3, 2 * edge + 7, S - 1][:B],
+                           dtype=torch.int32, device=cuda)
+    q, k, v = cache_slices(cuda, getattr(torch, dtype), B, S, Hq, Hkv, hd,
+                           seed=hd)
+    got = dk.decode_attention(q, k, v, lengths)
+    want = ref.decode_attention_ref(q, k.contiguous(), v.contiguous(),
+                                    lengths)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               **TOL[dtype])
+    assert splits > 1 or Hkv * B >= 2 * dk._sm_count(cuda)
+    assert torch.all(got[6] == 0)
+
+
+@pytest.mark.gpu
+def test_kernel_bit_identical_and_under_graph_replay(cuda):
+    """Three calls give the same bits; so do replays of a captured CUDA
+    graph, also after the lengths change between replays, which holds only
+    if every call leaves the merge counters at zero."""
+    B, S, Hq, Hkv, hd = 8, 2048, 9, 3, 64
+    q, k, v = cache_slices(cuda, torch.bfloat16, B, S, Hq, Hkv, hd, seed=1)
+    lengths = torch.tensor([0, 1, 64, 65, 1305, S, S + 5, 979],
+                           dtype=torch.int32, device=cuda)
+    first = dk.decode_attention(q, k, v, lengths)
+    for _ in range(2):
+        assert torch.equal(dk.decode_attention(q, k, v, lengths), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dk.decode_attention(q, k, v, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = dk.decode_attention(q, k, v, lengths)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, first)
+    lengths.copy_(torch.tensor([7, 2048, 3, 640, 0, 129, 1, 2000],
+                               dtype=torch.int32))
+    graph.replay()
+    eager = dk.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(static_out, eager)
+    want = ref.decode_attention_ref(q, k.contiguous(), v.contiguous(),
+                                    lengths)
+    np.testing.assert_allclose(static_out.float().cpu(),
+                               want.float().cpu(), **TOL["bfloat16"])
