@@ -9,7 +9,8 @@ Phases, each fatal on failure (nothing is caught):
   2. builds every kernel of the served and trained paths from
      ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
      three sources, started together) and prints each kernel's registers,
-     shared memory and spills;
+     shared memory and spills (the dynamic shared memory of the wgmma
+     backward and of the scan's passes from the libraries);
   3. holds the decode kernel against its plain PyTorch version on the card
      at the decode shapes of smollm-135m, llama-3.2-1b and zamba2-2.7b
      (hd 80), and at the head dims of phi3-mini (96) and kimi-k2 (112)
@@ -30,11 +31,12 @@ Phases, each fatal on failure (nothing is caught):
      at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
      llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
      dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
-     ragged T, T = 1 and a non-causal T != S (the bf16 forward on wgmma at
-     hd 64 and 128, on mma.sync at the others, the library's route table
-     checked against the wrapper's; repeated forwards bit-identical), and
-     times kernel, plain version and SDPA at the training shape, forward
-     and backward (with achieved TFLOP/s);
+     ragged T, T = 1 and a non-causal T != S (the bf16 forward and backward
+     on wgmma at hd 64 and 128, on mma.sync at the others, the library's
+     route tables checked against the wrapper's; repeated forwards
+     bit-identical), and times kernel, plain version and SDPA at the
+     training shape, forward and backward (with achieved TFLOP/s, the
+     routes and the device ms of each backward kernel);
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
      ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
      checks falling finite losses and that every layer's attention went
@@ -48,7 +50,8 @@ Phases, each fatal on failure (nothing is caught):
      prefill shapes of mamba2-1.3b and zamba2-2.7b, a single chunk of 37
      tokens at B 8, a nonzero initial state and the sweep of
      ``tests/test_kernels.py``; checks chunk-size invariance; times kernel
-     and plain version at the mamba2 prefill shape;
+     (and each of its four passes) and plain version at the mamba2 and
+     zamba2 prefill shapes;
  11. serves 16 requests at the full width of mamba2-1.3b in bf16 (8 slots,
      max_len 2048, prompts of 8 to 256, 512, 1024 and 1536 tokens, 32 new
      tokens, one submitted mid-flight), checks 48 scan launches a
@@ -197,6 +200,25 @@ def device_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def log_dynamic_smem(build) -> None:
+    """The dynamic shared memory of the kernels redesigned last (ptxas
+    prints only the static part): the wgmma backward's dK/dV and dQ
+    kernels, and the SSD scan's passes at the two served SSM shapes."""
+    import ctypes
+    flash = build.load("flash_attention").repro_flash_bwd_smem
+    scan = build.load("ssd_scan").repro_ssd_smem
+    for fn in (flash, scan):
+        fn.restype = ctypes.c_int
+    flash.argtypes = [ctypes.c_int] * 2
+    scan.argtypes = [ctypes.c_int] * 3
+    for hd in (64, 128):
+        log(f"[build] flash_attention wgmma backward hd {hd}: dynamic shared "
+            f"memory dK/dV {flash(hd, 0)} B, dQ {flash(hd, 1)} B")
+    for name, N, P in (("mamba2-1.3b", 128, 64), ("zamba2-2.7b", 64, 64)):
+        log(f"[build] ssd_scan {name} (N {N}, P {P}): dynamic shared memory "
+            + ", ".join(f"pass {i} {scan(N, P, i)} B" for i in (1, 2, 4)))
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -455,6 +477,8 @@ def where_the_time_goes(model, params, rng, n_steps=10):
              "prefill_ms": prefill_ms,
              f"prefill_{n}_device_busy_ms":
                  sum(ms for _, _, ms in prefill_kernels),
+             f"prefill_{n}_ssd_scan_ms":
+                 sum(ms for name, _, ms in prefill_kernels if "ssd_" in name),
              "prefill_top_kernels": [[name[:60], calls, ms] for
                                      name, calls, ms in prefill_kernels[:4]]}
     log(f"[profile] {json.dumps(stats)}")
@@ -646,9 +670,12 @@ def check_flash_attention():
     for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(FLASH_SHAPES):
         row = {"shape": name, "B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv,
                "hd": hd, "causal": causal,
-               "bf16_fwd_route": fk.fwd_route(torch.bfloat16, hd)}
+               "bf16_fwd_route": fk.fwd_route(torch.bfloat16, hd),
+               "bf16_bwd_route": fk.bwd_route(torch.bfloat16, hd)}
         for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            if fk.library_fwd_route(dtype, hd) != fk.fwd_route(dtype, hd):
+            if fk.library_fwd_route(dtype, hd) != fk.fwd_route(dtype, hd) \
+                    or fk.library_bwd_route(dtype, hd) != \
+                    fk.bwd_route(dtype, hd):
                 raise AssertionError(f"route table of the library and of "
                                      f"the wrapper differ at {dtype} {hd}")
             q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, dtype, SEED + i)
@@ -669,6 +696,19 @@ def check_flash_attention():
         log(f"[kernel] flash_attention check {json.dumps(row)}")
         rows.append(row)
     return rows
+
+
+def bwd_kernel_ms(bwd, n: int) -> dict:
+    """Device ms a call of each backward kernel (delta pre-pass, dK/dV,
+    dQ), from the profiler over n eager backward launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            bwd(i)
+        torch.cuda.synchronize()
+    parts = {"delta": "delta", "dkdv": "dkdv", "dq": "_dq_"}
+    return {part: sum(ms for name, _, ms in device_kernels(prof, n)
+                      if key in name) for part, key in parts.items()}
 
 
 def time_flash_attention():
@@ -704,6 +744,7 @@ def time_flash_attention():
     bwd = lambda i: fk.flash_attention_bwd(q, k, v, out, lse, do, True)
     times["bwd_ms"] = device_ms(bwd, 5)
     times["bwd_eager_ms"] = eager_ms(bwd, 5)
+    times["bwd_kernel_ms"] = bwd_kernel_ms(bwd, 5)
     elt = 2
     io = (2 * B * T * Hq * hd + 2 * B * S * Hkv * hd) * elt   # q, k, v, out
     flops = 4 * B * Hq * hd * T * (T + 1) // 2
@@ -719,7 +760,8 @@ def time_flash_attention():
         bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
             else "operations"
     row = {"shape": FLASH_SHAPES[0][0],
-           "fwd_route": fk.fwd_route(torch.bfloat16, hd), **times, **bounds,
+           "fwd_route": fk.fwd_route(torch.bfloat16, hd),
+           "bwd_route": fk.bwd_route(torch.bfloat16, hd), **times, **bounds,
            "fwd_tflop_per_s": flops / times["fwd_ms"] / 1e9,
            "bwd_tflop_per_s": 2.5 * flops / times["bwd_ms"] / 1e9}
     log(f"[kernel] flash_attention timing {json.dumps(row)}")
@@ -802,8 +844,11 @@ def profile_train_step(cfg, step_ms):
                if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy_ms = sum(ms for _, _, ms in kernels)
     top = sorted(kernels, key=lambda k: -k[2])[:8]
+    flash = {part: sum(ms for name, _, ms in kernels if f"flash_{part}" in name)
+             for part in ("fwd", "delta", "dkdv", "dq")}
     stats = {"train_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
              "device_idle_share": 1 - busy_ms / step_ms,
+             "flash_ms_per_step": flash,
              "top_kernels_per_step": [[name[:80], calls, ms]
                                       for name, calls, ms in top]}
     log(f"[profile train] {json.dumps(stats)}")
@@ -923,13 +968,15 @@ def check_ssd_scan():
     return rows
 
 
-def time_ssd_scan():
-    """Kernel and chunked plain version at the mamba2-1.3b prefill shape.
-    No single PyTorch call computes the scan, so there is no library
-    time."""
+def time_ssd_scan(index: int):
+    """Kernel and chunked plain version at SSD_SHAPES[index] (a served
+    prefill shape), with the device ms of each of the kernel's passes. No
+    single PyTorch call computes the scan, so there is no library time."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    name, B, T, H, P, N, Q, _ = SSD_SHAPES[0]
+    from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
+    name, B, T, H, P, N, Q, _ = SSD_SHAPES[index]
     u, loga, Bm, Cm, _ = ssd_inputs(B, T, H, P, N, False, SEED)
     calls = {"": lambda i: ssd_scan(u, loga, Bm, Cm, chunk=Q),
              "plain_": lambda i: ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q)}
@@ -937,18 +984,30 @@ def time_ssd_scan():
     for key, fn in calls.items():
         times[f"{key}ms"] = device_ms(fn, 10)
         times[f"{key}eager_ms"] = eager_ms(fn, 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(5):
+            calls[""](i)
+        torch.cuda.synchronize()
+    times["pass_ms"] = {key: sum(ms for k, _, ms in device_kernels(prof, 5)
+                                 if f"ssd_{key}_kernel" in k)
+                        for key in ("cb", "summary", "state", "output")}
     # the model's chunked formulation: C B^T once per chunk, then for every
     # head (C B^T * L) u, C h and B^T u; the causal mask leaves Q (Q + 1) / 2
-    # of each chunk's (Q, Q) products
+    # of each chunk's (Q, Q) products. All fp32 FMAs on the CUDA cores.
     nc, tri = T // Q, Q * (Q + 1) // 2
     flops = 2 * B * nc * (tri * N + H * tri * P + 2 * H * Q * N * P)
     nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
                   + B * H * N * P)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    row = {"shape": name, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    plan = ssd_plan(B, T, H, P, N, Q)
+    row = {"shape": name, "route": "fp32 FMAs, CUDA cores, four passes",
+           "blocks_per_pass": {k: int(np.prod(g))
+                               for k, g in plan["grids"].items()},
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
            **times, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "tflop_per_s": flops / times["ms"] / 1e9,
            "library_ms": None,
            "library_note": "no single PyTorch call computes the SSD scan"}
     log(f"[kernel] ssd_scan timing {json.dumps(row)}")
@@ -981,6 +1040,7 @@ def main() -> int:
         for line in text.splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    log_dynamic_smem(build)
 
     rng = np.random.default_rng(SEED)
     smollm, llama, mamba, zamba = (get_config(a) for a in (
@@ -1013,7 +1073,7 @@ def main() -> int:
     deterministic_runs(smollm)
 
     ssd_rows = check_ssd_scan()
-    ssd_timing = time_ssd_scan()
+    ssd_timing, _ = time_ssd_scan(0), time_ssd_scan(1)   # mamba2, zamba2
     ssd_launches = 0
     # fp32 parity at reduced depth: 4 SSM layers; 12 hybrid layers, two
     # groups of attn_every 6

@@ -24,14 +24,15 @@
 // backward does 2.5 times the work on about twice the bytes.
 //
 // Design: three routes with the same masks and outputs.
-// - The bf16 forward (the training path) at hd 64 and 128 runs on Hopper's
-//   warpgroup MMA: 128-row query tiles over two warpgroups, K/V tiles in a
-//   3-stage cp.async ring of 128-byte-swizzled panels, P from registers and
-//   V read untransposed; see "bf16 forward on wgmma".
-// - The rest of bf16 (the forward at hd 32, 80, 96, 112, and the backward)
-//   runs on warp-level mma.sync m16n8k16, bf16 in and fp32 accumulate, for
-//   every product; 4 warps own a 64-row tile, 16 rows each; see "bf16 on
-//   tensor cores".
+// - bf16 at hd 64 and 128 (the training path) runs on Hopper's warpgroup
+//   MMA: the forward on 128-row query tiles over two warpgroups, K/V tiles
+//   in a 3-stage cp.async ring of 128-byte-swizzled panels, P from
+//   registers and V read untransposed (see "bf16 forward on wgmma"); the
+//   backward's dK/dV and dQ kernels on the same panels, ring and operand
+//   reads (see "bf16 backward on wgmma").
+// - bf16 at hd 32, 80, 96 and 112 runs on warp-level mma.sync m16n8k16,
+//   bf16 in and fp32 accumulate, for every product; 4 warps own a 64-row
+//   tile, 16 rows each; see "bf16 on tensor cores".
 // - fp32 runs on the CUDA cores (fp32 FMAs, so that fp32 results hold to
 //   1e-4): 256 threads as 16 x 16, a thread owning 4 consecutive rows and
 //   the columns tx, tx + 16, ... of a tile; every product is "NT" (both
@@ -49,11 +50,11 @@
 // over the group stays in the block; the dQ kernel takes one block per
 // (q tile, q head, b). No atomics: every gradient is summed in one fixed
 // order, so a train step is bit-identical from run to run.
-// Known limits: the backward's mma.sync reaches a fraction of the card's
-// bf16 rate and loads its tiles synchronously; the wgmma forward copies
-// with cp.async from its compute warps (no TMA producer warp, no register
-// split between producer and consumers) and waits for each product before
-// the softmax, overlapping them only across warpgroups.
+// Known limits: the wgmma kernels copy with cp.async from their compute
+// warps (no TMA producer warp, no register split between producer and
+// consumers) and wait for each product before the elementwise work on its
+// result, overlapping the two only across warpgroups; the mma.sync route
+// loads its tiles synchronously.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -292,26 +293,38 @@ flash_fwd_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------ backward --
-// delta[b, h, r] = sum_d dout[b, r, h, d] * out[b, r, h, d]: one warp a row.
+// delta[b, h, r] = sum_d dout[b, r, h, d] * out[b, r, h, d]: 8 threads a
+// row with 16-byte loads (rows are 16-byte aligned), 4 rows a warp; bytes-
+// bound, so what counts is that every load is a whole 16 bytes.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const Params p) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) +
-                        threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (long long)p.B * p.Hq * p.T) return;
-  const int r = row % p.T;
-  const int h = (row / p.T) % p.Hq;
-  const int b = row / ((long long)p.T * p.Hq);
+  constexpr int kVec = 16 / sizeof(T);     // elements a 16-byte load
+  const long long row =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) / 8;
+  const int lane = threadIdx.x % 8;
+  const bool live = row < (long long)p.B * p.Hq * p.T;
+  const int r = live ? row % p.T : 0;
+  const int h = live ? (row / p.T) % p.Hq : 0;
+  const int b = live ? row / ((long long)p.T * p.Hq) : 0;
   const T* o = static_cast<const T*>(p.o) + b * p.so.b + r * p.so.s + h * p.so.h;
   const T* d = static_cast<const T*>(p.dout) + b * p.sdo.b + r * p.sdo.s +
                h * p.sdo.h;
   float acc = 0.f;
 #pragma unroll
-  for (int e = lane; e < HD; e += 32) acc = fmaf(to_float(o[e]), to_float(d[e]), acc);
+  for (int e = lane * kVec; e < HD; e += 8 * kVec) {
+    if (!live) break;
+    const uint4 uo = *reinterpret_cast<const uint4*>(o + e);
+    const uint4 ud = *reinterpret_cast<const uint4*>(d + e);
+    const T* xo = reinterpret_cast<const T*>(&uo);
+    const T* xd = reinterpret_cast<const T*>(&ud);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) p.delta[row] = acc;
+    for (int i = 0; i < kVec; ++i)
+      acc = fmaf(to_float(xo[i]), to_float(xd[i]), acc);
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
+  if (live && lane == 0) p.delta[row] = acc;
 }
 
 // Loads the (b, h) query tile at q0 for the backward: q (pre-scaled), dout,
@@ -1011,6 +1024,53 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The A fragments (m16n8k16 layout of each warp's 16 rows) of the four
+// 16-column k-steps of a 64 x 64 accumulator, rounded to bf16:
+// s[4 j + 2 hf + e] is row 8 hf + g, column 8 j + 2 t + e of the warp's rows.
+__device__ __forceinline__ void acc_to_frags(uint32_t (&a)[4][4],
+                                             const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// The head of each step of a cp.async ring: this thread's copies of the
+// oldest stage in flight are done; make them visible to wgmma (the async
+// proxy), then to every thread, which also frees the stage read last step.
+__device__ __forceinline__ void ring_wait() {
+  cp_async_wait<kWgStages - 2>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Writes a warpgroup's accumulators, kP panels of 64 x 64 (rows r0 and
+// r0 + 8 of this thread, the row at r0 + 8 hf times mult[hf]), as bf16 pairs
+// into rows of stride ld at dst; rows at or past L are not written.
+template <int kP>
+__device__ __forceinline__ void store_wg_acc(bf16* dst, long long ld, int r0,
+                                             int L, const float (&acc)[kP][32],
+                                             const float (&mult)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + 8 * hf;
+    if (r < L) {
+#pragma unroll
+      for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + (long long)r * ld + 64 * pn +
+                                       8 * j + 2 * t) =
+              pack_bf16(acc[pn][4 * j + 2 * hf] * mult[hf],
+                        acc[pn][4 * j + 2 * hf + 1] * mult[hf]);
+    }
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, HD == 64 ? 2 : 1)
 flash_fwd_wgmma_kernel(const Params p) {
@@ -1064,11 +1124,7 @@ flash_fwd_wgmma_kernel(const Params p) {
   const float sl2 = p.scale * kLog2e;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<kWgStages - 2>();
-    // this thread's copies of tile kt are done: make them visible to wgmma
-    // (the async proxy), then to every thread
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
+    ring_wait();
     const int nx = kt + kWgStages - 1;     // into the stage read at kt - 1
     if (nx < n_kt) {
       const uint32_t st = kv_sm + (nx % kWgStages) * L::kStageBytes;
@@ -1141,13 +1197,7 @@ flash_fwd_wgmma_kernel(const Params p) {
         o[pn][4 * j + 3] *= corr[1];
       }
     uint32_t a[4][4];                      // P as the A fragments of 16 keys
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    acc_to_frags(a, s);
 #pragma unroll
     for (int pn = 0; pn < kP; ++pn) fence_acc(o[pn]);
     wgmma_fence();
@@ -1165,7 +1215,7 @@ flash_fwd_wgmma_kernel(const Params p) {
   }
   cp_async_wait<0>();
 
-  bf16* dst = static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h;
+  float inv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float lsum = l[hf];
@@ -1173,21 +1223,362 @@ flash_fwd_wgmma_kernel(const Params p) {
     lsum += __shfl_xor_sync(kFull, lsum, 2);
     lsum = fmaxf(lsum, 1e-30f);
     const int r = r0 + 8 * hf;
-    if (r < p.T) {
-      if (t == 0)
-        p.lse[((long long)b * p.Hq + h) * p.T + r] =
-            (m[hf] + log2f(lsum)) * kLn2;
-      const float inv = 1.f / lsum;
+    if (t == 0 && r < p.T)
+      p.lse[((long long)b * p.Hq + h) * p.T + r] =
+          (m[hf] + log2f(lsum)) * kLn2;
+    inv[hf] = 1.f / lsum;
+  }
+  store_wg_acc<kP>(static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h,
+                   p.so.s, r0, p.T, o, inv);
+}
+
+// ------------------------------------------ bf16 backward on wgmma --
+// The bf16 backward for hd 64 and 128 (bwd_on_wgmma), on the forward's
+// machinery: 128-byte-swizzled panels loaded with cp.async into a ring of
+// kWgStages stages, wgmma with both operands from shared memory K-major, and
+// with A from registers (an accumulator rounded to bf16, acc_to_frags) and
+// B read MN-major, so that no operand is ever copied transposed.
+//
+// dK/dV: one block per (128 keys, KV head, b), two warpgroups of 64 keys
+// each (dK and dV of a warpgroup are 2 x 64 x hd fp32 accumulators: 64
+// registers a thread at hd 64, 128 at hd 128). 128 keys rather than 64:
+// the two warpgroups share each Q and dO tile the ring brings, which halves
+// those loads, and still give 384 blocks at the training shape. The key
+// blocks with the most query tiles under the causal mask are issued first.
+// K and V stay in shared memory; the block walks the g query heads of its
+// group and, for each, the 64-row query tiles from the diagonal on,
+// streaming Q, dO and their rows of lse and delta through the ring. Per
+// query tile and warpgroup:
+// - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, A = K or V and B = Q or
+//   dO, all K-major (rows along hd);
+// - P^T = 2^(scale log2(e) S^T - log2(e) lse) with the mask only on tiles
+//   that cross the diagonal or the end of T or S, dS^T = P^T (dP^T - delta),
+//   fp32 in registers;
+// - dV += P^T dO and dK += dS^T Q: A = P^T or dS^T from registers, B = dO or
+//   Q read MN-major (the transpose bit, as the forward reads V), one product
+//   per 16 queries and 64-column panel.
+// dQ: one block per (128 query rows, q head, b), two warpgroups of 64 rows,
+// heavy tiles first as in the forward. Q and dO stay in shared memory, K
+// and V tiles of 64 keys stream through the ring: S = Q K^T and dP = dO V^T
+// K-major, dS = P (dP - delta) in registers as the A operand of dQ += dS K,
+// with K read MN-major. At hd 64 two blocks share an SM (registers capped
+// at 128, a 16-byte spill), as in the forward: 10% off the whole backward
+// against one block an SM at the training shape on an H100.
+// Deterministic by design: FlashAttention-2 and -3 add dQ with atomics from
+// the dK/dV loop; here a separate dQ kernel recomputes S and dP, so every
+// gradient is summed in one fixed order and a train step is bit-identical
+// from run to run. That is 7 products of 64 x 64 x hd a tile pair where the
+// bound (2.5 x the forward) counts 5: at most 5/7 of the bound's rate.
+constexpr int kBwdKeys = 2 * kWgRows;   // keys a dK/dV block
+constexpr int kBwdRows = 64;            // query rows a stage of its ring
+
+// The bf16 backward's route by head dim, fixed: wgmma at hd 64 and 128,
+// mma.sync (flash_dkdv_tc_kernel, flash_dq_tc_kernel) otherwise.
+__host__ __device__ constexpr bool bwd_on_wgmma(int hd) { return hd % 64 == 0; }
+
+template <int HD> struct BwdLayout {
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kKPanel = kBwdKeys * 128;      // a K/V panel, 128 keys
+  static constexpr int kKBytes = kPanels * kKPanel;
+  static constexpr int kRowPanel = kBwdRows * 128;    // a Q/dO panel, 64 rows
+  static constexpr int kRowBytes = kPanels * kRowPanel;
+  // Q, dO, then lse and delta (2 x 64 floats), padded so that every stage's
+  // panels stay 1024-byte aligned
+  static constexpr int kStageBytes = 2 * kRowBytes + 1024;
+  static constexpr int kSmem = 2 * kKBytes + kWgStages * kStageBytes + 1024;
+  // dQ: Q and dO of 128 rows resident, the forward's K/V stages
+  static constexpr int kDqSmem = 2 * WgLayout<HD>::kQBytes +
+                                 kWgStages * WgLayout<HD>::kStageBytes + 1024;
+};
+
+// Rows [row0, row0 + 64) of the (b, h) rows of lse and of delta into shared
+// memory at dst (lse) and dst + 256 (delta), with 4-byte copies (a row of T
+// floats need not be 16-byte aligned); rows at or past T are zero-filled.
+__device__ __forceinline__ void load_row_stats(uint32_t dst, const Params& p,
+                                               int b, int h, int row0) {
+  const int i = threadIdx.x;
+  if (i < 2 * kBwdRows) {
+    const int r = row0 + i % kBwdRows;
+    const float* src = (i < kBwdRows ? p.lse : p.delta) +
+                       ((long long)b * p.Hq + h) * p.T;
+    const bool in = r < p.T;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst + 4 * i), "l"(in ? src + r : src),
+                    "r"(in ? 4 : 0) : "memory");
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkdv_wgmma_kernel(const Params p) {
+  using L = BwdLayout<HD>;
+  constexpr int kP = L::kPanels;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t k_sm = (raw + 1023) & ~1023u;
+  const uint32_t v_sm = k_sm + L::kKBytes;
+  const uint32_t ring = v_sm + L::kKBytes;
+
+  const int hb = p.Hkv * p.B;
+  const int k0 = static_cast<int>(blockIdx.x) / hb * kBwdKeys;
+  const int hk = blockIdx.x % p.Hkv, b = (blockIdx.x % hb) / p.Hkv;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int key_wg = k0 + kWgRows * wg;   // the warpgroup's first key
+  const int c0 = key_wg + 16 * w + g;     // this thread's keys: c0, c0 + 8
+
+  // the (head, query tile) steps: for each head of the group, the query
+  // tiles from the first that sees key k0 (causal) to the end of T
+  const int n_qt = (p.T + kBwdRows - 1) / kBwdRows;
+  const int qt0 = p.causal ? min(k0 / kBwdRows, n_qt) : 0;
+  const int n_q = n_qt - qt0, n_it = p.g * n_q;
+  const bf16* qg = static_cast<const bf16*>(p.q);
+  const bf16* dog = static_cast<const bf16*>(p.dout);
+  auto load_stage = [&](int it) {
+    const uint32_t st = ring + (it % kWgStages) * L::kStageBytes;
+    const int h = hk * p.g + it / n_q, q0 = (qt0 + it % n_q) * kBwdRows;
+    load_panels<HD, kBwdRows>(st, qg, p.sq, b, h, q0, p.T);
+    load_panels<HD, kBwdRows>(st + L::kRowBytes, dog, p.sdo, b, h, q0, p.T);
+    load_row_stats(st + 2 * L::kRowBytes, p, b, h, q0);
+  };
+
+  load_panels<HD, kBwdKeys>(k_sm, static_cast<const bf16*>(p.k), p.sk, b, hk,
+                            k0, p.S);
+  load_panels<HD, kBwdKeys>(v_sm, static_cast<const bf16*>(p.v), p.sv, b, hk,
+                            k0, p.S);
 #pragma unroll
-      for (int pn = 0; pn < kP; ++pn)
+  for (int i = 0; i < kWgStages - 1; ++i) {   // K and V go with stage 0
+    if (i < n_it) load_stage(i);
+    cp_async_commit();
+  }
+
+  float dk[kP][32], dv[kP][32], s[32], dp[32];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<uint32_t*>(dst + (long long)r * p.so.s + 64 * pn +
-                                       8 * j + 2 * t) =
-              pack_bf16(o[pn][4 * j + 2 * hf] * inv,
-                        o[pn][4 * j + 2 * hf + 1] * inv);
+  for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[pn][i] = dv[pn][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  const uint64_t dkd = sw128_desc(k_sm + wg * kWgRows * 128);
+  const uint64_t dvd = sw128_desc(v_sm + wg * kWgRows * 128);
+  const float sl2 = p.scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    ring_wait();
+    if (it + kWgStages - 1 < n_it) load_stage(it + kWgStages - 1);
+    cp_async_commit();
+    const int q0 = (qt0 + it % n_q) * kBwdRows;
+    // uniform over the warpgroup: keys past S, or every query before them
+    if (key_wg >= p.S || (p.causal && q0 + kBwdRows <= key_wg)) continue;
+
+    const uint32_t st = ring + (it % kWgStages) * L::kStageBytes;
+    const uint64_t dqd = sw128_desc(st), dod = sw128_desc(st + L::kRowBytes);
+    const float* lse_s = reinterpret_cast<const float*>(
+        wg_smem + (st + 2 * L::kRowBytes - raw));
+    const float* delta_s = lse_s + kBwdRows;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(s, dkd + (((kk >> 2) * L::kKPanel + (kk & 3) * 32) >> 4),
+               dqd + (((kk >> 2) * L::kRowPanel + (kk & 3) * 32) >> 4),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dp, dvd + (((kk >> 2) * L::kKPanel + (kk & 3) * 32) >> 4),
+               dod + (((kk >> 2) * L::kRowPanel + (kk & 3) * 32) >> 4),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // s[4 j + 2 hf + e]: key c0 + 8 hf, query q0 + 8 j + 2 t + e
+    if (!(q0 + kBwdRows <= p.T && key_wg + kWgRows <= p.S &&
+          (!p.causal || q0 >= key_wg + kWgRows - 1))) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!visible(p, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                     c0 + 8 * ((i >> 1) & 1)))
+          s[i] = kMinusInf;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 4 * j + 2 * hf;
+        const float p0 = ex2(fmaf(s[i], sl2, -ls.x * kLog2e));
+        const float p1 = ex2(fmaf(s[i + 1], sl2, -ls.y * kLog2e));
+        s[i] = p0;
+        s[i + 1] = p1;
+        dp[i] = p0 * (dp[i] - dl.x);
+        dp[i + 1] = p1 * (dp[i + 1] - dl.y);
+      }
+    }
+    uint32_t ap[4][4], ads[4][4];        // P^T and dS^T, 16 queries a step
+    acc_to_frags(ap, s);
+    acc_to_frags(ads, dp);
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) {
+      fence_acc(dv[pn]);
+      fence_acc(dk[pn]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < kP; ++pn) {
+        const int off = (pn * L::kRowPanel + kk * 16 * 128) >> 4;
+        wgmma_rs(dv[pn], ap[kk], dod + off);
+        wgmma_rs(dk[pn], ads[kk], dqd + off);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) {
+      fence_acc(dv[pn]);
+      fence_acc(dk[pn]);
     }
   }
+  cp_async_wait<0>();
+
+  const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
+  store_wg_acc<kP>(static_cast<bf16*>(p.dk) + b * p.sdk.b + hk * p.sdk.h,
+                   p.sdk.s, c0, p.S, dk, scale);
+  store_wg_acc<kP>(static_cast<bf16*>(p.dv) + b * p.sdv.b + hk * p.sdv.h,
+                   p.sdv.s, c0, p.S, dv, one);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, HD == 64 ? 2 : 1)
+flash_dq_wgmma_kernel(const Params p) {
+  using L = WgLayout<HD>;
+  constexpr int kP = L::kPanels;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
+  const uint32_t q_sm = (raw + 1023) & ~1023u;
+  const uint32_t do_sm = q_sm + L::kQBytes;
+  const uint32_t kv_sm = do_sm + L::kQBytes;
+
+  const int n_qt = (p.T + kQRows - 1) / kQRows, hb = p.Hq * p.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x % hb) / p.Hq;
+  const int q0 = qt * kQRows, hk = h / p.g;
+  const int wg = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int row_wg = q0 + kWgRows * wg;
+  const int r0 = row_wg + 16 * w + g;     // this thread's rows: r0, r0 + 8
+
+  const int n_all = (p.S + kKeys - 1) / kKeys;
+  const int n_kt = p.causal
+      ? min(n_all, min(q0 + kQRows - 1, p.T - 1) / kKeys + 1) : n_all;
+  const int n_wg = row_wg >= p.T ? 0 : p.causal
+      ? min(n_all, min(row_wg + kWgRows - 1, p.T - 1) / kKeys + 1) : n_all;
+
+  const bf16* kg = static_cast<const bf16*>(p.k);
+  const bf16* vg = static_cast<const bf16*>(p.v);
+  load_panels<HD, kQRows>(q_sm, static_cast<const bf16*>(p.q), p.sq, b, h,
+                          q0, p.T);
+  load_panels<HD, kQRows>(do_sm, static_cast<const bf16*>(p.dout), p.sdo, b,
+                          h, q0, p.T);
+#pragma unroll
+  for (int i = 0; i < kWgStages - 1; ++i) {
+    if (i < n_kt) {
+      const uint32_t st = kv_sm + i * L::kStageBytes;
+      load_panels<HD, kKeys>(st, kg, p.sk, b, hk, i * kKeys, p.S);
+      load_panels<HD, kKeys>(st + L::kTileBytes, vg, p.sv, b, hk, i * kKeys,
+                             p.S);
+    }
+    cp_async_commit();
+  }
+
+  // this thread's rows' lse (in log2 units) and delta; 0 past T
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + 8 * hf;
+    const long long at = ((long long)b * p.Hq + h) * p.T + r;
+    lse2[hf] = r < p.T ? p.lse[at] * kLog2e : 0.f;
+    dl[hf] = r < p.T ? p.delta[at] : 0.f;
+  }
+  float dq[kP][32], s[32], dp[32];
+#pragma unroll
+  for (int pn = 0; pn < kP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[pn][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  const uint64_t dqd = sw128_desc(q_sm + wg * kWgRows * 128);
+  const uint64_t dod = sw128_desc(do_sm + wg * kWgRows * 128);
+  const float sl2 = p.scale * kLog2e;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    ring_wait();
+    const int nx = kt + kWgStages - 1;
+    if (nx < n_kt) {
+      const uint32_t st = kv_sm + (nx % kWgStages) * L::kStageBytes;
+      load_panels<HD, kKeys>(st, kg, p.sk, b, hk, nx * kKeys, p.S);
+      load_panels<HD, kKeys>(st + L::kTileBytes, vg, p.sv, b, hk,
+                             nx * kKeys, p.S);
+    }
+    cp_async_commit();
+    if (kt >= n_wg) continue;              // uniform over the warpgroup
+
+    const uint32_t ks = kv_sm + (kt % kWgStages) * L::kStageBytes;
+    const uint64_t dkd = sw128_desc(ks), dvd = sw128_desc(ks + L::kTileBytes);
+    const int k0 = kt * kKeys;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(s, dqd + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
+               dkd + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dp, dod + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
+               dvd + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // s[4 j + 2 hf + e]: row r0 + 8 hf, key k0 + 8 j + 2 t + e
+    if (!(k0 + kKeys <= p.S && (!p.causal || k0 + kKeys - 1 <= row_wg))) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!visible(p, r0 + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t +
+                                                     (i & 1)))
+          s[i] = kMinusInf;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i >> 1) & 1;
+      s[i] = ex2(fmaf(s[i], sl2, -lse2[hf])) * (dp[i] - dl[hf]);   // dS
+    }
+    uint32_t a[4][4];
+    acc_to_frags(a, s);
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) fence_acc(dq[pn]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < kP; ++pn)
+        wgmma_rs(dq[pn], a[kk],
+                 dkd + ((pn * L::kKVPanel + kk * 16 * 128) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < kP; ++pn) fence_acc(dq[pn]);
+  }
+  cp_async_wait<0>();
+
+  const float scale[2] = {p.scale, p.scale};
+  store_wg_acc<kP>(static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h,
+                   p.sdq.s, r0, p.T, dq, scale);
 }
 
 // --------------------------------------------------------------- launch --
@@ -1216,9 +1607,9 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   if (attr_q != cudaSuccess) return attr_q;
   cudaError_t err;
   const long long rows = (long long)p.B * p.Hq * p.T;
-  const int warps = kThreads / 32;
-  flash_delta_kernel<float, HD><<<(unsigned)((rows + warps - 1) / warps), kThreads,
-                              0, stream>>>(p);
+  const int per = kThreads / 8;           // rows a block of the pre-pass
+  flash_delta_kernel<float, HD><<<(unsigned)((rows + per - 1) / per),
+                                  kThreads, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_kv((p.S + kTile - 1) / kTile, p.Hkv, p.B);
   flash_dkdv_kernel<HD><<<grid_kv, kThreads, dkdv_smem<HD>(), stream>>>(p);
@@ -1265,8 +1656,8 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   if (attr_q != cudaSuccess) return attr_q;
   cudaError_t err;
   const long long rows = (long long)p.B * p.Hq * p.T;
-  const int warps = kThreads / 32;
-  flash_delta_kernel<bf16, HD><<<(unsigned)((rows + warps - 1) / warps),
+  const int per = kThreads / 8;           // rows a block of the pre-pass
+  flash_delta_kernel<bf16, HD><<<(unsigned)((rows + per - 1) / per),
                                  kThreads, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_kv((p.S + kTile - 1) / kTile, p.Hkv, p.B);
@@ -1278,14 +1669,50 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores: the forward on wgmma
-// or mma.sync by the fixed table fwd_on_wgmma, the backward on mma.sync.
+template <int HD>
+cudaError_t launch_bwd_wgmma(const Params& p, cudaStream_t stream) {
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      flash_dkdv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdLayout<HD>::kSmem);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      flash_dq_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BwdLayout<HD>::kDqSmem);
+  if (attr_kv != cudaSuccess) return attr_kv;
+  if (attr_q != cudaSuccess) return attr_q;
+  const long long blocks_kv =
+      (long long)((p.S + kBwdKeys - 1) / kBwdKeys) * p.Hkv * p.B;
+  const long long blocks_q =
+      (long long)((p.T + kQRows - 1) / kQRows) * p.Hq * p.B;
+  if (blocks_kv > 0x7fffffffLL || blocks_q > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  const long long rows = (long long)p.B * p.Hq * p.T;
+  const int per = kThreads / 8;           // rows a block of the pre-pass
+  flash_delta_kernel<bf16, HD><<<(unsigned)((rows + per - 1) / per),
+                                 kThreads, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_dkdv_wgmma_kernel<HD><<<(unsigned)blocks_kv, kWgThreads,
+                                BwdLayout<HD>::kSmem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_dq_wgmma_kernel<HD><<<(unsigned)blocks_q, kWgThreads,
+                              BwdLayout<HD>::kDqSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// fp32 on the CUDA cores, bf16 on the tensor cores: the forward and the
+// backward each on wgmma or mma.sync by their fixed tables fwd_on_wgmma and
+// bwd_on_wgmma.
 template <int HD>
 cudaError_t launch(bool backward, bool bf16_in, const Params& p,
                    cudaStream_t stream) {
   if (!bf16_in)
     return backward ? launch_bwd<HD>(p, stream) : launch_fwd<HD>(p, stream);
-  if (backward) return launch_bwd_tc<HD>(p, stream);
+  if (backward) {
+    if constexpr (bwd_on_wgmma(HD))
+      return launch_bwd_wgmma<HD>(p, stream);
+    else
+      return launch_bwd_tc<HD>(p, stream);
+  }
   if constexpr (fwd_on_wgmma(HD))
     return launch_fwd_wgmma<HD>(p, stream);
   else
@@ -1339,6 +1766,21 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int repro_flash_fwd_route(int hd, int dtype) {
   if (dtype != 1) return 0;
   return fwd_on_wgmma(hd) ? 2 : 1;
+}
+
+// The backward's route, as launch picks it: the same codes.
+extern "C" int repro_flash_bwd_route(int hd, int dtype) {
+  if (dtype != 1) return 0;
+  return bwd_on_wgmma(hd) ? 2 : 1;
+}
+
+// Dynamic shared memory (bytes) of the wgmma backward's kernels at hd 64
+// or 128: part 0 the dK/dV kernel, 1 the dQ kernel; -1 at other head dims.
+extern "C" int repro_flash_bwd_smem(int hd, int part) {
+  if (hd == 64) return part ? BwdLayout<64>::kDqSmem : BwdLayout<64>::kSmem;
+  if (hd == 128)
+    return part ? BwdLayout<128>::kDqSmem : BwdLayout<128>::kSmem;
+  return -1;
 }
 
 // strides: (batch, sequence, head) of q, k, v, out, dout, dq, dk, dv.

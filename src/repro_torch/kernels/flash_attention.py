@@ -4,9 +4,9 @@
 
 q: (B, T, Hq, hd); k/v: (B, S, Hkv, hd); causal (``qpos >= kpos`` aligned
 at 0) or full; GQA with kv head ``h // (Hq // Hkv)``. bf16 runs on the
-tensor cores: the forward on ``wgmma`` at hd 64 and 128 and on ``mma.sync``
-at the other head dims (``fwd_route``), the backward on ``mma.sync``; fp32
-runs on the CUDA cores. The kernels read and write every tensor through
+tensor cores: the forward and the backward on ``wgmma`` at hd 64 and 128
+and on ``mma.sync`` at the other head dims (``fwd_route``, ``bwd_route``);
+fp32 runs on the CUDA cores. The kernels read and write every tensor through
 its strides, so q, k, v and dO need no transposed copy. ``FlashAttention`` is the ``torch.autograd.Function``
 that the model differentiates: its forward saves q, k, v, O and the
 per-row log-sum-exp, its backward launches the delta pre-pass, the dK/dV
@@ -25,7 +25,7 @@ from . import build
 KERNEL = "flash_attention"
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_ROUTES = ("cuda cores", "mma.sync", "wgmma")   # repro_flash_fwd_route
+ROUTES = ("cuda cores", "mma.sync", "wgmma")   # repro_flash_{fwd,bwd}_route
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -40,11 +40,26 @@ def fwd_route(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if hd % 64 == 0 else "mma.sync"
 
 
-def library_fwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The route the built library reports for (dtype, hd); builds it."""
-    fn = build.load(KERNEL).repro_flash_fwd_route
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels a call takes (``repro_flash_bwd_route``): the
+    same table as the forward's; the delta pre-pass runs on every route."""
+    return fwd_route(dtype, hd)
+
+
+def _library_route(name: str, dtype: torch.dtype, hd: int) -> str:
+    fn = getattr(build.load(KERNEL), name)
     fn.argtypes, fn.restype = [_I, _I], _I
-    return FWD_ROUTES[fn(hd, _DTYPES[dtype])]
+    return ROUTES[fn(hd, _DTYPES[dtype])]
+
+
+def library_fwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The forward route the built library reports for (dtype, hd)."""
+    return _library_route("repro_flash_fwd_route", dtype, hd)
+
+
+def library_bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward route the built library reports for (dtype, hd)."""
+    return _library_route("repro_flash_bwd_route", dtype, hd)
 
 
 def _functions():

@@ -147,9 +147,28 @@ def ssd_scan_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
     L = torch.exp(torch.where(causal, seg, -torch.inf))       # (B,nc,H,Q,Q)
     y_intra = torch.einsum("bcqk,bchqk,bckhp->bcqhp", CB, L, ur)
 
-    # chunk summaries and the sequential inter-chunk recurrence
+    h_in, h = ssd_chunk_states(u, loga, Bm, chunk=chunk, h0=h0)
+    y_inter = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cr, h_in,
+                           torch.exp(cum))
+    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
+    return y.to(u.dtype), h
+
+
+def ssd_chunk_states(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+                     *, chunk: int, h0: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk summaries B^T (u * decay to the chunk's end) and the
+    sequential recurrence over chunks from h0, as ``ssd_scan_ref`` runs
+    them (the kernel's passes 2 and 3): (the state entering each chunk
+    (B, nc, H, N, P), the final state (B, H, N, P)), fp32."""
+    Bsz, T, H, P = u.shape
+    N = Bm.shape[-1]
+    nc, Q = T // chunk, chunk
+    ur = u.float().reshape(Bsz, nc, Q, H, P)
+    cum = torch.cumsum(loga.float().reshape(Bsz, nc, Q, H), dim=2)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
-    S = torch.einsum("bckn,bckh,bckhp->bchnp", Br, decay_to_end, ur)
+    S = torch.einsum("bckn,bckh,bckhp->bchnp",
+                     Bm.float().reshape(Bsz, nc, Q, N), decay_to_end, ur)
     chunk_decay = torch.exp(cum[:, :, -1, :])                  # (B,nc,H)
     h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=u.device) \
         if h0 is None else h0.float()
@@ -157,7 +176,4 @@ def ssd_scan_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
     for c in range(nc):
         h_in.append(h)                       # the state entering chunk c
         h = h * chunk_decay[:, c, :, None, None] + S[:, c]
-    y_inter = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cr,
-                           torch.stack(h_in, dim=1), torch.exp(cum))
-    y = (y_intra + y_inter).reshape(Bsz, T, H, P)
-    return y.to(u.dtype), h
+    return torch.stack(h_in, dim=1), h

@@ -6,14 +6,20 @@ reference's ``ssd_chunked`` takes).
 u: (B, T, H, P); loga: (B, T, H); Bm/Cm: (B, T, N) shared by the heads;
 h0: (B, H, N, P) or None; all fp32 and contiguous, ``T % chunk == 0``,
 ``chunk <= 256``, ``N <= 128``, P a multiple of 16. Returns y (B, T, H, P)
-and the final state (B, H, N, P), both fp32. The kernel has no backward:
-``SSDScan`` raises in it rather than let autograd drop the scan's gradient.
-The plain version is ``repro_torch.kernels.ref.ssd_scan_ref``;
-``ops.ssd_scan`` picks between the two by the device of the tensors.
+and the final state (B, H, N, P), both fp32. A call launches the four
+passes of ``ssd_plan`` (C B^T once per chunk, chunk summaries, state
+passing, chunk output) on the current stream, counted as one launch, over a
+workspace this module owns (one per device and size, never freed, so a
+captured CUDA graph keeps valid pointers; calls share it, so they run on one
+stream at a time). The kernel has no backward: ``SSDScan`` raises in it
+rather than let autograd drop the scan's gradient. The plain version is
+``repro_torch.kernels.ref.ssd_scan_ref``; ``ops.ssd_scan`` picks between
+the two by the device of the tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,12 +30,50 @@ MAX_CHUNK = 256                    # kMaxChunk in the source
 MAX_STATE = 128                    # the largest N the source instantiates
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_WORKSPACE: dict[tuple, torch.Tensor] = {}
+
+
+def ssd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
+    """The passes of one call, as ``launch`` in the source runs them: each
+    pass's grid (x, y, z) and the workspace's parts with their shapes
+    (fp32, laid out one after another in this order).
+
+    - ``cb``: one block per 64 x 64 tile of a chunk's (256, 256) C B^T
+      panel and per (chunk, b) at (x, y) = (tile, b * chunks + chunk);
+    - ``summaries`` and ``output``: one block per (P slice, head, chunk and
+      b) at (x, y, z) = (P slice, head, b * chunks + chunk), the P slice 64
+      columns where P allows, else 32 or 16;
+    - ``states``: one thread per (n, p) of each (head, b), 256 a block.
+    The workspace holds C B^T transposed (``cbt``), C^T (``ct``, N rounded
+    up to 32, 64 or 128 rows), the chunk summaries that pass 3 turns into
+    the state entering each chunk (``states``) and the chunk decays."""
+    nc = T // Q
+    n_pad = 32 if N <= 32 else 64 if N <= 64 else MAX_STATE
+    ps = 64 if P % 64 == 0 else 32 if P % 32 == 0 else 16
+    tiles = (MAX_CHUNK // 64) ** 2
+    return {"chunks": nc, "p_slice": ps, "state_rows": n_pad,
+            "grids": {"cb": (tiles, B * nc, 1),
+                      "summaries": (P // ps, H, B * nc),
+                      "states": (-(-N * P // 256), H, B),
+                      "output": (P // ps, H, B * nc)},
+            "workspace": {"cbt": (B, nc, MAX_CHUNK, MAX_CHUNK),
+                          "ct": (B, nc, n_pad, MAX_CHUNK),
+                          "states": (B, nc, H, N, P),
+                          "decay": (B, nc, H)}}
+
+
+def _workspace(device: torch.device, plan: dict) -> torch.Tensor:
+    n = sum(math.prod(shape) for shape in plan["workspace"].values())
+    key = (device, n)
+    if key not in _WORKSPACE:
+        _WORKSPACE[key] = torch.empty(n, dtype=torch.float32, device=device)
+    return _WORKSPACE[key]
 
 
 def _function():
     fn = build.load(KERNEL).repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
         fn.restype = _I
     return fn
 
@@ -66,8 +110,9 @@ def _check(u, loga, Bm, Cm, h0, chunk: int) -> None:
     if not 0 < N <= MAX_STATE or P <= 0 or P % 16:
         raise ValueError(f"N {N} or P {P}: want N <= {MAX_STATE} and P a "
                          "multiple of 16")
-    if not (0 < B <= 65535 and 0 < H <= 65535):
-        raise ValueError(f"batch {B} or heads {H} out of range")
+    if not (0 < B and 0 < H <= 65535 and B * (T // chunk) <= 65535):
+        raise ValueError(f"batch {B}, heads {H} or chunks {T // chunk} out "
+                         "of range")
 
 
 def ssd_scan_fwd(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
@@ -82,12 +127,14 @@ def ssd_scan_fwd(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
     N = Bm.shape[-1]
     y = torch.empty_like(u)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=u.device)
+    ws = _workspace(u.device, ssd_plan(B, T, H, P, N, chunk))
     fn = _function()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), B, T, H, P, N, chunk, stream)
+                 state.data_ptr(), ws.data_ptr(), B, T, H, P, N, chunk,
+                 stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan_fwd.launches += 1

@@ -275,3 +275,72 @@ def test_wgmma_forward_out_and_lse_on_card(cuda, B, T, S, Hq, Hkv, hd,
     for _ in range(2):
         again, again_lse = fk.flash_attention_fwd(q, k, v, causal)
         assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_backward_route_table(hd):
+    """The fixed route table of the backward: bf16 on wgmma at hd 64 and
+    128, on mma.sync at 32, 80, 96 and 112; fp32 on the CUDA cores."""
+    want = "wgmma" if hd in (64, 128) else "mma.sync"
+    assert fk.bwd_route(torch.bfloat16, hd) == want
+    assert fk.bwd_route(torch.float32, hd) == "cuda cores"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
+def test_library_backward_route_table_matches(cuda, hd):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fk.library_bwd_route(dtype, hd) == fk.bwd_route(dtype, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,causal", [
+    (2, 256, 256, 8, 8, 64, True), (2, 256, 256, 9, 3, 64, True),
+    (1, 384, 384, 16, 2, 64, True), (2, 256, 256, 4, 4, 128, True),
+    (1, 320, 320, 6, 2, 128, True), (1, 256, 256, 16, 2, 128, True),
+    (2, 1000, 1000, 9, 3, 64, True), (2, 333, 333, 8, 1, 128, True),
+    (3, 1, 1, 4, 2, 64, True), (2, 1, 1, 8, 1, 128, True),
+    (2, 77, 200, 8, 2, 128, False), (2, 300, 130, 6, 3, 64, False),
+    (1, 130, 300, 4, 4, 128, True)])
+def test_wgmma_backward_matches_autograd_on_card(cuda, B, T, S, Hq, Hkv, hd,
+                                                 causal):
+    """The bf16 backward at hd 64 and 128 (the wgmma route) against
+    autograd through the plain version: GQA groups 1, 3 and 8, ragged T,
+    T = 1, full attention with T != S; two more backwards bit-identical."""
+    assert fk.bwd_route(torch.bfloat16, hd) == "wgmma"
+    q, k, v, dout = (to_torch(a, "bfloat16", cuda) for a in
+                     make_inputs(B, T, S, Hq, Hkv, hd, seed=T + S + Hq))
+    out, lse = fk.flash_attention_fwd(q, k, v, causal)
+    got = fk.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref.flash_attention_ref(*leaves, causal=causal).backward(dout)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, leaves):
+        np.testing.assert_allclose(g.float().cpu(), w.grad.float().cpu(),
+                                   err_msg=name, **CARD_TOL["bfloat16"])
+    for _ in range(2):
+        again = fk.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_backward_reads_strided_inputs_and_gradient(cuda, hd):
+    """q, k, v as slices of one fused projection and a dO transposed in
+    memory, through the wgmma backward, against the plain version on
+    contiguous copies."""
+    B, T, Hq, Hkv = 2, 200, 8, 2
+    rng = np.random.default_rng(hd)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, T, Hq + 2 * Hkv, hd), np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    dout = torch.from_numpy(rng.standard_normal((B, Hq, T, hd), np.float32)
+                            ).to(cuda, torch.bfloat16).transpose(1, 2)
+    out, lse = fk.flash_attention_fwd(q, k, v, True)
+    got = fk.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    leaves = [t.contiguous().requires_grad_(True) for t in (q, k, v)]
+    ref.flash_attention_ref(*leaves, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, leaves):
+        np.testing.assert_allclose(g.float().cpu(), w.grad.float().cpu(),
+                                   **CARD_TOL["bfloat16"])

@@ -290,6 +290,93 @@ def test_weight_bridges_raise_on_wrong_paths(request, bridge, pair):
         dense_params_from_flat(flat, model.cfg, "cpu")
 
 
+# (B, T, H, P, N, Q): the served prefill shapes of mamba2-1.3b and
+# zamba2-2.7b, a single chunk of 37 tokens, an initial state over 3 chunks,
+# the sweep and an N that is no power of two
+PLAN_CASES = [(1, 2048, 64, 64, 128, 256), (1, 2048, 80, 64, 64, 256),
+              (8, 37, 64, 64, 128, 37), (2, 768, 64, 64, 128, 256), *SWEEP,
+              (1, 96, 2, 16, 100, 32)]
+
+
+@pytest.mark.parametrize("B,T,H,P,N,Q", PLAN_CASES)
+def test_ssd_plan_covers_every_chunk_head_and_slice_once(B, T, H, P, N, Q):
+    """Passes 2 and 4 take every (chunk, head, b, P slice) exactly once;
+    pass 1 every 64 x 64 tile of each (chunk, b) panel; pass 3 every (n, p)
+    of each (head, b)."""
+    plan = sk.ssd_plan(B, T, H, P, N, Q)
+    nc, ps = plan["chunks"], plan["p_slice"]
+    assert nc == T // Q and ps in (16, 32, 64) and P % ps == 0
+    want = {(c, h, b, j) for c in range(nc) for h in range(H)
+            for b in range(B) for j in range(P // ps)}
+    for name in ("summaries", "output"):
+        x, y, z = plan["grids"][name]
+        # block (x, y, z) is (P slice, head, b * chunks + chunk)
+        seen = [(k % nc, j, k // nc, i) for i in range(x)
+                for j in range(y) for k in range(z)]
+        assert len(seen) == len(want) and set(seen) == want
+    assert plan["grids"]["cb"] == ((sk.MAX_CHUNK // 64) ** 2, B * nc, 1)
+    x, y, z = plan["grids"]["states"]
+    assert (x - 1) * 256 < N * P <= x * 256 and (y, z) == (H, B)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,Q", PLAN_CASES)
+def test_ssd_plan_workspace_shapes(B, T, H, P, N, Q):
+    """C B^T as a (256, 256) panel a chunk, C^T with N rounded up to 32, 64
+    or 128 rows, the chunk states (B, nc, H, N, P) and decays (B, nc, H);
+    each part a whole number of 16-byte vectors, so the next starts
+    aligned."""
+    plan = sk.ssd_plan(B, T, H, P, N, Q)
+    nc, rows = T // Q, plan["state_rows"]
+    assert rows in (32, 64, 128) and N <= rows and (rows == 32 or N > rows // 2)
+    assert plan["workspace"] == {"cbt": (B, nc, 256, 256),
+                                 "ct": (B, nc, rows, 256),
+                                 "states": (B, nc, H, N, P),
+                                 "decay": (B, nc, H)}
+    for name in ("cbt", "ct", "states"):
+        assert np.prod(plan["workspace"][name]) % 4 == 0
+
+
+@pytest.mark.parametrize("T,Q,chunks,blocks", [(2048, 256, 8, 512),
+                                               (37, 37, 1, 64),
+                                               (256, 256, 1, 64),
+                                               (512, 64, 8, 512)])
+def test_ssd_plan_single_and_multi_chunk(T, Q, chunks, blocks):
+    """At mamba2's widths (H 64, P 64, N 128, B 1): a prompt under one
+    chunk is one chunk of its own length; 8 chunks give 512 blocks to
+    passes 2 and 4 where the single-pass kernel had 128; C B^T takes 2 MiB
+    and the chunk states 16 MiB at T 2048."""
+    plan = sk.ssd_plan(1, T, 64, 64, 128, Q)
+    assert plan["chunks"] == chunks and plan["p_slice"] == 64
+    for name in ("summaries", "output"):
+        assert np.prod(plan["grids"][name]) == blocks
+    nbytes = {k: 4 * int(np.prod(v)) for k, v in plan["workspace"].items()}
+    assert nbytes["cbt"] == chunks * 2 ** 18
+    assert nbytes["states"] == chunks * 2 ** 21
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("B,T,H,P,N,Q", SWEEP)
+def test_plain_chunk_states_match_the_sequential_recurrence(B, T, H, P, N,
+                                                            Q, h0):
+    """The state entering each chunk (what pass 3 writes) from the plain
+    version, against the sequential recurrence run over the tokens before
+    the chunk, from the same h0; the last against its final state."""
+    arrays = make_inputs(B, T, H, P, N, seed=T + N + int(h0), h0=h0)
+    u, loga, Bm, Cm = map(t, arrays[:4])
+    init = t(arrays[4]) if h0 else None
+    h_in, final = ref.ssd_chunk_states(u, loga, Bm, chunk=Q, h0=init)
+    assert h_in.shape == (B, T // Q, H, N, P)
+    for c in range(T // Q + 1):
+        if c == 0:
+            want = init if h0 else torch.zeros((B, H, N, P))
+        else:
+            n = c * Q
+            _, want = ref.ssd_ref(u[:, :n], loga[:, :n], Bm[:, :n],
+                                  Cm[:, :n], h0=init)
+        got = h_in[:, c] if c < T // Q else final
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **STATE_TOL)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -360,3 +447,68 @@ def test_model_kernel_against_plain_on_card(cuda, cls):
     np.testing.assert_allclose(cache["state"].ssm.cpu().numpy(),
                                want_cache["state"].ssm.cpu().numpy(),
                                rtol=1e-3, atol=1e-3)
+
+
+# chip_smoke.py's SSD_SHAPES: the served prefill shapes of mamba2-1.3b and
+# zamba2-2.7b, a single chunk of 37 tokens at B 8, h0 over 3 chunks, the
+# sweep (B, T, H, P, N, Q, h0)
+SMOKE_SHAPES = [(1, 2048, 64, 64, 128, 256, False),
+                (1, 2048, 80, 64, 64, 256, False),
+                (8, 37, 64, 64, 128, 37, False),
+                (2, 768, 64, 64, 128, 256, True),
+                *(s + (False,) for s in SWEEP)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,P,N,Q,h0", SMOKE_SHAPES)
+def test_passes_match_both_plain_versions_at_smoke_shapes(cuda, B, T, H, P,
+                                                          N, Q, h0):
+    arrays = make_inputs(B, T, H, P, N, seed=T + H + N, h0=h0)
+    args = [t(a, cuda) for a in arrays[:4]]
+    init = t(arrays[4], cuda) if h0 else None
+    y, s = sk.ssd_scan(*args, chunk=Q, h0=init)
+    torch.cuda.synchronize()
+    for want_y, want_s in (ref.ssd_scan_ref(*args, chunk=Q, h0=init),
+                           ref.ssd_ref(*args, h0=init)):
+        np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                                   **TOL)
+        np.testing.assert_allclose(s.cpu().numpy(), want_s.cpu().numpy(),
+                                   **STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_passes_bit_identical_and_under_graph_replay(cuda):
+    """Three calls give the same bits, and so do replays of a captured CUDA
+    graph, also after new inputs are copied into the captured tensors: the
+    cached workspace is safe to reuse."""
+    arrays = make_inputs(1, 768, 8, 64, 128, seed=5, h0=True)
+    args = [t(a, cuda) for a in arrays[:4]]
+    init = t(arrays[4], cuda)
+    first = sk.ssd_scan(*args, chunk=256, h0=init)
+    for _ in range(2):
+        again = sk.ssd_scan(*args, chunk=256, h0=init)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sk.ssd_scan(*args, chunk=256, h0=init)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = sk.ssd_scan(*args, chunk=256, h0=init)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, first))
+    other = make_inputs(1, 768, 8, 64, 128, seed=6, h0=True)
+    for dst, src in zip((*args, init), other):
+        dst.copy_(t(src, cuda))
+    graph.replay()
+    eager = sk.ssd_scan(*args, chunk=256, h0=init)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(static, eager))
+    want_y, want_s = ref.ssd_ref(*args, h0=init)
+    np.testing.assert_allclose(static[0].cpu().numpy(),
+                               want_y.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(static[1].cpu().numpy(),
+                               want_s.cpu().numpy(), **STATE_TOL)
