@@ -31,12 +31,15 @@ Phases, each fatal on failure (nothing is caught):
      at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
      llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
      dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
-     ragged T, T = 1 and a non-causal T != S (the bf16 forward and backward
+     ragged T, T = 1, a non-causal T != S and the fabric executor's train
+     shape (B 4, T 32) (the bf16 forward and backward
      on wgmma at hd 64 and 128, on mma.sync at the others, the library's
      route tables checked against the wrapper's; repeated forwards
      bit-identical), and times kernel, plain version and SDPA at the
      training shape, forward and backward (with achieved TFLOP/s, the
-     routes and the device ms of each backward kernel);
+     routes and the device ms of each backward kernel); and the decode
+     kernel against its plain version at the fabric executor's serving
+     shape (4 slots, S 256, 9/3/64);
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
      ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
      checks falling finite losses and that every layer's attention went
@@ -65,7 +68,16 @@ Phases, each fatal on failure (nothing is caught):
      kernel) and a planted fault the check must catch (a neighbouring
      request's SSM state), and an fp32 prefill of 1536 tokens at full
      depth, kernels against plain versions;
- 14. ``repro_torch.launch.serve --arch mamba2-1.3b``.
+ 14. ``repro_torch.launch.serve --arch mamba2-1.3b``;
+ 15. the fabric: ``repro_torch.launch.rlhf`` at full-width smollm-135m,
+     twice, each with a fresh engine and ``TorchExecutor``: four RLHF
+     tenants complete every op with one execution per H_task; the decode
+     and both flash kernels launched in the phase; the two runs published
+     the same output for every H_task both ran; every served payload
+     equals its prompt run alone through a fresh ``ServingEngine``. Prints
+     a ``[fabric]`` line (the executor's median wall ms per op type, the
+     phase's launches and seconds; dollars and energy are the cost
+     model's, labelled modelled).
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -125,7 +137,8 @@ FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("kimi-k2 hd 112", 1, 1024, 1024, 64, 8, 112, True),
                 ("ragged T 1000", 2, 1000, 1000, 9, 3, 64, True),
                 ("T 1", 4, 1, 1, 9, 3, 64, True),
-                ("full T != S", 2, 300, 700, 8, 2, 128, False)]
+                ("full T != S", 2, 300, 700, 8, 2, 128, False),
+                ("smollm-135m fabric train", 4, 32, 32, 9, 3, 64, True)]
 # Forward and dq, dk, dv against autograd through the plain version.
 # fp32: sums in another order only. bf16: both accumulate in fp32 and round
 # the results once; the kernel also rounds P and dS to bf16 as tensor-core
@@ -222,16 +235,20 @@ def log_dynamic_smem(build) -> None:
 
 
 # --------------------------------------------------------------- phase 3 --
-def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng):
+def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
+                                    lengths=None):
     """Kernel against plain on the card in fp32 and bf16, then timings in
     bf16 over L layers of cache (more bytes than the 50 MB L2 holds, as a
-    decode step finds them); L = 0 checks only."""
+    decode step finds them); L = 0 checks only. B slots of S keys; the
+    slots' lengths are drawn unless given (the first must be 0)."""
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
     decode_attention = dk.decode_attention
     dev = torch.device(DEV)
-    lengths = np.concatenate([[0, 1, S, S + 5],
-                              rng.integers(8, 1533, B - 4)]).astype(np.int32)
+    if lengths is None:
+        lengths = np.concatenate([[0, 1, S, S + 5],
+                                  rng.integers(8, 1533, B - 4)])
+    lengths = np.asarray(lengths, np.int32)
     lens = torch.from_numpy(lengths).to(dev)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1014,6 +1031,58 @@ def time_ssd_scan(index: int):
     return row
 
 
+# -------------------------------------------------------------- phase 15 --
+def fabric_phase():
+    """``launch.rlhf`` at full width, twice, each with a fresh engine and
+    executor; the kernels' launches counted over both runs. Returns the
+    ``[fabric]`` stats."""
+    from repro_torch.core.torch_executor import TorchExecutor
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import rlhf
+    launch_counts(reset=True)
+    fk.flash_attention_fwd.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
+        t_run = time.perf_counter()
+        eng = rlhf.run_fabric(executor)
+        wall = time.perf_counter() - t_run
+        runs.append((eng, executor, rlhf.check(eng), wall))
+    launches = {"decode_attention": launch_counts()["decode_attention"],
+                "flash_attention_fwd": fk.flash_attention_fwd.launches,
+                "flash_attention_bwd": fk.flash_attention_bwd.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not run in the fabric: "
+                             f"{launches}")
+    (eng_a, _, s, _), (eng_b, _, _, _) = runs
+    both = set(eng_a.result_index) & set(eng_b.result_index)
+    differ = [h for h in both
+              if eng_a.result_index[h] != eng_b.result_index[h]]
+    if not both or differ:
+        raise AssertionError(f"{len(differ)} of {len(both)} H_tasks that "
+                             f"both runs ran published different outputs")
+    alone = [rlhf.check_alone(eng, ex) for eng, ex, _, _ in runs]
+    stats = {"arch": runs[0][1].cfg.name, "workflows": s["tasks"],
+             "executions": s["executions"],
+             "dedup_savings": s["dedup_savings"],
+             "mean_batch": s["mean_batch"], "model_loads": s["model_loads"],
+             "hot_hits": s["hot_hits"],
+             "median_op_ms": [rlhf.median_op_ms(ex) for _, ex, _, _ in runs],
+             "run_wall_s": [wall for *_, wall in runs],
+             "h_tasks_per_run": [len(eng_a.result_index),
+                                 len(eng_b.result_index)],
+             "h_tasks_both_ran": len(both),
+             "payloads_checked_alone": alone,
+             "launches": launches,
+             "modelled_cost_usd": s["total_cost_usd"],
+             "modelled_energy_kj": s["total_energy_kj"],
+             "phase_s": time.perf_counter() - t0}
+    log(f"[fabric] {json.dumps(stats)}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1066,6 +1135,9 @@ def main() -> int:
                 "16", "--slots", "8", "--max-len", "512"])
 
     flash_rows = check_flash_attention()
+    check_and_time_decode_attention(
+        "smollm-135m fabric serve", smollm.n_heads, smollm.n_kv_heads,
+        smollm.hd, 0, rng, B=4, S=256, lengths=[0, 12, 19, 256 + 5])
     timing = time_flash_attention()
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
     profile_train_step(smollm, train_stats["step_ms_after_first"])
@@ -1088,6 +1160,8 @@ def main() -> int:
         prefill_fp32_full_depth(cfg, rng)
     serve.main(["--arch", "mamba2-1.3b", "--requests", "8", "--max-new",
                 "16", "--slots", "8", "--max-len", "512"])
+    torch.cuda.empty_cache()
+    fabric_phase()
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

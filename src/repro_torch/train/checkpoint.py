@@ -22,9 +22,13 @@ import torch
 from repro_torch.core.cas import CAS
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.ffn import MLPParams
-from repro_torch.models.transformer import DenseLayer
+from repro_torch.models.mamba2 import Mamba2Params
+from repro_torch.models.transformer import DenseLayer, SSMLayer
 
-_NAMED = {c.__name__: c for c in (DenseLayer, AttnParams, MLPParams)}
+# every NamedTuple that params or optimizer state can hold: the dense
+# layers, the SSM layers, and the hybrid's shared attention and MLP
+_NAMED = {c.__name__: c for c in (DenseLayer, AttnParams, MLPParams,
+                                  SSMLayer, Mamba2Params)}
 
 
 def _leaf_bytes(t: torch.Tensor) -> bytes:
@@ -54,8 +58,13 @@ def _structure(tree, leaves: list) -> Any:
     """JSON description of ``tree``; its tensors appended to ``leaves``."""
     if isinstance(tree, dict):
         return {"dict": {k: _structure(tree[k], leaves) for k in sorted(tree)}}
-    if isinstance(tree, tuple) and type(tree).__name__ in _NAMED:
-        return {"named": type(tree).__name__,
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        name = type(tree).__name__
+        if _NAMED.get(name) is not type(tree):
+            # restore could not rebuild it: refuse to write the manifest
+            raise TypeError(f"cannot checkpoint an unregistered NamedTuple "
+                            f"{name}; add it to checkpoint._NAMED")
+        return {"named": name,
                 "items": [_structure(x, leaves) for x in tree]}
     if isinstance(tree, (list, tuple)):
         return {type(tree).__name__: [_structure(x, leaves) for x in tree]}

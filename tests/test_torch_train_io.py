@@ -179,3 +179,66 @@ def test_resume_latest_reproduces_an_uninterrupted_run(tmp_path):
     assert full["losses"][3:] == resumed["losses"]
     assert full["grad_norms"][3:] == resumed["grad_norms"]
     assert resumed["manifest"] == full["manifest"]   # bit-identical state
+
+
+def assert_same_tree(got, want):
+    """Same containers and NamedTuple classes, leaves equal bit for bit."""
+    assert type(got) is type(want)
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.uint8) if got.dtype ==
+                           torch.bfloat16 else got, want.view(torch.uint8)
+                           if want.dtype == torch.bfloat16 else want)
+    elif isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert_same_tree(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert_same_tree(a, b)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",
+                                  "zamba2-2.7b"])
+def test_train_state_round_trips_bit_identically(arch):
+    """Dense, SSM and hybrid train states, after one AdamW step so the
+    moments are set, restore with every NamedTuple and leaf as saved."""
+    from repro_torch.train.train_step import (build_train_step,
+                                              init_train_state)
+    model = build_model(get_config(arch).reduced(), device="cpu")
+    opt = build_optimizer(OptimizerConfig(warmup=1))
+    state = init_train_state(model, opt, torch.Generator().manual_seed(0))
+    data = SyntheticLM(DataConfig(model.cfg.vocab_size, 16, 2, seed=1))
+    state, _ = build_train_step(model, opt)(state, data.batch(0))
+    ckpt = Checkpointer(CAS(), arch)
+    mhash = ckpt.save(state, step=1, extra={"arch": arch})
+    restored, step, extra = ckpt.restore()
+    assert (step, extra) == (1, {"arch": arch})
+    assert_same_tree(restored, state)
+    assert ckpt.save(restored, step=1, extra={"arch": arch}) == mhash
+
+
+def test_checkpoint_refuses_an_unregistered_namedtuple():
+    import collections
+    ckpt = Checkpointer(CAS())
+    for name in ("Pair", "DenseLayer"):     # unknown, and a name clash
+        cls = collections.namedtuple(name, "a b")
+        with pytest.raises(TypeError, match="unregistered NamedTuple"):
+            ckpt.save({"p": cls(torch.zeros(2), torch.ones(2))}, step=0)
+    assert ckpt.latest is None
+
+
+def test_resume_latest_for_an_ssm_run(tmp_path):
+    def run(cas, *extra):
+        return train.main(["--arch", "mamba2-1.3b", "--reduced", "--device",
+                           "cpu", "--seq", "32", "--batch", "2",
+                           "--log-every", "0", "--ckpt-every", "1",
+                           "--cas", str(tmp_path / cas), *extra])
+    full = run("a", "--steps", "3")
+    run("b", "--steps", "2")
+    resumed = run("b", "--steps", "3", "--resume", "latest")
+    assert resumed["losses"] == full["losses"][2:]
+    assert resumed["manifest"] == full["manifest"]
