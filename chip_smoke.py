@@ -77,7 +77,23 @@ Phases, each fatal on failure (nothing is caught):
      equals its prompt run alone through a fresh ``ServingEngine``. Prints
      a ``[fabric]`` line (the executor's median wall ms per op type, the
      phase's launches and seconds; dollars and energy are the cost
-     model's, labelled modelled).
+     model's, labelled modelled);
+ 16. the service: ``launch.rlhf``'s journaled ``FabricService`` (a fresh
+     ``DiskCAS`` under ``build/``) with a full-width ``TorchExecutor``
+     behind ``FabricHTTPServer`` on loopback (auto-pumped); a
+     ``RemoteAPI`` client submits ``rlhf`` for t0 and t1 on
+     ``gsm8k/shard-0``, ``rlhf`` for t2 on ``gsm8k/shard-1`` and
+     ``distill`` for t3 on ``gsm8k/shard-0`` while a ``FollowerFabric``
+     tails the store behind its own server. Every job completes with one
+     execution per H_task and some dedup; the decode and both flash
+     kernels launched in the phase; ``GET /metrics`` counts one
+     ``workflow_completed`` per tenant; the follower's ``GET /jobs`` and
+     traces equal the primary's; every served payload equals its prompt
+     run alone. A second service with a fresh executor restores the
+     journal and equals the live one (jobs, lineage, the event-sourced
+     usage, traces, result index); t0's resubmission completes with no
+     execution; after ``compact()`` and ``gc()`` a third restore equals
+     the second. Prints a ``[service]`` line.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -1083,6 +1099,184 @@ def fabric_phase():
     return stats
 
 
+# -------------------------------------------------------------- phase 16 --
+def wait_for(what: str, predicate, timeout_s: float):
+    """Poll ``predicate`` until it returns a true value; raises after
+    ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+def durable_view(svc) -> dict:
+    """What a journal restore rebuilds: every job's view, lineage and trace,
+    the tenants' event-sourced usage (less the engine-local pool and
+    latency meters, which die with a process) and the result index."""
+    tenants = sorted({rec.tenant for rec in svc.jobs.values()})
+    return {"jobs": {j: svc.job(j) for j in svc.jobs},
+            "lineage": {j: svc.lineage(j) for j in svc.jobs},
+            "trace": {j: json.dumps(svc.trace(j), sort_keys=True)
+                      for j in svc.jobs},
+            "usage": {t: {k: v for k, v in svc.usage(t).items()
+                          if k not in ("pool", "latency")} for t in tenants},
+            "index": dict(svc.engine.result_index)}
+
+
+def require_equal(what: str, got: dict, want: dict) -> None:
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def completed_by_tenant(metrics_text: str) -> dict:
+    """``fabric_events_total{kind="workflow_completed",tenant=...}`` of a
+    Prometheus exposition, by tenant."""
+    out = {}
+    for line in metrics_text.splitlines():
+        if line.startswith('fabric_events_total{kind="workflow_completed"'):
+            series, value = line.rsplit(" ", 1)
+            tenant = series.split('tenant="', 1)[1].split('"', 1)[0]
+            out[tenant] = float(value)
+    return out
+
+
+def service_phase() -> dict:
+    """The tenants through the journaled service over loopback HTTP, a
+    follower tailing it, then two restores (before and after compaction).
+    Returns the ``[service]`` stats."""
+    import shutil
+    import threading
+    from repro_torch.core.cas import DiskCAS
+    from repro_torch.core.torch_executor import TorchExecutor
+    from repro_torch.fabric.api import FabricAPI
+    from repro_torch.fabric.follower import FollowerAPI, FollowerFabric
+    from repro_torch.fabric.http import FabricHTTPServer, RemoteAPI
+    from repro_torch.fabric.service import TERMINAL_STATUSES
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.launch import rlhf
+
+    store = ROOT / "build" / "service-cas"
+    shutil.rmtree(store, ignore_errors=True)
+    launch_counts(reset=True)
+    fk.flash_attention_fwd.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
+    svc = rlhf.service(executor, str(store))
+    follower = FollowerFabric(DiskCAS(str(store)))
+    server = FabricHTTPServer(FabricAPI(svc), host="127.0.0.1", port=0,
+                              auto_pump=True)
+    standby = FabricHTTPServer(FollowerAPI(follower), host="127.0.0.1",
+                               port=0, auto_pump=False)
+    tail_stop = threading.Event()
+    tail = threading.Thread(target=follower.tail_loop,
+                            args=(tail_stop, standby.lock), daemon=True)
+    server.start()
+    standby.start()
+    tail.start()
+    try:
+        client = RemoteAPI(server.url, timeout_s=300.0)
+        replica = RemoteAPI(standby.url, timeout_s=60.0)
+        t_run = time.perf_counter()
+        jobs = rlhf.submit_tenants(client)
+
+        def statuses(api):
+            return [api.handle("GET", f"/jobs/{j}")[1].get("status")
+                    for j in jobs]
+
+        wait_for("every job terminal", lambda: all(
+            s in TERMINAL_STATUSES for s in statuses(client)), 900.0)
+        run_wall = time.perf_counter() - t_run
+        if set(statuses(client)) != {"completed"}:
+            raise AssertionError(f"jobs {statuses(client)}")
+        wait_for("the follower caught up", lambda: (
+            replica.handle("GET", "/admin/replication")[1]["caught_up"]
+            and set(statuses(replica)) == {"completed"}), 120.0)
+        code, metrics = client.handle("GET", "/metrics")
+        completed = completed_by_tenant(metrics)
+        want = {t: 1.0 for _, t, _ in rlhf.SERVICE_TENANTS}
+        if code != 200 or completed != want:
+            raise AssertionError(f"GET /metrics workflow_completed "
+                                 f"{completed}, want {want}")
+        for path in ["/jobs"] + [f"/jobs/{j}/trace" for j in jobs]:
+            got, primary = replica.handle("GET", path), client.handle(
+                "GET", path)
+            if got != primary:
+                raise AssertionError(f"follower GET {path} differs")
+    finally:
+        tail_stop.set()
+        tail.join(timeout=30.0)
+        standby.stop()
+        server.stop()
+    launches = {"decode_attention": launch_counts()["decode_attention"],
+                "flash_attention_fwd": fk.flash_attention_fwd.launches,
+                "flash_attention_bwd": fk.flash_attention_bwd.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not run in the service: "
+                             f"{launches}")
+    s = rlhf.check(svc.engine)
+    alone = rlhf.check_alone(svc.engine, executor)
+    live = durable_view(svc)
+    chain = svc.journal.chain_stats()
+
+    # restore with a fresh executor, then resubmit t0's workflow
+    executor2 = TorchExecutor(seed=SEED, full_width=True, device=DEV)
+    svc2 = rlhf.service(executor2, str(store))
+    t_restore = time.perf_counter()
+    restored = svc2.restore_from_journal()
+    restore_ms = (time.perf_counter() - t_restore) * 1e3
+    require_equal("restored service", durable_view(svc2), live)
+    [again] = rlhf.submit_tenants(FabricAPI(svc2),
+                                  rlhf.SERVICE_TENANTS[:1])
+    svc2.run_until_idle()
+    if svc2.job(again)["status"] != "completed" \
+            or svc2.engine.telemetry.executions != 0:
+        raise AssertionError(f"resubmission after restore: "
+                             f"{svc2.job(again)['status']}, "
+                             f"{svc2.engine.telemetry.executions} "
+                             f"executions (want none)")
+    before = svc2.journal.chain_stats()
+    compacted = svc2.compact()
+    swept = svc2.gc()
+    after = svc2.journal.chain_stats()
+    svc3 = rlhf.service(executor2, str(store))
+    t_restore = time.perf_counter()
+    restored3 = svc3.restore_from_journal()
+    restore3_ms = (time.perf_counter() - t_restore) * 1e3
+    require_equal("compacted, restored service", durable_view(svc3),
+                  durable_view(svc2))
+    stats = {"arch": executor.cfg.name, "jobs": len(jobs),
+             "executions": s["executions"],
+             "dedup_savings": s["dedup_savings"],
+             "mean_batch": s["mean_batch"],
+             "payloads_checked_alone": alone,
+             "metrics_workflow_completed": completed,
+             "journal_live": {"segments": chain["segments"],
+                              "bytes": chain["bytes"]},
+             "journal_before_compaction": {"segments": before["segments"],
+                                           "bytes": before["bytes"]},
+             "journal_after_compaction": {"segments": after["segments"],
+                                          "bytes": after["bytes"]},
+             "compaction": {"folded_segments":
+                            compacted["folded_segments"],
+                            "reclaimed_blobs": swept["reclaimed_blobs"],
+                            "reclaimed_bytes": swept["reclaimed_bytes"]},
+             "restore_ms": restore_ms, "restore_events": restored["events"],
+             "restore_after_compaction_ms": restore3_ms,
+             "restore_after_compaction_from_snapshot":
+                 restored3["from_snapshot"],
+             "resubmit_executions": svc2.engine.telemetry.executions,
+             "median_op_ms": rlhf.median_op_ms(executor),
+             "run_wall_s": run_wall, "launches": launches,
+             "phase_s": time.perf_counter() - t0}
+    log(f"[service] {json.dumps(stats)}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1162,6 +1356,7 @@ def main() -> int:
                 "16", "--slots", "8", "--max-len", "512"])
     torch.cuda.empty_cache()
     fabric_phase()
+    service_phase()
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

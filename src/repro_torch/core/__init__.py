@@ -2,8 +2,8 @@
 
 Public facade: build an engine with a policy + executor + backend, submit
 workflow DAGs, run, read telemetry. The port's copy of ``repro/core``,
-without the journal, tracing and metrics modules (not ported yet); the
-real-compute executor is ``torch_executor.TorchExecutor``.
+journal, tracing and metrics included; the real-compute executor is
+``torch_executor.TorchExecutor``.
 """
 from .autoscaler import Autoscaler, AutoscalerConfig
 from .backends import KubernetesBackend, VastAiBackend
@@ -14,6 +14,7 @@ from .dag import OperatorSpec, OpState, OpType, Ref, WorkflowDAG
 from .events import EventBus, FabricEvent, event_from_dict
 from .identity import (canonical, content_hash, exec_signature, model_hash,
                        task_hash)
+from .journal import EventJournal
 from .scheduler import (POLICIES, FirstFitScheduler, FlowMeshScheduler,
                         RoundRobinScheduler, StaticRoutingScheduler)
 from .simulator import FaultInjector, SimExecutor
@@ -24,7 +25,7 @@ from .workloads import WorkloadCfg, WorkloadGen
 __all__ = [
     "Autoscaler", "AutoscalerConfig", "KubernetesBackend", "VastAiBackend",
     "CAS", "DiskCAS", "ReadyPool", "EngineConfig", "FlowMeshEngine",
-    "EventBus", "FabricEvent", "event_from_dict",
+    "EventBus", "FabricEvent", "event_from_dict", "EventJournal",
     "OperatorSpec", "OpState", "OpType", "Ref", "WorkflowDAG",
     "canonical", "content_hash", "exec_signature", "model_hash", "task_hash",
     "POLICIES", "FirstFitScheduler", "FlowMeshScheduler",

@@ -61,8 +61,7 @@ class EngineConfig:
     #: ring-buffer size for telemetry distribution fields (None = full
     #: history; set for never-restarting service deployments)
     telemetry_window: int | None = None
-    #: fabric-level retention (the fabric replay layer's ``RetentionPolicy``,
-    #: not yet in this package).
+    #: fabric-level retention (a ``repro_torch.fabric.replay.RetentionPolicy``).
     #: Carried here so one config object provisions a whole service
     #: deployment; the engine itself never reads it — ``FabricService``
     #: resolves it with precedence: explicit arg > this field > default

@@ -1,20 +1,56 @@
 """Dispatch transports: the seam between control plane and data plane.
 
+The port's copy of ``repro/core/transport.py``, whole: both transports and
+the wire codecs, so the two packages' workers and services speak one wire.
+
 ``FlowMeshEngine._start_next`` hands every admitted ``DispatchBatch`` to a
-``Transport`` instead of calling its executor directly. The port has one
-implementation so far, ``InProcessTransport``: it executes synchronously
-through the engine's executor, so virtual time, RNG consumption, and event
-order are the reference's. The reference's ``LeaseTransport`` (real worker
-processes long-polling for leased batches, DESIGN.md §13) waits for the
-port's out-of-process worker; the wire codecs it speaks are here.
+``Transport`` instead of calling its executor directly. Two implementations:
+
+  * ``InProcessTransport`` — executes synchronously through the engine's
+    executor, exactly as the engine always did. ``dispatch`` returns the
+    ``ExecResult``; virtual time, RNG consumption, and event order are
+    byte-identical to the pre-transport engine, which is what keeps the
+    tier-1 suite (and every journal/trace equality proof) deterministic.
+  * ``LeaseTransport`` — the out-of-process data plane (DESIGN.md §13).
+    ``dispatch`` parks the batch as an *offer* for the target lane and
+    returns None; a real worker process (``python -m
+    repro_torch.launch.worker_main``) long-polls
+    ``POST /worker/lease``, claims the offer under a heartbeat-renewed,
+    epoch-fenced lease, executes with its own executor, and reports back
+    through ``POST /worker/complete``. Liveness is wall-clock: ``tick()``
+    (driven from ``FabricService.pump``) expires lapsed leases and silent
+    lanes, returning their groups to READY through the engine's existing
+    ``GroupRequeued`` crash path — journaled, so replay, followers, and
+    traces agree without knowing leases exist.
+
+Lease fencing mirrors the journal's ref fencing one level down: every
+grant takes the next value of a transport-wide monotone epoch counter, and
+any heartbeat/complete carrying a lease id that is no longer current is
+refused (``FencedLease``) — a worker that vanished and came back cannot
+publish a result for work the control plane already re-dispatched.
 """
 from __future__ import annotations
 
 import base64
+import time
 
+from . import events as E
+from .cost_model import DEVICE_CLASSES
 from .dag import OperatorSpec, OpType
 from .worker import (DispatchBatch, ExecResult, ExecutionGroup, Executor,
-                     Worker)
+                     Worker, WorkerState)
+
+
+class UnknownWorker(Exception):
+    """The lane is not registered (or its engine worker is no longer
+    ACTIVE) — the worker process must re-register before polling again."""
+
+
+class FencedLease(Exception):
+    """The presented lease is not the lane's current one: it expired, was
+    superseded, or belongs to a lane the control plane already failed.
+    Results arriving under a fenced lease are discarded — the groups were
+    requeued and may already be running elsewhere."""
 
 
 class Transport:
@@ -136,3 +172,218 @@ def result_from_wire(d: dict) -> ExecResult:
         outputs=[base64.b64decode(o) for o in d["outputs"]],
         duration_s=d["duration_s"], load_s=d["load_s"], flops=d["flops"],
         energy_j=d["energy_j"], failed=d["failed"], failure=d["failure"])
+
+
+# ---------------------------------------------------------------------------
+class _Lane:
+    """One registered remote worker process (wall-clock liveness)."""
+    __slots__ = ("worker_id", "device_class", "last_seen")
+
+    def __init__(self, worker_id: str, device_class: str,
+                 last_seen: float) -> None:
+        self.worker_id = worker_id
+        self.device_class = device_class
+        self.last_seen = last_seen
+
+
+class _Lease:
+    __slots__ = ("lease_id", "epoch", "batch", "worker_id", "deadline",
+                 "granted", "revoked")
+
+    def __init__(self, lease_id: str, epoch: int, batch: DispatchBatch,
+                 worker_id: str, deadline: float, granted: float) -> None:
+        self.lease_id = lease_id
+        self.epoch = epoch
+        self.batch = batch
+        self.worker_id = worker_id
+        self.deadline = deadline
+        self.granted = granted
+        self.revoked = False
+
+
+class LeaseTransport(Transport):
+    """HTTP long-poll data plane: offers, fenced leases, wall-clock TTLs.
+
+    All methods run under the service lock (HTTP handler threads and the
+    pump thread serialize through it), so no internal locking is needed.
+    ``clock`` is injectable for deterministic lease-lifecycle tests.
+    """
+
+    remote = True
+
+    def __init__(self, *, lease_ttl_s: float = 10.0,
+                 lane_ttl_s: float | None = None,
+                 heartbeat_s: float | None = None,
+                 clock=time.monotonic) -> None:
+        self.lease_ttl_s = lease_ttl_s
+        #: a lane with no lease must check in (poll/heartbeat) this often
+        #: or it is declared dead — covers workers that die while idle or
+        #: with an undelivered offer parked on them
+        self.lane_ttl_s = lane_ttl_s if lane_ttl_s is not None \
+            else 1.5 * lease_ttl_s
+        #: renewal interval advertised to workers at registration
+        self.heartbeat_s = heartbeat_s if heartbeat_s is not None \
+            else lease_ttl_s / 4.0
+        self.clock = clock
+        self.engine = None
+        self.lanes: dict[str, _Lane] = {}
+        self.offers: dict[str, DispatchBatch] = {}
+        self.leases: dict[str, _Lease] = {}
+        #: transport-wide fencing epoch: bumped per grant, so lease ids are
+        #: totally ordered and a stale holder can never impersonate the
+        #: current one (same shape as the journal's ref epochs, §10)
+        self.epoch = 0
+
+    # ---------------------------------------------------- engine-facing ----
+    def dispatch(self, batch, worker, cas):
+        self.offers[worker.worker_id] = batch
+        return None
+
+    def revoke(self, worker) -> str | None:
+        wid = worker.worker_id
+        if self.offers.pop(wid, None) is not None:
+            return ""                       # never granted: just take it back
+        lease = self.leases.get(wid)
+        if lease is not None and not lease.revoked:
+            lease.revoked = True
+            # the worker has one TTL to observe the revoke (heartbeat or
+            # complete); heartbeats no longer renew a revoked lease
+            lease.deadline = self.clock() + self.lease_ttl_s
+            return lease.lease_id
+        return None
+
+    def tick(self) -> None:
+        eng = self.engine
+        if eng is None:
+            return
+        now = self.clock()
+        for wid in list(self.lanes):
+            lease = self.leases.get(wid)
+            if lease is not None:
+                if now < lease.deadline:
+                    continue
+                del self.leases[wid]
+                if not lease.revoked:
+                    # a revoked lease's groups were already finished at
+                    # revoke time; only a live lapse narrates an expiry
+                    eng._emit(E.LeaseExpired(
+                        worker=wid, batch_id=lease.batch.batch_id,
+                        lease_id=lease.lease_id, epoch=lease.epoch,
+                        held_s=now - lease.granted))
+                self._drop_lane(wid)
+                eng.remote_lane_lost(wid)
+            elif now - self.lanes[wid].last_seen > self.lane_ttl_s:
+                # silent lane death: idle worker gone, or an offer the
+                # worker never came back to claim
+                self._drop_lane(wid)
+                eng.remote_lane_lost(wid)
+
+    def _drop_lane(self, wid: str) -> None:
+        self.lanes.pop(wid, None)
+        self.offers.pop(wid, None)
+        self.leases.pop(wid, None)
+
+    # ---------------------------------------------------- worker-facing ----
+    def register(self, worker_id: str, device_class: str) -> dict:
+        if device_class not in DEVICE_CLASSES:
+            raise KeyError(device_class)
+        # the engine may suffix the id (a crashed lane's name is taken by
+        # its DEAD record) — the worker adopts whatever comes back
+        wid = self.engine.register_remote_worker(worker_id, device_class)
+        self.lanes[wid] = _Lane(wid, device_class, self.clock())
+        return {"worker_id": wid, "heartbeat_s": self.heartbeat_s,
+                "lease_ttl_s": self.lease_ttl_s}
+
+    def poll(self, worker_id: str) -> dict | None:
+        """Claim the lane's pending offer (if any) under a fresh lease.
+        Every poll — empty or not — refreshes lane liveness, so a worker
+        blocked in a long-poll never trips the lane TTL."""
+        lane = self.lanes.get(worker_id)
+        if lane is None:
+            raise UnknownWorker(worker_id)
+        eng = self.engine
+        w = eng.workers.get(worker_id)
+        if w is None or w.state is not WorkerState.ACTIVE:
+            # autoscaler-retired or failed while the worker was away
+            self._drop_lane(worker_id)
+            raise UnknownWorker(worker_id)
+        now = self.clock()
+        lane.last_seen = now
+        # an engine-side check-in too: the virtual watchdog must not fail a
+        # lane whose only liveness signal arrives over the wire
+        w.last_heartbeat = eng.now
+        if worker_id in self.leases:
+            # a worker polling while the control plane thinks it holds a
+            # lease has lost its own state (restart): fail the lane so its
+            # batch requeues, and make the worker start over
+            self._drop_lane(worker_id)
+            eng.remote_lane_lost(worker_id)
+            raise UnknownWorker(worker_id)
+        batch = self.offers.pop(worker_id, None)
+        if batch is None:
+            return None
+        self.epoch += 1
+        lease = _Lease(
+            lease_id=f"{worker_id}/{batch.batch_id}/{self.epoch}",
+            epoch=self.epoch, batch=batch, worker_id=worker_id,
+            deadline=now + self.lease_ttl_s, granted=now)
+        self.leases[worker_id] = lease
+        eng._emit(E.LeaseGranted(
+            worker=worker_id, batch_id=batch.batch_id,
+            lease_id=lease.lease_id, epoch=lease.epoch,
+            h_exec=batch.h_exec, n_groups=len(batch.groups)))
+        return {"lease_id": lease.lease_id, "epoch": lease.epoch,
+                "heartbeat_s": self.heartbeat_s,
+                "batch": batch_to_wire(batch)}
+
+    def _current_lease(self, worker_id: str, lease_id: str) -> _Lease:
+        lane = self.lanes.get(worker_id)
+        lease = self.leases.get(worker_id)
+        if lane is None or lease is None or lease.lease_id != lease_id:
+            raise FencedLease(lease_id)
+        lane.last_seen = self.clock()
+        w = self.engine.workers.get(worker_id)
+        if w is not None:
+            w.last_heartbeat = self.engine.now
+        return lease
+
+    def heartbeat(self, worker_id: str, lease_id: str) -> dict:
+        lease = self._current_lease(worker_id, lease_id)
+        if lease.revoked:
+            # the ack the revoke path waits for: the lease dies here, the
+            # lane stays live for new work
+            del self.leases[worker_id]
+            return {"ok": False, "revoked": True}
+        lease.deadline = self.clock() + self.lease_ttl_s
+        return {"ok": True, "revoked": False}
+
+    def complete(self, worker_id: str, lease_id: str,
+                 result_wire: dict) -> dict:
+        lease = self._current_lease(worker_id, lease_id)
+        del self.leases[worker_id]
+        if lease.revoked:
+            return {"ok": False, "revoked": True}
+        eng = self.engine
+        w = eng.workers.get(worker_id)
+        if w is None or w.current is None \
+                or w.current.batch_id != lease.batch.batch_id:
+            raise FencedLease(lease_id)
+        # lease.batch is the engine's own DispatchBatch object (consumers,
+        # dispatch_tenants, speculation state intact) — the wire only
+        # carries the result back
+        eng.remote_batch_done(w, lease.batch, result_from_wire(result_wire))
+        return {"ok": True, "revoked": False}
+
+    # -------------------------------------------------------------- obs ----
+    def status(self) -> dict:
+        return {
+            "transport": "lease", "remote": True, "epoch": self.epoch,
+            "lease_ttl_s": self.lease_ttl_s, "lane_ttl_s": self.lane_ttl_s,
+            "lanes": sorted(self.lanes),
+            "offers": {wid: b.batch_id for wid, b in self.offers.items()},
+            "leases": [{
+                "worker": l.worker_id, "lease_id": l.lease_id,
+                "epoch": l.epoch, "batch_id": l.batch.batch_id,
+                "revoked": l.revoked,
+            } for l in self.leases.values()],
+        }

@@ -20,14 +20,20 @@ from types import SimpleNamespace
 import pytest
 
 PACKAGES = ("repro", "repro_torch")
-MODULES = ("autoscaler", "backends", "control_plane", "dag", "identity",
-           "scheduler", "simulator", "transport", "worker", "workloads")
+MODULES = ("autoscaler", "backends", "cas", "control_plane", "cost_model",
+           "dag", "events", "identity", "journal", "metrics", "scheduler",
+           "simulator", "tracing", "transport", "worker", "workloads")
+FABRIC = ("admission", "api", "cluster", "follower", "http", "operator",
+          "replay", "service", "spec")
 
 
 def package(name: str) -> SimpleNamespace:
+    """A package's ``core`` and ``fabric`` modules by their short names."""
     ns = SimpleNamespace(**{m: import_module(f"{name}.core.{m}")
                             for m in MODULES})
-    ns.spec = import_module(f"{name}.fabric.spec")
+    for m in FABRIC:
+        setattr(ns, m, import_module(f"{name}.fabric.{m}"))
+    ns.fabric = import_module(f"{name}.fabric")
     return ns
 
 
