@@ -93,7 +93,23 @@ Phases, each fatal on failure (nothing is caught):
      journal and equals the live one (jobs, lineage, the event-sourced
      usage, traces, result index); t0's resubmission completes with no
      execution; after ``compact()`` and ``gc()`` a third restore equals
-     the second. Prints a ``[service]`` line.
+     the second. Prints a ``[service]`` line;
+ 17. the scenarios: ``steady_mix`` and ``worker_preemption`` (held here as
+     dicts, compiled by ``repro_torch.scenarios``) through
+     ``launch.scenario`` on a fresh service and full-width
+     ``TorchExecutor`` each, on the virtual driver, then ``steady_mix``
+     open loop against the service behind ``FabricHTTPServer`` on loopback
+     (auto-pumped) through a ``RemoteAPI`` client at the document's pace.
+     ``worker_preemption``'s ``worker-a`` crashes the service's first lane
+     mid-run (what the lane held then is printed). Every job completes,
+     every fault fires, every H_task published one output, the ops
+     executed plus deduped are those of the same schedule on
+     ``SimExecutor``, the report has ``REPORT_KEYS``, every served payload
+     equals its prompt run alone, and the decode and both flash kernels
+     launched in each run. Prints a ``[scenario]`` line a run (the report,
+     its cost and energy as the cost model's, labelled modelled, the
+     executor's median wall ms per op type, the engine's executions and
+     retries, the launches and seconds).
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -369,6 +385,25 @@ def launch_counts(reset: bool = False) -> dict:
         for fn in counters.values():
             fn.launches = 0
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def fabric_launches(reset: bool = False) -> dict:
+    """The fabric executor's kernels' launch counts (the decode kernel, the
+    flash forward and backward), set to 0 first if ``reset``; raises on a
+    read where one of them did not launch."""
+    from repro_torch.kernels import flash_attention as fk
+    if reset:
+        launch_counts(reset=True)
+        fk.flash_attention_fwd.launches = 0
+        fk.flash_attention_bwd.launches = 0
+        return {}
+    launches = {"decode_attention": launch_counts()["decode_attention"],
+                "flash_attention_fwd": fk.flash_attention_fwd.launches,
+                "flash_attention_bwd": fk.flash_attention_bwd.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel did not run in the fabric: "
+                             f"{launches}")
+    return launches
 
 
 def serve_full_width(cfg, rng):
@@ -1053,11 +1088,8 @@ def fabric_phase():
     executor; the kernels' launches counted over both runs. Returns the
     ``[fabric]`` stats."""
     from repro_torch.core.torch_executor import TorchExecutor
-    from repro_torch.kernels import flash_attention as fk
     from repro_torch.launch import rlhf
-    launch_counts(reset=True)
-    fk.flash_attention_fwd.launches = 0
-    fk.flash_attention_bwd.launches = 0
+    fabric_launches(reset=True)
     t0 = time.perf_counter()
     runs = []
     for _ in range(2):
@@ -1066,12 +1098,7 @@ def fabric_phase():
         eng = rlhf.run_fabric(executor)
         wall = time.perf_counter() - t_run
         runs.append((eng, executor, rlhf.check(eng), wall))
-    launches = {"decode_attention": launch_counts()["decode_attention"],
-                "flash_attention_fwd": fk.flash_attention_fwd.launches,
-                "flash_attention_bwd": fk.flash_attention_bwd.launches}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel did not run in the fabric: "
-                             f"{launches}")
+    launches = fabric_launches()
     (eng_a, _, s, _), (eng_b, _, _, _) = runs
     both = set(eng_a.result_index) & set(eng_b.result_index)
     differ = [h for h in both
@@ -1156,14 +1183,11 @@ def service_phase() -> dict:
     from repro_torch.fabric.follower import FollowerAPI, FollowerFabric
     from repro_torch.fabric.http import FabricHTTPServer, RemoteAPI
     from repro_torch.fabric.service import TERMINAL_STATUSES
-    from repro_torch.kernels import flash_attention as fk
     from repro_torch.launch import rlhf
 
     store = ROOT / "build" / "service-cas"
     shutil.rmtree(store, ignore_errors=True)
-    launch_counts(reset=True)
-    fk.flash_attention_fwd.launches = 0
-    fk.flash_attention_bwd.launches = 0
+    fabric_launches(reset=True)
     t0 = time.perf_counter()
     executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
     svc = rlhf.service(executor, str(store))
@@ -1212,12 +1236,7 @@ def service_phase() -> dict:
         tail.join(timeout=30.0)
         standby.stop()
         server.stop()
-    launches = {"decode_attention": launch_counts()["decode_attention"],
-                "flash_attention_fwd": fk.flash_attention_fwd.launches,
-                "flash_attention_bwd": fk.flash_attention_bwd.launches}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel did not run in the service: "
-                             f"{launches}")
+    launches = fabric_launches()
     s = rlhf.check(svc.engine)
     alone = rlhf.check_alone(svc.engine, executor)
     live = durable_view(svc)
@@ -1275,6 +1294,103 @@ def service_phase() -> dict:
              "phase_s": time.perf_counter() - t0}
     log(f"[service] {json.dumps(stats)}")
     return stats
+
+
+# -------------------------------------------------------------- phase 17 --
+#: ``scenarios/steady_mix.yaml`` and ``scenarios/worker_preemption.yaml``
+#: as their documents (``yaml.safe_load``): the machine with the card has no
+#: PyYAML. ``tests/test_torch_scenarios.py`` holds them equal to the files.
+SCENARIOS = {
+    "steady_mix": {
+        "name": "steady-mix", "seed": 11, "duration_s": 120,
+        "time_scale": 0.05, "settle_s": 90,
+        "arrivals": {"process": "poisson", "rate_per_s": 0.4,
+                     "diurnal": {"period_s": 120, "floor": 0.3}},
+        "deadlines": {"fraction": 0.3, "min_s": 500, "max_s": 3000},
+        "dedup": {"distinct_inputs": 4, "dataset": "gsm8k"},
+        "slo": {"target_hit_rate": 0.95},
+        "tenants": [
+            {"name": "acme", "weight": 2.0,
+             "workload": [{"template": "distill"}]},
+            {"name": "globex", "weight": 1.0,
+             "workload": [{"template": "agent-loop",
+                           "params": {"rounds": 2}}]},
+            {"name": "initech", "weight": 1.0,
+             "workload": [{"template": "batch-eval"}]}]},
+    "worker_preemption": {
+        "name": "worker-preemption", "seed": 23, "duration_s": 60,
+        "time_scale": 0.1, "settle_s": 120,
+        "arrivals": {"process": "poisson", "rate_per_s": 0.3},
+        "deadlines": {"fraction": 0.0},
+        "dedup": {"distinct_inputs": 3, "dataset": "gsm8k"},
+        "faults": [{"at_s": 20, "kind": "worker_kill",
+                    "target": "worker-a"}],
+        "tenants": [
+            {"name": "acme", "weight": 1.0,
+             "workload": [{"template": "distill"}]},
+            {"name": "globex", "weight": 1.0,
+             "workload": [{"template": "batch-eval"}]}]},
+}
+
+
+def scenario_run(stem: str, mode: str) -> dict:
+    """One scenario through ``launch.scenario`` on a fresh full-width
+    ``TorchExecutor``; ``worker_kill`` faults crash the service's first lane
+    as ``tests/test_scenarios.py`` does. Returns the ``[scenario]`` stats."""
+    from repro_torch.core.torch_executor import TorchExecutor
+    from repro_torch.launch import rlhf, scenario
+    from repro_torch.scenarios import (REPORT_KEYS, FaultActions,
+                                       compile_scenario, run_virtual)
+    sc = compile_scenario(SCENARIOS[stem])
+    # every op is executed once or deduped: the total is the schedule's
+    sim = run_virtual(sc)["dedup"]
+    executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
+    svc = scenario.service(executor, sc.seed)
+    crash = {}
+    lane = sorted(svc.engine.workers)[0]
+
+    def preempt():
+        worker = svc.engine.workers[lane]
+        crash.update(lane=lane, at_s=svc.engine.now,
+                     batch_in_flight=worker.current is not None,
+                     queued_batches=sum(len(q) for q in
+                                        worker.queues.values()))
+        svc.engine.inject_crash(lane, svc.engine.now)
+
+    fabric_launches(reset=True)
+    t0 = time.perf_counter()
+    report = scenario.run(sc, svc, mode=mode,
+                          actions=FaultActions({"worker-a": preempt}))
+    run_s = time.perf_counter() - t0
+    launches = fabric_launches()
+    if tuple(report) != REPORT_KEYS:
+        raise AssertionError(f"report keys {tuple(report)}")
+    engine = scenario.check(svc, report)
+    ops = report["dedup"]["executed"] + report["dedup"]["deduped"]
+    if ops != sim["executed"] + sim["deduped"]:
+        raise AssertionError(f"{ops} ops executed or deduped, the schedule "
+                             f"has {sim['executed'] + sim['deduped']}")
+    fired = [f["fired"] for f in report["faults"]]
+    if fired != [True] * len(sc.faults):
+        raise AssertionError(f"faults {report['faults']}")
+    alone = rlhf.check_alone(svc.engine, executor)
+    stats = {"scenario": stem, "arch": executor.cfg.name,
+             "report": {k: v for k, v in report.items() if k != "cost"},
+             "modelled_cost": report["cost"],
+             "sim_executor_dedup": sim, "engine": engine,
+             "crash": crash or None, "payloads_checked_alone": alone,
+             "median_op_ms": rlhf.median_op_ms(executor),
+             "launches": launches, "run_s": run_s}
+    log(f"[scenario] {json.dumps(stats)}")
+    return stats
+
+
+def scenario_phase() -> list:
+    """``steady_mix`` and ``worker_preemption`` on the virtual driver, then
+    ``steady_mix`` open loop over loopback HTTP."""
+    return [scenario_run(stem, mode) for stem, mode in (
+        ("steady_mix", "virtual"), ("worker_preemption", "virtual"),
+        ("steady_mix", "open-loop"))]
 
 
 def main() -> int:
@@ -1357,6 +1473,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fabric_phase()
     service_phase()
+    t0 = time.perf_counter()
+    scenario_phase()
+    log(f"[scenario] phase {time.perf_counter() - t0:.1f} s")
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

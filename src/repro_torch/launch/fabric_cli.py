@@ -2,8 +2,8 @@
 """fabric_cli: drive a FlowMesh FabricService from the command line.
 
 The port's copy of the reference's ``scripts/fabric_cli.py``: the same
-subcommands and flags on ``repro_torch.fabric``, with ``SimExecutor`` as
-there, less ``scenario``.
+subcommands and flags on ``repro_torch.fabric`` and
+``repro_torch.scenarios``, with ``SimExecutor`` as there.
 
 Every subcommand speaks the same request/response API the examples and
 tests use — in-process by default, or across real sockets with ``--url``
@@ -71,8 +71,18 @@ against a fabric started by ``serve``.
     PYTHONPATH=src python -m repro_torch.launch.fabric_cli --url http://127.0.0.1:8123 \
         --admin-token s3cret compact
 
-    # digital-twin scenarios: the reference CLI's ``scenario`` subcommand
-    # is not in the port yet (it waits for the port of ``repro.scenarios``)
+    # digital-twin scenarios (DESIGN.md §15): replay a declarative traffic
+    # scenario — deterministic virtual time in-process, or open-loop wall
+    # clock against a live fabric with --url (fault targets map to PIDs);
+    # `sweep` replays the identical schedule per EDF deadline-boost value
+    PYTHONPATH=src python -m repro_torch.launch.fabric_cli scenario compile \
+        scenarios/steady_mix.yaml
+    PYTHONPATH=src python -m repro_torch.launch.fabric_cli scenario run \
+        scenarios/steady_mix.yaml --trajectory BENCH_fabric.json
+    PYTHONPATH=src python -m repro_torch.launch.fabric_cli --url http://127.0.0.1:8123 \
+        scenario run scenarios/worker_preemption.yaml --pid worker-a=4242
+    PYTHONPATH=src python -m repro_torch.launch.fabric_cli scenario sweep \
+        scenarios/burst_deadline.yaml --boosts 0,0.05,0.5,2
 """
 from __future__ import annotations
 
@@ -412,6 +422,84 @@ def cmd_retention(api, args) -> int:
     return 0
 
 
+def cmd_scenario(api, args) -> int:
+    """Digital-twin scenarios (DESIGN.md §15): compile, run, or sweep."""
+    from repro_torch.scenarios import (FaultActions, ScenarioError,
+                                       append_trajectory, load_scenario,
+                                       run_open_loop, run_virtual,
+                                       sweep_edf_boost)
+    try:
+        sc = load_scenario(args.file)
+    except ScenarioError as e:
+        print("INVALID SCENARIO:", file=sys.stderr)
+        for err in e.errors:
+            print(f"  - {err}", file=sys.stderr)
+        return 1
+
+    if args.action == "compile":
+        arrivals, faults = sc.schedule(args.scenario_seed)
+        with_deadline = sum(1 for a in arrivals if a.deadline_s is not None)
+        print(f"{sc.name}: {len(arrivals)} arrivals over {sc.duration_s}s "
+              f"({with_deadline} with deadlines), {len(faults)} faults")
+        for a in arrivals[:args.head]:
+            dl = f" deadline={a.deadline_s}s" if a.deadline_s else ""
+            print(f"  t={a.t:10.3f}  {a.tenant:<12} {a.kind:<12} "
+                  f"variant={a.variant}{dl}")
+        if len(arrivals) > args.head:
+            print(f"  ... {len(arrivals) - args.head} more")
+        for f in faults:
+            print(f"  t={f.t:10.3f}  FAULT {f.kind} -> {f.target}")
+        return 0
+
+    if args.action == "sweep":
+        try:
+            boosts = [float(x) for x in args.boosts.split(",") if x.strip()]
+        except ValueError:
+            sys.exit(f"--boosts expects comma-separated numbers, "
+                     f"got {args.boosts!r}")
+        rows = sweep_edf_boost(sc, boosts, seed=args.scenario_seed)
+        print(f"{'boost':>8} {'hit_rate':>9} {'p50_s':>9} {'p95_s':>9} "
+              f"{'p99_s':>9} {'$/job':>10}")
+        for r in rows:
+            print(f"{r['deadline_boost']:>8} {r['slo_hit_rate']:>9} "
+                  f"{r['p50_s']:>9} {r['p95_s']:>9} {r['p99_s']:>9} "
+                  f"{r['per_job_usd']:>10}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rows, f, indent=2)
+                f.write("\n")
+        return 0
+
+    # run
+    try:
+        actions = FaultActions.from_pids(args.pid)
+    except ValueError as e:
+        sys.exit(f"--pid: {e}")
+    if args.url:
+        report = run_open_loop(sc, api, seed=args.scenario_seed,
+                               time_scale=args.time_scale, actions=actions,
+                               settle_timeout_s=args.settle_timeout)
+    else:
+        report = run_virtual(sc, seed=args.scenario_seed,
+                             deadline_boost=args.boost, actions=actions)
+    _print(report)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+            f.write("\n")
+    if args.trajectory:
+        warning = append_trajectory(args.trajectory, report)
+        print(f"appended to {args.trajectory}", file=sys.stderr)
+        if warning:
+            print(warning, file=sys.stderr)
+    jobs = report["jobs"]
+    if jobs["submitted"] == 0 or jobs["completed"] == 0:
+        print(f"scenario {sc.name}: no completed jobs "
+              f"({jobs})", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="fabric_cli", description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -562,6 +650,46 @@ def main(argv: list[str] | None = None) -> int:
                    help="CAS directory to inspect (offline mode)")
     retention_parser = p
 
+    p = sub.add_parser(
+        "scenario",
+        help="digital-twin traffic scenarios: run (virtual in-process, or "
+             "open-loop against --url), compile (print the deterministic "
+             "schedule), sweep (EDF deadline-boost calibration)")
+    p.add_argument("action", choices=("run", "compile", "sweep"))
+    p.add_argument("file", help="path to a scenario YAML/JSON document")
+    p.add_argument("--scenario-seed", type=int, default=None, metavar="N",
+                   dest="scenario_seed",
+                   help="override the document's seed (same seed = "
+                        "identical arrival schedule)")
+    p.add_argument("--time-scale", type=float, default=None,
+                   metavar="X", dest="time_scale",
+                   help="live runs: wall seconds per schedule second "
+                        "(default: the document's time_scale)")
+    p.add_argument("--settle-timeout", type=float, default=None,
+                   metavar="SECONDS", dest="settle_timeout",
+                   help="live runs: budget for the queue to drain after "
+                        "the last arrival (default: the document's "
+                        "settle_s)")
+    p.add_argument("--pid", action="append", default=[], metavar="NAME=PID",
+                   help="map a scenario fault target to a live process: "
+                        "firing sends SIGKILL (repeatable; unmapped "
+                        "targets report fired=false)")
+    p.add_argument("--boost", type=float, default=None, metavar="B",
+                   help="virtual runs: override the admission "
+                        "deadline_boost for this run")
+    p.add_argument("--boosts", default="0,0.01,0.05,0.2,0.5,2,5",
+                   help="sweep: comma-separated deadline_boost values")
+    p.add_argument("--head", type=int, default=12, metavar="N",
+                   help="compile: arrivals to print before eliding")
+    p.add_argument("--trajectory", nargs="?", const="BENCH_fabric.json",
+                   default=None, metavar="FILE",
+                   help="append the report to this trajectory JSON list "
+                        "(default file: BENCH_fabric.json; warns non-"
+                        "gating on SLO regression vs the same machine+"
+                        "scenario+mode)")
+    p.add_argument("--out", metavar="FILE",
+                   help="also write the full report/sweep JSON here")
+
     # retention flags: override the persisted operator document field-wise
     # (live flag > CAS document > default); negative count = unbounded
     for p in (serve_parser, submit_parser, compact_parser, retention_parser,
@@ -636,8 +764,9 @@ def main(argv: list[str] | None = None) -> int:
             # by a supervisor — is fenced from its next append on
             journal.claim()
         api = FabricAPI(svc, admin_token=args.admin_token)
-    elif args.cmd in ("compact", "gc", "retention", "follow", "trace"):
-        api = None          # CAS-direct
+    elif args.cmd in ("compact", "gc", "retention", "follow", "trace",
+                      "scenario"):
+        api = None          # CAS-direct, or (scenario) builds its own fabric
     else:
         # no journal: nothing durable to compact, but in-memory retention
         # (job cap, feed window, index cap) still honors the flags
@@ -651,7 +780,8 @@ def main(argv: list[str] | None = None) -> int:
             "follow": cmd_follow, "promote": cmd_promote,
             "tail": cmd_tail, "trace": cmd_trace, "metrics": cmd_metrics,
             "compact": cmd_compact, "gc": cmd_gc,
-            "retention": cmd_retention}[args.cmd](api, args)
+            "retention": cmd_retention,
+            "scenario": cmd_scenario}[args.cmd](api, args)
 
 
 if __name__ == "__main__":
