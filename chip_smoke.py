@@ -12,8 +12,9 @@ Phases, each fatal on failure (nothing is caught):
      shared memory and spills (the dynamic shared memory of the wgmma
      backward and of the scan's passes from the libraries);
   3. holds the decode kernel against its plain PyTorch version on the card
-     at the decode shapes of smollm-135m, llama-3.2-1b and zamba2-2.7b
-     (hd 80), and at the head dims of phi3-mini (96) and kimi-k2 (112)
+     at the decode shapes of smollm-135m, llama-3.2-1b, zamba2-2.7b (hd 80)
+     and qwen2-moe-a2.7b (16/16, hd 128), and at the head dims of phi3-mini
+     (96) and kimi-k2 (112)
      (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
      bf16 at 2e-2, repeated calls bit-identical, and times kernel, plain
      version and a library call (with the split plan, the achieved GB/s
@@ -109,13 +110,28 @@ Phases, each fatal on failure (nothing is caught):
      launched in each run. Prints a ``[scenario]`` line a run (the report,
      its cost and energy as the cost model's, labelled modelled, the
      executor's median wall ms per op type, the engine's executions and
-     retries, the launches and seconds).
+     retries, the launches and seconds);
+ 18. the MoE family: serves 16 requests at the full width of
+     qwen2-moe-a2.7b in bf16 as in phase 4 (24 ``decode_attention``
+     launches a decode step), profiles decode steps and prefills with the
+     device ms of ``moe_block``'s parts against the step's bound (the
+     weights' bytes); bf16 parity as in phase 5 with the count of tokens
+     whose top-k experts differ from the plain path's, by layer, controls
+     (the kernels at batch 1, the plain model at batch 8) and two planted
+     faults (a neighbouring request's KV cache, gates not renormalised);
+     two decode steps on one cache bit-identical with no host sync, and
+     every served stream equal to its prompt run alone; fp32 engine streams
+     at 4 layers against the sequential plain reference; one fp32 train
+     step at 2 layers, loss with the auxiliary term and gradients, flash
+     kernels against the plain attention; ``repro_torch.launch.serve --arch
+     qwen2-moe-a2.7b``.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -156,6 +172,24 @@ BF16_LOGIT_ATOL = 0.15
 # fp32 as well: at full depth on a 1536-token prefill (1e-2; 2.5e-5
 # measured for mamba2) and by equal greedy streams at reduced depth.
 BF16_SSM_LOGIT_ATOL = 0.5
+# The same for qwen2-moe-a2.7b against the plain attention. Routing is
+# discontinuous: a bf16-ulp difference upstream can move a token's router
+# probabilities across a near-tie of its 4th and 5th expert, and the
+# swapped expert changes that layer's output for that token by order 1
+# times its gate, which later layers and later steps (through the KV
+# cache) carry on: in the last layers up to half of 31 tokens route to
+# another top-4 set. So bf16 rounding alone moves these logits by up to
+# 1.96 at some step: the controls, the kernels at batch 1 and the plain
+# model at batch 8, read 0.91 to 1.96 against the plain model at batch 1,
+# the served streams 0.69 to 2.12 (and each served stream equals its
+# prompt run alone). The heavy tail is a few steps: the median step of
+# every stream and control reads under 0.5. The planted faults move every
+# step: a neighbouring request's KV cache by 7.48 to 7.94 at most and 6.4
+# or more at the median step, gates not renormalised by 3.44 to 3.82 and
+# 2.78 or more (H100 runs); the check fails unless each fault exceeds both
+# tolerances.
+BF16_MOE_LOGIT_ATOL = 2.5
+BF16_MOE_MEDIAN_STEP_ATOL = 1.0
 # fp32: a greedy stream may differ only after a step where the reference's
 # top-2 margin is under this (sums in another order, ~1e-6 relative).
 FP32_TIE_MARGIN = 1e-3
@@ -355,7 +389,7 @@ def prompt_lengths(cfg, rng):
     """16 served prompt lengths; [1] and [3] are the long and the short
     stream that ``parity_bf16`` checks. The SSM families take at most one
     chunk (256) or a multiple of it, as the reference asserts."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return np.concatenate([[8, 1500, 1024, 300],
                                rng.integers(8, 1500, 12)])
     return np.concatenate([[8, 1536, 1024, 256, 512],
@@ -365,10 +399,11 @@ def prompt_lengths(cfg, rng):
 def plain_model(cfg):
     """The family's model with the plain versions at every kernel seam."""
     from repro_torch.kernels import ref
-    from repro_torch.models.transformer import DenseLM, HybridLM, MambaLM
-    if cfg.family == "dense":
-        return DenseLM(cfg, device=DEV,
-                       decode_attention=ref.decode_attention_ref)
+    from repro_torch.models.transformer import (DenseLM, HybridLM, MambaLM,
+                                                MoELM)
+    if cfg.family in ("dense", "moe"):
+        lm = MoELM if cfg.family == "moe" else DenseLM
+        return lm(cfg, device=DEV, decode_attention=ref.decode_attention_ref)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=DEV, ssd_scan=ref.ssd_scan_ref)
     return HybridLM(cfg, device=DEV, ssd_scan=ref.ssd_scan_ref,
@@ -406,10 +441,32 @@ def fabric_launches(reset: bool = False) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def recording_routing(sink: list):
+    """While open, every MoE layer's top-k expert ids, (B, T, k) sorted
+    along k, are appended to ``sink`` (the model module's ``moe_block`` is
+    wrapped; the ids are those ``moe_block`` computes)."""
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as tm
+    block = tm.moe_block
+
+    def recorded(p, x, cfg):
+        _, _, ids = ffn.route(p, x.reshape(1, -1, x.shape[-1]), cfg)
+        sink.append(ids.reshape(*x.shape[:2], -1).sort(dim=-1).values)
+        return block(p, x, cfg)
+
+    tm.moe_block = recorded
+    try:
+        yield sink
+    finally:
+        tm.moe_block = block
+
+
 def serve_full_width(cfg, rng):
     """Serves 16 requests at full width in bf16. Returns the model, its
     params, the requests, each decode step's logits with the slot map it
-    ran under, and the kernels' launches in the run: ``decode_attention``
+    ran under (and for MoE its top-k expert ids by layer, (L, B, 1, k);
+    else None), and the kernels' launches in the run: ``decode_attention``
     on every attention layer of every decode step, ``ssd_scan`` on every
     SSM layer of every prefill."""
     from repro_torch.models.transformer import build_model
@@ -427,13 +484,16 @@ def serve_full_width(cfg, rng):
     eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
     records, finite = [], torch.ones((), dtype=torch.bool, device=DEV)
     plain_decode = model.decode
+    routing = []
 
     def recording_decode(p, tokens, cache):
         nonlocal finite
+        routing.clear()                          # drops the prefills' ids
         logits, cache = plain_decode(p, tokens, cache)
         finite = finite & torch.isfinite(logits).all()
         records.append(({s: r.req_id for s, r in eng.active.items()},
-                        logits[:, -1].clone()))
+                        logits[:, -1].clone(),
+                        torch.stack(routing) if routing else None))
         return logits, cache
 
     model.decode = recording_decode
@@ -442,12 +502,14 @@ def serve_full_width(cfg, rng):
     launch_counts(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for r in reqs[:-1]:
-        eng.submit(r)
-    done = eng.step()
-    eng.submit(reqs[-1])                         # arrives mid-flight
-    while eng.waiting or eng.active:
-        done.extend(eng.step())
+    with (recording_routing(routing) if cfg.family == "moe"
+          else contextlib.nullcontext()):
+        for r in reqs[:-1]:
+            eng.submit(r)
+        done = eng.step()
+        eng.submit(reqs[-1])                     # arrives mid-flight
+        while eng.waiting or eng.active:
+            done.extend(eng.step())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
@@ -457,15 +519,16 @@ def serve_full_width(cfg, rng):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     if not bool(finite):
         raise AssertionError("non-finite logits in a served decode step")
-    attn_layers = {"dense": cfg.n_layers, "ssm": 0,
+    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
                    "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}
     want = {"decode_attention": attn_layers[cfg.family] * eng.steps,
-            "ssd_scan": 0 if cfg.family == "dense" else
-            cfg.n_layers * len(reqs)}
+            "ssd_scan": cfg.n_layers * len(reqs)
+            if cfg.family in ("ssm", "hybrid") else 0}
     if launches != want or eng.steps == 0:
         raise AssertionError(f"launches {launches} in {eng.steps} steps and "
                              f"{len(reqs)} prefills, want {want}")
     stats = {"arch": cfg.name, "requests": len(done),
+             "routing_recorded": cfg.family == "moe",
              "prompt_tokens": int(lens.sum()),
              "tokens_generated": eng.tokens_generated,
              "engine_steps": eng.steps, "wall_s": wall,
@@ -494,7 +557,7 @@ def where_the_time_goes(model, params, rng, n_steps=10):
 
     from repro_torch.serve.engine import Request, ServingEngine
     cfg = model.cfg
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         lens, prefill_lens = (8, 1500, 1024, 300, 500, 700, 900, 100), \
             (1500, 1024, 300)
     else:
@@ -513,10 +576,12 @@ def where_the_time_goes(model, params, rng, n_steps=10):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    rows = [eng.cache["index"].clamp(max=S).sum().item()]
     with profile(activities=activities) as prof:
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
+    rows.append(eng.cache["index"].clamp(max=S).sum().item())
     kernels = device_kernels(prof, n_steps)
     busy_ms = sum(ms for _, _, ms in kernels)
     prefill_ms = {}
@@ -538,6 +603,7 @@ def where_the_time_goes(model, params, rng, n_steps=10):
         torch.cuda.synchronize()
     prefill_kernels = device_kernels(prof, 1)
     stats = {"arch": cfg.name, "decode_step_ms": step_ms,
+             "kv_rows": sum(rows) / 2,     # cached rows a profiled step reads
              "device_busy_ms_per_step": busy_ms,
              "device_idle_share": 1 - busy_ms / step_ms,
              "top_kernels_per_step": [[name[:60], calls, ms]
@@ -550,6 +616,7 @@ def where_the_time_goes(model, params, rng, n_steps=10):
              "prefill_top_kernels": [[name[:60], calls, ms] for
                                      name, calls, ms in prefill_kernels[:4]]}
     log(f"[profile] {json.dumps(stats)}")
+    return stats
 
 
 # ----------------------------------------------------------- phases 5, 13 --
@@ -557,8 +624,10 @@ def teacher_forced_logits(model, params, prompt, generated,
                           state_from=None):
     """(n - 1, V) logits of the decode steps of one stream of n tokens, fed
     its own tokens, on a one-slot cache. ``state_from``, another prompt,
-    plants a fault: the SSM state its prefill leaves replaces the stream's
-    own before the first decode step, as a slot mix-up would."""
+    plants a fault: the SSM state its prefill leaves (without one, its KV
+    cache) replaces the stream's own before the first decode step, as a
+    slot mix-up would."""
+    from repro_torch.models.common import tree_leaves
     cache = model.init_cache(1, S)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=DEV)
     _, cache = model.prefill(params, {"tokens": tokens[None]}, cache)
@@ -566,7 +635,9 @@ def teacher_forced_logits(model, params, prompt, generated,
         other = torch.as_tensor(np.asarray(state_from, np.int64), device=DEV)
         _, wrong = model.prefill(params, {"tokens": other[None]},
                                  model.init_cache(1, S))
-        for leaf, bad in zip(cache["state"], wrong["state"]):
+        names = ["state"] if "state" in cache else ["k", "v"]
+        for leaf, bad in zip(tree_leaves([cache[n] for n in names]),
+                             tree_leaves([wrong[n] for n in names])):
             leaf.copy_(bad)
     out = []
     for tok in generated[:-1]:
@@ -576,77 +647,170 @@ def teacher_forced_logits(model, params, prompt, generated,
     return torch.stack(out)
 
 
+def teacher_forced_batch(model, params, streams):
+    """(len(streams), n - 1, V): the decode-step logits of streams of n
+    tokens each, (prompt, generated), side by side in one cache of
+    ``len(streams)`` slots, each slot fed its own tokens: a served batch
+    without the engine's arrivals and departures."""
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(model, params, n_slots=len(streams), max_len=S)
+    for slot, (prompt, _) in enumerate(streams):
+        eng._prefill(prompt, slot)
+    toks = torch.tensor([g[:-1] for _, g in streams], device=DEV)
+    cache, out = eng.cache, []
+    for t in range(toks.shape[1]):
+        logits, cache = model.decode(params, toks[:, t:t + 1], cache)
+        out.append(logits[:, -1])
+    return torch.stack(out, dim=1)
+
+
+@contextlib.contextmanager
+def unnormalised_gates():
+    """A planted fault while open: ``moe_block`` weights each expert by its
+    raw softmax probability, its top-k gates not renormalised to sum 1."""
+    from repro_torch.models import ffn
+    route = ffn.route
+
+    def raw(p, xt, cfg):
+        probs = torch.softmax(xt.float() @ p.router, dim=-1)
+        gates, expert_ids = torch.topk(probs, cfg.top_k, dim=-1)
+        return probs, gates, expert_ids
+
+    ffn.route = raw
+    try:
+        yield
+    finally:
+        ffn.route = route
+
+
 def parity_bf16(model, params, reqs, records):
     """Served logits (batch of 8, kernels) against the same stream
     teacher-forced at batch 1 with the plain versions. For the SSM families
     also controls, each against the plain versions at batch 1: the kernels
     at batch 1, the sequential scan, for the hybrid the plain scan with the
     decode attention kernel; and a planted fault, a neighbouring request's
-    SSM state, which the check must catch."""
+    SSM state, which the check must catch. For MoE the count of tokens, by
+    layer, whose top-k experts differ between the served and the
+    teacher-forced plain path, controls (the kernels at batch 1, the plain
+    model at batch 8 beside seven other streams) and two planted faults (a
+    neighbouring request's KV cache, gates not renormalised)."""
     cfg = model.cfg
     plain = plain_model(cfg)
-    tol = BF16_LOGIT_ATOL if cfg.family == "dense" else BF16_SSM_LOGIT_ATOL
-    controls = {}
-    if cfg.family != "dense":
+    tol = {"dense": BF16_LOGIT_ATOL, "moe": BF16_MOE_LOGIT_ATOL}.get(
+        cfg.family, BF16_SSM_LOGIT_ATOL)
+    # MoE: the median step's max |dlogit| as well (routing flips make a
+    # heavy tail of a few steps)
+    step_tol = BF16_MOE_MEDIAN_STEP_ATOL if cfg.family == "moe" else None
+
+    def forced(m, req, **kw):
+        return teacher_forced_logits(m, params, req.prompt, req.generated,
+                                     **kw)
+
+    controls, faults = {}, {}
+    if cfg.family in ("ssm", "hybrid"):
         from repro_torch.kernels import ref
         from repro_torch.models.transformer import HybridLM
-        controls["kernels at batch 1"] = model
         # the plain model with the scan summed in the sequential order: how
         # far an fp32 reordering of the scan alone moves bf16 logits
         sequential = plain_model(cfg)
         sequential.ssd_scan = lambda u, loga, Bm, Cm, *, chunk, h0=None: \
             ref.ssd_ref(u, loga, Bm, Cm, h0=h0)
-        controls["sequential scan"] = sequential
+        models = {"kernels at batch 1": model,
+                  "sequential scan": sequential}
         if cfg.family == "hybrid":
-            controls["plain scan, decode_attention kernel"] = HybridLM(
+            models["plain scan, decode_attention kernel"] = HybridLM(
                 cfg, device=DEV, ssd_scan=ref.ssd_scan_ref)
+        controls = {name: lambda req, m=m: forced(m, req)
+                    for name, m in models.items()}
+        faults["state"] = lambda req, nb: forced(plain, req,
+                                                 state_from=nb.prompt)
+    elif cfg.family == "moe":
+        controls["kernels at batch 1"] = lambda req: forced(model, req)
+        controls["plain at batch 8"] = lambda req: teacher_forced_batch(
+            plain, params, [(r.prompt, r.generated) for r in
+                            [req] + [r for r in reqs if r is not req][
+                                :B - 1]])[0]
+        faults["KV cache"] = lambda req, nb: forced(plain, req,
+                                                    state_from=nb.prompt)
+
+        def unnormalised(req, nb):
+            with unnormalised_gates():
+                return forced(plain, req)
+        faults["gates not renormalised"] = unnormalised
     worst, fault_least, checked = 0.0, float("inf"), 0
+    fault_median_least = float("inf")
+    flips_total = np.zeros(cfg.n_layers, np.int64)
     for i in (1, 3, len(reqs) - 1):              # long, short, mid-flight
         req = reqs[i]
-        served = torch.stack([lg[req.slot] for slots, lg in records
-                              if slots.get(req.slot) == req.req_id]).float()
-        forced = teacher_forced_logits(plain, params, req.prompt,
-                                       req.generated).float()
-        if served.shape != forced.shape:
+        mine = [(lg[req.slot], ids) for slots, lg, ids in records
+                if slots.get(req.slot) == req.req_id]
+        served = torch.stack([lg for lg, _ in mine]).float()
+        sink = []
+        with (recording_routing(sink) if cfg.family == "moe"
+              else contextlib.nullcontext()):
+            want = forced(plain, req).float()
+        if served.shape != want.shape:
             raise AssertionError(f"{served.shape} served steps, "
-                                 f"{forced.shape} teacher-forced")
-        err = (served - forced).abs().amax(dim=-1)
-        top2 = forced.topk(2, dim=-1).values
+                                 f"{want.shape} teacher-forced")
+        err = (served - want).abs().amax(dim=-1)
+        top2 = want.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
-        agree = served.argmax(-1) == forced.argmax(-1)
+        agree = served.argmax(-1) == want.argmax(-1)
         readings = ""
-        if cfg.family != "dense":
-            for name, m in controls.items():
-                got = teacher_forced_logits(m, params, req.prompt,
-                                            req.generated).float()
-                readings += (f", {name} "
-                             f"{(got - forced).abs().max().item():.4f}")
-            neighbour = reqs[(i + 1) % len(reqs)]
-            faulty = teacher_forced_logits(plain, params, req.prompt,
-                                           req.generated,
-                                           state_from=neighbour.prompt)
-            fault = (served - faulty.float()).abs().max().item()
-            fault_least = min(fault_least, fault)
-            readings += f"; planted fault (req {neighbour.req_id}'s " \
-                        f"state) {fault:.4f}"
+        median = lambda e: f" (median step {e.median().item():.4f})" \
+            if step_tol else ""
+        for name, fn in controls.items():
+            e = (fn(req).float() - want).abs().amax(dim=-1)
+            readings += f", {name} {e.max().item():.4f}{median(e)}"
+        neighbour = reqs[(i + 1) % len(reqs)]
+        for name, fn in faults.items():
+            e = (served - fn(req, neighbour).float()).abs().amax(dim=-1)
+            fault_least = min(fault_least, e.max().item())
+            fault_median_least = min(fault_median_least,
+                                     e.median().item())
+            what = f"req {neighbour.req_id}'s {name}" \
+                if name in ("state", "KV cache") else name
+            readings += f"; planted fault ({what}) {e.max().item():.4f}" \
+                f"{median(e)}"
+        if cfg.family == "moe":
+            # the prefill's L entries first, then L a decode step
+            L = cfg.n_layers
+            forced_ids = torch.stack(sink[L:]).reshape(-1, L, cfg.top_k)
+            served_ids = torch.stack([ids[:, req.slot, 0]
+                                      for _, ids in mine])
+            flips = (served_ids != forced_ids).any(-1).sum(0).cpu().numpy()
+            flips_total += flips
+            readings += (f"; tokens whose top-{cfg.top_k} experts differ, "
+                         f"by layer {flips.tolist()}")
         log(f"[parity bf16] {cfg.name} req {req.req_id} prompt "
-            f"{len(req.prompt)}: max |dlogit| {err.max().item():.4f}, argmax "
+            f"{len(req.prompt)}: max |dlogit| {err.max().item():.4f}"
+            f"{median(err)}, argmax "
             f"agrees {int(agree.sum())}/{len(agree)}, min margin "
             f"{margin.min().item():.4f}{readings}")
         if err.max().item() > tol:
             raise AssertionError(f"bf16 logits off by {err.max().item()}")
+        if step_tol and err.median().item() > step_tol:
+            raise AssertionError(f"bf16 logits off by {err.median().item()}"
+                                 f" at the median step")
         if not bool(agree[margin > tol].all()):
             raise AssertionError("argmax differs where the margin exceeds "
                                  "the tolerance")
         worst, checked = max(worst, err.max().item()), checked + len(err)
     log(f"[parity bf16] {cfg.name}: {checked} teacher-forced steps, max "
-        f"|dlogit| {worst:.4f} (tol {tol})"
-        + (f", planted fault at least {fault_least:.4f}"
-           if cfg.family != "dense" else ""))
-    if cfg.family != "dense" and fault_least <= tol:
-        raise AssertionError(f"a neighbouring request's state moved logits "
-                             f"by only {fault_least} (tol {tol}): the check "
-                             f"cannot see it")
+        f"|dlogit| {worst:.4f} (tol {tol}"
+        + (f", median step tol {step_tol}" if step_tol else "") + ")"
+        + (f", planted fault at least {fault_least:.4f}" if faults else "")
+        + (f", tokens with other top-{cfg.top_k} experts by layer "
+           f"{flips_total.tolist()} of {checked} a layer"
+           if cfg.family == "moe" else ""))
+    if faults and fault_least <= tol:
+        raise AssertionError(f"a planted fault moved logits by only "
+                             f"{fault_least} (tol {tol}): the check cannot "
+                             f"see it")
+    if step_tol and fault_median_least <= step_tol:
+        raise AssertionError(f"a planted fault moved the median step's "
+                             f"logits by only {fault_median_least} (tol "
+                             f"{step_tol}): the check cannot see it")
 
 
 def prefill_fp32_full_depth(cfg, rng):
@@ -684,7 +848,7 @@ def parity_fp32(cfg, rng, n_layers=None):
     model = build_model(cfg32, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
     plain = plain_model(cfg32)
-    lens = (8, 1100, 400, 57, 700) if cfg.family == "dense" else \
+    lens = (8, 1100, 400, 57, 700) if cfg.family in ("dense", "moe") else \
         (8, 1024, 256, 57, 512)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
@@ -923,20 +1087,27 @@ def profile_train_step(cfg, step_ms):
 
 
 # --------------------------------------------------------------- phase 9 --
-def train_parity(cfg):
-    """One step's loss and gradients, kernel against plain attention."""
+def train_parity(cfg, n_layers=4, bf16=True):
+    """One step's loss and gradients, kernel against plain attention: fp32
+    at ``n_layers``, then bf16 at the full config if ``bf16``. Returns the
+    flash kernels' launches (forward, backward) in the phase."""
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
     from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import DenseLM
+    from repro_torch.models.transformer import DenseLM, MoELM
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.train_step import value_and_grad
-    cfg32 = replace(cfg, n_layers=4, param_dtype=torch.float32,
+    lm = MoELM if cfg.family == "moe" else DenseLM
+    fk.flash_attention_fwd.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    cfg32 = replace(cfg, n_layers=n_layers, param_dtype=torch.float32,
                     compute_dtype=torch.float32)
-    for label, c, B, T in (("fp32", cfg32, 2, 1024),
-                           ("bf16", cfg, TRAIN_B, TRAIN_T)):
-        model = DenseLM(c, device=DEV)
-        plain = DenseLM(c, device=DEV,
-                        flash_attention=ref.flash_attention_ref)
+    cases = [("fp32", cfg32, 2, 1024)]
+    if bf16:
+        cases.append(("bf16", cfg, TRAIN_B, TRAIN_T))
+    for label, c, B, T in cases:
+        model = lm(c, device=DEV)
+        plain = lm(c, device=DEV, flash_attention=ref.flash_attention_ref)
         params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
         batch = SyntheticLM(DataConfig(c.vocab_size, T, B, seed=SEED + 1),
                             device=DEV).batch(0)
@@ -962,6 +1133,7 @@ def train_parity(cfg):
                                 or worst > BF16_GRAD_RTOL):
             raise AssertionError(f"bf16 train parity off: {stats}")
         del model, plain, params, grads, want
+    return fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches
 
 
 def deterministic_runs(cfg):
@@ -1393,6 +1565,126 @@ def scenario_phase() -> list:
         ("steady_mix", "open-loop"))]
 
 
+# -------------------------------------------------------------- phase 18 --
+def moe_breakdown(model, params, profile_stats):
+    """Device ms a step of ``moe_block``'s parts (routing and the sort,
+    the dispatch into the expert buffer, the expert products, the combine,
+    the shared experts) at the decode shape (8 slots) and a 1500-token
+    prefill: each part alone on one layer's weights, replayed from a CUDA
+    graph, times the layers. Beside the profiled decode step's device time,
+    its bound: the bytes of the weights a step reads (the embedding but one
+    row a token) and of the KV rows, over the memory rate."""
+    from repro_torch.models import ffn
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import unstack
+    cfg = model.cfg
+    E, k, L = cfg.n_experts, cfg.top_k, cfg.n_layers
+    lp = unstack(params["layers"])[0].moe
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    parts = {}
+    for shape, n in (("decode", B), ("prefill_1500", 1500)):
+        x = torch.randn((1, n, cfg.d_model), generator=gen, device=DEV
+                        ).to(cfg.compute_dtype)
+        C = ffn._capacity(n, cfg)
+        _, gates, ids = ffn.route(lp, x, cfg)
+        dest = ffn.dispatch_plan(ids, E, C)
+        buf = ffn.dispatch(x, dest, k, E, C)
+        y = ffn.expert_products(lp, buf, cfg)
+        calls = {
+            "route_and_sort": lambda i: ffn.dispatch_plan(
+                ffn.route(lp, x, cfg)[2], E, C),
+            "dispatch": lambda i: ffn.dispatch(x, dest, k, E, C),
+            "expert_products": lambda i: ffn.expert_products(lp, buf, cfg),
+            "combine": lambda i: ffn.combine(y, dest, gates),
+            "shared_experts": lambda i: ffn.swiglu(lp.shared, x,
+                                                   cfg.compute_dtype),
+            "moe_block": lambda i: ffn.moe_block(lp, x, cfg)}
+        parts[shape] = {"capacity": C, **{
+            f"{name}_ms": device_ms(fn, 10) * L for name, fn in calls.items()}}
+    layers = params["layers"]
+    weights = [t for name, leaf in layers._asdict().items() if name != "moe"
+               for t in tree_leaves(leaf)]
+    weights += [layers.moe.router, layers.moe.w_gate[:, :E],
+                layers.moe.w_up[:, :E], layers.moe.w_down[:, :E],
+                *tree_leaves(layers.moe.shared), params["lm_head"],
+                params["final_norm"]]
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    expert_bytes = 3 * L * E * cfg.d_model * cfg.d_ff * 2
+    kv_bytes = 2 * L * profile_stats["kv_rows"] * cfg.n_kv_heads * cfg.hd * 2
+    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    stats = {"arch": cfg.name, "weight_gb_read_a_step": weight_bytes / 1e9,
+             "routed_expert_gb": expert_bytes / 1e9,
+             "kv_gb_read_a_step": kv_bytes / 1e9,
+             "decode_step_bound_ms": bound_ms,
+             "decode_step_device_busy_ms":
+                 profile_stats["device_busy_ms_per_step"],
+             "decode_step_host_ms": profile_stats["decode_step_ms"],
+             "parts_ms_per_step": parts}
+    log(f"[profile moe] {json.dumps(stats)}")
+    return stats
+
+
+def moe_determinism(model, params, reqs):
+    """Two decode steps on one cache and the same tokens give the same
+    bits, with no host sync in a step (CUDA's sync debug mode set to
+    error); then every served stream equals its prompt run alone through
+    an engine of the same 8 slots."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
+    for r in reqs[:B]:
+        eng.submit(Request(r.prompt, max_new_tokens=2))
+    eng._admit()
+    toks = torch.tensor([[eng.active[s].generated[-1]] for s in range(B)],
+                        device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, _ = model.decode(params, toks, eng.cache)
+        again, _ = model.decode(params, toks, eng.cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(first, again):
+        raise AssertionError("two decode steps on one cache differ")
+    del eng
+    alone = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
+    t0 = time.perf_counter()
+    for r in reqs:
+        solo = Request(r.prompt, max_new_tokens=r.max_new_tokens)
+        alone.run([solo])
+        if solo.generated != r.generated:
+            raise AssertionError(f"req {r.req_id}: served {r.generated}, "
+                                 f"alone {solo.generated}")
+    log(f"[parity moe] {model.cfg.name}: two decode steps on one cache "
+        f"bit-identical, no host sync in a step; {len(reqs)} served streams "
+        f"equal their prompts run alone ({time.perf_counter() - t0:.1f} s)")
+
+
+def moe_phase(cfg, rng):
+    """Phase 18 at ``cfg`` (qwen2-moe-a2.7b). Returns the decode kernel's
+    launches in the served run and the flash kernels' (forward, backward)
+    in the train step's parity."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    model, params, reqs, records, counts = serve_full_width(cfg, rng)
+    moe_breakdown(model, params, where_the_time_goes(model, params, rng))
+    parity_bf16(model, params, reqs, records)
+    moe_determinism(model, params, reqs)
+    del model, params, records
+    torch.cuda.empty_cache()
+    parity_fp32(cfg, rng, n_layers=4)
+    torch.cuda.empty_cache()
+    flash = train_parity(cfg, n_layers=2, bf16=False)
+    if min(flash) == 0:
+        raise AssertionError(f"flash launches (fwd, bwd) {flash} in the "
+                             f"MoE train step")
+    torch.cuda.empty_cache()
+    serve.main(["--arch", cfg.name, "--requests", "8", "--max-new", "16",
+                "--slots", "8", "--max-len", "512"])
+    log(f"[moe] phase {time.perf_counter() - t0:.1f} s, flash launches "
+        f"(fwd, bwd) {flash}")
+    return counts["decode_attention"], flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1422,12 +1714,13 @@ def main() -> int:
     log_dynamic_smem(build)
 
     rng = np.random.default_rng(SEED)
-    smollm, llama, mamba, zamba = (get_config(a) for a in (
-        "smollm-135m", "llama-3.2-1b", "mamba2-1.3b", "zamba2-2.7b"))
+    smollm, llama, mamba, zamba, qwen = (get_config(a) for a in (
+        "smollm-135m", "llama-3.2-1b", "mamba2-1.3b", "zamba2-2.7b",
+        "qwen2-moe-a2.7b"))
     rows = [check_and_time_decode_attention(
         c.name, c.n_heads, c.n_kv_heads, c.hd,
         c.n_layers // max(c.attn_every, 1), rng)
-        for c in (smollm, llama, zamba)]
+        for c in (smollm, llama, zamba, qwen)]
     for arch in ("phi3-mini-3.8b", "kimi-k2-1t-a32b"):
         c = get_config(arch)
         check_and_time_decode_attention(c.name, c.n_heads, c.n_kv_heads,
@@ -1476,6 +1769,11 @@ def main() -> int:
     t0 = time.perf_counter()
     scenario_phase()
     log(f"[scenario] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    moe_launches, moe_flash = moe_phase(qwen, rng)
+    launches += moe_launches
+    fwd_launches += moe_flash[0]
+    bwd_launches += moe_flash[1]
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

@@ -1,7 +1,7 @@
 """Model assemblies (counterpart of ``repro/models/transformer.py``).
 
-This slice holds the dense decoder LM, the pure SSM LM (mamba2) and the
-hybrid (zamba2), each with
+This slice holds the dense decoder LM, the MoE LM (qwen2-moe, kimi-k2),
+the pure SSM LM (mamba2) and the hybrid (zamba2), each with
 
     init(generator)                 -> params
     loss_fn(params, batch)          -> scalar loss
@@ -13,7 +13,7 @@ hybrid (zamba2), each with
 Per-layer leaves are stacked on axis 0 (the hybrid's on (groups,
 per_group)), as the reference stacks them for ``lax.scan``; the trunks are
 Python loops over per-layer views of them, so gradients flow back to the
-stacked leaves. Caches are updated in place. The other families come with
+stacked leaves. Caches are updated in place. Enc-dec and vlm come with
 their own slices.
 """
 from __future__ import annotations
@@ -29,7 +29,8 @@ from repro_torch.kernels import ops as kops
 from .attention import AttnParams, attention_block, init_attn
 from .common import (ArchConfig, cross_entropy, dense_init, embed_init,
                      require_device, rmsnorm)
-from .ffn import MLPParams, init_mlp, swiglu
+from .ffn import (MLPParams, MoEParams, init_mlp, init_moe, moe_block,
+                  swiglu)
 from .mamba2 import (Mamba2Params, MambaState, init_mamba2, init_mamba_state,
                      mamba2_block)
 
@@ -110,6 +111,8 @@ class DenseLM(DecoderLM):
     seams unless a caller passes the plain versions to hold the kernels
     against them."""
 
+    _layer_type = DenseLayer      # the NamedTuple of a layer's params
+
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
                  decode_attention: Callable = kops.decode_attention,
                  flash_attention: Callable = kops.flash_attention):
@@ -126,23 +129,32 @@ class DenseLM(DecoderLM):
                                         dtype=cfg.param_dtype, device=dev)
         embed = embed_init(generator, (cfg.vocab_size, cfg.d_model),
                            cfg.param_dtype, dev)
-        layers = DenseLayer(init_attn(generator, cfg, dev, lead=(L,)),
-                            init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                     cfg.param_dtype, dev, lead=(L,)),
-                            ones(L), ones(L))
+        layers = self._layer_type(init_attn(generator, cfg, dev, lead=(L,)),
+                                  self._init_ffn(generator, (L,)),
+                                  ones(L), ones(L))
         lm_head = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                              dtype=cfg.param_dtype, device=dev)
         return {"embed": embed, "layers": layers, "final_norm": ones(),
                 "lm_head": lm_head}
 
+    def _init_ffn(self, generator: torch.Generator,
+                  lead: tuple[int, ...]) -> MLPParams:
+        """The layers' feed-forward params, stacked on ``lead``."""
+        cfg = self.cfg
+        return init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.param_dtype,
+                        self.device, lead=lead)
+
     # -- shared trunk -------------------------------------------------------
+    def _ffn(self, lp: DenseLayer, x: torch.Tensor) -> torch.Tensor:
+        """The layer's feed-forward on its normed input."""
+        return swiglu(lp.mlp, x, self.cfg.compute_dtype)
+
     def _layer(self, x: torch.Tensor, lp: DenseLayer) -> torch.Tensor:
         cfg = self.cfg
         a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
                                cfg, flash_attention=self.flash_attention)
         x = x + a
-        return x + swiglu(lp.mlp, rmsnorm(x, lp.norm2, cfg.norm_eps),
-                          cfg.compute_dtype)
+        return x + self._ffn(lp, rmsnorm(x, lp.norm2, cfg.norm_eps))
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -168,8 +180,7 @@ class DenseLM(DecoderLM):
                 kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
                 decode_attention=self.decode_attention)
             h = h + a
-            h = h + swiglu(lp.mlp, rmsnorm(h, lp.norm2, cfg.norm_eps),
-                           cfg.compute_dtype)
+            h = h + self._ffn(lp, rmsnorm(h, lp.norm2, cfg.norm_eps))
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}
@@ -177,6 +188,65 @@ class DenseLM(DecoderLM):
     def cache_slot_axes(self) -> dict:
         """The slot (batch) axis of each cache leaf but ``index``."""
         return {"k": 1, "v": 1}
+
+
+# ===========================================================================
+# MoE decoder LM (qwen2-moe / kimi-k2)
+# ===========================================================================
+class MoELayer(NamedTuple):
+    attn: AttnParams
+    moe: MoEParams
+    norm1: torch.Tensor
+    norm2: torch.Tensor
+
+
+class MoELM(DenseLM):
+    """``DenseLM`` with a routed MoE block for every MLP. The loss adds
+    ``AUX_WEIGHT`` times the mean over layers of the Switch auxiliary loss;
+    prefill and decode drop it, as the reference's cached trunk does."""
+
+    AUX_WEIGHT = 0.01
+    _layer_type = MoELayer
+
+    def _init_ffn(self, generator: torch.Generator,
+                  lead: tuple[int, ...]) -> MoEParams:
+        """The expert leaves are drawn a layer at a time into the param
+        dtype (``init_moe``), so full width fits on the card."""
+        return init_moe(generator, self.cfg, self.device, lead=lead)
+
+    def _ffn(self, lp: MoELayer, x: torch.Tensor) -> torch.Tensor:
+        return moe_block(lp.moe, x, self.cfg)[0]
+
+    def _layer(self, x: torch.Tensor, lp: MoELayer
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
+                               cfg, flash_attention=self.flash_attention)
+        x = x + a
+        m, aux = moe_block(lp.moe, rmsnorm(x, lp.norm2, cfg.norm_eps), cfg)
+        return x + m, aux
+
+    def _trunk(self, params: dict, h: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(normed h, mean aux over the layers); ``remat="block"``
+        checkpoints each layer with both outputs."""
+        cfg = self.cfg
+        auxes = []
+        for lp in unstack(params["layers"]):
+            if cfg.remat == "block":
+                h, aux = checkpoint(self._layer, h, lp, use_reentrant=False)
+            else:
+                h, aux = self._layer(h, lp)
+            auxes.append(aux)
+        return (rmsnorm(h, params["final_norm"], cfg.norm_eps),
+                torch.stack(auxes).mean())
+
+    def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        h, aux = self._trunk(params, self._embed(params, batch["tokens"]))
+        logits = h @ params["lm_head"].to(cfg.compute_dtype)
+        return cross_entropy(logits, batch["labels"],
+                             batch.get("loss_mask")) + self.AUX_WEIGHT * aux
 
 
 # ===========================================================================
@@ -352,7 +422,8 @@ class HybridLM(MambaLM):
                    "index": idx + h.shape[1]}
 
 
-_FAMILIES = {"dense": DenseLM, "ssm": MambaLM, "hybrid": HybridLM}
+_FAMILIES = {"dense": DenseLM, "moe": MoELM, "ssm": MambaLM,
+             "hybrid": HybridLM}
 
 
 def build_model(cfg: ArchConfig, *, device: str | torch.device = "cuda"

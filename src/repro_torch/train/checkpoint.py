@@ -21,14 +21,15 @@ import torch
 
 from repro_torch.core.cas import CAS
 from repro_torch.models.attention import AttnParams
-from repro_torch.models.ffn import MLPParams
+from repro_torch.models.ffn import MLPParams, MoEParams
 from repro_torch.models.mamba2 import Mamba2Params
-from repro_torch.models.transformer import DenseLayer, SSMLayer
+from repro_torch.models.transformer import DenseLayer, MoELayer, SSMLayer
 
-# every NamedTuple that params or optimizer state can hold: the dense
-# layers, the SSM layers, and the hybrid's shared attention and MLP
+# every NamedTuple that params or optimizer state can hold: the dense and
+# MoE layers, the SSM layers, and the hybrid's shared attention and MLP
 _NAMED = {c.__name__: c for c in (DenseLayer, AttnParams, MLPParams,
-                                  SSMLayer, Mamba2Params)}
+                                  MoELayer, MoEParams, SSMLayer,
+                                  Mamba2Params)}
 
 
 def _leaf_bytes(t: torch.Tensor) -> bytes:

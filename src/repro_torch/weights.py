@@ -3,9 +3,11 @@
 Takes a flat dict of numpy arrays keyed by path, as a JAX param pytree
 flattens with ``jax.tree_util.tree_flatten_with_path``: ``"embed"``,
 ``"final_norm"``, ``"lm_head"`` and the layer leaves, ``"layers/<attn|mlp>/
-<name>"`` and ``"layers/norm1"`` for the dense LM, ``"layers/mamba/<field>"``
-and ``"layers/norm"`` for the SSM LM, which the hybrid extends with
-``"shared_attn/<name>"``, ``"shared_mlp/<name>"`` and ``"shared_norm1/2"``.
+<name>"`` and ``"layers/norm1"`` for the dense LM (the MoE LM has
+``"layers/moe/<name>"`` and ``"layers/moe/shared/<name>"`` in place of the
+MLP), ``"layers/mamba/<field>"`` and ``"layers/norm"`` for the SSM LM,
+which the hybrid extends with ``"shared_attn/<name>"``,
+``"shared_mlp/<name>"`` and ``"shared_norm1/2"``.
 The port never sees a JAX type.
 
 Layouts: layer leaves stay stacked as in the reference, on axis 0 (L, ...)
@@ -21,12 +23,13 @@ import torch
 
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.ffn import MLPParams
+from repro_torch.models.ffn import MLPParams, MoEParams
 from repro_torch.models.mamba2 import Mamba2Params
-from repro_torch.models.transformer import DenseLayer, SSMLayer
+from repro_torch.models.transformer import DenseLayer, MoELayer, SSMLayer
 
 # leaves the reference keeps in fp32 whatever the param dtype
-_FP32 = {f"layers/mamba/{n}" for n in ("dt_bias", "A_log", "D")}
+_FP32 = {*(f"layers/mamba/{n}" for n in ("dt_bias", "A_log", "D")),
+         "layers/moe/router"}
 
 
 def _tensors(flat: dict[str, np.ndarray], want: set[str], cfg: ArchConfig,
@@ -71,6 +74,29 @@ def dense_params_from_flat(flat: dict[str, np.ndarray], cfg: ArchConfig,
     layers = DenseLayer(
         AttnParams(*(t[f"layers/attn/{n}"] for n in AttnParams._fields)),
         MLPParams(*(t[f"layers/mlp/{n}"] for n in MLPParams._fields)),
+        t["layers/norm1"], t["layers/norm2"])
+    return {**_top(t), "layers": layers}
+
+
+def moe_params_from_flat(flat: dict[str, np.ndarray], cfg: ArchConfig,
+                         device: str | torch.device) -> dict:
+    """The port's ``MoELM`` params from a reference ``MoELM`` param dict
+    flattened by path; the shared experts' paths exactly when
+    ``n_shared_experts > 0``, the router in fp32."""
+    routed = [n for n in MoEParams._fields if n != "shared"]
+    want = {"embed", "final_norm", "lm_head", "layers/norm1", "layers/norm2",
+            *_fields("layers/attn", AttnParams._fields),
+            *_fields("layers/moe", routed)}
+    if cfg.n_shared_experts:
+        want |= _fields("layers/moe/shared", MLPParams._fields)
+    t = _tensors(flat, want, cfg, device, (cfg.n_layers,))
+    shared = None
+    if cfg.n_shared_experts:
+        shared = MLPParams(*(t[f"layers/moe/shared/{n}"]
+                             for n in MLPParams._fields))
+    layers = MoELayer(
+        AttnParams(*(t[f"layers/attn/{n}"] for n in AttnParams._fields)),
+        MoEParams(*(t[f"layers/moe/{n}"] for n in routed), shared),
         t["layers/norm1"], t["layers/norm2"])
     return {**_top(t), "layers": layers}
 

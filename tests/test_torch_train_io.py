@@ -201,10 +201,10 @@ def assert_same_tree(got, want):
         assert got == want
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_train_state_round_trips_bit_identically(arch):
-    """Dense, SSM and hybrid train states, after one AdamW step so the
+    """Dense, MoE, SSM and hybrid train states, after one AdamW step so the
     moments are set, restore with every NamedTuple and leaf as saved."""
     from repro_torch.train.train_step import (build_train_step,
                                               init_train_state)
