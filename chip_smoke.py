@@ -12,9 +12,10 @@ Phases, each fatal on failure (nothing is caught):
      shared memory and spills (the dynamic shared memory of the wgmma
      backward and of the scan's passes from the libraries);
   3. holds the decode kernel against its plain PyTorch version on the card
-     at the decode shapes of smollm-135m, llama-3.2-1b, zamba2-2.7b (hd 80)
-     and qwen2-moe-a2.7b (16/16, hd 128), and at the head dims of phi3-mini
-     (96) and kimi-k2 (112)
+     at the decode shapes of smollm-135m, llama-3.2-1b, zamba2-2.7b (hd 80),
+     qwen2-moe-a2.7b (16/16, hd 128), llava-next-34b (56/8, hd 128, a
+     group of 7) and whisper-tiny (6/6, hd 64, S 448), and at the head dims
+     of phi3-mini (96) and kimi-k2 (112)
      (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
      bf16 at 2e-2, repeated calls bit-identical, and times kernel, plain
      version and a library call (with the split plan, the achieved GB/s
@@ -32,8 +33,10 @@ Phases, each fatal on failure (nothing is caught):
      at 2e-2) at the smollm-135m training shape (B 8, T 2048, 9/3/64),
      llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
      dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
-     ragged T, T = 1, a non-causal T != S and the fabric executor's train
-     shape (B 4, T 32) (the bf16 forward and backward
+     ragged T, T = 1, a non-causal T != S, the fabric executor's train
+     shape (B 4, T 32), whisper-tiny's decoder (B 8, T 448, 6/6/64) and
+     llava-next-34b's 576 patches + 512 tokens (B 2, T 1088, 56/8/128)
+     (the bf16 forward and backward
      on wgmma at hd 64 and 128, on mma.sync at the others, the library's
      route tables checked against the wrapper's; repeated forwards
      bit-identical), and times kernel, plain version and SDPA at the
@@ -124,7 +127,29 @@ Phases, each fatal on failure (nothing is caught):
      at 4 layers against the sequential plain reference; one fp32 train
      step at 2 layers, loss with the auxiliary term and gradients, flash
      kernels against the plain attention; ``repro_torch.launch.serve --arch
-     qwen2-moe-a2.7b``.
+     qwen2-moe-a2.7b``; the phase's peak memory;
+ 19. the enc-dec family: whisper-tiny at full width (4 + 4 layers, d 384,
+     enc_len 1500) in bf16, served at the model's level (the engine hands
+     prefill only tokens, as the reference's does): 8 rows of seeded
+     frames and 4-token prompts, prefill and 32 greedy steps on a cache of
+     448 (4 ``decode_attention`` launches a step); the encoder's device ms,
+     the decode step's host and device ms; bf16 logits against the plain
+     decode attention fed the same tokens, beside a control (the plain
+     model a row at a time) and a planted fault (a neighbouring row's cross
+     K/V); two decode steps on one cache bit-identical; fp32 greedy streams
+     against the plain path; one fp32 train step (B 8, T 448), flash
+     kernels against the plain attention;
+ 20. the vlm family: llava-next-34b at full width (60 layers, d 7168, 56/8
+     heads of hd 128, 68.9 GB of bf16 weights drawn a layer at a time)
+     served text-only as in phase 4 (60 ``decode_attention`` launches a
+     step), the decode step's device ms against its bound (the weights'
+     and KV rows' bytes), bf16 parity with a control (the kernels at batch
+     1) and a planted fault (a neighbouring request's KV cache); a prefill
+     of 576 seeded patch embeddings and 64 tokens (``index`` 640) and 8
+     decode steps against the plain decode attention; fp32 engine streams
+     at 4 layers; one fp32 train step at 2 layers on 576 patches + 512
+     tokens (flash at a group of 7); ``repro_torch.launch.serve --arch
+     llava-next-34b``; the phase's peak memory.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -190,6 +215,20 @@ BF16_SSM_LOGIT_ATOL = 0.5
 # tolerances.
 BF16_MOE_LOGIT_ATOL = 2.5
 BF16_MOE_MEDIAN_STEP_ATOL = 1.0
+# The same for whisper-tiny (4 + 4 layers, d 384): served logits read
+# 0.039 at most from the plain decode attention over 256 steps, and the
+# control, the plain model a row at a time against batch 8, reads 0.031
+# (H100 run): bf16 rounding in another place, not the kernel. The bound is
+# 3x the larger. The planted fault, a neighbouring row's cross K/V, reads
+# 0.445 or more: small because cross-attention over 1500 random frames
+# averages them, so two rows' encoder outputs differ little.
+BF16_ENCDEC_LOGIT_ATOL = 0.12
+# The same for llava-next-34b (60 layers, d 7168): served logits read 0.101
+# to 0.106 from the plain decode attention, the control (the kernels at
+# batch 1) 0.102 to 0.109, a prefill of 576 patches and 64 tokens 0.141 over
+# 8 steps (H100 run); the bound is 3x the largest. A neighbouring request's
+# KV cache, planted as a fault, moves them by 6.81 or more.
+BF16_VLM_LOGIT_ATOL = 0.4
 # fp32: a greedy stream may differ only after a step where the reference's
 # top-2 margin is under this (sums in another order, ~1e-6 relative).
 FP32_TIE_MARGIN = 1e-3
@@ -204,7 +243,10 @@ FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("ragged T 1000", 2, 1000, 1000, 9, 3, 64, True),
                 ("T 1", 4, 1, 1, 9, 3, 64, True),
                 ("full T != S", 2, 300, 700, 8, 2, 128, False),
-                ("smollm-135m fabric train", 4, 32, 32, 9, 3, 64, True)]
+                ("smollm-135m fabric train", 4, 32, 32, 9, 3, 64, True),
+                ("whisper-tiny decoder train", 8, 448, 448, 6, 6, 64, True),
+                ("llava-next-34b 576 patches + 512 text, group 7", 2, 1088,
+                 1088, 56, 8, 128, True)]
 # Forward and dq, dk, dv against autograd through the plain version.
 # fp32: sums in another order only. bf16: both accumulate in fp32 and round
 # the results once; the kernel also rounds P and dS to bf16 as tensor-core
@@ -389,7 +431,7 @@ def prompt_lengths(cfg, rng):
     """16 served prompt lengths; [1] and [3] are the long and the short
     stream that ``parity_bf16`` checks. The SSM families take at most one
     chunk (256) or a multiple of it, as the reference asserts."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return np.concatenate([[8, 1500, 1024, 300],
                                rng.integers(8, 1500, 12)])
     return np.concatenate([[8, 1536, 1024, 256, 512],
@@ -399,10 +441,10 @@ def prompt_lengths(cfg, rng):
 def plain_model(cfg):
     """The family's model with the plain versions at every kernel seam."""
     from repro_torch.kernels import ref
-    from repro_torch.models.transformer import (DenseLM, HybridLM, MambaLM,
-                                                MoELM)
-    if cfg.family in ("dense", "moe"):
-        lm = MoELM if cfg.family == "moe" else DenseLM
+    from repro_torch.models.transformer import (DenseLM, EncDecLM, HybridLM,
+                                                MambaLM, MoELM)
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
+        lm = {"moe": MoELM, "encdec": EncDecLM}.get(cfg.family, DenseLM)
         return lm(cfg, device=DEV, decode_attention=ref.decode_attention_ref)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=DEV, ssd_scan=ref.ssd_scan_ref)
@@ -480,6 +522,7 @@ def serve_full_width(cfg, rng):
     warm = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
     warm.run([Request(prompts[0], max_new_tokens=4),
               Request(prompts[2], max_new_tokens=4)])
+    del warm          # its cache, 4.03 GB at llava-next-34b, before eng's
 
     eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
     records, finite = [], torch.ones((), dtype=torch.bool, device=DEV)
@@ -519,7 +562,8 @@ def serve_full_width(cfg, rng):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     if not bool(finite):
         raise AssertionError("non-finite logits in a served decode step")
-    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+    attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+                   "vlm": cfg.n_layers, "ssm": 0,
                    "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}
     want = {"decode_attention": attn_layers[cfg.family] * eng.steps,
             "ssd_scan": cfg.n_layers * len(reqs)
@@ -557,7 +601,7 @@ def where_the_time_goes(model, params, rng, n_steps=10):
 
     from repro_torch.serve.engine import Request, ServingEngine
     cfg = model.cfg
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         lens, prefill_lens = (8, 1500, 1024, 300, 500, 700, 900, 100), \
             (1500, 1024, 300)
     else:
@@ -693,11 +737,13 @@ def parity_bf16(model, params, reqs, records):
     layer, whose top-k experts differ between the served and the
     teacher-forced plain path, controls (the kernels at batch 1, the plain
     model at batch 8 beside seven other streams) and two planted faults (a
-    neighbouring request's KV cache, gates not renormalised)."""
+    neighbouring request's KV cache, gates not renormalised). For vlm a
+    control (the kernels at batch 1) and a planted fault (a neighbouring
+    request's KV cache)."""
     cfg = model.cfg
     plain = plain_model(cfg)
-    tol = {"dense": BF16_LOGIT_ATOL, "moe": BF16_MOE_LOGIT_ATOL}.get(
-        cfg.family, BF16_SSM_LOGIT_ATOL)
+    tol = {"dense": BF16_LOGIT_ATOL, "moe": BF16_MOE_LOGIT_ATOL,
+           "vlm": BF16_VLM_LOGIT_ATOL}.get(cfg.family, BF16_SSM_LOGIT_ATOL)
     # MoE: the median step's max |dlogit| as well (routing flips make a
     # heavy tail of a few steps)
     step_tol = BF16_MOE_MEDIAN_STEP_ATOL if cfg.family == "moe" else None
@@ -724,6 +770,10 @@ def parity_bf16(model, params, reqs, records):
                     for name, m in models.items()}
         faults["state"] = lambda req, nb: forced(plain, req,
                                                  state_from=nb.prompt)
+    elif cfg.family == "vlm":
+        controls["kernels at batch 1"] = lambda req: forced(model, req)
+        faults["KV cache"] = lambda req, nb: forced(plain, req,
+                                                    state_from=nb.prompt)
     elif cfg.family == "moe":
         controls["kernels at batch 1"] = lambda req: forced(model, req)
         controls["plain at batch 8"] = lambda req: teacher_forced_batch(
@@ -848,7 +898,8 @@ def parity_fp32(cfg, rng, n_layers=None):
     model = build_model(cfg32, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
     plain = plain_model(cfg32)
-    lens = (8, 1100, 400, 57, 700) if cfg.family in ("dense", "moe") else \
+    lens = (8, 1100, 400, 57, 700) if cfg.family in ("dense", "moe",
+                                                     "vlm") else \
         (8, 1024, 256, 57, 512)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
@@ -1087,22 +1138,27 @@ def profile_train_step(cfg, step_ms):
 
 
 # --------------------------------------------------------------- phase 9 --
-def train_parity(cfg, n_layers=4, bf16=True):
+def train_parity(cfg, n_layers=4, bf16=True, B=2, T=1024):
     """One step's loss and gradients, kernel against plain attention: fp32
-    at ``n_layers``, then bf16 at the full config if ``bf16``. Returns the
-    flash kernels' launches (forward, backward) in the phase."""
+    at ``n_layers`` on B x T tokens, then bf16 at the full config if
+    ``bf16``. The enc-dec batch adds seeded frames (B, enc_len, d), the
+    vlm batch seeded patch embeddings (B, n_patches, d) before the text.
+    Returns the flash kernels' launches (forward, backward) in the
+    phase."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
     from repro_torch.models.common import tree_leaves
-    from repro_torch.models.transformer import DenseLM, MoELM
+    from repro_torch.models.transformer import DenseLM, EncDecLM, MoELM
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.train_step import value_and_grad
-    lm = MoELM if cfg.family == "moe" else DenseLM
+    lm = {"moe": MoELM, "encdec": EncDecLM}.get(cfg.family, DenseLM)
+    extra = {"encdec": ("frames", cfg.enc_len),
+             "vlm": ("patch_embeds", cfg.n_patches)}.get(cfg.family)
     fk.flash_attention_fwd.launches = 0
     fk.flash_attention_bwd.launches = 0
     cfg32 = replace(cfg, n_layers=n_layers, param_dtype=torch.float32,
                     compute_dtype=torch.float32)
-    cases = [("fp32", cfg32, 2, 1024)]
+    cases = [("fp32", cfg32, B, T)]
     if bf16:
         cases.append(("bf16", cfg, TRAIN_B, TRAIN_T))
     for label, c, B, T in cases:
@@ -1111,6 +1167,11 @@ def train_parity(cfg, n_layers=4, bf16=True):
         params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
         batch = SyntheticLM(DataConfig(c.vocab_size, T, B, seed=SEED + 1),
                             device=DEV).batch(0)
+        if extra:
+            name, n = extra
+            batch[name] = torch.randn(
+                (B, n, c.d_model), device=DEV, generator=torch.Generator(
+                    device=DEV).manual_seed(SEED + 2)).to(c.compute_dtype)
         loss, grads = value_and_grad(model.loss_fn, params, batch)
         want_loss, want = value_and_grad(plain.loss_fn, params, batch)
         dloss = abs(float(loss) - float(want_loss))
@@ -1122,7 +1183,8 @@ def train_parity(cfg, n_layers=4, bf16=True):
             else:
                 err = ((g - w).norm() / w.norm()).item()
             worst = max(worst, err)
-        stats = {"dtype": label, "layers": c.n_layers, "B": B, "T": T,
+        stats = {"arch": c.name, "dtype": label, "layers": c.n_layers,
+                 "B": B, "T": T, **({extra[0]: extra[1]} if extra else {}),
                  "loss": float(loss), "plain_loss": float(want_loss),
                  "abs_dloss": dloss, "worst_leaf_grad_err": worst}
         log(f"[parity train] {json.dumps(stats)}")
@@ -1608,20 +1670,27 @@ def moe_breakdown(model, params, profile_stats):
                 layers.moe.w_up[:, :E], layers.moe.w_down[:, :E],
                 *tree_leaves(layers.moe.shared), params["lm_head"],
                 params["final_norm"]]
-    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
-    expert_bytes = 3 * L * E * cfg.d_model * cfg.d_ff * 2
-    kv_bytes = 2 * L * profile_stats["kv_rows"] * cfg.n_kv_heads * cfg.hd * 2
-    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    stats = {"arch": cfg.name, "weight_gb_read_a_step": weight_bytes / 1e9,
-             "routed_expert_gb": expert_bytes / 1e9,
-             "kv_gb_read_a_step": kv_bytes / 1e9,
-             "decode_step_bound_ms": bound_ms,
-             "decode_step_device_busy_ms":
-                 profile_stats["device_busy_ms_per_step"],
-             "decode_step_host_ms": profile_stats["decode_step_ms"],
+    stats = {**decode_step_bound(cfg, weights, profile_stats),
+             "routed_expert_gb": 3 * L * E * cfg.d_model * cfg.d_ff * 2 / 1e9,
              "parts_ms_per_step": parts}
     log(f"[profile moe] {json.dumps(stats)}")
     return stats
+
+
+def decode_step_bound(cfg, weights, profile_stats) -> dict:
+    """A decode step's bound beside its profiled device and host ms: the
+    bytes of ``weights`` (what a step reads of the params) and of the KV
+    rows the profiled steps read, over the memory rate."""
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    kv_bytes = 2 * cfg.n_layers * profile_stats["kv_rows"] * \
+        cfg.n_kv_heads * cfg.hd * 2
+    return {"arch": cfg.name, "weight_gb_read_a_step": weight_bytes / 1e9,
+            "kv_gb_read_a_step": kv_bytes / 1e9,
+            "decode_step_bound_ms":
+                (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+            "decode_step_device_busy_ms":
+                profile_stats["device_busy_ms_per_step"],
+            "decode_step_host_ms": profile_stats["decode_step_ms"]}
 
 
 def moe_determinism(model, params, reqs):
@@ -1665,6 +1734,7 @@ def moe_phase(cfg, rng):
     in the train step's parity."""
     from repro_torch.launch import serve
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     model, params, reqs, records, counts = serve_full_width(cfg, rng)
     moe_breakdown(model, params, where_the_time_goes(model, params, rng))
     parity_bf16(model, params, reqs, records)
@@ -1681,8 +1751,259 @@ def moe_phase(cfg, rng):
     serve.main(["--arch", cfg.name, "--requests", "8", "--max-new", "16",
                 "--slots", "8", "--max-len", "512"])
     log(f"[moe] phase {time.perf_counter() - t0:.1f} s, flash launches "
-        f"(fwd, bwd) {flash}")
+        f"(fwd, bwd) {flash}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return counts["decode_attention"], flash
+
+
+# ---------------------------------------------------------- phases 19, 20 --
+def greedy_decode(model, params, batch, cache, steps, feed=None,
+                  after_prefill=None):
+    """Serving at the model's level, without the engine: ``batch``
+    prefilled into ``cache``, then ``steps`` decode steps, greedy or fed
+    the tokens ``feed`` (B, steps) (teacher-forced). ``after_prefill``, if
+    given, is called with the cache after the prefill (to read it or plant
+    a fault). Returns the steps' logits (B, steps, V), the tokens (B, steps
+    + 1) (the prefill's argmax, then each step's) and the cache."""
+    logits, cache = model.prefill(params, batch, cache)
+    if after_prefill is not None:
+        after_prefill(cache)
+    toks, out = [logits[:, -1].argmax(-1)], []
+    for t in range(steps):
+        tok = toks[t] if feed is None else feed[:, t]
+        logits, cache = model.decode(params, tok[:, None], cache)
+        out.append(logits[:, -1])
+        toks.append(logits[:, -1].argmax(-1))
+    return torch.stack(out, 1), torch.stack(toks, 1), cache
+
+
+def first_difference(got, want, want_logits, what):
+    """Greedy token streams (B, n) ``got`` against ``want``, whose step
+    logits (B, n - 1, V) are ``want_logits``: equal, or differing first
+    after a step whose top-2 margin is under FP32_TIE_MARGIN. Returns the
+    rows equal in full."""
+    equal = 0
+    for row in range(want.shape[0]):
+        diff = (got[row] != want[row]).nonzero()
+        if not len(diff):
+            equal += 1
+            continue
+        j = int(diff[0])
+        if j == 0:
+            raise AssertionError(f"{what}: row {row}'s prefill token differs")
+        top2 = want_logits[row, j - 1].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        if margin >= FP32_TIE_MARGIN:
+            raise AssertionError(f"{what}: row {row} differs at token {j} "
+                                 f"(margin {margin:.3e})")
+        log(f"[parity fp32] {what}: row {row} near-tie at token {j} (margin "
+            f"{margin:.2e}); compared up to it")
+    return equal
+
+
+ENCDEC_MAX_LEN, ENCDEC_PROMPT, ENCDEC_STEPS = 448, 4, 32
+
+
+def encdec_phase(cfg):
+    """Phase 19 at ``cfg`` (whisper-tiny): 8 rows of seeded frames and
+    4-token prompts, prefill and 32 greedy decode steps on a cache of 448
+    in bf16 (``decode_attention`` on every decoder layer of every step);
+    the encoder's device ms, the decode step's host and device ms; bf16
+    logits against the plain decode attention fed the same tokens, beside
+    a control (the plain model a row at a time) and a planted fault (a
+    neighbouring row's cross K/V); two decode steps on one cache
+    bit-identical; fp32 greedy streams against the plain path; one fp32
+    train step, flash kernels against plain attention. Returns the decode
+    kernel's launches in the served run and the flash kernels' (forward,
+    backward) in the train step's parity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, plain = build_model(cfg, device=DEV), plain_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    frames = torch.randn((B, cfg.enc_len, cfg.d_model), generator=gen,
+                         device=DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (B, ENCDEC_PROMPT),
+                           generator=gen, device=DEV)
+
+    def run(m, params, rows=slice(None), **kw):
+        batch = {"tokens": prompt[rows], "frames": frames[rows]}
+        cache = m.init_cache(batch["tokens"].shape[0], ENCDEC_MAX_LEN)
+        return greedy_decode(m, params, batch, cache, ENCDEC_STEPS, **kw)
+
+    run(model, params)                                       # warm-up
+    launch_counts(reset=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    logits, tokens, cache = run(model, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = launch_counts()["decode_attention"]
+    if launches != cfg.n_layers * ENCDEC_STEPS:
+        raise AssertionError(f"decode_attention launches {launches}, want "
+                             f"{cfg.n_layers} x {ENCDEC_STEPS}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits in an enc-dec decode step")
+
+    step = lambda i: model.decode(params, tokens[:, -1:], cache)
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    for i in range(10):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_step) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            step(i)
+        torch.cuda.synchronize()
+    busy_ms = sum(ms for _, _, ms in device_kernels(prof, 10))
+    first, _ = model.decode(params, tokens[:, -1:], cache)
+    again, _ = model.decode(params, tokens[:, -1:], cache)
+    if not torch.equal(first, again):
+        raise AssertionError("two enc-dec decode steps on one cache differ")
+    stats = {"arch": cfg.name, "B": B, "enc_len": cfg.enc_len,
+             "max_len": ENCDEC_MAX_LEN, "prompt": ENCDEC_PROMPT,
+             "steps": ENCDEC_STEPS, "wall_s": wall,
+             "decode_attention_launches": launches,
+             "encoder_device_ms": device_ms(
+                 lambda i: model.encode(params, frames), 5),
+             "decode_step_ms": step_ms,
+             "decode_step_device_busy_ms": busy_ms,
+             "device_idle_share": 1 - busy_ms / step_ms,
+             "top_kernels_per_step": [[name[:60], calls, ms] for name, calls,
+                                      ms in device_kernels(prof, 10)[:6]]}
+    log(f"[encdec] {json.dumps(stats)}")
+
+    # bf16: the served logits against the plain decode attention fed the
+    # same tokens; a control and a planted fault beside them
+    feed = tokens[:, :-1]
+    want = run(plain, params, feed=feed)[0].float()
+    err = (logits.float() - want).abs().amax(-1)                # (B, steps)
+    control = max((run(plain, params, slice(i, i + 1), feed=feed[i:i + 1])[0]
+                   [0].float() - want[i]).abs().max().item() for i in (1, 3))
+    rolled = lambda c: [c[n].copy_(c[n].roll(1, dims=1))
+                        for n in ("cross_k", "cross_v")]
+    fault = (logits.float() - run(plain, params, feed=feed,
+                                  after_prefill=rolled)[0]
+             .float()).abs().amax(-1).amax(-1).min().item()
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = logits.argmax(-1) == want.argmax(-1)
+    log(f"[parity bf16] {cfg.name}: {err.numel()} steps, max |dlogit| "
+        f"{err.max().item():.4f} (median step {err.median().item():.4f}, "
+        f"tol {BF16_ENCDEC_LOGIT_ATOL}), argmax agrees {int(agree.sum())}/"
+        f"{agree.numel()}; control (the plain model a row at a time, rows 1 "
+        f"and 3) {control:.4f}; planted fault (a neighbouring row's cross "
+        f"K/V) at least {fault:.4f}")
+    if err.max().item() > BF16_ENCDEC_LOGIT_ATOL:
+        raise AssertionError(f"bf16 logits off by {err.max().item()}")
+    if not bool(agree[margin > BF16_ENCDEC_LOGIT_ATOL].all()):
+        raise AssertionError("argmax differs where the margin exceeds the "
+                             "tolerance")
+    if fault <= BF16_ENCDEC_LOGIT_ATOL:
+        raise AssertionError(f"a planted fault moved logits by only {fault}")
+    del model, plain, params, cache
+
+    # fp32: greedy streams of the kernel path against the plain path
+    cfg32 = replace(cfg, param_dtype=torch.float32,
+                    compute_dtype=torch.float32)
+    model, plain = build_model(cfg32, device=DEV), plain_model(cfg32)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    _, got, _ = run(model, params)
+    want_logits, want_tokens, _ = run(plain, params)
+    equal = first_difference(got, want_tokens, want_logits, cfg.name)
+    log(f"[parity fp32] {cfg.name}: {equal}/{B} greedy streams of "
+        f"{ENCDEC_STEPS + 1} tokens equal the plain path's")
+    del model, plain, params
+    flash = train_parity(cfg, n_layers=cfg.n_layers, bf16=False, B=B,
+                         T=ENCDEC_MAX_LEN)
+    if min(flash) == 0:
+        raise AssertionError(f"flash launches (fwd, bwd) {flash} in the "
+                             f"enc-dec train step")
+    log(f"[encdec] phase {time.perf_counter() - t0:.1f} s, flash launches "
+        f"(fwd, bwd) {flash}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, flash
+
+
+VLM_TEXT, VLM_STEPS = 64, 8
+
+
+def vlm_patches(model, params):
+    """A model-level prefill of seeded patch embeddings (B 2, n_patches, d)
+    before 64 text tokens, then 8 greedy decode steps: ``index`` must read
+    n_patches + 64, and the steps' logits must match the plain decode
+    attention fed the same tokens within BF16_VLM_LOGIT_ATOL. Returns the
+    decode kernel's launches (one a layer a step)."""
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    batch = {"patch_embeds": torch.randn(
+        (2, cfg.n_patches, cfg.d_model), generator=gen, device=DEV
+        ).to(cfg.compute_dtype),
+        "tokens": torch.randint(0, cfg.vocab_size, (2, VLM_TEXT),
+                                generator=gen, device=DEV)}
+    index = []
+    launch_counts(reset=True)
+    logits, tokens, cache = greedy_decode(
+        model, params, batch, model.init_cache(2, S), VLM_STEPS,
+        after_prefill=lambda c: index.append(c["index"].tolist()))
+    launches = launch_counts()["decode_attention"]
+    if index != [[cfg.n_patches + VLM_TEXT] * 2]:
+        raise AssertionError(f"index {index} after the prefill, want "
+                             f"{cfg.n_patches + VLM_TEXT}")
+    del cache
+    plain = plain_model(cfg)
+    want, _, _ = greedy_decode(plain, params, batch,
+                                   plain.init_cache(2, S), VLM_STEPS,
+                                   feed=tokens[:, :-1])
+    err = (logits.float() - want.float()).abs().max().item()
+    log(f"[parity bf16] {cfg.name} patches: prefill of {cfg.n_patches} "
+        f"patches + {VLM_TEXT} tokens, index {index[0]} after it, "
+        f"{VLM_STEPS} steps, max |dlogit| {err:.4f} (tol "
+        f"{BF16_VLM_LOGIT_ATOL}), decode_attention launches {launches}")
+    if err > BF16_VLM_LOGIT_ATOL or launches != cfg.n_layers * VLM_STEPS:
+        raise AssertionError(f"vlm patches: max |dlogit| {err}, launches "
+                             f"{launches}")
+    return launches
+
+
+def vlm_phase(cfg, rng):
+    """Phase 20 at ``cfg`` (llava-next-34b). Returns the decode kernel's
+    launches (the served run and the prefill with patches) and the flash
+    kernels' (forward, backward) in the train step's parity."""
+    from repro_torch.launch import serve
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, reqs, records, counts = serve_full_width(cfg, rng)
+    bound = decode_step_bound(
+        cfg, tree_leaves([params["layers"], params["lm_head"],
+                          params["final_norm"]]),
+        where_the_time_goes(model, params, rng))
+    log(f"[profile vlm] {json.dumps(bound)}")
+    parity_bf16(model, params, reqs, records)
+    launches = counts["decode_attention"] + vlm_patches(model, params)
+    del model, params, records
+    torch.cuda.empty_cache()
+    parity_fp32(cfg, rng, n_layers=4)
+    torch.cuda.empty_cache()
+    flash = train_parity(cfg, n_layers=2, bf16=False, B=2, T=512)
+    if min(flash) == 0:
+        raise AssertionError(f"flash launches (fwd, bwd) {flash} in the "
+                             f"vlm train step")
+    torch.cuda.empty_cache()
+    serve.main(["--arch", cfg.name, "--requests", "8", "--max-new", "16",
+                "--slots", "8", "--max-len", "512"])
+    log(f"[vlm] phase {time.perf_counter() - t0:.1f} s, flash launches "
+        f"(fwd, bwd) {flash}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, flash
 
 
 def main() -> int:
@@ -1714,13 +2035,20 @@ def main() -> int:
     log_dynamic_smem(build)
 
     rng = np.random.default_rng(SEED)
-    smollm, llama, mamba, zamba, qwen = (get_config(a) for a in (
-        "smollm-135m", "llama-3.2-1b", "mamba2-1.3b", "zamba2-2.7b",
-        "qwen2-moe-a2.7b"))
+    smollm, llama, mamba, zamba, qwen, whisper, llava = (
+        get_config(a) for a in (
+            "smollm-135m", "llama-3.2-1b", "mamba2-1.3b", "zamba2-2.7b",
+            "qwen2-moe-a2.7b", "whisper-tiny", "llava-next-34b"))
     rows = [check_and_time_decode_attention(
         c.name, c.n_heads, c.n_kv_heads, c.hd,
         c.n_layers // max(c.attn_every, 1), rng)
-        for c in (smollm, llama, zamba, qwen)]
+        for c in (smollm, llama, zamba, qwen, llava)]
+    # whisper's decoder cache is its text context, 448
+    check_and_time_decode_attention(
+        whisper.name, whisper.n_heads, whisper.n_kv_heads, whisper.hd,
+        whisper.n_layers, rng, S=ENCDEC_MAX_LEN, lengths=np.concatenate(
+            [[0, 1, ENCDEC_MAX_LEN, ENCDEC_MAX_LEN + 5],
+             rng.integers(8, ENCDEC_MAX_LEN, B - 4)]))
     for arch in ("phi3-mini-3.8b", "kimi-k2-1t-a32b"):
         c = get_config(arch)
         check_and_time_decode_attention(c.name, c.n_heads, c.n_kv_heads,
@@ -1770,10 +2098,14 @@ def main() -> int:
     scenario_phase()
     log(f"[scenario] phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    moe_launches, moe_flash = moe_phase(qwen, rng)
-    launches += moe_launches
-    fwd_launches += moe_flash[0]
-    bwd_launches += moe_flash[1]
+    for phase in (lambda: moe_phase(qwen, rng),
+                  lambda: encdec_phase(whisper),
+                  lambda: vlm_phase(llava, rng)):
+        torch.cuda.empty_cache()
+        phase_launches, (fwd, bwd) = phase()
+        launches += phase_launches
+        fwd_launches += fwd
+        bwd_launches += bwd
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

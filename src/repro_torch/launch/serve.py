@@ -7,7 +7,9 @@
 
 Boots the continuous-batching engine for one arch with seeded random
 weights, streams a batch of multi-tenant requests through it, and reports
-throughput. Runs on the card unless ``--device cpu`` is given.
+throughput. Runs on the card unless ``--device cpu`` is given. The vlm
+backbone (llava-next-34b) is served text-only and the enc-dec family is
+refused, as in the reference, whose engine hands prefill only tokens.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encdec":
+        # as the reference's engine, the port's hands prefill only tokens
+        raise SystemExit(f"{cfg.name}: the enc-dec family needs frames, and "
+                         "the serving engine hands prefill only tokens")
     model = build_model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device)
                         .manual_seed(args.seed))

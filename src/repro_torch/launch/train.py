@@ -10,6 +10,8 @@ The reference's flags (``repro/launch/train.py``) plus ``--device``
 (unchanged leaves cost nothing); ``--resume latest`` restarts from the
 newest manifest and replays the same data stream (a batch is a pure
 function of its step), so the trajectory equals an uninterrupted run's.
+The vlm backbone trains text-only and the enc-dec family is refused, as
+in the reference: ``SyntheticLM`` gives no frames.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encdec":
+        # as the reference's data, the port's gives only tokens and labels
+        raise SystemExit(f"{cfg.name}: the enc-dec family needs frames, and "
+                         "SyntheticLM gives only tokens and labels")
     model = build_model(cfg, device=args.device)
     opt_cfg = OptimizerConfig(peak_lr=args.lr, warmup=args.warmup,
                               total_steps=max(args.steps, 100))

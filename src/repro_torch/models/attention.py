@@ -5,8 +5,9 @@ Counterpart of ``repro/models/attention.py``. Shapes follow the
 (B, T, H, hd) convention; KV caches are slot-contiguous (B, L_max, H_kv, hd)
 with per-sequence valid lengths. Causal self-attention without a cache
 (the training loss) and decode go through the kernel seam
-(``kernels/ops.py``); prefill into the cache is plain PyTorch, as it is XLA
-in the reference. Cross-attention comes with the enc-dec slice.
+(``kernels/ops.py``); prefill into the cache, non-causal self-attention
+(the encoder's) and cross-attention are plain PyTorch, as they are XLA in
+the reference.
 """
 from __future__ import annotations
 
@@ -31,11 +32,13 @@ class AttnParams(NamedTuple):
 
 def init_attn(generator: torch.Generator, cfg: ArchConfig, device=None,
               lead: tuple[int, ...] = ()) -> AttnParams:
-    """``lead``: leading axes the matrices are stacked on (the layers)."""
+    """``lead``: leading axes the matrices are stacked on (the layers),
+    drawn one leading index at a time."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     shapes = ((d, hq * hd), (d, hkv * hd), (d, hkv * hd), (hq * hd, d))
-    return AttnParams(*(dense_init(generator, (*lead, *s), in_axis=len(lead),
-                                   dtype=cfg.param_dtype, device=device)
+    return AttnParams(*(dense_init(generator, (*lead, *s),
+                                   dtype=cfg.param_dtype, device=device,
+                                   n_lead=len(lead))
                         for s in shapes))
 
 
@@ -110,7 +113,8 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor | None = None,
                     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
                     cache_index: torch.Tensor | None = None,
-                    cross_kv=None, use_rope: bool = True,
+                    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    use_rope: bool = True,
                     decode_attention: Callable = kops.decode_attention,
                     flash_attention: Callable = kops.flash_attention,
                     ) -> tuple[torch.Tensor,
@@ -121,20 +125,23 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
       * decode (T == 1): write K/V at ``cache_index``, then attend with
         ``lengths = cache_index + 1`` through ``decode_attention``;
       * prefill into the cache (T > 1): write, then plain attention,
-        chunked from 1024 tokens on.
+        chunked from 1024 tokens on;
+      * cross-attention (``cross_kv=(K, V)``, the encoder's, (B, S, Hkv,
+        hd)): only q is projected, with no RoPE, and attends to every
+        position through plain attention; no cache is touched.
 
     K/V are written into the cache tensors IN PLACE (the reference returns
     new buffers). As ``jax.lax.dynamic_update_slice`` does, the write
     position is clamped to ``max_len - T``, so an idle slot whose index ran
     past the end overwrites its last row. Returns (out, (K, V) or None).
     """
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention comes with the enc-dec "
-                                  "slice of the port")
     B, T, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cd = cfg.compute_dtype
     q = (x @ p.wq.to(cd)).reshape(B, T, hq, hd)
+    if cross_kv is not None:
+        out = gqa_scores_attention(q, *cross_kv, causal=False)
+        return out.reshape(B, T, hq * hd) @ p.wo.to(cd), None
     k = (x @ p.wk.to(cd)).reshape(B, T, hkv, hd)
     v = (x @ p.wv.to(cd)).reshape(B, T, hkv, hd)
 

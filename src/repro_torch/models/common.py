@@ -172,8 +172,21 @@ def count_params(params) -> int:
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.float32, device=None) -> torch.Tensor:
-    """N(0, 1) / sqrt(fan_in), drawn in fp32 on the generator's device."""
+               dtype=torch.float32, device=None,
+               n_lead: int = 0) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in), drawn in fp32 on the generator's device.
+
+    The first ``n_lead`` axes stack independent leaves (the layers), and
+    ``in_axis`` counts from after them. Each leading index is drawn alone
+    and copied into a preallocated leaf of ``dtype``, so no more than one
+    layer's worth of fp32 is in flight: llava-next-34b's stacked (60, 7168,
+    20480) MLP leaf drawn whole would be 35.2 GB of fp32."""
+    if n_lead:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for view in out.reshape(-1, *shape[n_lead:]):
+            view.copy_(dense_init(generator, shape[n_lead:], in_axis,
+                                  dtype, device))
+        return out
     fan_in = shape[in_axis]
     w = torch.randn(shape, generator=generator, device=generator.device)
     return (w / fan_in ** 0.5).to(device=device, dtype=dtype)

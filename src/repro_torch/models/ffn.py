@@ -27,9 +27,10 @@ class MLPParams(NamedTuple):
 
 def init_mlp(generator: torch.Generator, d: int, ff: int, dtype,
              device=None, lead: tuple[int, ...] = ()) -> MLPParams:
-    """``lead``: leading axes the matrices are stacked on (the layers)."""
-    return MLPParams(*(dense_init(generator, (*lead, *s), in_axis=len(lead),
-                                  dtype=dtype, device=device)
+    """``lead``: leading axes the matrices are stacked on (the layers),
+    drawn one leading index at a time."""
+    return MLPParams(*(dense_init(generator, (*lead, *s), dtype=dtype,
+                                  device=device, n_lead=len(lead))
                        for s in ((d, ff), (d, ff), (ff, d))))
 
 
@@ -47,29 +48,17 @@ class MoEParams(NamedTuple):
     shared: MLPParams | None   # shared experts, fused into one wide MLP
 
 
-def _experts_init(generator: torch.Generator, shape: tuple[int, ...],
-                  n_lead: int, dtype, device) -> torch.Tensor:
-    """An expert leaf ``(*lead, Ep, fan_in, fan_out)``, drawn one leading
-    index (layer) at a time into the preallocated leaf: qwen2-moe's stacked
-    (24, 60, 2048, 1408) leaf drawn whole would hold 33 GB of fp32 in
-    flight."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for view in (out.reshape(-1, *shape[n_lead:]) if n_lead else out[None]):
-        view.copy_(dense_init(generator, shape[n_lead:], in_axis=1,
-                              dtype=dtype, device=device))
-    return out
-
-
 def init_moe(generator: torch.Generator, cfg: ArchConfig, device=None,
              lead: tuple[int, ...] = ()) -> MoEParams:
     """The router in fp32 whatever the param dtype; ``Ep = max(E,
     moe_pad_experts)`` experts, of which ``[:E]`` are used."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     Ep = max(E, cfg.moe_pad_experts)
-    router = dense_init(generator, (*lead, d, E), in_axis=len(lead),
-                        dtype=torch.float32, device=device)
-    experts = [_experts_init(generator, (*lead, Ep, *s), len(lead),
-                             cfg.param_dtype, device)
+    router = dense_init(generator, (*lead, d, E), dtype=torch.float32,
+                        device=device, n_lead=len(lead))
+    experts = [dense_init(generator, (*lead, Ep, *s), in_axis=1,
+                          dtype=cfg.param_dtype, device=device,
+                          n_lead=len(lead))
                for s in ((d, ff), (d, ff), (ff, d))]
     shared = None
     if cfg.n_shared_experts:

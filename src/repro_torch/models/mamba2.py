@@ -57,7 +57,7 @@ def init_mamba2(generator: torch.Generator, cfg: ArchConfig, device=None,
                          device=gdev) * 0.1
     return Mamba2Params(
         in_proj=dense_init(generator, (*lead, d, 2 * din + 2 * G * N + H),
-                           in_axis=len(lead), dtype=pd, device=device),
+                           dtype=pd, device=device, n_lead=len(lead)),
         conv_w=conv_w.to(device=device, dtype=pd),
         conv_b=torch.zeros((*lead, ch), dtype=pd, device=device),
         dt_bias=torch.log(torch.expm1(torch.exp(log_dt))).to(**f32),
@@ -65,8 +65,8 @@ def init_mamba2(generator: torch.Generator, cfg: ArchConfig, device=None,
         .clone(),
         D=torch.ones((*lead, H), **f32),
         norm_w=torch.ones((*lead, din), dtype=pd, device=device),
-        out_proj=dense_init(generator, (*lead, din, d), in_axis=len(lead),
-                            dtype=pd, device=device),
+        out_proj=dense_init(generator, (*lead, din, d), dtype=pd,
+                            device=device, n_lead=len(lead)),
     )
 
 

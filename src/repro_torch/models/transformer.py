@@ -1,7 +1,9 @@
 """Model assemblies (counterpart of ``repro/models/transformer.py``).
 
-This slice holds the dense decoder LM, the MoE LM (qwen2-moe, kimi-k2),
-the pure SSM LM (mamba2) and the hybrid (zamba2), each with
+Every family of the reference: the dense decoder LM, which is also the
+vlm backbone (llava, with projected patch embeddings before the text), the
+MoE LM (qwen2-moe, kimi-k2), the pure SSM LM (mamba2), the hybrid (zamba2)
+and the encoder-decoder (whisper), each with
 
     init(generator)                 -> params
     loss_fn(params, batch)          -> scalar loss
@@ -13,8 +15,7 @@ the pure SSM LM (mamba2) and the hybrid (zamba2), each with
 Per-layer leaves are stacked on axis 0 (the hybrid's on (groups,
 per_group)), as the reference stacks them for ``lax.scan``; the trunks are
 Python loops over per-layer views of them, so gradients flow back to the
-stacked leaves. Caches are updated in place. Enc-dec and vlm come with
-their own slices.
+stacked leaves. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -61,34 +62,54 @@ class DecoderLM:
         self.cfg = cfg
         self.device = require_device(device)
 
-    def _trunk(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        """Every layer without a cache; ``remat="block"`` checkpoints each
-        layer (its forward runs again in the backward)."""
-        cfg = self.cfg
-        for lp in unstack(params["layers"]):
-            if cfg.remat == "block":
-                h = checkpoint(self._layer, h, lp, use_reentrant=False)
-            else:
-                h = self._layer(h, lp)
-        return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    def _remat(self, layer: Callable, *args):
+        """``layer(*args)``; under ``remat="block"`` checkpointed, so its
+        forward runs again in the backward."""
+        if self.cfg.remat == "block":
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """Every layer without a cache, each through ``_remat``."""
+        for lp in unstack(params["layers"]):
+            h = self._remat(self._layer, h, lp)
+        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
+
+    def _patches(self, batch: dict) -> torch.Tensor | None:
+        """The batch's ``patch_embeds`` (B, n_patches, d) where the family
+        is vlm, else None."""
+        return batch.get("patch_embeds") if self.cfg.family == "vlm" else None
+
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
         """The lookup as ``F.embedding``: its backward sums each row's
         gradient in a fixed order (advanced indexing's backward on the CPU
-        does not), so losses are reproducible from run to run."""
-        return F.embedding(tokens.long(),
-                           params["embed"].to(self.cfg.compute_dtype))
+        does not), so losses are reproducible from run to run. Patch
+        embeddings, projected by ``patch_proj``, go before the text."""
+        cd = self.cfg.compute_dtype
+        h = F.embedding(tokens.long(), params["embed"].to(cd))
+        if patch_embeds is None:
+            return h
+        return torch.cat([patch_embeds.to(cd) @ params["patch_proj"].to(cd),
+                          h], dim=1)
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL over the text positions (the patches'
+        positions are sliced off)."""
         cfg = self.cfg
-        h = self._trunk(params, self._embed(params, batch["tokens"]))
+        patches = self._patches(batch)
+        h = self._trunk(params, self._embed(params, batch["tokens"], patches))
+        if patches is not None:
+            h = h[:, patches.shape[1]:]
         logits = h @ params["lm_head"].to(cfg.compute_dtype)
         return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
     def prefill(self, params: dict, batch: dict, cache: dict
                 ) -> tuple[torch.Tensor, dict]:
+        """The prompt (after its patches, for vlm) into the cache; ``index``
+        advances by every position written."""
         cfg = self.cfg
-        h = self._embed(params, batch["tokens"])
+        h = self._embed(params, batch["tokens"], self._patches(batch))
         h, cache = self._cached_trunk(params, h, cache)
         logits = h[:, -1:] @ params["lm_head"].to(cfg.compute_dtype)
         return logits, cache
@@ -134,8 +155,13 @@ class DenseLM(DecoderLM):
                                   ones(L), ones(L))
         lm_head = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                              dtype=cfg.param_dtype, device=dev)
-        return {"embed": embed, "layers": layers, "final_norm": ones(),
-                "lm_head": lm_head}
+        params = {"embed": embed, "layers": layers, "final_norm": ones(),
+                  "lm_head": lm_head}
+        if cfg.family == "vlm":
+            params["patch_proj"] = dense_init(
+                generator, (cfg.d_model, cfg.d_model), dtype=cfg.param_dtype,
+                device=dev)
+        return params
 
     def _init_ffn(self, generator: torch.Generator,
                   lead: tuple[int, ...]) -> MLPParams:
@@ -233,10 +259,7 @@ class MoELM(DenseLM):
         cfg = self.cfg
         auxes = []
         for lp in unstack(params["layers"]):
-            if cfg.remat == "block":
-                h, aux = checkpoint(self._layer, h, lp, use_reentrant=False)
-            else:
-                h, aux = self._layer(h, lp)
+            h, aux = self._remat(self._layer, h, lp)
             auxes.append(aux)
         return (rmsnorm(h, params["final_norm"], cfg.norm_eps),
                 torch.stack(auxes).mean())
@@ -384,14 +407,9 @@ class HybridLM(MambaLM):
     def _trunk(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """Every group without a cache; ``remat="block"`` checkpoints each
         group, as the reference remats its group scan."""
-        cfg = self.cfg
         for glp in unstack(params["layers"]):
-            if cfg.remat == "block":
-                h = checkpoint(self._group, h, params, glp,
-                               use_reentrant=False)
-            else:
-                h = self._group(h, params, glp)
-        return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+            h = self._remat(self._group, h, params, glp)
+        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
     # -- serving: SSM states + per-group KV cache for the shared block --------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -422,14 +440,190 @@ class HybridLM(MambaLM):
                    "index": idx + h.shape[1]}
 
 
-_FAMILIES = {"dense": DenseLM, "moe": MoELM, "ssm": MambaLM,
-             "hybrid": HybridLM}
+# ===========================================================================
+# Encoder-decoder backbone (whisper-tiny); the frame frontend is a stub
+# ===========================================================================
+class EncLayer(NamedTuple):
+    attn: AttnParams
+    mlp: MLPParams
+    norm1: torch.Tensor
+    norm2: torch.Tensor
+
+
+class DecLayer(NamedTuple):
+    self_attn: AttnParams
+    cross_attn: AttnParams
+    mlp: MLPParams
+    norm1: torch.Tensor
+    norm2: torch.Tensor
+    norm3: torch.Tensor
+
+
+def _sinusoid(T: int, d: int, dtype, device=None) -> torch.Tensor:
+    """(T, d) encoder positions: sin then cos of pos / 10000^(2i/d), in
+    fp32, then cast."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+class EncDecLM(DecoderLM):
+    """Whisper's backbone: an encoder over precomputed frame embeddings
+    (B, enc_len, d) with sinusoid positions and non-causal attention, and a
+    RoPE decoder whose layers run self-attention (``flash_attention`` in
+    the loss, ``decode_attention`` against the slot cache at T == 1), then
+    cross-attention to the encoder's output, then SwiGLU. The cache holds
+    the decoder's K/V and each decoder layer's cross K/V, (L, B, enc_len,
+    Hkv, hd), which prefill writes in place and decode reads."""
+
+    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
+                 decode_attention: Callable = kops.decode_attention,
+                 flash_attention: Callable = kops.flash_attention):
+        super().__init__(cfg, device=device)
+        self.decode_attention = decode_attention
+        self.flash_attention = flash_attention
+
+    def init(self, generator: torch.Generator) -> dict:
+        cfg, dev = self.cfg, self.device
+        Le, L = cfg.n_enc_layers, cfg.n_layers
+        ones = lambda *lead: torch.ones((*lead, cfg.d_model),
+                                        dtype=cfg.param_dtype, device=dev)
+        mlp = lambda lead: init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.param_dtype, dev, lead=lead)
+        embed = embed_init(generator, (cfg.vocab_size, cfg.d_model),
+                           cfg.param_dtype, dev)
+        enc = EncLayer(init_attn(generator, cfg, dev, lead=(Le,)), mlp((Le,)),
+                       ones(Le), ones(Le))
+        dec = DecLayer(init_attn(generator, cfg, dev, lead=(L,)),
+                       init_attn(generator, cfg, dev, lead=(L,)), mlp((L,)),
+                       ones(L), ones(L), ones(L))
+        lm_head = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                             dtype=cfg.param_dtype, device=dev)
+        return {"embed": embed, "enc_layers": enc, "dec_layers": dec,
+                "enc_norm": ones(), "final_norm": ones(), "lm_head": lm_head}
+
+    # -- encoder --------------------------------------------------------------
+    def _enc_layer(self, x: torch.Tensor, lp: EncLayer) -> torch.Tensor:
+        cfg = self.cfg
+        a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
+                               cfg, causal=False, use_rope=False)
+        x = x + a
+        return x + swiglu(lp.mlp, rmsnorm(x, lp.norm2, cfg.norm_eps),
+                          cfg.compute_dtype)
+
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, T_enc, d) precomputed embeddings (stub frontend)."""
+        cfg = self.cfg
+        h = frames.to(cfg.compute_dtype) + _sinusoid(
+            frames.shape[1], cfg.d_model, cfg.compute_dtype, frames.device)
+        for lp in unstack(params["enc_layers"]):
+            h = self._remat(self._enc_layer, h, lp)
+        return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, params: dict, enc_out: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross K and V, each (L, B, T_enc, Hkv,
+        hd): one product of the encoder's output with the stacked
+        ``cross_attn.wk`` / ``wv``."""
+        cfg = self.cfg
+        B, Te, _ = enc_out.shape
+        shape = (cfg.n_layers, B, Te, cfg.n_kv_heads, cfg.hd)
+        ca = params["dec_layers"].cross_attn
+        return tuple((enc_out[None] @ w.to(cfg.compute_dtype)[:, None]
+                      ).reshape(shape) for w in (ca.wk, ca.wv))
+
+    # -- decoder --------------------------------------------------------------
+    def _dec_layer(self, x: torch.Tensor, lp: DecLayer,
+                   cross_k: torch.Tensor, cross_v: torch.Tensor,
+                   kv_cache=None, index=None) -> torch.Tensor:
+        cfg = self.cfg
+        a, _ = attention_block(
+            lp.self_attn, rmsnorm(x, lp.norm1, cfg.norm_eps), cfg,
+            kv_cache=kv_cache, cache_index=index,
+            decode_attention=self.decode_attention,
+            flash_attention=self.flash_attention)
+        x = x + a
+        c, _ = attention_block(lp.cross_attn,
+                               rmsnorm(x, lp.norm2, cfg.norm_eps), cfg,
+                               cross_kv=(cross_k, cross_v))
+        x = x + c
+        return x + swiglu(lp.mlp, rmsnorm(x, lp.norm3, cfg.norm_eps),
+                          cfg.compute_dtype)
+
+    def _decoder(self, params: dict, h: torch.Tensor,
+                 cross_kv: tuple[torch.Tensor, torch.Tensor],
+                 cache: dict | None = None) -> torch.Tensor:
+        """Every decoder layer: without a cache each through ``_remat``;
+        with one, its K/V written in place at ``cache["index"]`` (no remat,
+        as in the reference)."""
+        layers = zip(unstack(params["dec_layers"]), *(t.unbind(0)
+                                                      for t in cross_kv))
+        for i, (lp, ck, cv) in enumerate(layers):
+            if cache is None:
+                h = self._remat(self._dec_layer, h, lp, ck, cv)
+            else:
+                h = self._dec_layer(h, lp, ck, cv,
+                                    (cache["k"][i], cache["v"][i]),
+                                    cache["index"])
+        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
+
+    def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of the decoder; needs ``batch["frames"]``."""
+        cfg = self.cfg
+        cross_kv = self._cross_kv(params, self.encode(params,
+                                                      batch["frames"]))
+        h = self._decoder(params, self._embed(params, batch["tokens"]),
+                          cross_kv)
+        logits = h @ params["lm_head"].to(cfg.compute_dtype)
+        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+
+    # -- serving ------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        zeros = lambda T: torch.zeros(
+            (cfg.n_layers, batch, T, cfg.n_kv_heads, cfg.hd),
+            dtype=cfg.compute_dtype, device=self.device)
+        return {"k": zeros(max_len), "v": zeros(max_len),
+                "cross_k": zeros(cfg.enc_len), "cross_v": zeros(cfg.enc_len),
+                "index": torch.zeros((batch,), dtype=torch.int32,
+                                     device=self.device)}
+
+    def cache_slot_axes(self) -> dict:
+        return {"k": 1, "v": 1, "cross_k": 1, "cross_v": 1}
+
+    def prefill(self, params: dict, batch: dict, cache: dict
+                ) -> tuple[torch.Tensor, dict]:
+        """Encodes ``batch["frames"]`` (B, enc_len, d), writes the cross
+        K/V into the cache in place, then runs the prompt's tokens through
+        the decoder into the cache; ``index`` advances by T."""
+        cfg = self.cfg
+        frames = batch["frames"]
+        if frames.shape[1] != cfg.enc_len:
+            raise ValueError(f"{frames.shape[1]} frames, the cache holds "
+                             f"enc_len {cfg.enc_len}")
+        for leaf, new in zip((cache["cross_k"], cache["cross_v"]),
+                             self._cross_kv(params,
+                                            self.encode(params, frames))):
+            leaf.copy_(new)
+        h = self._decoder(params, self._embed(params, batch["tokens"]),
+                          (cache["cross_k"], cache["cross_v"]), cache)
+        logits = h[:, -1:] @ params["lm_head"].to(cfg.compute_dtype)
+        return logits, {**cache, "index": cache["index"] + h.shape[1]}
+
+    def decode(self, params: dict, tokens: torch.Tensor, cache: dict
+               ) -> tuple[torch.Tensor, dict]:
+        cfg = self.cfg
+        h = self._decoder(params, self._embed(params, tokens),
+                          (cache["cross_k"], cache["cross_v"]), cache)
+        logits = h @ params["lm_head"].to(cfg.compute_dtype)
+        return logits, {**cache, "index": cache["index"] + 1}
+
+
+_FAMILIES = {"dense": DenseLM, "vlm": DenseLM, "moe": MoELM, "ssm": MambaLM,
+             "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def build_model(cfg: ArchConfig, *, device: str | torch.device = "cuda"
                 ) -> DecoderLM:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: this "
-            f"slice of the port runs {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family](cfg, device=device)

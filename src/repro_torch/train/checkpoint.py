@@ -23,13 +23,15 @@ from repro_torch.core.cas import CAS
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.ffn import MLPParams, MoEParams
 from repro_torch.models.mamba2 import Mamba2Params
-from repro_torch.models.transformer import DenseLayer, MoELayer, SSMLayer
+from repro_torch.models.transformer import (DecLayer, DenseLayer, EncLayer,
+                                            MoELayer, SSMLayer)
 
 # every NamedTuple that params or optimizer state can hold: the dense and
-# MoE layers, the SSM layers, and the hybrid's shared attention and MLP
+# MoE layers, the SSM layers, the hybrid's shared attention and MLP, and
+# the enc-dec's encoder and decoder layers
 _NAMED = {c.__name__: c for c in (DenseLayer, AttnParams, MLPParams,
                                   MoELayer, MoEParams, SSMLayer,
-                                  Mamba2Params)}
+                                  Mamba2Params, EncLayer, DecLayer)}
 
 
 def _leaf_bytes(t: torch.Tensor) -> bytes:

@@ -24,17 +24,20 @@ def init_train_state(model, opt: Optimizer, generator: torch.Generator
 
 
 def value_and_grad(loss_fn, params, batch):
-    """(loss, grads in the params' structure and dtype)."""
+    """(loss, grads in the params' structure and dtype). A leaf the loss
+    does not use (vlm's ``patch_proj`` on a text-only batch) gets zeros,
+    as ``jax.value_and_grad`` gives."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    it = iter(grads)
+    it = (torch.zeros_like(p) if g is None else g
+          for p, g in zip(leaves, grads))
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 

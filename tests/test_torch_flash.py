@@ -148,7 +148,8 @@ CARD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
     (2, 1000, 1000, 9, 3, 64, True), (3, 1, 1, 4, 2, 64, True),
     (2, 77, 200, 8, 2, 128, False), (1, 300, 130, 4, 4, 32, True),
     (2, 256, 256, 32, 8, 128, True), (2, 1024, 1024, 32, 32, 80, True),
-    (1, 1024, 1024, 32, 32, 96, True), (1, 1024, 1024, 64, 8, 112, True)])
+    (1, 1024, 1024, 32, 32, 96, True), (1, 1024, 1024, 64, 8, 112, True),
+    (8, 448, 448, 6, 6, 64, True), (2, 1088, 1088, 56, 8, 128, True)])
 def test_kernel_matches_plain_on_card(cuda, B, T, S, Hq, Hkv, hd, causal,
                                       dtype):
     q, k, v, dout = make_inputs(B, T, S, Hq, Hkv, hd, seed=T + S + hd)

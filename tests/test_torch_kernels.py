@@ -122,7 +122,8 @@ def cuda():
 @pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
     (8, 2048, 9, 3, 64), (8, 2048, 32, 8, 64), (3, 100, 8, 2, 32),
     (2, 300, 8, 1, 128), (1, 64, 4, 4, 32), (8, 2048, 32, 32, 80),
-    (4, 700, 32, 32, 96), (3, 500, 64, 8, 112)])
+    (4, 700, 32, 32, 96), (3, 500, 64, 8, 112), (8, 448, 6, 6, 64),
+    (8, 2048, 56, 8, 128)])
 def test_kernel_matches_plain_on_card(cuda, B, S, Hq, Hkv, hd, dtype):
     lengths = np.arange(B) * (S // max(B - 1, 1))
     lengths[-1] = S + 3

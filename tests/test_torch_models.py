@@ -102,3 +102,39 @@ def test_idle_slot_past_max_len_clamps_its_write(models):
         step = np.array([[t + 1], [t + 7]], np.int32)
         cache, ref_cache = decode_both(models, cache, ref_cache, step)
     assert cache["index"].tolist() == [7, max_len + 6]
+
+
+def test_stacked_init_draws_a_layer_at_a_time():
+    """``init_attn`` and ``init_mlp`` stacked on (L,): each matrix one
+    (L, fan_in, fan_out) leaf in the param dtype, as before and as the
+    reference stacks it, and each layer its own N(0, 1) / sqrt(fan_in)
+    draw. ``dense_init`` draws a leading index at a time into the
+    preallocated leaf, so full width never holds a whole stack in fp32."""
+    from dataclasses import replace
+
+    from repro_torch.models.attention import init_attn
+    from repro_torch.models.common import dense_init
+    from repro_torch.models.ffn import init_mlp
+    cfg = replace(get_config("smollm-135m").reduced(d_model=256, d_ff=512),
+                  param_dtype=torch.bfloat16)
+    L, d, ff = 3, cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    attn = init_attn(torch.Generator().manual_seed(0), cfg, lead=(L,))
+    mlp = init_mlp(torch.Generator().manual_seed(1), d, ff, cfg.param_dtype,
+                   lead=(L,))
+    assert [tuple(w.shape) for w in (*attn, *mlp)] == [
+        (L, d, hq), (L, d, hkv), (L, d, hkv), (L, hq, d),
+        (L, d, ff), (L, d, ff), (L, ff, d)]
+    for w, fan_in in ((attn.wq, d), (attn.wo, hq), (mlp.w_up, d),
+                      (mlp.w_down, ff)):
+        assert w.dtype == torch.bfloat16 and w.is_contiguous()
+        for layer in w.float():
+            assert abs(layer.std().item() * fan_in ** 0.5 - 1) < 0.05
+            assert abs(layer.mean().item()) * fan_in ** 0.5 < 0.05
+        assert not torch.equal(w[0], w[1])
+    # a leaf drawn a layer at a time is each layer's draw, in layer order
+    gen = torch.Generator().manual_seed(2)
+    leaf = dense_init(gen, (L, 32, 48), n_lead=1)
+    gen.manual_seed(2)
+    for layer in leaf:
+        assert torch.equal(layer, dense_init(gen, (32, 48)))

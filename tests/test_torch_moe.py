@@ -220,12 +220,15 @@ def models(request):
 
 
 def test_build_model_families():
+    from repro_torch.models.transformer import DenseLM, EncDecLM
     for arch in ARCHS:
         assert type(build_model(get_config(arch).reduced(),
                                 device="cpu")) is MoELM
-    for arch in ("whisper-tiny", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(get_config(arch).reduced(), device="cpu")
+    # every family of the reference is ported: enc-dec, and vlm as DenseLM
+    assert type(build_model(get_config("whisper-tiny").reduced(),
+                            device="cpu")) is EncDecLM
+    assert type(build_model(get_config("llava-next-34b").reduced(),
+                            device="cpu")) is DenseLM
 
 
 def test_prefill_then_decode_matches_reference(models):

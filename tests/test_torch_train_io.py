@@ -202,17 +202,28 @@ def assert_same_tree(got, want):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b",
-                                  "mamba2-1.3b", "zamba2-2.7b"])
+                                  "mamba2-1.3b", "zamba2-2.7b",
+                                  "whisper-tiny", "llava-next-34b"])
 def test_train_state_round_trips_bit_identically(arch):
-    """Dense, MoE, SSM and hybrid train states, after one AdamW step so the
-    moments are set, restore with every NamedTuple and leaf as saved."""
+    """Dense, MoE, SSM, hybrid, enc-dec and vlm train states, after one
+    AdamW step so the moments are set, restore with every NamedTuple and
+    leaf as saved."""
     from repro_torch.train.train_step import (build_train_step,
                                               init_train_state)
     model = build_model(get_config(arch).reduced(), device="cpu")
     opt = build_optimizer(OptimizerConfig(warmup=1))
     state = init_train_state(model, opt, torch.Generator().manual_seed(0))
-    data = SyntheticLM(DataConfig(model.cfg.vocab_size, 16, 2, seed=1))
-    state, _ = build_train_step(model, opt)(state, data.batch(0))
+    cfg = model.cfg
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 16, 2, seed=1)).batch(0)
+    # the enc-dec loss needs frames; vlm's patches give patch_proj a
+    # gradient
+    extra = {"encdec": ("frames", cfg.enc_len),
+             "vlm": ("patch_embeds", cfg.n_patches)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.randn((2, extra[1], cfg.d_model),
+                                      generator=torch.Generator()
+                                      .manual_seed(2))
+    state, _ = build_train_step(model, opt)(state, batch)
     ckpt = Checkpointer(CAS(), arch)
     mhash = ckpt.save(state, step=1, extra={"arch": arch})
     restored, step, extra = ckpt.restore()
