@@ -10,7 +10,8 @@ Phases, each fatal on failure (nothing is caught):
      ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
      three sources, started together) and prints each kernel's registers,
      shared memory and spills (the dynamic shared memory of the wgmma
-     backward and of the scan's passes from the libraries);
+     backward and of the scan's passes, forward and backward, from the
+     libraries);
   3. holds the decode kernel against its plain PyTorch version on the card
      at the decode shapes of smollm-135m, llama-3.2-1b, zamba2-2.7b (hd 80),
      qwen2-moe-a2.7b (16/16, hd 128), llava-next-34b (56/8, hd 128, a
@@ -149,7 +150,24 @@ Phases, each fatal on failure (nothing is caught):
      decode steps against the plain decode attention; fp32 engine streams
      at 4 layers; one fp32 train step at 2 layers on 576 patches + 512
      tokens (flash at a group of 7); ``repro_torch.launch.serve --arch
-     llava-next-34b``; the phase's peak memory.
+     llava-next-34b``; the phase's peak memory;
+ 21. SSM and hybrid training ((a) and (b) right after phase 10, where the
+     profiler reads the passes' times): the SSD scan's backward kernel
+     against its written-out plain version (``ref.ssd_scan_bwd_ref``) and autograd
+     through ``ref.ssd_scan_ref`` at every shape of phase 10 and both
+     training shapes (B 8, T 2048, 64/64/128 and 80/64/64), fp32, within
+     1e-4 of each gradient's max, repeated calls and CUDA-graph replays
+     bit-identical; times the backward, each of its passes and the plain
+     version at mamba2's training shape, and flash at zamba2's hd 80 beside
+     SDPA; trains full-width mamba2-1.3b and zamba2-2.7b through
+     ``repro_torch.launch.train`` (bf16, remat "block", AdamW, 6 steps of 8
+     x 2048 tokens: finite falling losses, 2 x layers forward and 1 x
+     layers backward scan launches a step, for zamba2 2 x 9 and 9 flash
+     launches) and profiles a step of each (``[train ssm]``); train parity
+     against the plain scan (and attention): fp32 at 4 and 6 layers at
+     phase 9's tolerances, bf16 at full depth within 3x a control (the
+     plain scan at chunk 128) that a planted fault (dloga dropped) must
+     exceed; two identical 2-step mamba2 runs bit-identical.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -232,6 +250,8 @@ BF16_VLM_LOGIT_ATOL = 0.4
 # fp32: a greedy stream may differ only after a step where the reference's
 # top-2 margin is under this (sums in another order, ~1e-6 relative).
 FP32_TIE_MARGIN = 1e-3
+# zamba2-2.7b's shared attention in its train step (B 8, T 2048, 32/32/80)
+ZAMBA_FLASH_TRAIN = ("zamba2-2.7b train", 8, 2048, 2048, 32, 32, 80, True)
 # Flash attention shapes (name, B, T, S, Hq, Hkv, hd, causal); the first is
 # the training shape the train phase runs.
 FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
@@ -246,7 +266,8 @@ FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("smollm-135m fabric train", 4, 32, 32, 9, 3, 64, True),
                 ("whisper-tiny decoder train", 8, 448, 448, 6, 6, 64, True),
                 ("llava-next-34b 576 patches + 512 text, group 7", 2, 1088,
-                 1088, 56, 8, 128, True)]
+                 1088, 56, 8, 128, True),
+                ZAMBA_FLASH_TRAIN]
 # Forward and dq, dk, dv against autograd through the plain version.
 # fp32: sums in another order only. bf16: both accumulate in fp32 and round
 # the results once; the kernel also rounds P and dS to bf16 as tensor-core
@@ -326,7 +347,8 @@ def device_ms(fn, n: int) -> float:
 def log_dynamic_smem(build) -> None:
     """The dynamic shared memory of the kernels redesigned last (ptxas
     prints only the static part): the wgmma backward's dK/dV and dQ
-    kernels, and the SSD scan's passes at the two served SSM shapes."""
+    kernels, and the SSD scan's passes, forward and backward, at the two
+    SSM families' shapes."""
     import ctypes
     flash = build.load("flash_attention").repro_flash_bwd_smem
     scan = build.load("ssd_scan").repro_ssd_smem
@@ -339,7 +361,9 @@ def log_dynamic_smem(build) -> None:
             f"memory dK/dV {flash(hd, 0)} B, dQ {flash(hd, 1)} B")
     for name, N, P in (("mamba2-1.3b", 128, 64), ("zamba2-2.7b", 64, 64)):
         log(f"[build] ssd_scan {name} (N {N}, P {P}): dynamic shared memory "
-            + ", ".join(f"pass {i} {scan(N, P, i)} B" for i in (1, 2, 4)))
+            + ", ".join(f"pass {i} {scan(N, P, i)} B" for i in (1, 2, 4))
+            + "; backward " + ", ".join(f"pass b{i - 4} {scan(N, P, i)} B"
+                                        for i in (5, 6, 8, 9, 10)))
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -581,6 +605,15 @@ def serve_full_width(cfg, rng):
              **{f"{k}_launches": v for k, v in launches.items()}}
     log(f"[serve] {json.dumps(stats)}")
     return model, params, reqs, records, launches
+
+
+def require_device_time(what: str, parts: dict) -> None:
+    """Raises where the profiler read no device time for a part that ran:
+    a kernel it did not trace would otherwise print as a time of 0."""
+    zero = [part for part, ms in parts.items() if not ms > 0]
+    if zero:
+        raise AssertionError(f"{what}: the profiler read no device time "
+                             f"for {zero}")
 
 
 def device_kernels(prof, per: int) -> list:
@@ -990,18 +1023,20 @@ def bwd_kernel_ms(bwd, n: int) -> dict:
             bwd(i)
         torch.cuda.synchronize()
     parts = {"delta": "delta", "dkdv": "dkdv", "dq": "_dq_"}
-    return {part: sum(ms for name, _, ms in device_kernels(prof, n)
-                      if key in name) for part, key in parts.items()}
+    times = {part: sum(ms for name, _, ms in device_kernels(prof, n)
+                       if key in name) for part, key in parts.items()}
+    require_device_time("flash backward kernels", times)
+    return times
 
 
-def time_flash_attention():
-    """Kernel, plain version and SDPA at the training shape in bf16:
-    forward, forward + backward (autograd) and, for the kernel, the
-    backward launch alone. The backward of the plain version and of SDPA
-    is their forward + backward less their forward."""
+def time_flash_attention(shape=FLASH_SHAPES[0]):
+    """Kernel, plain version and SDPA at a training shape (smollm-135m's
+    unless given) in bf16: forward, forward + backward (autograd) and, for
+    the kernel, the backward launch alone. The backward of the plain
+    version and of SDPA is their forward + backward less their forward."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
-    _, B, T, S, Hq, Hkv, hd, _ = FLASH_SHAPES[0]
+    _, B, T, S, Hq, Hkv, hd, _ = shape
     q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, torch.bfloat16, SEED)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     impls = {
@@ -1042,7 +1077,7 @@ def time_flash_attention():
         bounds[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
         bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
             else "operations"
-    row = {"shape": FLASH_SHAPES[0][0],
+    row = {"shape": shape[0],
            "fwd_route": fk.fwd_route(torch.bfloat16, hd),
            "bwd_route": fk.bwd_route(torch.bfloat16, hd), **times, **bounds,
            "fwd_tflop_per_s": flops / times["fwd_ms"] / 1e9,
@@ -1090,15 +1125,13 @@ def train_full_width(cfg):
     return stats, launches
 
 
-def fresh_training(cfg, flash_attention=None):
-    from repro_torch.models.transformer import DenseLM
+def fresh_training(cfg):
+    from repro_torch.models.transformer import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
     from repro_torch.train.train_step import (build_train_step,
                                               init_train_state)
-    kw = {} if flash_attention is None else \
-        {"flash_attention": flash_attention}
-    model = DenseLM(cfg, device=DEV, **kw)
+    model = build_model(cfg, device=DEV)
     opt = build_optimizer(OptimizerConfig(peak_lr=3e-3, warmup=2,
                                           total_steps=100))
     state = init_train_state(model, opt, torch.Generator(device=DEV)
@@ -1108,9 +1141,12 @@ def fresh_training(cfg, flash_attention=None):
     return model, state, build_train_step(model, opt), data
 
 
-def profile_train_step(cfg, step_ms):
+def profile_train_step(cfg, step_ms, label="[profile train]"):
     """One train step under the profiler: device busy time by kernel
-    against the step time of the train phase (host clock)."""
+    against the step time of the train phase (host clock); with the SSD
+    scan's forward passes (2 to 4), backward passes (b2 to b6) and C B^T
+    (pass 1, which both run) where the model has them. Returns the
+    stats."""
     from torch.profiler import ProfilerActivity, profile
     _, state, step, data = fresh_training(cfg)
     for i in range(2):
@@ -1129,12 +1165,27 @@ def profile_train_step(cfg, step_ms):
     top = sorted(kernels, key=lambda k: -k[2])[:8]
     flash = {part: sum(ms for name, _, ms in kernels if f"flash_{part}" in name)
              for part in ("fwd", "delta", "dkdv", "dq")}
+    require_device_time(f"{label} {cfg.name}", {"step": busy_ms})
+    if cfg.family != "ssm":
+        require_device_time(f"{label} {cfg.name} flash", flash)
     stats = {"train_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
              "device_idle_share": 1 - busy_ms / step_ms,
              "flash_ms_per_step": flash,
              "top_kernels_per_step": [[name[:80], calls, ms]
                                       for name, calls, ms in top]}
-    log(f"[profile train] {json.dumps(stats)}")
+    if cfg.ssm_state:
+        stats["scan_ms_per_step"] = {
+            part: sum(ms for name, _, ms in kernels
+                      if any(f"ssd_{k}_kernel" in name for k in keys))
+            for part, keys in (("forward", ("summary", "state", "output")),
+                               ("backward", ("grad_summary", "grad_state",
+                                             "grad_panel", "grad_du",
+                                             "grad_bc")),
+                               ("cb", ("cb",)))}
+        require_device_time(f"{label} {cfg.name} ssd_scan",
+                            stats["scan_ms_per_step"])
+    log(f"{label} {json.dumps(stats)}")
+    return stats
 
 
 # --------------------------------------------------------------- phase 9 --
@@ -1293,6 +1344,7 @@ def time_ssd_scan(index: int):
     times["pass_ms"] = {key: sum(ms for k, _, ms in device_kernels(prof, 5)
                                  if f"ssd_{key}_kernel" in k)
                         for key in ("cb", "summary", "state", "output")}
+    require_device_time(f"ssd_scan passes at {name}", times["pass_ms"])
     # the model's chunked formulation: C B^T once per chunk, then for every
     # head (C B^T * L) u, C h and B^T u; the causal mask leaves Q (Q + 1) / 2
     # of each chunk's (Q, Q) products. All fp32 FMAs on the CUDA cores.
@@ -2006,6 +2058,392 @@ def vlm_phase(cfg, rng):
     return launches, flash
 
 
+# -------------------------------------------------------------- phase 21 --
+# The SSD scan's backward kernel against ref.ssd_scan_bwd_ref and autograd
+# through ref.ssd_scan_ref, fp32: max |error| <= 1e-4 of each gradient's
+# max |value|, as phase 9 holds fp32 leaves. All three accumulate in fp32,
+# in another order (the kernel over 64 x 64 tiles and heads in order); an
+# H100 run read 7.9e-6 at most (zamba2's training shape), a dropped or
+# misplaced term reads order 1.
+SSD_BWD_TOL = 1e-4
+# the two training shapes (name, B, T, H, P, N, Q, h0), the timed one first
+SSD_TRAIN_SHAPES = [("mamba2-1.3b train", 8, 2048, 64, 64, 128, 256, False),
+                    ("zamba2-2.7b train", 8, 2048, 80, 64, 64, 256, False)]
+SSD_GRADS = ("du", "dloga", "dBm", "dCm", "dh0")
+# bf16 train parity of the SSM families at full depth (B 8, T 2048): the
+# kernels against the plain scan (and, for zamba2, the plain attention) on
+# one step's loss and gradients. These bf16 models amplify fp32-level
+# differences (see BF16_SSM_LOGIT_ATOL), so the bound is set by a control
+# measured in the same run: the plain scan at chunk 128 against chunk 256,
+# the same products summed in another order. The kernels may differ from
+# the plain path by SSM_TRAIN_CONTROL_FACTOR times the control, in each
+# leaf's relative L2 error and in the loss (plus one bf16 ulp of the loss,
+# 2^-8 of it, as both paths round to bf16 at other places). The planted
+# fault, the kernels with the dloga term dropped, must exceed the leaf
+# bound (A_log's gradient comes through dloga alone). H100 run: mamba2's
+# kernels 0.062 against a control of 0.054, zamba2's 0.132 against 0.060
+# (its kernels also round flash's P and dS to bf16, which the control
+# leaves alone); the fault 1.0 in both.
+SSM_TRAIN_CONTROL_FACTOR = 3.0
+
+
+def ssd_grad_inputs(B, T, H, P, N, h0, seed):
+    """``ssd_inputs``, then dy ~ N and the final state's gradient ~ N."""
+    *args, init = ssd_inputs(B, T, H, P, N, h0, seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    dy = torch.randn((B, T, H, P), generator=gen, device=DEV)
+    dstate = torch.randn((B, H, N, P), generator=gen, device=DEV)
+    return (*args, init, dy, dstate)
+
+
+def scan_bwd_call(u, loga, Bm, Cm, init, dy, dstate, Q):
+    """The kernels' forward (keeping the chunk states), then a function
+    that launches the backward on them and the forward's (y, final state,
+    chunk states)."""
+    from repro_torch.kernels import ssd_scan as sk
+    B, T, H, P = u.shape
+    states = torch.empty((B, T // Q, H, Bm.shape[-1], P), device=DEV)
+    y, state = sk.ssd_scan_fwd(u, loga, Bm, Cm, chunk=Q, h0=init,
+                               chunk_states=states)
+    return (lambda i=0: sk.ssd_scan_bwd(u, loga, Bm, Cm, states, dy, dstate,
+                                        chunk=Q)), (y, state, states)
+
+
+def check_ssd_scan_bwd():
+    """(a) The backward kernel against both plain versions at every shape
+    of SSD_SHAPES and both training shapes, with a nonzero dstate (and h0
+    where the shape has one); repeated calls bit-identical. The forward
+    that keeps the chunk states, against the chunked plain version: y, the
+    final state and the states entering each chunk, which the backward
+    reads. Returns the rows."""
+    from repro_torch.kernels import ref
+    rows = []
+    for i, (name, B, T, H, P, N, Q, h0) in enumerate(SSD_SHAPES
+                                                     + SSD_TRAIN_SHAPES):
+        u, loga, Bm, Cm, init, dy, ds = ssd_grad_inputs(B, T, H, P, N, h0,
+                                                        SEED + 100 + i)
+        bwd, (y, state, states) = scan_bwd_call(u, loga, Bm, Cm, init, dy,
+                                                ds, Q)
+        got = bwd()
+        torch.cuda.synchronize()
+        row = {"shape": name, "B": B, "T": T, "H": H, "P": P, "N": N,
+               "chunk": Q, "h0": h0}
+        y_c, s_c = ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q, h0=init)
+        row["fwd_y_err"] = max_err(y, y_c, SSD_TOL)
+        row["fwd_state_err"] = max_err(state, s_c, SSD_TOL)
+        row["fwd_chunk_states_err"] = max_err(
+            states, ref.ssd_chunk_states(u, loga, Bm, chunk=Q, h0=init)[0],
+            SSD_TOL)
+        del y, state, y_c, s_c
+        plain = ref.ssd_scan_bwd_ref(u, loga, Bm, Cm, init, dy, ds, chunk=Q)
+        row["max_abs_err"] = max((g - w).abs().max().item()
+                                 for g, w in zip(got, plain))
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (u, loga, Bm, Cm, init) if x is not None]
+        y, s = ref.ssd_scan_ref(*leaves[:4], chunk=Q,
+                                h0=leaves[4] if h0 else None)
+        auto = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+        del y, s, leaves
+        for label, want in (("plain", plain), ("autograd", auto)):
+            for g_name, g, w in zip(SSD_GRADS, got, want):
+                err = ((g - w).abs().max() / w.abs().max()).item()
+                row[f"{g_name}_err_{label}"] = err
+                if not err <= SSD_BWD_TOL:
+                    raise AssertionError(f"ssd_scan backward {g_name} at "
+                                         f"{name} off {label}: {err:.3e}")
+        del plain, auto
+        for _ in range(2):
+            if not all(torch.equal(a, b) for a, b in zip(bwd(), got)):
+                raise AssertionError(f"ssd_scan backward at {name}: "
+                                     "repeated calls differ")
+        log(f"[kernel] ssd_scan backward check {json.dumps(row)}")
+        rows.append(row)
+        del got, bwd, states, u, loga, Bm, Cm, init, dy, ds
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_bwd_graph_replays():
+    """The backward kernel under CUDA-graph replay at the h0 shape of
+    SSD_SHAPES: bit-identical replays, also after new inputs are copied
+    into the captured tensors."""
+    name, B, T, H, P, N, Q, h0 = SSD_SHAPES[3]
+    args = list(ssd_grad_inputs(B, T, H, P, N, h0, SEED + 7))
+    bwd, _ = scan_bwd_call(*args, Q)
+    first = [g.clone() for g in bwd()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = bwd()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(static, first)):
+            raise AssertionError("ssd_scan backward: a graph replay differs")
+    # new inputs in the captured tensors (the chunk states stay as the
+    # forward left them: replay and eager call read the same)
+    for dst, src in zip(args, ssd_grad_inputs(B, T, H, P, N, h0, SEED + 8)):
+        if dst is not None:
+            dst.copy_(src)
+    graph.replay()
+    eager = bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(static, eager)):
+        raise AssertionError("ssd_scan backward: a replay on new inputs "
+                             "differs from the eager call")
+    log(f"[kernel] ssd_scan backward: graph replays bit-identical "
+        f"({name})")
+
+
+def time_ssd_scan_bwd():
+    """(b) The backward kernel, each of its passes and the plain version
+    (autograd through ref.ssd_scan_ref: its forward + backward less its
+    forward) at mamba2-1.3b's training shape, beside the bound. No single
+    PyTorch call computes the scan or its gradient."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_bwd_plan
+    name, B, T, H, P, N, Q, _ = SSD_TRAIN_SHAPES[0]
+    u, loga, Bm, Cm, _, dy, _ = ssd_grad_inputs(B, T, H, P, N, False, SEED)
+    bwd, _ = scan_bwd_call(u, loga, Bm, Cm, None, dy, None, Q)
+    times = {"ms": device_ms(bwd, 5), "eager_ms": eager_ms(bwd, 5)}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(5):
+            bwd(i)
+        torch.cuda.synchronize()
+    times["pass_ms"] = {key: sum(ms for k, _, ms in device_kernels(prof, 5)
+                                 if f"ssd_{key}_kernel" in k)
+                        for key in ("cb", "grad_summary", "grad_state",
+                                    "grad_panel", "grad_du", "grad_bc")}
+    require_device_time(f"ssd_scan backward passes at {name}",
+                        times["pass_ms"])
+    del bwd
+    leaves = [x.clone().requires_grad_(True) for x in (u, loga, Bm, Cm)]
+    fwd = lambda i: ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q)
+    both = lambda i: torch.autograd.grad(
+        ref.ssd_scan_ref(*leaves, chunk=Q)[0], leaves, dy)
+    times["plain_fwd_ms"] = device_ms(fwd, 2)
+    times["plain_fwd_bwd_ms"] = device_ms(both, 2)
+    times["plain_ms"] = times["plain_fwd_bwd_ms"] - times["plain_fwd_ms"]
+    del leaves
+    torch.cuda.empty_cache()
+    # what the gradient needs, the causal half of each (Q, Q) product
+    # counted: per chunk and head, b2's C^T dy, du's (C B^T * L)^T dy and
+    # B g, the panel's dy u^T, dC's h dy^T and dB's u g^T; per chunk, C B^T
+    # and the panel's products with B and C. dcum's C_k h dy_k term is C_k
+    # dotted with dC's h dy_k, and its u_k g^T B_k term u_k dotted with
+    # du's B g: Q N and Q P a head, left out as the bound's lower order.
+    # The bytes: u, dy, du, loga, dloga, Bm, Cm, dBm, dCm, the chunk states
+    # and dh0, each once.
+    nc, tri = T // Q, Q * (Q + 1) // 2
+    flops = 2 * B * nc * (H * (4 * Q * N * P + 2 * tri * P) + 3 * tri * N)
+    nbytes = 4 * (3 * B * T * H * P + 2 * B * T * H + 4 * B * T * N
+                  + B * nc * H * N * P + B * H * N * P)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    plan = ssd_bwd_plan(B, T, H, P, N, Q)
+    row = {"shape": name, "route": "fp32 FMAs, CUDA cores, six passes",
+           "blocks_per_pass": {k: int(np.prod(g))
+                               for k, g in plan["grids"].items()},
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **times,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "tflop_per_s": flops / times["ms"] / 1e9, "library_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan "
+                           "or its gradient"}
+    log(f"[kernel] ssd_scan backward timing {json.dumps(row)}")
+    return row
+
+
+def train_ssm_full_width(cfg):
+    """(c) ``launch.train`` at the full width of an SSM or hybrid config:
+    finite, falling losses and every layer's scan (and, for the hybrid,
+    every group's shared attention) through the kernels, forward twice
+    under remat and backward once. Returns the run's stats and the
+    launches (scan forward, scan backward, flash forward, flash
+    backward)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.launch import train
+    counters = (sk.ssd_scan_fwd, sk.ssd_scan_bwd, fk.flash_attention_fwd,
+                fk.flash_attention_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    result = train.main(["--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+                         "--lr", "3e-3", "--warmup", "2", "--ckpt-every",
+                         "0", "--log-every", "1", "--seed", str(SEED)])
+    launches = tuple(fn.launches for fn in counters)
+    losses = result["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} losses not finite and falling: "
+                             f"{losses}")
+    passes = 2 if cfg.remat == "block" else 1
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    want = tuple(n * TRAIN_STEPS for n in (passes * cfg.n_layers,
+                                           cfg.n_layers, passes * groups,
+                                           groups))
+    if launches != want:
+        raise AssertionError(f"{cfg.name} launches (scan fwd, scan bwd, "
+                             f"flash fwd, flash bwd) {launches}, want {want}")
+    step_ms = float(np.mean(result["step_s"][1:])) * 1e3
+    stats = {"arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_T,
+             "steps": TRAIN_STEPS, "step_ms_after_first": step_ms,
+             "median_step_ms_after_first":
+                 float(np.median(result["step_s"][1:])) * 1e3,
+             "first_step_ms": result["step_s"][0] * 1e3,
+             "tokens_per_s": TRAIN_B * TRAIN_T / step_ms * 1e3,
+             "losses": losses, "grad_norms": result["grad_norms"],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": dict(zip(("scan_fwd", "scan_bwd", "flash_fwd",
+                                   "flash_bwd"), launches))}
+    return stats, launches
+
+
+def ssm_train_parity(cfg, n_layers, B=2, T=1024):
+    """(d) One step's loss and gradients with the kernels against the plain
+    scan (and, for the hybrid, the plain attention): fp32 at ``n_layers``
+    on B x T tokens at phase 9's tolerances; bf16 at the full config on
+    TRAIN_B x TRAIN_T beside the control and the planted fault of
+    SSM_TRAIN_CONTROL_FACTOR."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import HybridLM, MambaLM
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import value_and_grad
+
+    class ScanWithoutDloga(sk.SSDScan):
+        """The planted fault: the kernels with the dloga term dropped."""
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            du, _, *rest = sk.SSDScan.backward(ctx, dy, dstate)
+            return du, None, *rest
+
+    def faulty_scan(u, loga, Bm, Cm, *, chunk, h0=None):
+        return ScanWithoutDloga.apply(u, loga, Bm, Cm, h0, chunk)
+
+    lm = MambaLM if cfg.family == "ssm" else HybridLM
+    plain = {"ssd_scan": ref.ssd_scan_ref}
+    if cfg.family == "hybrid":
+        plain["flash_attention"] = ref.flash_attention_ref
+
+    def step(c, params, batch, **kw):
+        loss, grads = value_and_grad(lm(c, device=DEV, **kw).loss_fn, params,
+                                     batch)
+        return float(loss), tree_leaves(grads)
+
+    def data(c, B, T):
+        return SyntheticLM(DataConfig(c.vocab_size, T, B, seed=SEED + 1),
+                           device=DEV).batch(0)
+
+    # fp32 at reduced depth
+    c32 = replace(cfg, n_layers=n_layers, param_dtype=torch.float32,
+                  compute_dtype=torch.float32)
+    params = lm(c32, device=DEV).init(torch.Generator(device=DEV)
+                                      .manual_seed(SEED))
+    batch = data(c32, B, T)
+    loss, grads = step(c32, params, batch)
+    want_loss, want = step(c32, params, batch, **plain)
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(grads, want)]
+    worst = max(errs)
+    stats = {"arch": cfg.name, "dtype": "fp32", "layers": n_layers, "B": B,
+             "T": T, "loss": loss, "plain_loss": want_loss,
+             "abs_dloss": abs(loss - want_loss), "worst_leaf_grad_err": worst,
+             "worst_leaf": [errs.index(worst),
+                            list(want[errs.index(worst)].shape)]}
+    log(f"[parity train ssm] {json.dumps(stats)}")
+    if abs(loss - want_loss) > FP32_LOSS_RTOL * abs(want_loss) or \
+            worst > FP32_GRAD_TOL:
+        raise AssertionError(f"fp32 SSM train parity off: {stats}")
+    del params, grads, want
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth
+    params = lm(cfg, device=DEV).init(torch.Generator(device=DEV)
+                                      .manual_seed(SEED))
+    batch = data(cfg, TRAIN_B, TRAIN_T)
+    want_loss, want = step(cfg, params, batch, **plain)
+    cases = {"kernels": (cfg, {}),
+             "control": (replace(cfg, ssm_chunk=128), plain),
+             "fault": (cfg, {"ssd_scan": faulty_scan})}
+    errs = {}
+    for label, (c, kw) in cases.items():
+        loss, grads = step(c, params, batch, **kw)
+        leaf = [((g.float() - w.float()).norm() / w.float().norm()).item()
+                for g, w in zip(grads, want)]
+        errs[label] = {"abs_dloss": abs(loss - want_loss),
+                       "worst_leaf_grad_err": max(leaf),
+                       "worst_leaf": leaf.index(max(leaf))}
+        del grads
+        torch.cuda.empty_cache()
+    leaf_bound = SSM_TRAIN_CONTROL_FACTOR * \
+        errs["control"]["worst_leaf_grad_err"]
+    loss_bound = SSM_TRAIN_CONTROL_FACTOR * errs["control"]["abs_dloss"] \
+        + 2 ** -8 * abs(want_loss)
+    stats = {"arch": cfg.name, "dtype": "bf16", "layers": cfg.n_layers,
+             "B": TRAIN_B, "T": TRAIN_T, "plain_loss": want_loss, **errs,
+             "leaf_bound": leaf_bound, "loss_bound": loss_bound}
+    log(f"[parity train ssm] {json.dumps(stats)}")
+    kern = errs["kernels"]
+    if kern["worst_leaf_grad_err"] > leaf_bound or \
+            kern["abs_dloss"] > loss_bound:
+        raise AssertionError(f"bf16 SSM train parity off: {stats}")
+    if not errs["fault"]["worst_leaf_grad_err"] > leaf_bound:
+        raise AssertionError(f"the planted fault passes the bf16 SSM train "
+                             f"parity: {stats}")
+    del params, want
+    torch.cuda.empty_cache()
+
+
+def ssd_bwd_kernel_phase():
+    """Phase 21 (a) and (b), run right after phase 10: in one H100 run,
+    after phases 15 to 20, the profiler read no device time over a region
+    that launched the kernels of the libraries alone (cause not found), so
+    the passes' times are taken here; ``require_device_time`` fails any
+    profile that reads 0 for a part. Returns the backward's check rows and
+    its timing."""
+    rows = check_ssd_scan_bwd()
+    ssd_bwd_graph_replays()
+    timing = time_ssd_scan_bwd()
+    time_flash_attention(ZAMBA_FLASH_TRAIN)
+    torch.cuda.empty_cache()
+    return rows, timing
+
+
+def ssm_train_phase(mamba, zamba):
+    """Phase 21 (c) to (e). Returns the main path's launches (scan
+    forward, scan backward, flash forward, flash backward) in the two
+    trainings."""
+    t0 = time.perf_counter()
+    launches = np.zeros(4, dtype=int)
+    for cfg in (mamba, zamba):
+        stats, counts = train_ssm_full_width(cfg)
+        launches += counts
+        torch.cuda.empty_cache()
+        profiled = profile_train_step(cfg, stats["step_ms_after_first"],
+                                      label="[profile train ssm]")
+        stats["profiled_step"] = {k: profiled[k] for k in (
+            "device_busy_ms_per_step", "device_idle_share",
+            "scan_ms_per_step", "flash_ms_per_step")}
+        log(f"[train ssm] {json.dumps(stats)}")
+        torch.cuda.empty_cache()
+    for cfg, depth in ((mamba, 4), (zamba, 6)):
+        ssm_train_parity(cfg, depth)
+    deterministic_runs(mamba)
+    log(f"[train ssm] phase {time.perf_counter() - t0:.1f} s, launches "
+        f"(scan fwd, scan bwd, flash fwd, flash bwd) {launches.tolist()}")
+    return [int(n) for n in launches]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2077,6 +2515,7 @@ def main() -> int:
 
     ssd_rows = check_ssd_scan()
     ssd_timing, _ = time_ssd_scan(0), time_ssd_scan(1)   # mamba2, zamba2
+    bwd_rows, bwd_timing = ssd_bwd_kernel_phase()
     ssd_launches = 0
     # fp32 parity at reduced depth: 4 SSM layers; 12 hybrid layers, two
     # groups of attn_every 6
@@ -2106,6 +2545,11 @@ def main() -> int:
         launches += phase_launches
         fwd_launches += fwd
         bwd_launches += bwd
+    torch.cuda.empty_cache()
+    scan_fwd, scan_bwd, fwd, bwd = ssm_train_phase(mamba, zamba)
+    ssd_launches += scan_fwd
+    fwd_launches += fwd
+    bwd_launches += bwd
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",
@@ -2138,6 +2582,16 @@ def main() -> int:
         "ms": ssd_timing["ms"], "plain_ms": ssd_timing["plain_ms"],
         "bound_ms": ssd_timing["bound_ms"],
         "bound_by": ssd_timing["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:24",
+        "launches": scan_bwd,
+        "max_abs_err": max(row["max_abs_err"] for row in bwd_rows
+                           if row["shape"] == SSD_TRAIN_SHAPES[0][0]),
+        "ms": bwd_timing["ms"], "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound_ms"],
+        "bound_by": bwd_timing["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -177,3 +177,81 @@ def ssd_chunk_states(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
         h_in.append(h)                       # the state entering chunk c
         h = h * chunk_decay[:, c, :, None, None] + S[:, c]
     return torch.stack(h_in, dim=1), h
+
+
+def ssd_scan_bwd_ref(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, h0: torch.Tensor | None,
+                     dy: torch.Tensor, dstate: torch.Tensor | None, *,
+                     chunk: int) -> tuple[torch.Tensor, ...]:
+    """The backward of ``ssd_scan_ref``, the plain version of the
+    ``ssd_scan`` backward kernel: the chunked formulas written out pass by
+    pass as the kernel runs them, not autograd. dy: (B, T, H, P); dstate:
+    (B, H, N, P) or None for zeros (the final state unused). Returns (du,
+    dloga, dBm, dCm, dh0), fp32; dh0 is the gradient of the state entering
+    chunk 0, also where h0 is None.
+
+    Per chunk and head, with cum the within-chunk prefix sum of loga,
+    e_i = exp(cum_i), d_j = exp(cum_last - cum_j), L_ij = exp(cum_i -
+    cum_j) for i >= j, M = (C B^T) * L, h the state entering the chunk
+    and g the gradient of the state leaving it:
+      g_in = sum_i e_i C_i (x) dy_i + e_last g     (reverse over chunks)
+      du_j = sum_{i>=j} M_ij dy_i + d_j (g^T B_j)
+      dC_i = sum_h [sum_{j<=i} L_ij (dy_i . u_j) B_j + e_i (h dy_i)]
+      dB_j = sum_h [sum_{i>=j} L_ij (dy_i . u_j) C_i + d_j (g u_j)]
+      dcum_k = sum_j R_kj - sum_i R_ik + e_k (dy_k . C_k h)
+               - d_k (u_k . g^T B_k),  R_ij = M_ij (dy_i . u_j),
+      plus e_last <g, h> + sum_j d_j (u_j . g^T B_j) at the last k;
+      dloga_m = sum_{k >= m in the chunk} dcum_k."""
+    Bsz, T, H, P = u.shape
+    N = Bm.shape[-1]
+    if chunk <= 0 or T % chunk:
+        raise ValueError(f"T={T} not divisible by chunk={chunk}")
+    nc, Q = T // chunk, chunk
+    ur = u.float().reshape(Bsz, nc, Q, H, P)
+    dyr = dy.float().reshape(Bsz, nc, Q, H, P)
+    Br = Bm.float().reshape(Bsz, nc, Q, N)
+    Cr = Cm.float().reshape(Bsz, nc, Q, N)
+    cum = torch.cumsum(loga.float().reshape(Bsz, nc, Q, H), dim=2)
+    e = torch.exp(cum)                                        # (B,nc,Q,H)
+    d = torch.exp(cum[:, :, -1:, :] - cum)
+    last = torch.exp(cum[:, :, -1, :])                        # (B,nc,H)
+
+    # the forward's chunk states (its passes 2 and 3)
+    h_in, _ = ssd_chunk_states(u, loga, Bm, chunk=chunk, h0=h0)
+    # (a) each chunk's sum_i e_i C_i (x) dy_i
+    Z = torch.einsum("bcqn,bcqh,bcqhp->bchnp", Cr, e, dyr)
+    # (b) the reverse state pass from dstate: g leaving each chunk, dh0
+    g = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=u.device) \
+        if dstate is None else dstate.float()
+    g_out = [None] * nc
+    for c in reversed(range(nc)):
+        g_out[c] = g
+        g = g * last[:, c, :, None, None] + Z[:, c]
+    dh0, g = g, torch.stack(g_out, dim=1)                    # (B,nc,H,N,P)
+
+    # (c) du and each head's dcum rows
+    CB = torch.einsum("bcin,bcjn->bcij", Cr, Br)
+    cum_h = cum.movedim(-1, 2)                                # (B,nc,H,Q)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    L = torch.exp(torch.where(causal, cum_h[..., :, None]
+                              - cum_h[..., None, :], -torch.inf))
+    LP = L * torch.einsum("bcihp,bcjhp->bchij", dyr, ur)      # L * dy u^T
+    R = CB[:, :, None] * LP
+    gB = torch.einsum("bcjn,bchnp->bcjhp", Br, g)             # g^T B_j
+    du = torch.einsum("bcij,bchij,bcihp->bcjhp", CB, L, dyr) \
+        + d[..., None] * gB
+    Ch = torch.einsum("bcin,bchnp->bcihp", Cr, h_in)          # C_i h
+    dcum = (R.sum(-1) - R.sum(-2)).movedim(2, -1) \
+        + e * (dyr * Ch).sum(-1) - d * (ur * gB).sum(-1)
+    dcum[:, :, -1] += last * (g * h_in).sum((-2, -1)) \
+        + (d * (ur * gB).sum(-1)).sum(2)
+    dloga = dcum.flip(2).cumsum(2).flip(2)
+
+    # (d) dB and dC, the panel summed over the heads first
+    W = LP.sum(2)                                             # (B,nc,Q,Q)
+    dC = torch.einsum("bcij,bcjn->bcin", W, Br) \
+        + torch.einsum("bcih,bcihp,bchnp->bcin", e, dyr, h_in)
+    dB = torch.einsum("bcij,bcin->bcjn", W, Cr) \
+        + torch.einsum("bcjh,bcjhp,bchnp->bcjn", d, ur, g)
+    return (du.reshape(Bsz, T, H, P), dloga.reshape(Bsz, T, H),
+            dB.reshape(Bsz, T, N), dC.reshape(Bsz, T, N), dh0)

@@ -1,20 +1,29 @@
-"""The SSD chunked scan on the card: the wrapper of the hand-written CUDA
-kernel ``csrc/ssd_scan.cu`` (it replaces the Pallas ``_ssd_kernel`` of
-``repro/kernels/ssd_scan.py`` and adds the initial state that the
-reference's ``ssd_chunked`` takes).
+"""The SSD chunked scan on the card: the wrappers of the hand-written CUDA
+kernels in ``csrc/ssd_scan.cu``, forward (it replaces the Pallas
+``_ssd_kernel`` of ``repro/kernels/ssd_scan.py`` and adds the initial
+state that the reference's ``ssd_chunked`` takes) and backward (the
+reference has none: XLA differentiates its jnp ``ssd_chunked``).
 
 u: (B, T, H, P); loga: (B, T, H); Bm/Cm: (B, T, N) shared by the heads;
 h0: (B, H, N, P) or None; all fp32 and contiguous, ``T % chunk == 0``,
-``chunk <= 256``, ``N <= 128``, P a multiple of 16. Returns y (B, T, H, P)
-and the final state (B, H, N, P), both fp32. A call launches the four
+``chunk <= 256``, ``N <= 128``, P a multiple of 16. The forward returns y
+(B, T, H, P) and the final state (B, H, N, P), both fp32, from the four
 passes of ``ssd_plan`` (C B^T once per chunk, chunk summaries, state
-passing, chunk output) on the current stream, counted as one launch, over a
-workspace this module owns (one per device and size, never freed, so a
-captured CUDA graph keeps valid pointers; calls share it, so they run on one
-stream at a time). The kernel has no backward: ``SSDScan`` raises in it
-rather than let autograd drop the scan's gradient. The plain version is
-``repro_torch.kernels.ref.ssd_scan_ref``; ``ops.ssd_scan`` picks between
-the two by the device of the tensors.
+passing, chunk output), counted as one launch. The backward takes dy and
+the final state's gradient (or None) and gives (du, dloga, dBm, dCm, dh0)
+from the six passes of ``ssd_bwd_plan``, counted as one launch of its own.
+It reads the states entering each chunk from a tensor of the call's own,
+which ``SSDScan`` has the forward write (B, nc, H, N, P fp32: 134 MB a
+layer at mamba2-1.3b's training shape); ``ssd_scan`` takes that route only
+when autograd will want a gradient, so under ``torch.no_grad`` the forward
+keeps them in its workspace, as a served prefill always did. Each
+direction launches on the current stream over a workspace this module
+owns (one per device and size, never freed, so a captured CUDA graph keeps
+valid pointers; no call reads what another left in it, and calls share
+it, so they run on one stream at a time). The plain versions are
+``repro_torch.kernels.ref.ssd_scan_ref`` and ``ssd_scan_bwd_ref``;
+``ops.ssd_scan`` picks between kernel and plain version by the device of
+the tensors.
 """
 from __future__ import annotations
 
@@ -62,6 +71,45 @@ def ssd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
                           "decay": (B, nc, H)}}
 
 
+def ssd_bwd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
+    """The backward's passes, as ``launch_bwd`` in the source runs them:
+    each pass's grid (x, y, z) and the workspace's parts with their shapes
+    (fp32, one after another in this order).
+
+    - ``cb``: pass 1 of the forward again (C B^T and C^T);
+    - ``summaries``: one block per (64 x 64 tile of the (N, P) state, head,
+      b * chunks + chunk): each chunk's sum_i exp(cum_i) C_i (x) dy_i;
+    - ``states``: one thread per (n, p) of each (head, b), 256 a block,
+      from dstate back over the chunks: the state gradients and dh0;
+    - ``panel``: one block per 64 x 64 tile (it >= jt) of a chunk's (Q, Q)
+      panel and per (chunk, b), looping over the heads: W = sum_h L_h *
+      (dy_h u_h^T) and the row and column sums of each head's R;
+    - ``du``: one block per (head, chunk and b): du, then dloga;
+    - ``dbc``: one block per (64-row tile and 64 columns of N, dC or dB,
+      chunk and b), W's products with B and C, then the heads' states.
+    The workspace holds C B^T (``cbt``) and C^T (``ct``) as the forward's,
+    the state gradients (``g``), the panel, the row and column sums of R
+    per head and tile (``rows``, ``cols``) and the chunk decays last."""
+    nc = T // Q
+    n_pad = 32 if N <= 32 else 64 if N <= 64 else MAX_STATE
+    tiles = MAX_CHUNK // 64
+    tn, tp, tq = -(-N // 64), -(-P // 64), -(-Q // 64)
+    return {"chunks": nc,
+            "grids": {"cb": (tiles * tiles, B * nc, 1),
+                      "summaries": (tn * tp, H, B * nc),
+                      "states": (-(-N * P // 256), H, B),
+                      "panel": (tq * (tq + 1) // 2, B * nc, 1),
+                      "du": (H, B * nc, 1),
+                      "dbc": (tq * tn, 2, B * nc)},
+            "workspace": {"cbt": (B, nc, MAX_CHUNK, MAX_CHUNK),
+                          "ct": (B, nc, n_pad, MAX_CHUNK),
+                          "g": (B, nc, H, N, P),
+                          "panel": (B, nc, MAX_CHUNK, MAX_CHUNK),
+                          "rows": (B, nc, H, tiles, MAX_CHUNK),
+                          "cols": (B, nc, H, tiles, MAX_CHUNK),
+                          "decay": (B, nc, H)}}
+
+
 def _workspace(device: torch.device, plan: dict) -> torch.Tensor:
     n = sum(math.prod(shape) for shape in plan["workspace"].values())
     key = (device, n)
@@ -70,10 +118,12 @@ def _workspace(device: torch.device, plan: dict) -> torch.Tensor:
     return _WORKSPACE[key]
 
 
-def _function():
-    fn = build.load(KERNEL).repro_ssd_scan
+def _function(name: str = "repro_ssd_scan"):
+    """The forward's entry, or the backward's (``repro_ssd_scan_bwd``)."""
+    fn = getattr(build.load(KERNEL), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        n_ptr = 9 if name == "repro_ssd_scan" else 13
+        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_P]
         fn.restype = _I
     return fn
 
@@ -115,28 +165,42 @@ def _check(u, loga, Bm, Cm, h0, chunk: int) -> None:
                          "of range")
 
 
+def _launch(fn, pointers, shape, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*pointers, *shape, stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def ssd_scan_fwd(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, *, chunk: int,
-                 h0: torch.Tensor | None = None
+                 h0: torch.Tensor | None = None,
+                 chunk_states: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y, final state). Launches on the current stream without
+    """(y, final state). ``chunk_states``: a (B, T // chunk, H, N, P) fp32
+    tensor that receives the state entering each chunk, or None to keep
+    them in the workspace. Launches on the current stream without
     synchronising; raises on any input the kernel does not take and when
     the launch is refused."""
     _check(u, loga, Bm, Cm, h0, chunk)
     B, T, H, P = u.shape
     N = Bm.shape[-1]
+    if chunk_states is not None:
+        _check_like("chunk_states", chunk_states, u,
+                    (B, T // chunk, H, N, P))
     y = torch.empty_like(u)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=u.device)
     ws = _workspace(u.device, ssd_plan(B, T, H, P, N, chunk))
-    fn = _function()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), ws.data_ptr(), B, T, H, P, N, chunk,
-                 stream)
-    if err:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    _launch(_function(), [u.data_ptr(), loga.data_ptr(), Bm.data_ptr(),
+                          Cm.data_ptr(), _ptr(h0), y.data_ptr(),
+                          state.data_ptr(), _ptr(chunk_states),
+                          ws.data_ptr()],
+            (B, T, H, P, N, chunk), u.device)
     ssd_scan_fwd.launches += 1
     return y, state
 
@@ -144,26 +208,87 @@ def ssd_scan_fwd(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
 ssd_scan_fwd.launches = 0
 
 
+def _check_like(name: str, t: torch.Tensor, u: torch.Tensor,
+                shape: tuple) -> None:
+    if t.device != u.device or t.dtype != torch.float32 or \
+            not t.is_contiguous() or t.shape != shape:
+        raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on {t.device}: "
+                         f"want contiguous fp32 {shape} on {u.device}")
+
+
+def ssd_scan_bwd(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk_states: torch.Tensor,
+                 dy: torch.Tensor, dstate: torch.Tensor | None, *,
+                 chunk: int) -> tuple[torch.Tensor, ...]:
+    """(du, dloga, dBm, dCm, dh0), fp32, the gradient of ``ssd_scan_fwd``
+    at the same inputs: ``chunk_states`` is what that forward wrote, dy
+    the gradient of y (made contiguous here), dstate that of the final
+    state or None for zeros; dh0 is the gradient of the state entering
+    chunk 0. Launches on the current stream without synchronising; raises
+    on any input the kernel does not take and when the launch is
+    refused."""
+    _check(u, loga, Bm, Cm, None, chunk)
+    B, T, H, P = u.shape
+    N = Bm.shape[-1]
+    dy = dy.contiguous()
+    _check_like("chunk_states", chunk_states, u, (B, T // chunk, H, N, P))
+    _check_like("dy", dy, u, tuple(u.shape))
+    if dstate is not None:
+        dstate = dstate.contiguous()
+        _check_like("dstate", dstate, u, (B, H, N, P))
+    du, dloga = torch.empty_like(u), torch.empty_like(loga)
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    dh0 = torch.empty((B, H, N, P), dtype=torch.float32, device=u.device)
+    ws = _workspace(u.device, ssd_bwd_plan(B, T, H, P, N, chunk))
+    _launch(_function("repro_ssd_scan_bwd"),
+            [u.data_ptr(), loga.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+             chunk_states.data_ptr(), dy.data_ptr(), _ptr(dstate),
+             du.data_ptr(), dloga.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+             dh0.data_ptr(), ws.data_ptr()],
+            (B, T, H, P, N, chunk), u.device)
+    ssd_scan_bwd.launches += 1
+    return du, dloga, dBm, dCm, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
 class SSDScan(torch.autograd.Function):
-    """The kernel under autograd: its backward raises, so that a loss
-    through the scan on the card fails instead of silently losing the
-    scan's gradient."""
+    """The kernel under autograd, forward and backward both on the card.
+    The forward writes the states entering each chunk into a tensor saved
+    for the backward; the gradients of u, loga, Bm, Cm and h0 all come
+    from ``ssd_scan_bwd``."""
 
     @staticmethod
     def forward(ctx, u, loga, Bm, Cm, h0, chunk: int):
-        return ssd_scan_fwd(u, loga, Bm, Cm, chunk=chunk, h0=h0)
+        ctx.set_materialize_grads(False)
+        B, T, H, P = u.shape
+        states = torch.empty((B, T // chunk, H, Bm.shape[-1], P),
+                             dtype=torch.float32, device=u.device)
+        y, state = ssd_scan_fwd(u, loga, Bm, Cm, chunk=chunk, h0=h0,
+                                chunk_states=states)
+        ctx.save_for_backward(u, loga, Bm, Cm, states)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel on the card yet: training the "
-            "SSM and hybrid families comes with the later SSM training slice "
-            "of the port (the plain version ref.ssd_scan_ref differentiates "
-            "on the CPU)")
+        u, loga, Bm, Cm, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(u)
+        du, dloga, dBm, dCm, dh0 = ssd_scan_bwd(
+            u, loga, Bm, Cm, states, dy, dstate, chunk=ctx.chunk)
+        return du, dloga, dBm, dCm, dh0 if ctx.has_h0 else None, None
 
 
 def ssd_scan(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int, h0: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, T, H, P), final state (B, H, N, P)), both fp32."""
-    return SSDScan.apply(u, loga, Bm, Cm, h0, chunk)
+    """(y (B, T, H, P), final state (B, H, N, P)), both fp32: through
+    ``SSDScan`` where autograd will want a gradient, else the forward
+    alone, which keeps the chunk states in its workspace."""
+    inputs = (u, loga, Bm, Cm, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return SSDScan.apply(u, loga, Bm, Cm, h0, chunk)
+    return ssd_scan_fwd(u, loga, Bm, Cm, chunk=chunk, h0=h0)

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
         --steps 6 --batch 8 --seq 2048 --ckpt-every 0
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --steps 6 --batch 8 --seq 2048 --ckpt-every 0
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
 
 The reference's flags (``repro/launch/train.py``) plus ``--device``
@@ -10,8 +12,11 @@ The reference's flags (``repro/launch/train.py``) plus ``--device``
 (unchanged leaves cost nothing); ``--resume latest`` restarts from the
 newest manifest and replays the same data stream (a batch is a pure
 function of its step), so the trajectory equals an uninterrupted run's.
-The vlm backbone trains text-only and the enc-dec family is refused, as
-in the reference: ``SyntheticLM`` gives no frames.
+The SSM and hybrid families (mamba2-1.3b, zamba2-2.7b) train through the
+SSD scan's forward and backward kernels on the card; a ``--seq`` longer
+than their chunk (256) must be a multiple of it, as the reference
+asserts. The vlm backbone trains text-only and the enc-dec family is
+refused, as in the reference: ``SyntheticLM`` gives no frames.
 """
 from __future__ import annotations
 

@@ -294,9 +294,8 @@ def _ssm_step(cfg: ArchConfig, lp: SSMLayer, x: torch.Tensor,
 class MambaLM(DecoderLM):
     """Attention-free mamba2 LM. ``ssd_scan`` is the kernel seam of every
     prefill layer and of the loss (decode steps the recurrence in plain
-    torch ops); a caller may pass the plain version. The scan has no
-    backward on the card yet, so ``loss_fn`` differentiates only on the
-    CPU."""
+    torch ops); a caller may pass the plain version. On the card the
+    loss's gradient goes through the scan's backward kernel."""
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
                  ssd_scan: Callable = kops.ssd_scan):
@@ -355,16 +354,21 @@ class HybridLM(MambaLM):
     """Mamba2 layers in groups of ``attn_every``, each group led by one
     attention + MLP block whose weights all groups share. Layer leaves are
     (groups, per_group, ...); each group has its own KV cache, written in
-    place through ``attention_block``."""
+    place through ``attention_block``. The shared block's attention goes
+    through the ``decode_attention`` and ``flash_attention`` seams (the
+    loss and a prefill without a cache through the latter), as
+    ``DenseLM``'s does."""
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
                  ssd_scan: Callable = kops.ssd_scan,
-                 decode_attention: Callable = kops.decode_attention):
+                 decode_attention: Callable = kops.decode_attention,
+                 flash_attention: Callable = kops.flash_attention):
         if cfg.attn_every <= 0 or cfg.n_layers % cfg.attn_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a whole number "
                              f"of groups of attn_every {cfg.attn_every}")
         super().__init__(cfg, device=device, ssd_scan=ssd_scan)
         self.decode_attention = decode_attention
+        self.flash_attention = flash_attention
         self.n_groups = cfg.n_layers // cfg.attn_every
 
     def init(self, generator: torch.Generator) -> dict:
@@ -391,7 +395,8 @@ class HybridLM(MambaLM):
             params["shared_attn"],
             rmsnorm(x, params["shared_norm1"], cfg.norm_eps), cfg,
             kv_cache=kv_cache, cache_index=cache_index,
-            decode_attention=self.decode_attention)
+            decode_attention=self.decode_attention,
+            flash_attention=self.flash_attention)
         x = x + a
         return x + swiglu(params["shared_mlp"],
                           rmsnorm(x, params["shared_norm2"], cfg.norm_eps),

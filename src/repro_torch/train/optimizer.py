@@ -96,14 +96,14 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, decay: bool):
             g32 = g.float()
             m32 = b1 * m.float() + (1 - b1) * g32
             v32 = b2 * v.float() + (1 - b2) * g32 * g32
             mhat = m32 / bc1
             vhat = v32 / bc2
             delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-            if p.ndim >= 2:    # decoupled weight decay on matrices only
+            if decay:
                 delta = delta + cfg.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
             m.copy_(m32)
@@ -112,7 +112,13 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),
                               tree_leaves(state["v"])):
-            upd(p, g, m, v)
+            # decoupled weight decay on matrices only (the leaf's ndim); a
+            # stacked leaf is updated a slice of axis 0 at a time, the same
+            # elementwise arithmetic with fp32 temporaries of one layer's
+            # (or group's) size instead of the whole stack's
+            parts = zip(p, g, m, v) if p.ndim >= 3 else [(p, g, m, v)]
+            for part in parts:
+                upd(*part, decay=p.ndim >= 2)
         state["step"] = step
         return params, state
 

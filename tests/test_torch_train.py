@@ -199,3 +199,30 @@ def test_grad_accum_equals_full_batch_and_compress_carries_residual(models):
         assert g4.dtype == torch.float32
         np.testing.assert_allclose(g4.numpy(), g1.numpy(), rtol=1e-5,
                                    atol=1e-7)
+
+
+def test_adamw_updates_a_stack_as_its_layers():
+    """AdamW updates a stacked leaf a layer at a time (fp32 temporaries of
+    one layer): three steps on an (L, a, b) leaf give the same bits as on
+    its L layers held as leaves of their own, and the (L, d) norm leaf is
+    decayed as a matrix."""
+    import torch
+    cfg = optimizer.OptimizerConfig(peak_lr=3e-3, warmup=2, total_steps=10,
+                                    weight_decay=0.1, grad_clip=1e9)
+    opt = optimizer.build_optimizer(cfg)
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((3, 4, 5), np.float32))
+    norm = torch.from_numpy(rng.standard_normal((3, 4), np.float32))
+    stacked = {"w": w.clone(), "norm": norm.clone()}
+    layers = {"w": [x.clone() for x in w], "norm": norm.clone()}
+    s_stacked, s_layers = opt.init(stacked), opt.init(layers)
+    for _ in range(3):
+        g = torch.from_numpy(rng.standard_normal((3, 4, 5), np.float32))
+        gn = torch.from_numpy(rng.standard_normal((3, 4), np.float32))
+        stacked, s_stacked = opt.update({"w": g, "norm": gn}, s_stacked,
+                                        stacked)
+        layers, s_layers = opt.update({"w": list(g), "norm": gn}, s_layers,
+                                      layers)
+    assert torch.equal(stacked["w"], torch.stack(layers["w"]))
+    assert torch.equal(stacked["norm"], layers["norm"])
+    assert not torch.equal(stacked["norm"], norm)
