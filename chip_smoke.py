@@ -9,9 +9,9 @@ Phases, each fatal on failure (nothing is caught):
   2. builds every kernel of the served and trained paths from
      ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
      three sources, started together) and prints each kernel's registers,
-     shared memory and spills (the dynamic shared memory of the wgmma
-     backward and of the scan's passes, forward and backward, from the
-     libraries);
+     shared memory and spills (the dynamic shared memory of the bf16 flash
+     kernels at every head dim and of the scan's passes, forward and
+     backward, from the libraries);
   3. holds the decode kernel against its plain PyTorch version on the card
      at the decode shapes of smollm-135m, llama-3.2-1b, zamba2-2.7b (hd 80),
      qwen2-moe-a2.7b (16/16, hd 128), llava-next-34b (56/8, hd 128, a
@@ -35,16 +35,17 @@ Phases, each fatal on failure (nothing is caught):
      llama-3.2-1b (32/8/64), llama-3.1-8b's hd 128 (32/8/128), the head
      dims 80, 96 and 112 of zamba2, phi3-mini and kimi-k2 (T 1024), a
      ragged T, T = 1, a non-causal T != S, the fabric executor's train
-     shape (B 4, T 32), whisper-tiny's decoder (B 8, T 448, 6/6/64) and
-     llava-next-34b's 576 patches + 512 tokens (B 2, T 1088, 56/8/128)
-     (the bf16 forward and backward
-     on wgmma at hd 64 and 128, on mma.sync at the others, the library's
-     route tables checked against the wrapper's; repeated forwards
-     bit-identical), and times kernel, plain version and SDPA at the
-     training shape, forward and backward (with achieved TFLOP/s, the
-     routes and the device ms of each backward kernel); and the decode
-     kernel against its plain version at the fabric executor's serving
-     shape (4 slots, S 256, 9/3/64);
+     shape (B 4, T 32), whisper-tiny's decoder (B 8, T 448, 6/6/64),
+     llava-next-34b's 576 patches + 512 tokens (B 2, T 1088, 56/8/128),
+     zamba2's training shape (B 8, T 2048, 32/32/80) and hd 32 (B 2, T
+     1024, 16/4) (the bf16 forward and backward on wgmma at every head
+     dim, the library's route tables checked against the wrapper's;
+     repeated forwards bit-identical), and times kernel, plain version and
+     SDPA at the training shape, forward and backward (with achieved
+     TFLOP/s, the routes and the device ms of each backward kernel), and
+     the kernels beside SDPA at every bf16 head dim and fp32 hd 64
+     (``ROUTE_SHAPES``); and the decode kernel against its plain version
+     at the fabric executor's serving shape (4 slots, S 256, 9/3/64);
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
      ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
      checks falling finite losses and that every layer's attention went
@@ -157,9 +158,9 @@ Phases, each fatal on failure (nothing is caught):
      through ``ref.ssd_scan_ref`` at every shape of phase 10 and both
      training shapes (B 8, T 2048, 64/64/128 and 80/64/64), fp32, within
      1e-4 of each gradient's max, repeated calls and CUDA-graph replays
-     bit-identical; times the backward, each of its passes and the plain
-     version at mamba2's training shape, and flash at zamba2's hd 80 beside
-     SDPA; trains full-width mamba2-1.3b and zamba2-2.7b through
+     bit-identical; times the backward, each of its six passes (b1 to b6)
+     and the plain version at mamba2's training shape, and flash at
+     zamba2's hd 80 beside SDPA (with each backward kernel's ms); trains full-width mamba2-1.3b and zamba2-2.7b through
      ``repro_torch.launch.train`` (bf16, remat "block", AdamW, 6 steps of 8
      x 2048 tokens: finite falling losses, 2 x layers forward and 1 x
      layers backward scan launches a step, for zamba2 2 x 9 and 9 flash
@@ -267,7 +268,12 @@ FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("whisper-tiny decoder train", 8, 448, 448, 6, 6, 64, True),
                 ("llava-next-34b 576 patches + 512 text, group 7", 2, 1088,
                  1088, 56, 8, 128, True),
-                ZAMBA_FLASH_TRAIN]
+                ZAMBA_FLASH_TRAIN,
+                ("hd 32", 2, 1024, 1024, 16, 4, 32, True)]
+# Phase 7's route timing: each bf16 head dim at its shape above (hd 80 at
+# zamba2's training shape), and fp32 at smollm-135m's training shape.
+ROUTE_SHAPES = [(torch.bfloat16, FLASH_SHAPES[i]) for i in (13, 0, 12, 4, 5, 2)
+                ] + [(torch.float32, FLASH_SHAPES[0])]
 # Forward and dq, dk, dv against autograd through the plain version.
 # fp32: sums in another order only. bf16: both accumulate in fp32 and round
 # the results once; the kernel also rounds P and dS to bf16 as tensor-core
@@ -346,19 +352,22 @@ def device_ms(fn, n: int) -> float:
 
 def log_dynamic_smem(build) -> None:
     """The dynamic shared memory of the kernels redesigned last (ptxas
-    prints only the static part): the wgmma backward's dK/dV and dQ
-    kernels, and the SSD scan's passes, forward and backward, at the two
-    SSM families' shapes."""
+    prints only the static part): the bf16 flash kernels (forward, dK/dV
+    and dQ on wgmma) at every head dim, and the SSD scan's passes, forward
+    and backward, at the two SSM families' shapes."""
     import ctypes
-    flash = build.load("flash_attention").repro_flash_bwd_smem
+
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    flash = build.load("flash_attention").repro_flash_smem
     scan = build.load("ssd_scan").repro_ssd_smem
     for fn in (flash, scan):
         fn.restype = ctypes.c_int
     flash.argtypes = [ctypes.c_int] * 2
     scan.argtypes = [ctypes.c_int] * 3
-    for hd in (64, 128):
-        log(f"[build] flash_attention wgmma backward hd {hd}: dynamic shared "
-            f"memory dK/dV {flash(hd, 0)} B, dQ {flash(hd, 1)} B")
+    for hd in HEAD_DIMS:
+        log(f"[build] flash_attention wgmma hd {hd}: dynamic shared memory "
+            f"forward {flash(hd, 2)} B, dK/dV {flash(hd, 0)} B, dQ "
+            f"{flash(hd, 1)} B")
     for name, N, P in (("mamba2-1.3b", 128, 64), ("zamba2-2.7b", 64, 64)):
         log(f"[build] ssd_scan {name} (N {N}, P {P}): dynamic shared memory "
             + ", ".join(f"pass {i} {scan(N, P, i)} B" for i in (1, 2, 4))
@@ -1063,20 +1072,8 @@ def time_flash_attention(shape=FLASH_SHAPES[0]):
     times["bwd_ms"] = device_ms(bwd, 5)
     times["bwd_eager_ms"] = eager_ms(bwd, 5)
     times["bwd_kernel_ms"] = bwd_kernel_ms(bwd, 5)
-    elt = 2
-    io = (2 * B * T * Hq * hd + 2 * B * S * Hkv * hd) * elt   # q, k, v, out
-    flops = 4 * B * Hq * hd * T * (T + 1) // 2
-    bounds = {}
-    for key, nbytes, ops in (
-            ("fwd", io + 4 * B * Hq * T, flops),
-            # reads q, k, v, out, dout, lse; writes dq, dk, dv
-            ("bwd", 2 * io + B * T * Hq * hd * elt + 4 * B * Hq * T,
-             2.5 * flops)):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_FLOPS_PER_S * 1e3
-        bounds[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
-        bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
-            else "operations"
+    bounds = flash_bound(shape, torch.bfloat16)
+    flops = bounds.pop("flops")
     row = {"shape": shape[0],
            "fwd_route": fk.fwd_route(torch.bfloat16, hd),
            "bwd_route": fk.bwd_route(torch.bfloat16, hd), **times, **bounds,
@@ -1084,6 +1081,71 @@ def time_flash_attention(shape=FLASH_SHAPES[0]):
            "bwd_tflop_per_s": 2.5 * flops / times["bwd_ms"] / 1e9}
     log(f"[kernel] flash_attention timing {json.dumps(row)}")
     return row
+
+
+def flash_bound(shape, dtype) -> dict:
+    """The least time of a causal forward and backward at a shape with
+    T == S: their operations at the peak for the inputs' type (the tensor
+    cores for bf16, the CUDA cores for fp32) or their bytes (each input
+    read once, each output written once), whichever is larger."""
+    _, B, T, S, Hq, Hkv, hd, _ = shape
+    elt = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    io = (2 * B * T * Hq * hd + 2 * B * S * Hkv * hd) * elt   # q, k, v, out
+    flops = 4 * B * Hq * hd * T * (T + 1) // 2
+    bounds = {"flops": flops}
+    for key, nbytes, ops in (
+            ("fwd", io + 4 * B * Hq * T, flops),
+            # reads q, k, v, out, dout, lse; writes dq, dk, dv
+            ("bwd", 2 * io + B * T * Hq * hd * elt + 4 * B * Hq * T,
+             2.5 * flops)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        bounds[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
+        bounds[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms \
+            else "operations"
+    return bounds
+
+
+def time_flash_route(dtype, shape) -> dict:
+    """The kernel's forward and backward launches and SDPA's forward and
+    backward (its forward + backward less its forward), device ms from
+    graph replays, at one causal shape with T == S."""
+    from repro_torch.kernels import flash_attention as fk
+    name, B, T, S, Hq, Hkv, hd, causal = shape
+    q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, dtype, SEED)
+    out, lse = fk.flash_attention_fwd(q, k, v, causal)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    lib_fwd = lambda i: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    lib_both = lambda i: torch.autograd.grad(
+        sdpa(*leaves, is_causal=causal, enable_gqa=True), leaves,
+        do.transpose(1, 2))
+    times = {
+        "fwd_ms": device_ms(lambda i: fk.flash_attention_fwd(q, k, v,
+                                                             causal), 10),
+        "bwd_ms": device_ms(lambda i: fk.flash_attention_bwd(
+            q, k, v, out, lse, do, causal), 5),
+        "library_fwd_ms": device_ms(lib_fwd, 10)}
+    times["library_bwd_ms"] = device_ms(lib_both, 5) - times["library_fwd_ms"]
+    bounds = flash_bound(shape, dtype)
+    row = {"shape": name, "dtype": str(dtype).split(".")[-1], "hd": hd,
+           "fwd_route": fk.fwd_route(dtype, hd),
+           "bwd_route": fk.bwd_route(dtype, hd), **times, **bounds,
+           "fwd_over_library": times["fwd_ms"] / times["library_fwd_ms"],
+           "bwd_over_library": times["bwd_ms"] / times["library_bwd_ms"],
+           "fwd_tflop_per_s": bounds["flops"] / times["fwd_ms"] / 1e9,
+           "bwd_tflop_per_s": 2.5 * bounds["flops"] / times["bwd_ms"] / 1e9}
+    log(f"[kernel] flash_attention route timing {json.dumps(row)}")
+    return row
+
+
+def time_flash_routes() -> list:
+    """``time_flash_route`` at every entry of ROUTE_SHAPES."""
+    rows = [time_flash_route(dtype, shape) for dtype, shape in ROUTE_SHAPES]
+    torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------- phase 8 --
@@ -2314,7 +2376,7 @@ def ssm_train_parity(cfg, n_layers, B=2, T=1024):
     SSM_TRAIN_CONTROL_FACTOR."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.models.transformer import HybridLM, MambaLM
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.train_step import value_and_grad
@@ -2355,11 +2417,21 @@ def ssm_train_parity(cfg, n_layers, B=2, T=1024):
     errs = [((g - w).abs().max() / w.abs().max()).item()
             for g, w in zip(grads, want)]
     worst = max(errs)
+    # the worst leaf of both fp32 runs against the plain path in fp64: which
+    # of the two sums is the nearer
+    at = errs.index(worst)
+    c64 = replace(c32, param_dtype=torch.float64, compute_dtype=torch.float64)
+    _, exact = step(c64, tree_map(lambda x: x.double(), params), batch,
+                    **plain)
+    scale = exact[at].abs().max()
+    vs64 = {key: ((g[at].double() - exact[at]).abs().max() / scale).item()
+            for key, g in (("kernels", grads), ("plain", want))}
+    del exact
     stats = {"arch": cfg.name, "dtype": "fp32", "layers": n_layers, "B": B,
              "T": T, "loss": loss, "plain_loss": want_loss,
              "abs_dloss": abs(loss - want_loss), "worst_leaf_grad_err": worst,
-             "worst_leaf": [errs.index(worst),
-                            list(want[errs.index(worst)].shape)]}
+             "worst_leaf": [at, list(want[at].shape)],
+             "worst_leaf_err_vs_fp64": vs64}
     log(f"[parity train ssm] {json.dumps(stats)}")
     if abs(loss - want_loss) > FP32_LOSS_RTOL * abs(want_loss) or \
             worst > FP32_GRAD_TOL:
@@ -2508,6 +2580,7 @@ def main() -> int:
         "smollm-135m fabric serve", smollm.n_heads, smollm.n_kv_heads,
         smollm.hd, 0, rng, B=4, S=256, lengths=[0, 12, 19, 256 + 5])
     timing = time_flash_attention()
+    time_flash_routes()
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
     profile_train_step(smollm, train_stats["step_ms_after_first"])
     train_parity(smollm)

@@ -13,9 +13,9 @@
 // hd); dk, dv (B, S, Hkv, hd); all read and written through their batch,
 // sequence and head strides, last dimension contiguous, rows 16-byte
 // aligned. lse and delta (B, Hq, T) fp32, contiguous. bf16 or fp32; hd 32,
-// 64, 80, 96, 112 or 128 (multiples of 16, so the m16n8k16 fragments and
-// the 16-column thread tiles cover hd exactly); any T, S >= 1 (ragged
-// tails are masked).
+// 64, 80, 96, 112 or 128 (multiples of 16, so the wgmma k-steps, the
+// panels and the 16-column thread tiles cover hd exactly); any T, S >= 1
+// (ragged tails are masked).
 //
 // Bound: operations. At the training shape of smollm-135m (B 8, T 2048,
 // 9/3 heads, hd 64) the causal forward does 4 * B * Hq * hd * T^2 / 2 =
@@ -23,27 +23,26 @@
 // the ~295 where the H100's tensor cores, not its memory, bind. The
 // backward does 2.5 times the work on about twice the bytes.
 //
-// Design: three routes with the same masks and outputs.
-// - bf16 at hd 64 and 128 (the training path) runs on Hopper's warpgroup
-//   MMA: the forward on 128-row query tiles over two warpgroups, K/V tiles
-//   in a 3-stage cp.async ring of 128-byte-swizzled panels, P from
-//   registers and V read untransposed (see "bf16 forward on wgmma"); the
-//   backward's dK/dV and dQ kernels on the same panels, ring and operand
-//   reads (see "bf16 backward on wgmma").
-// - bf16 at hd 32, 80, 96 and 112 runs on warp-level mma.sync m16n8k16,
-//   bf16 in and fp32 accumulate, for every product; 4 warps own a 64-row
-//   tile, 16 rows each; see "bf16 on tensor cores".
+// Design: two routes with the same masks and outputs.
+// - bf16 at every head dim runs on Hopper's warpgroup MMA: the forward on
+//   128-row query tiles over two warpgroups, K/V tiles in a 3-stage
+//   cp.async ring, P from registers and V read untransposed (see "bf16
+//   forward on wgmma"); the backward's dK/dV and dQ kernels on the same
+//   ring and operand reads (see "bf16 backward on wgmma"). Tiles lie in
+//   swizzled panels of 64 columns (128-byte swizzle) and, where hd is not a
+//   multiple of 64, of 32 and 16 columns (64- and 32-byte swizzles), so
+//   that no product reads padding (see "bf16 on wgmma: layout").
 // - fp32 runs on the CUDA cores (fp32 FMAs, so that fp32 results hold to
 //   1e-4): 256 threads as 16 x 16, a thread owning 4 consecutive rows and
 //   the columns tx, tx + 16, ... of a tile; every product is "NT" (both
 //   operands row-major) or "NN" (the second indexed [k][col]) over shared
 //   memory with rows padded to hd + 1 floats, so that reads are broadcast
 //   or conflict-free.
-// The forwards: one block per (q tile, q head, b) carries (m, l, acc) in
-// registers over the 64-key tiles; the causal loop stops at
-// the diagonal tile and masks inside it (the Pallas grid instead visits
-// every key block and skips the compute). Writes O in the input type and
-// the per-row log-sum-exp of the scaled scores in fp32 for the backward.
+// The forwards: one block per query tile, q head and b carries (m, l, acc)
+// in registers over the 64-key tiles; the causal loop stops at the diagonal
+// tile and masks inside it (the Pallas grid instead visits every key block
+// and skips the compute). Writes O in the input type and the per-row
+// log-sum-exp of the scaled scores in fp32 for the backward.
 // Backward: a pre-pass computes delta = rowsum(dO * O); the dK/dV kernel
 // takes one block per (key tile, kv head, b) and loops over the g query
 // heads of the group and the query tiles from the diagonal on, so the sum
@@ -53,8 +52,7 @@
 // Known limits: the wgmma kernels copy with cp.async from their compute
 // warps (no TMA producer warp, no register split between producer and
 // consumers) and wait for each product before the elementwise work on its
-// result, overlapping the two only across warpgroups; the mma.sync route
-// loads its tiles synchronously.
+// result, overlapping the two only across warpgroups.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -452,29 +450,57 @@ flash_dq_kernel(const Params p) {
   store_tile<NJ>(static_cast<float*>(p.dq), p.sdq, b, h, q0, p.T, dq, p.scale);
 }
 
-// ------------------------------------------------- bf16 on tensor cores --
-// The same three kernels for bf16 inputs with every product on the tensor
-// cores: warp-level mma.sync m16n8k16 (bf16 in, fp32 accumulate). A block
-// of 4 warps owns a 64-row tile, 16 rows a warp. Tiles stay bf16 in shared
-// memory, row-major [row][hd + 8] and, where a product needs the other
-// operand order, transposed [hd][64 + 8]; the pads put the 8 rows a
-// fragment load touches on distinct banks. Scores, softmax statistics and
-// gradients are fp32 in registers; P and dS are rounded to bf16 as the
-// A operand of the next product (the score accumulator's layout is the
-// A fragment's, so they never pass through shared memory).
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTLd = kTile + 8;     // transposed tile row: 64 keys + pad
-
+// ------------------------------------------------ bf16 on wgmma: layout --
+// The bf16 kernels keep every tile in shared memory as wgmma reads it. A
+// tile of R rows of hd bf16 columns is a run of panels: hd / 64 panels of
+// 64 columns in the 128-byte swizzle, then the rest of hd (16, 32 or 48
+// columns) as a panel of 32 columns in the 64-byte swizzle and/or one of 16
+// in the 32-byte swizzle (hd 80: 64 + 16; 96: 64 + 32; 112: 64 + 32 + 16;
+// 32: one panel of 32). A panel of w columns holds its R rows of 2w bytes
+// one after another, 16-byte chunk c of row r at chunk c ^ ((2w r / 128) %
+// (w / 8)): the layouts that TMA's SWIZZLE_128B, _64B and _32B write and a
+// wgmma descriptor of the same mode reads. So no product reads padding:
+// - over K = hd (S = Q K^T, dP = dO V^T and their transposes), both
+//   operands K-major, one m64n64k16 a 16-column k-step, the k-step's
+//   descriptor in its own panel (32 bytes further along a row per step);
+// - with N = hd (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K), B read
+//   MN-major (the transpose bit), one wgmma a panel with N its width (64,
+//   32 or 16) into that panel's columns of the accumulator.
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int HD> struct Panels {
+  static constexpr int kFull = HD / 64;
+  static constexpr bool kHas32 = HD % 64 >= 32;
+  static constexpr bool kHas16 = HD % 32 == 16;
+  static constexpr int kCount = kFull + kHas32 + kHas16;
+  // first column and width (columns) of panel pn; the panel of column col
+  __host__ __device__ static constexpr int col0(int pn) {
+    return pn <= kFull ? 64 * pn : 64 * kFull + 32;
+  }
+  __host__ __device__ static constexpr int width(int pn) {
+    return pn < kFull ? 64 : (pn == kFull && kHas32) ? 32 : 16;
+  }
+  __host__ __device__ static constexpr int of(int col) {
+    return col < 64 * kFull ? col / 64
+         : (kHas32 && col < 64 * kFull + 32) ? kFull : kCount - 1;
+  }
+};
+
+// Byte offset of 16-byte chunk c (columns 8c..8c+7) of row r in an R-row
+// tile. Every panel starts R * 2 * col0 bytes in: with R a multiple of 64,
+// a multiple of the 1024, 512 or 256 bytes at which its swizzle repeats.
+// Each branch has its panel width as a constant (c is known only at run
+// time in the copy loops), so that a chunk of a 64-column panel costs what
+// it did when every panel was one.
+template <int HD, int R>
+__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
+  using L = Panels<HD>;
+  constexpr int c32 = 8 * L::kFull, c16 = c32 + 4 * L::kHas32;
+  if (L::kFull == L::kCount || c < c32)           // 128-byte rows
+    return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  if (L::kHas32 && c < c16)                        // 64-byte rows
+    return c32 * 16 * R + r * 64 + (((c - c32) ^ ((r >> 1) & 3)) << 4);
+  return c16 * 16 * R + r * 32 + (((c - c16) ^ ((r >> 2) & 1)) << 4);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -482,425 +508,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, rows row0.., columns k0..) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int ld, int row0, int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* r = tile + (row0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(r);
-  a[1] = ld32(r + 8 * ld);
-  a[2] = ld32(r + 8);
-  a[3] = ld32(r + 8 * ld + 8);
-}
-
-// B fragment (16 x 8: k0.. by n0..) of B[k][n] = tile[n][k], a tile whose
-// rows are the n index.
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* tile, int ld, int n0,
-                                       int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* r = tile + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld32(r);
-  b1 = ld32(r + 8);
-}
-
-// The A fragment of keys (or queries) 16 kk.. of a 16 x 64 accumulator
-// held as 8 tiles of 16 x 8, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&s)[8][4], int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// Rows [row0, row0 + 64) of the (b, h) slice of a (B, L, H, HD) bf16 tensor
-// into rows[r][HD + 8] and/or cols[d][64 + 8] (either may be null); rows at
-// or past L are zeros.
-template <int HD>
-__device__ __forceinline__ void load_bf16_tile(bf16* rows, bf16* cols,
-                                               const bf16* base, Strides st,
-                                               int b, int h, int row0, int L) {
-  const bf16* src = base + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kTile * HD / 8; i += kTcThreads) {
-    const int r = i % kTile, c = (i / kTile) * 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (row0 + r < L)
-      u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * st.s + c);
-    if (rows) *reinterpret_cast<uint4*>(rows + r * (HD + 8) + c) = u;
-    if (cols) {
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[(c + j) * kTLd + r] = e[j];
-    }
-  }
-}
-
-// Writes a warp's 16 x HD accumulator (rows row0 + g, row0 + g + 8) times
-// mult as bf16 pairs into the (b, h) slice of a (B, L, H, HD) tensor.
-template <int HD>
-__device__ __forceinline__ void store_bf16_acc(bf16* base, Strides st, int b,
-                                               int h, int row0, int L,
-                                               const float (&acc)[HD / 8][4],
-                                               float mult) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  bf16* dst = base + b * st.b + h * st.h;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + 8 * half;
-    if (r < L) {
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dst + (long long)r * st.s + 8 * n + 2 * t) =
-            pack_bf16(acc[n][2 * half] * mult, acc[n][2 * half + 1] * mult);
-    }
-  }
-}
-
-template <int HD>
-constexpr int tc_fwd_smem() { return (2 * kTile * (HD + 8) + HD * kTLd) * 2; }
-template <int HD>
-constexpr int tc_dkdv_smem() {
-  return (4 * kTile * (HD + 8) + 2 * HD * kTLd) * 2 + 2 * kTile * 4;
-}
-template <int HD>
-constexpr int tc_dq_smem() {
-  return (4 * kTile * (HD + 8) + HD * kTLd) * 2 + 2 * kTile * 4;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const Params p) {
-  constexpr int LD = HD + 8, ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* ks = qs + kTile * LD;
-  bf16* vt = ks + kTile * LD;           // V^T [d][key]
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.g;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int row_a = q0 + 16 * w + g;    // this thread's rows: row_a, +8
-
-  load_bf16_tile<HD>(qs, nullptr, static_cast<const bf16*>(p.q), p.sq, b, h,
-                     q0, p.T);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  const int n_kt = key_tiles(p, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_bf16_tile<HD>(ks, nullptr, static_cast<const bf16*>(p.k), p.sk, b,
-                       hk, k0, p.S);
-    load_bf16_tile<HD>(nullptr, vt, static_cast<const bf16*>(p.v), p.sv, b,
-                       hk, k0, p.S);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, qs, LD, 16 * w, 16 * kk);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, ks, LD, 8 * n, 16 * kk);
-        mma_bf16(s[n], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row_a + 8 * half;
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * half + e];
-          x = visible(p, r, k0 + 8 * n + 2 * t + e) ? x * p.scale : kNegInf;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      // every row sees key 0 in tile 0, so m is finite from then on
-      const float m_new = fmaxf(m[half], mx);
-      const float corr = __expf(m[half] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * half + e];
-          x = x == kNegInf ? 0.f : __expf(x - m_new);
-          sum += x;
-        }
-      l[half] = l[half] * corr + sum;   // this thread's columns only
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][2 * half] *= corr;
-        o[n][2 * half + 1] *= corr;
-      }
-      m[half] = m_new;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, vt, kTLd, 8 * n, 16 * kk);
-        mma_bf16(o[n], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float lsum = l[half];
-    lsum += __shfl_xor_sync(kFull, lsum, 1);
-    lsum += __shfl_xor_sync(kFull, lsum, 2);
-    lsum = fmaxf(lsum, 1e-30f);
-    const int r = row_a + 8 * half;
-    if (t == 0 && r < p.T)
-      p.lse[((long long)b * p.Hq + h) * p.T + r] = m[half] + __logf(lsum);
-    const float inv = 1.f / lsum;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][2 * half] *= inv;
-      o[n][2 * half + 1] *= inv;
-    }
-  }
-  store_bf16_acc<HD>(static_cast<bf16*>(p.out), p.so, b, h, q0 + 16 * w,
-                     p.T, o, 1.f);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dkdv_tc_kernel(const Params p) {
-  constexpr int LD = HD + 8, ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem);
-  bf16* vs = ks + kTile * LD;
-  bf16* qs = vs + kTile * LD;
-  bf16* dos = qs + kTile * LD;
-  bf16* qt = dos + kTile * LD;          // Q^T  [d][query]
-  bf16* dot = qt + HD * kTLd;           // dO^T [d][query]
-  float* lse_s = reinterpret_cast<float*>(dot + HD * kTLd);
-  float* delta_s = lse_s + kTile;
-  const int k0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  const int key_a = k0 + 16 * w + g;    // this thread's keys: key_a, +8
-
-  load_bf16_tile<HD>(ks, nullptr, static_cast<const bf16*>(p.k), p.sk, b, hk,
-                     k0, p.S);
-  load_bf16_tile<HD>(vs, nullptr, static_cast<const bf16*>(p.v), p.sv, b, hk,
-                     k0, p.S);
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const int n_qt = (p.T + kTile - 1) / kTile;
-  const int qt0 = p.causal ? k0 / kTile : 0;
-  for (int hh = 0; hh < p.g; ++hh) {
-    const int h = hk * p.g + hh;
-    for (int qt_i = qt0; qt_i < n_qt; ++qt_i) {
-      const int q0 = qt_i * kTile;
-      __syncthreads();
-      load_bf16_tile<HD>(qs, qt, static_cast<const bf16*>(p.q), p.sq, b, h,
-                         q0, p.T);
-      load_bf16_tile<HD>(dos, dot, static_cast<const bf16*>(p.dout), p.sdo,
-                         b, h, q0, p.T);
-      if (threadIdx.x < kTile) {
-        const int r = q0 + threadIdx.x;
-        const long long at = ((long long)b * p.Hq + h) * p.T + r;
-        lse_s[threadIdx.x] = r < p.T ? p.lse[at] : 0.f;
-        delta_s[threadIdx.x] = r < p.T ? p.delta[at] : 0.f;
-      }
-      __syncthreads();
-      float st[8][4], dpt[8][4];     // S^T, dP^T: [key][query]
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, ks, LD, 16 * w, 16 * kk);
-        load_a(av, vs, LD, 16 * w, 16 * kk);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, qs, LD, 8 * n, 16 * kk);
-          mma_bf16(st[n], ak, b0, b1);
-          load_b(b0, b1, dos, LD, 8 * n, 16 * kk);
-          mma_bf16(dpt[n], av, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qq = 8 * n + 2 * t + (e & 1);     // query in the tile
-          const int c = key_a + 8 * (e >> 1);
-          const float pv = visible(p, q0 + qq, c)
-                               ? __expf(st[n][e] * p.scale - lse_s[qq]) : 0.f;
-          st[n][e] = pv;
-          dpt[n][e] = pv * (dpt[n][e] - delta_s[qq]);
-        }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t ap[4], ads[4];
-        acc_to_a(ap, st, kk);
-        acc_to_a(ads, dpt, kk);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, dot, kTLd, 8 * n, 16 * kk);
-          mma_bf16(dv[n], ap, b0, b1);       // dV += P^T dO
-          load_b(b0, b1, qt, kTLd, 8 * n, 16 * kk);
-          mma_bf16(dk[n], ads, b0, b1);      // dK += dS^T Q
-        }
-      }
-    }
-  }
-  store_bf16_acc<HD>(static_cast<bf16*>(p.dk), p.sdk, b, hk, k0 + 16 * w,
-                     p.S, dk, p.scale);
-  store_bf16_acc<HD>(static_cast<bf16*>(p.dv), p.sdv, b, hk, k0 + 16 * w,
-                     p.S, dv, 1.f);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dq_tc_kernel(const Params p) {
-  constexpr int LD = HD + 8, ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* dos = qs + kTile * LD;
-  bf16* ks = dos + kTile * LD;
-  bf16* vs = ks + kTile * LD;
-  bf16* kt_s = vs + kTile * LD;         // K^T [d][key]
-  float* lse_s = reinterpret_cast<float*>(kt_s + HD * kTLd);
-  float* delta_s = lse_s + kTile;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.g;
-  const int w = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-
-  load_bf16_tile<HD>(qs, nullptr, static_cast<const bf16*>(p.q), p.sq, b, h,
-                     q0, p.T);
-  load_bf16_tile<HD>(dos, nullptr, static_cast<const bf16*>(p.dout), p.sdo, b,
-                     h, q0, p.T);
-  if (threadIdx.x < kTile) {
-    const int r = q0 + threadIdx.x;
-    const long long at = ((long long)b * p.Hq + h) * p.T + r;
-    lse_s[threadIdx.x] = r < p.T ? p.lse[at] : 0.f;
-    delta_s[threadIdx.x] = r < p.T ? p.delta[at] : 0.f;
-  }
-  __syncthreads();
-  const int rl = 16 * w + g;            // this thread's rows in the tile
-  const float lse_r[2] = {lse_s[rl], lse_s[rl + 8]};
-  const float delta_r[2] = {delta_s[rl], delta_s[rl + 8]};
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const int n_kt = key_tiles(p, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_bf16_tile<HD>(ks, kt_s, static_cast<const bf16*>(p.k), p.sk, b, hk,
-                       k0, p.S);
-    load_bf16_tile<HD>(vs, nullptr, static_cast<const bf16*>(p.v), p.sv, b,
-                       hk, k0, p.S);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a(aq, qs, LD, 16 * w, 16 * kk);
-      load_a(ado, dos, LD, 16 * w, 16 * kk);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, ks, LD, 8 * n, 16 * kk);
-        mma_bf16(s[n], aq, b0, b1);
-        load_b(b0, b1, vs, LD, 8 * n, 16 * kk);
-        mma_bf16(dp[n], ado, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const float pv = visible(p, q0 + rl + 8 * half,
-                                 k0 + 8 * n + 2 * t + (e & 1))
-                             ? __expf(s[n][e] * p.scale - lse_r[half]) : 0.f;
-        s[n][e] = pv * (dp[n][e] - delta_r[half]);       // dS
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, kTLd, 8 * n, 16 * kk);
-        mma_bf16(dq[n], a, b0, b1);          // dQ += dS K
-      }
-    }
-  }
-  store_bf16_acc<HD>(static_cast<bf16*>(p.dq), p.sdq, b, h, q0 + 16 * w, p.T,
-                     dq, p.scale);
-}
-
 // ------------------------------------------- bf16 forward on wgmma --
-// The bf16 forward for hd 64 and 128 (a whole number of 64-column panels),
-// on Hopper's warpgroup MMA. One block per (128-row query tile, q head, b),
-// the tiles issued in reverse (the heavy causal tiles first, the diagonal's
-// short ones at the tail): two warpgroups of 64 rows each. All 256 threads
-// copy Q once and K and V tiles of 64 keys with 16-byte cp.async into a ring
-// of 3 stages, so that two tiles load while one is computed; no producer
-// warp yet (a TMA producer warp is the next step). Each tile lands as
-// 64-column panels of 128-byte rows in the 128-byte swizzle (16-byte chunk c
-// of row r at chunk c ^ (r % 8), panels 1024-byte aligned), the layout TMA's
-// SWIZZLE_128B writes and wgmma's descriptors read:
+// The bf16 forward at every head dim, on Hopper's warpgroup MMA. One block
+// per (128-row query tile, q head, b), the tiles issued in reverse (the
+// heavy causal tiles first, the diagonal's short ones at the tail): two
+// warpgroups of 64 rows each. All 256 threads copy Q once and K and V tiles
+// of 64 keys with 16-byte cp.async into a ring of 3 stages, so that two
+// tiles load while one is computed; no producer warp yet (a TMA producer
+// warp is the next step). Each tile lands in the panels above:
 // - S = Q K^T: wgmma m64n64k16, A = Q and B = K from shared memory, both
-//   K-major (rows along hd), hd / 16 products a tile;
+//   K-major, hd / 16 products a tile;
 // - the online softmax in fp32 registers on exp2 of scale * log2(e) * S
 //   (one FMA and one ex2 an element), with the mask of the other kernels
 //   (`visible`) only on tiles that cross the diagonal or the end of S;
-// - O += P V: wgmma m64n64k16 with A = P from registers (the S accumulator
-//   rounded to bf16 is the A fragment, as in FlashAttention-3) and B = V
-//   from shared memory in its natural (key, d) layout, read MN-major (the
-//   transpose bit), one product per 16 keys and 64-column panel: no
-//   transposed copy of V.
-// A warpgroup skips the tiles past its own diagonal. O is written in bf16
-// through its strides, lse as the natural log-sum-exp of the scaled scores.
-// At hd 64 two blocks share an SM (registers capped at 128 a thread, 65 KB
-// of shared memory each), so that four warpgroups interleave their products
-// and softmaxes; hd 128 runs one block an SM.
+// - O += P V: wgmma with A = P from registers (the S accumulator rounded to
+//   bf16 is the A fragment, as in FlashAttention-3) and B = V from shared
+//   memory in its natural (key, d) layout, read MN-major, one product per
+//   16 keys and panel: no transposed copy of V.
+// O is one accumulator of hd / 2 floats a thread, laid out as a single
+// m64n<hd> product's: a panel's wgmma writes its run of it. A warpgroup
+// skips the tiles past its own diagonal. O is written in bf16 through its
+// strides, lse as the natural log-sum-exp of the scaled scores. Up to hd 80
+// two blocks share an SM (registers capped at 128 a thread), so that four
+// warpgroups interleave their products and softmaxes; wider head dims run
+// one block an SM.
 constexpr int kWgThreads = 256;        // two warpgroups
 constexpr int kWgRows = 64;            // query rows a warpgroup
 constexpr int kQRows = 2 * kWgRows;    // query rows a block
@@ -910,16 +541,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMinusInf = -__builtin_huge_valf();
 
-// The bf16 forward's route by head dim, fixed: wgmma where hd is a whole
-// number of 64-column panels, mma.sync (flash_fwd_tc_kernel) otherwise.
-__host__ __device__ constexpr bool fwd_on_wgmma(int hd) { return hd % 64 == 0; }
-
 template <int HD> struct WgLayout {
-  static constexpr int kPanels = HD / 64;
-  static constexpr int kQPanel = kQRows * 128;        // bytes of a Q panel
-  static constexpr int kKVPanel = kKeys * 128;        // bytes of a K/V panel
-  static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kTileBytes = kPanels * kKVPanel;
+  static constexpr int kQBytes = kQRows * 2 * HD;     // Q, 128 rows
+  static constexpr int kTileBytes = kKeys * 2 * HD;   // a K or V tile
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
   // + 1024: the dynamic shared memory is aligned up to 1024 bytes
   static constexpr int kSmem = kQBytes + kWgStages * kStageBytes + 1024;
@@ -933,8 +557,8 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + R) of the (b, h) slice of a (B, L, H, HD) bf16 tensor
-// into 64-column swizzled panels of R rows at shared address dst; rows at or
-// past L are zero-filled.
+// into the panels of an R-row tile at shared address dst; rows at or past L
+// are zero-filled.
 template <int HD, int R>
 __device__ __forceinline__ void load_panels(uint32_t dst, const bf16* base,
                                             Strides st, int b, int h,
@@ -945,20 +569,25 @@ __device__ __forceinline__ void load_panels(uint32_t dst, const bf16* base,
     const int r = i / kC, c = i % kC;
     const bool in = row0 + r < L;
     const bf16* gp = in ? src + (long long)(row0 + r) * st.s + c * 8 : src;
-    const uint32_t off =
-        (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst + off), "l"(gp), "r"(in ? 16 : 0) : "memory");
+                 :: "r"(dst + chunk_off<HD, R>(r, c)), "l"(gp),
+                    "r"(in ? 16 : 0) : "memory");
   }
 }
 
-// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
-// 8-row groups 1024 bytes apart. The leading offset is unused by the K-major
-// operands and by an MN-major one of N = 64 (one swizzle atom wide); it is
-// set to the same 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+// wgmma descriptor of an operand at shared address addr in a panel of w
+// bytes a row (128, 64 or 32, the swizzle mode): 8-row groups 8 w bytes
+// apart. The leading offset is unused (a K-major operand's k-step stays in
+// its row; an MN-major one is read a panel, one swizzle atom, at a time);
+// it is set to the same 8 w bytes. A shared address is below 2^18, so the
+// start field is addr >> 4 with no carry into the fields above it, and a
+// descriptor at a constant offset from a base is the base's plus a
+// constant: one add a k-step.
+__device__ __forceinline__ uint64_t panel_desc(uint32_t addr, int w) {
+  const uint64_t mode = w == 128 ? 1 : w == 64 ? 2 : 3;
+  return (uint64_t)(addr >> 4) + (((uint64_t)(8 * w >> 4) << 16) |
+                                  ((uint64_t)(8 * w >> 4) << 32) |
+                                  (mode << 62));
 }
 
 // 2^x in one MUFU instruction (ex2(-inf) = 0).
@@ -979,9 +608,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 }
 // Keeps the compiler from moving accesses of an accumulator across the
 // asynchronous products that write it.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (64 x 64 fp32) = A B (+ d when accumulate): A 64 x 16 and B 16 x 64
@@ -1004,24 +634,86 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 fp32) += A B: A 64 x 16 bf16 from registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B 16 x 64 from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+// d (64 x N fp32) += A B: A 64 x 16 bf16 from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B 16 x N from shared memory, MN-major;
+// N = 64, 32 or 16 (d: N / 2 floats from d0).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 16, "wgmma_rs: N is 64, 32 or 16");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+        "1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// d (64 x 64) = A B^T over K = HD, both operands K-major in the panels of
+// their tiles: A rows a_row0.. of an RA-row tile at a_base, B the first 64
+// rows of an RB-row tile at b_base; one wgmma a 16-column k-step.
+template <int HD, int RA, int RB>
+__device__ __forceinline__ void mma_over_hd(float (&d)[32], uint32_t a_base,
+                                            int a_row0, uint32_t b_base) {
+  using L = Panels<HD>;
+  // A's first row in a panel of each width (128, 64, 32 bytes a row)
+  const uint64_t da[3] = {(a_base + a_row0 * 128) >> 4,
+                          (a_base + a_row0 * 64) >> 4,
+                          (a_base + a_row0 * 32) >> 4};
+  const uint64_t db = b_base >> 4;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int pn = L::of(16 * kk), w = 2 * L::width(pn);
+    const int at = 2 * (16 * kk - L::col0(pn));     // bytes into the row
+    wgmma_ss(d, da[w == 128 ? 0 : w == 64 ? 1 : 2] +
+                    panel_desc(RA * 2 * L::col0(pn) + at, w),
+             db + panel_desc(RB * 2 * L::col0(pn) + at, w),
+             kk > 0);                 // the first k-step overwrites d
+  }
+}
+
+// acc (64 x HD) += A B over 16 rows kk of an R-row tile at base, B read
+// MN-major: one wgmma a panel, N its width, into its columns of acc.
+template <int HD, int R, int PN = 0>
+__device__ __forceinline__ void mma_into_hd(float (&acc)[HD / 2],
+                                            const uint32_t (&a)[4],
+                                            uint32_t base, int kk) {
+  if constexpr (PN < Panels<HD>::kCount) {
+    constexpr int w = Panels<HD>::width(PN), c0 = Panels<HD>::col0(PN);
+    wgmma_rs<w>(acc + c0 / 2, a,
+                (base >> 4) + panel_desc(R * 2 * c0 + kk * 16 * 2 * w, 2 * w));
+    mma_into_hd<HD, R, PN + 1>(acc, a, base, kk);
+  }
 }
 
 // The A fragments (m16n8k16 layout of each warp's 16 rows) of the four
@@ -1047,12 +739,13 @@ __device__ __forceinline__ void ring_wait() {
   __syncthreads();
 }
 
-// Writes a warpgroup's accumulators, kP panels of 64 x 64 (rows r0 and
-// r0 + 8 of this thread, the row at r0 + 8 hf times mult[hf]), as bf16 pairs
-// into rows of stride ld at dst; rows at or past L are not written.
-template <int kP>
+// Writes a warpgroup's 64 x HD accumulator (rows r0 and r0 + 8 of this
+// thread, acc[4 j + 2 hf + e] the row at r0 + 8 hf, column 8 j + 2 t + e,
+// times mult[hf]) as bf16 pairs into rows of stride ld at dst; rows at or
+// past L are not written.
+template <int HD>
 __device__ __forceinline__ void store_wg_acc(bf16* dst, long long ld, int r0,
-                                             int L, const float (&acc)[kP][32],
+                                             int L, const float (&acc)[HD / 2],
                                              const float (&mult)[2]) {
   const int t = threadIdx.x & 3;
 #pragma unroll
@@ -1060,22 +753,18 @@ __device__ __forceinline__ void store_wg_acc(bf16* dst, long long ld, int r0,
     const int r = r0 + 8 * hf;
     if (r < L) {
 #pragma unroll
-      for (int pn = 0; pn < kP; ++pn)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<uint32_t*>(dst + (long long)r * ld + 64 * pn +
-                                       8 * j + 2 * t) =
-              pack_bf16(acc[pn][4 * j + 2 * hf] * mult[hf],
-                        acc[pn][4 * j + 2 * hf + 1] * mult[hf]);
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + (long long)r * ld + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * hf] * mult[hf],
+                      acc[4 * j + 2 * hf + 1] * mult[hf]);
     }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kWgThreads, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kWgThreads, HD <= 80 ? 2 : 1)
 flash_fwd_wgmma_kernel(const Params p) {
   using L = WgLayout<HD>;
-  constexpr int kP = L::kPanels;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
   const uint32_t q_sm = (raw + 1023) & ~1023u;
@@ -1112,15 +801,11 @@ flash_fwd_wgmma_kernel(const Params p) {
     cp_async_commit();
   }
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, s[32];
-  float o[kP][32];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, s[32], o[HD / 2];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int pn = 0; pn < kP; ++pn)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
-  const uint32_t q_wg = q_sm + wg * kWgRows * 128;   // this warpgroup's Q
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   const float sl2 = p.scale * kLog2e;
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -1139,14 +824,7 @@ flash_fwd_wgmma_kernel(const Params p) {
     const uint32_t vs = ks + L::kTileBytes;
     const int k0 = kt * kKeys;
     wgmma_fence();
-    // descriptors as a base plus a constant offset (>> 4): the k-steps
-    // advance 32 bytes along a 128-byte row, then a panel
-    const uint64_t dq = sw128_desc(q_wg), dk = sw128_desc(ks);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(s, dq + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
-               dk + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
-               kk > 0);               // the first k-step overwrites s
+    mma_over_hd<HD, kQRows, kKeys>(s, q_sm, kWgRows * wg, ks);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(s);
@@ -1188,30 +866,21 @@ flash_fwd_wgmma_kernel(const Params p) {
       m[hf] = m_new;
     }
 #pragma unroll
-    for (int pn = 0; pn < kP; ++pn)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[pn][4 * j] *= corr[0];
-        o[pn][4 * j + 1] *= corr[0];
-        o[pn][4 * j + 2] *= corr[1];
-        o[pn][4 * j + 3] *= corr[1];
-      }
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
     uint32_t a[4][4];                      // P as the A fragments of 16 keys
     acc_to_frags(a, s);
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) fence_acc(o[pn]);
+    fence_acc(o);
     wgmma_fence();
-    const uint64_t dv = sw128_desc(vs);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kP; ++pn)
-        wgmma_rs(o[pn], a[kk],
-                 dv + ((pn * L::kKVPanel + kk * 16 * 128) >> 4));
+    for (int kk = 0; kk < 4; ++kk) mma_into_hd<HD, kKeys>(o, a[kk], vs, kk);
     wgmma_commit();
     wgmma_wait_all();
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) fence_acc(o[pn]);
+    fence_acc(o);
   }
   cp_async_wait<0>();
 
@@ -1228,27 +897,27 @@ flash_fwd_wgmma_kernel(const Params p) {
           (m[hf] + log2f(lsum)) * kLn2;
     inv[hf] = 1.f / lsum;
   }
-  store_wg_acc<kP>(static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h,
+  store_wg_acc<HD>(static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h,
                    p.so.s, r0, p.T, o, inv);
 }
 
 // ------------------------------------------ bf16 backward on wgmma --
-// The bf16 backward for hd 64 and 128 (bwd_on_wgmma), on the forward's
-// machinery: 128-byte-swizzled panels loaded with cp.async into a ring of
-// kWgStages stages, wgmma with both operands from shared memory K-major, and
-// with A from registers (an accumulator rounded to bf16, acc_to_frags) and
-// B read MN-major, so that no operand is ever copied transposed.
+// The bf16 backward at every head dim, on the forward's machinery: tiles in
+// the panels above, loaded with cp.async into a ring of kWgStages stages,
+// wgmma with both operands from shared memory K-major over hd, and with A
+// from registers (an accumulator rounded to bf16, acc_to_frags) and B read
+// MN-major a panel at a time, so that no operand is ever copied transposed.
 //
 // dK/dV: one block per (128 keys, KV head, b), two warpgroups of 64 keys
-// each (dK and dV of a warpgroup are 2 x 64 x hd fp32 accumulators: 64
-// registers a thread at hd 64, 128 at hd 128). 128 keys rather than 64:
-// the two warpgroups share each Q and dO tile the ring brings, which halves
-// those loads, and still give 384 blocks at the training shape. The key
-// blocks with the most query tiles under the causal mask are issued first.
-// K and V stay in shared memory; the block walks the g query heads of its
-// group and, for each, the 64-row query tiles from the diagonal on,
-// streaming Q, dO and their rows of lse and delta through the ring. Per
-// query tile and warpgroup:
+// each (dK and dV of a warpgroup are 2 x 64 x hd fp32 accumulators: hd
+// registers a thread). 128 keys rather than 64: the two warpgroups share
+// each Q and dO tile the ring brings, which halves those loads, and still
+// give 384 blocks at smollm-135m's training shape. The key blocks with the
+// most query tiles under the causal mask are issued first. K and V stay in
+// shared memory; the block walks the g query heads of its group and, for
+// each, the 64-row query tiles from the diagonal on, streaming Q, dO and
+// their rows of lse and delta through the ring. Per query tile and
+// warpgroup:
 // - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, A = K or V and B = Q or
 //   dO, all K-major (rows along hd);
 // - P^T = 2^(scale log2(e) S^T - log2(e) lse) with the mask only on tiles
@@ -1256,14 +925,15 @@ flash_fwd_wgmma_kernel(const Params p) {
 //   fp32 in registers;
 // - dV += P^T dO and dK += dS^T Q: A = P^T or dS^T from registers, B = dO or
 //   Q read MN-major (the transpose bit, as the forward reads V), one product
-//   per 16 queries and 64-column panel.
+//   per 16 queries and panel.
 // dQ: one block per (128 query rows, q head, b), two warpgroups of 64 rows,
 // heavy tiles first as in the forward. Q and dO stay in shared memory, K
 // and V tiles of 64 keys stream through the ring: S = Q K^T and dP = dO V^T
 // K-major, dS = P (dP - delta) in registers as the A operand of dQ += dS K,
-// with K read MN-major. At hd 64 two blocks share an SM (registers capped
-// at 128, a 16-byte spill), as in the forward: 10% off the whole backward
-// against one block an SM at the training shape on an H100.
+// with K read MN-major. Up to hd 80 two blocks share an SM (registers
+// capped at 128, a spill of 8 to 20 bytes), as in the forward: 10% off the
+// whole backward against one block an SM at hd 64, 4% at hd 80, on an
+// H100.
 // Deterministic by design: FlashAttention-2 and -3 add dQ with atomics from
 // the dK/dV loop; here a separate dQ kernel recomputes S and dP, so every
 // gradient is summed in one fixed order and a train step is bit-identical
@@ -1272,16 +942,9 @@ flash_fwd_wgmma_kernel(const Params p) {
 constexpr int kBwdKeys = 2 * kWgRows;   // keys a dK/dV block
 constexpr int kBwdRows = 64;            // query rows a stage of its ring
 
-// The bf16 backward's route by head dim, fixed: wgmma at hd 64 and 128,
-// mma.sync (flash_dkdv_tc_kernel, flash_dq_tc_kernel) otherwise.
-__host__ __device__ constexpr bool bwd_on_wgmma(int hd) { return hd % 64 == 0; }
-
 template <int HD> struct BwdLayout {
-  static constexpr int kPanels = HD / 64;
-  static constexpr int kKPanel = kBwdKeys * 128;      // a K/V panel, 128 keys
-  static constexpr int kKBytes = kPanels * kKPanel;
-  static constexpr int kRowPanel = kBwdRows * 128;    // a Q/dO panel, 64 rows
-  static constexpr int kRowBytes = kPanels * kRowPanel;
+  static constexpr int kKBytes = kBwdKeys * 2 * HD;   // K or V, 128 keys
+  static constexpr int kRowBytes = kBwdRows * 2 * HD; // Q or dO, 64 rows
   // Q, dO, then lse and delta (2 x 64 floats), padded so that every stage's
   // panels stay 1024-byte aligned
   static constexpr int kStageBytes = 2 * kRowBytes + 1024;
@@ -1312,7 +975,6 @@ template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dkdv_wgmma_kernel(const Params p) {
   using L = BwdLayout<HD>;
-  constexpr int kP = L::kPanels;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
   const uint32_t k_sm = (raw + 1023) & ~1023u;
@@ -1352,15 +1014,11 @@ flash_dkdv_wgmma_kernel(const Params p) {
     cp_async_commit();
   }
 
-  float dk[kP][32], dv[kP][32], s[32], dp[32];
+  float dk[HD / 2], dv[HD / 2], s[32], dp[32];
 #pragma unroll
-  for (int pn = 0; pn < kP; ++pn)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk[pn][i] = dv[pn][i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-  const uint64_t dkd = sw128_desc(k_sm + wg * kWgRows * 128);
-  const uint64_t dvd = sw128_desc(v_sm + wg * kWgRows * 128);
   const float sl2 = p.scale * kLog2e;
 
   for (int it = 0; it < n_it; ++it) {
@@ -1372,21 +1030,13 @@ flash_dkdv_wgmma_kernel(const Params p) {
     if (key_wg >= p.S || (p.causal && q0 + kBwdRows <= key_wg)) continue;
 
     const uint32_t st = ring + (it % kWgStages) * L::kStageBytes;
-    const uint64_t dqd = sw128_desc(st), dod = sw128_desc(st + L::kRowBytes);
     const float* lse_s = reinterpret_cast<const float*>(
         wg_smem + (st + 2 * L::kRowBytes - raw));
     const float* delta_s = lse_s + kBwdRows;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(s, dkd + (((kk >> 2) * L::kKPanel + (kk & 3) * 32) >> 4),
-               dqd + (((kk >> 2) * L::kRowPanel + (kk & 3) * 32) >> 4),
-               kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(dp, dvd + (((kk >> 2) * L::kKPanel + (kk & 3) * 32) >> 4),
-               dod + (((kk >> 2) * L::kRowPanel + (kk & 3) * 32) >> 4),
-               kk > 0);
+    mma_over_hd<HD, kBwdKeys, kBwdRows>(s, k_sm, kWgRows * wg, st);
+    mma_over_hd<HD, kBwdKeys, kBwdRows>(dp, v_sm, kWgRows * wg,
+                                        st + L::kRowBytes);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(s);
@@ -1420,42 +1070,32 @@ flash_dkdv_wgmma_kernel(const Params p) {
     uint32_t ap[4][4], ads[4][4];        // P^T and dS^T, 16 queries a step
     acc_to_frags(ap, s);
     acc_to_frags(ads, dp);
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) {
-      fence_acc(dv[pn]);
-      fence_acc(dk[pn]);
-    }
+    fence_acc(dv);
+    fence_acc(dk);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kP; ++pn) {
-        const int off = (pn * L::kRowPanel + kk * 16 * 128) >> 4;
-        wgmma_rs(dv[pn], ap[kk], dod + off);
-        wgmma_rs(dk[pn], ads[kk], dqd + off);
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_into_hd<HD, kBwdRows>(dv, ap[kk], st + L::kRowBytes, kk);
+      mma_into_hd<HD, kBwdRows>(dk, ads[kk], st, kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) {
-      fence_acc(dv[pn]);
-      fence_acc(dk[pn]);
-    }
+    fence_acc(dv);
+    fence_acc(dk);
   }
   cp_async_wait<0>();
 
   const float one[2] = {1.f, 1.f}, scale[2] = {p.scale, p.scale};
-  store_wg_acc<kP>(static_cast<bf16*>(p.dk) + b * p.sdk.b + hk * p.sdk.h,
+  store_wg_acc<HD>(static_cast<bf16*>(p.dk) + b * p.sdk.b + hk * p.sdk.h,
                    p.sdk.s, c0, p.S, dk, scale);
-  store_wg_acc<kP>(static_cast<bf16*>(p.dv) + b * p.sdv.b + hk * p.sdv.h,
+  store_wg_acc<HD>(static_cast<bf16*>(p.dv) + b * p.sdv.b + hk * p.sdv.h,
                    p.sdv.s, c0, p.S, dv, one);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kWgThreads, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kWgThreads, HD <= 80 ? 2 : 1)
 flash_dq_wgmma_kernel(const Params p) {
   using L = WgLayout<HD>;
-  constexpr int kP = L::kPanels;
   extern __shared__ __align__(16) unsigned char wg_smem[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_smem));
   const uint32_t q_sm = (raw + 1023) & ~1023u;
@@ -1503,15 +1143,11 @@ flash_dq_wgmma_kernel(const Params p) {
     lse2[hf] = r < p.T ? p.lse[at] * kLog2e : 0.f;
     dl[hf] = r < p.T ? p.delta[at] : 0.f;
   }
-  float dq[kP][32], s[32], dp[32];
+  float dq[HD / 2], s[32], dp[32];
 #pragma unroll
-  for (int pn = 0; pn < kP; ++pn)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dq[pn][i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-  const uint64_t dqd = sw128_desc(q_sm + wg * kWgRows * 128);
-  const uint64_t dod = sw128_desc(do_sm + wg * kWgRows * 128);
   const float sl2 = p.scale * kLog2e;
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -1527,19 +1163,11 @@ flash_dq_wgmma_kernel(const Params p) {
     if (kt >= n_wg) continue;              // uniform over the warpgroup
 
     const uint32_t ks = kv_sm + (kt % kWgStages) * L::kStageBytes;
-    const uint64_t dkd = sw128_desc(ks), dvd = sw128_desc(ks + L::kTileBytes);
     const int k0 = kt * kKeys;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(s, dqd + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
-               dkd + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
-               kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(dp, dod + (((kk >> 2) * L::kQPanel + (kk & 3) * 32) >> 4),
-               dvd + (((kk >> 2) * L::kKVPanel + (kk & 3) * 32) >> 4),
-               kk > 0);
+    mma_over_hd<HD, kQRows, kKeys>(s, q_sm, kWgRows * wg, ks);
+    mma_over_hd<HD, kQRows, kKeys>(dp, do_sm, kWgRows * wg,
+                                   ks + L::kTileBytes);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(s);
@@ -1560,24 +1188,18 @@ flash_dq_wgmma_kernel(const Params p) {
     }
     uint32_t a[4][4];
     acc_to_frags(a, s);
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) fence_acc(dq[pn]);
+    fence_acc(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kP; ++pn)
-        wgmma_rs(dq[pn], a[kk],
-                 dkd + ((pn * L::kKVPanel + kk * 16 * 128) >> 4));
+    for (int kk = 0; kk < 4; ++kk) mma_into_hd<HD, kKeys>(dq, a[kk], ks, kk);
     wgmma_commit();
     wgmma_wait_all();
-#pragma unroll
-    for (int pn = 0; pn < kP; ++pn) fence_acc(dq[pn]);
+    fence_acc(dq);
   }
   cp_async_wait<0>();
 
   const float scale[2] = {p.scale, p.scale};
-  store_wg_acc<kP>(static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h,
+  store_wg_acc<HD>(static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h,
                    p.sdq.s, r0, p.T, dq, scale);
 }
 
@@ -1620,17 +1242,6 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
 }
 
 template <int HD>
-cudaError_t launch_fwd_tc(const Params& p, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tc_fwd_smem<HD>());
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.T + kTile - 1) / kTile, p.Hq, p.B);
-  flash_fwd_tc_kernel<HD><<<grid, kTcThreads, tc_fwd_smem<HD>(), stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int HD>
 cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1641,31 +1252,6 @@ cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_fwd_wgmma_kernel<HD><<<(unsigned)blocks, kWgThreads,
                                WgLayout<HD>::kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int HD>
-cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
-  static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      flash_dkdv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tc_dkdv_smem<HD>());
-  static const cudaError_t attr_q = cudaFuncSetAttribute(
-      flash_dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tc_dq_smem<HD>());
-  if (attr_kv != cudaSuccess) return attr_kv;
-  if (attr_q != cudaSuccess) return attr_q;
-  cudaError_t err;
-  const long long rows = (long long)p.B * p.Hq * p.T;
-  const int per = kThreads / 8;           // rows a block of the pre-pass
-  flash_delta_kernel<bf16, HD><<<(unsigned)((rows + per - 1) / per),
-                                 kThreads, 0, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid_kv((p.S + kTile - 1) / kTile, p.Hkv, p.B);
-  flash_dkdv_tc_kernel<HD><<<grid_kv, kTcThreads, tc_dkdv_smem<HD>(),
-                             stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid_q((p.T + kTile - 1) / kTile, p.Hq, p.B);
-  flash_dq_tc_kernel<HD><<<grid_q, kTcThreads, tc_dq_smem<HD>(), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1699,24 +1285,15 @@ cudaError_t launch_bwd_wgmma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores: the forward and the
-// backward each on wgmma or mma.sync by their fixed tables fwd_on_wgmma and
-// bwd_on_wgmma.
+// fp32 on the CUDA cores, bf16 on the tensor cores (wgmma) at every head
+// dim, forward and backward.
 template <int HD>
 cudaError_t launch(bool backward, bool bf16_in, const Params& p,
                    cudaStream_t stream) {
   if (!bf16_in)
     return backward ? launch_bwd<HD>(p, stream) : launch_fwd<HD>(p, stream);
-  if (backward) {
-    if constexpr (bwd_on_wgmma(HD))
-      return launch_bwd_wgmma<HD>(p, stream);
-    else
-      return launch_bwd_tc<HD>(p, stream);
-  }
-  if constexpr (fwd_on_wgmma(HD))
-    return launch_fwd_wgmma<HD>(p, stream);
-  else
-    return launch_fwd_tc<HD>(p, stream);
+  return backward ? launch_bwd_wgmma<HD>(p, stream)
+                  : launch_fwd_wgmma<HD>(p, stream);
 }
 
 Strides strides_at(const long long* st, int i) {
@@ -1762,25 +1339,38 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The forward's route for dtype (0 = fp32, 1 = bf16) and head dim, as
-// launch picks it: 0 = CUDA cores, 1 = mma.sync, 2 = wgmma.
+// launch picks it: 0 = CUDA cores, 1 = wgmma.
 extern "C" int repro_flash_fwd_route(int hd, int dtype) {
-  if (dtype != 1) return 0;
-  return fwd_on_wgmma(hd) ? 2 : 1;
+  (void)hd;
+  return dtype == 1 ? 1 : 0;
 }
 
 // The backward's route, as launch picks it: the same codes.
 extern "C" int repro_flash_bwd_route(int hd, int dtype) {
-  if (dtype != 1) return 0;
-  return bwd_on_wgmma(hd) ? 2 : 1;
+  (void)hd;
+  return dtype == 1 ? 1 : 0;
 }
 
-// Dynamic shared memory (bytes) of the wgmma backward's kernels at hd 64
-// or 128: part 0 the dK/dV kernel, 1 the dQ kernel; -1 at other head dims.
-extern "C" int repro_flash_bwd_smem(int hd, int part) {
-  if (hd == 64) return part ? BwdLayout<64>::kDqSmem : BwdLayout<64>::kSmem;
-  if (hd == 128)
-    return part ? BwdLayout<128>::kDqSmem : BwdLayout<128>::kSmem;
-  return -1;
+namespace {
+template <int HD> int wgmma_smem(int part) {
+  return part == 0 ? BwdLayout<HD>::kSmem
+       : part == 1 ? BwdLayout<HD>::kDqSmem : WgLayout<HD>::kSmem;
+}
+}  // namespace
+
+// Dynamic shared memory (bytes) of the bf16 (wgmma) kernels at a head dim:
+// part 0 the dK/dV kernel, 1 the dQ kernel, 2 the forward; -1 at a head dim
+// not taken.
+extern "C" int repro_flash_smem(int hd, int part) {
+  switch (hd) {
+    case 32: return wgmma_smem<32>(part);
+    case 64: return wgmma_smem<64>(part);
+    case 80: return wgmma_smem<80>(part);
+    case 96: return wgmma_smem<96>(part);
+    case 112: return wgmma_smem<112>(part);
+    case 128: return wgmma_smem<128>(part);
+    default: return -1;
+  }
 }
 
 // strides: (batch, sequence, head) of q, k, v, out, dout, dq, dk, dv.

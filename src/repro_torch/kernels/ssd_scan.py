@@ -73,40 +73,49 @@ def ssd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
 
 def ssd_bwd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
     """The backward's passes, as ``launch_bwd`` in the source runs them:
-    each pass's grid (x, y, z) and the workspace's parts with their shapes
-    (fp32, one after another in this order).
+    each pass's grid (x, y, z) and threads a block, and the workspace's
+    parts with their shapes (fp32, one after another in this order).
 
     - ``cb``: pass 1 of the forward again (C B^T and C^T);
-    - ``summaries``: one block per (64 x 64 tile of the (N, P) state, head,
-      b * chunks + chunk): each chunk's sum_i exp(cum_i) C_i (x) dy_i;
+    - ``summaries``: pass 2's kernel in its gradient mode, one block per
+      (P slice, head, b * chunks + chunk): each chunk's sum_i exp(cum_i)
+      C_i (x) dy_i, and each (chunk, head)'s prefix sums of loga;
     - ``states``: one thread per (n, p) of each (head, b), 256 a block,
       from dstate back over the chunks: the state gradients and dh0;
-    - ``panel``: one block per 64 x 64 tile (it >= jt) of a chunk's (Q, Q)
-      panel and per (chunk, b), looping over the heads: W = sum_h L_h *
-      (dy_h u_h^T) and the row and column sums of each head's R;
+    - ``panel``: 64 threads per 64 x 64 tile (it, jt) of a chunk's (Q, Q)
+      panel and per (chunk, b), x = it * tiles + jt; those with it >= jt
+      loop over the heads: W = sum_h L_h * (dy_h u_h^T), written as W^T,
+      and the row and column sums of each head's R; those above the
+      diagonal write W^T's zeros;
     - ``du``: one block per (head, chunk and b): du, then dloga;
-    - ``dbc``: one block per (64-row tile and 64 columns of N, dC or dB,
-      chunk and b), W's products with B and C, then the heads' states.
+    - ``dbc``: 2 x (N rounded up) threads per (128-row tile, dC or dB,
+      chunk and b) over all of N: W's products with B and C, then the
+      heads' states.
     The workspace holds C B^T (``cbt``) and C^T (``ct``) as the forward's,
-    the state gradients (``g``), the panel, the row and column sums of R
-    per head and tile (``rows``, ``cols``) and the chunk decays last."""
+    the state gradients (``g``), the panel W^T, the row and column sums of
+    R per head and tile (``rows``, ``cols``), the prefix sums of loga
+    (``cum``) and the chunk decays last."""
     nc = T // Q
     n_pad = 32 if N <= 32 else 64 if N <= 64 else MAX_STATE
+    ps = 64 if P % 64 == 0 else 32 if P % 32 == 0 else 16
     tiles = MAX_CHUNK // 64
-    tn, tp, tq = -(-N // 64), -(-P // 64), -(-Q // 64)
-    return {"chunks": nc,
+    tq = -(-Q // 64)
+    return {"chunks": nc, "p_slice": ps,
             "grids": {"cb": (tiles * tiles, B * nc, 1),
-                      "summaries": (tn * tp, H, B * nc),
+                      "summaries": (P // ps, H, B * nc),
                       "states": (-(-N * P // 256), H, B),
-                      "panel": (tq * (tq + 1) // 2, B * nc, 1),
+                      "panel": (tq * tq, B * nc, 1),
                       "du": (H, B * nc, 1),
-                      "dbc": (tq * tn, 2, B * nc)},
+                      "dbc": (-(-Q // 128), 2, B * nc)},
+            "threads": {"cb": 256, "summaries": 256, "states": 256,
+                        "panel": 64, "du": 256, "dbc": 2 * n_pad},
             "workspace": {"cbt": (B, nc, MAX_CHUNK, MAX_CHUNK),
                           "ct": (B, nc, n_pad, MAX_CHUNK),
                           "g": (B, nc, H, N, P),
                           "panel": (B, nc, MAX_CHUNK, MAX_CHUNK),
                           "rows": (B, nc, H, tiles, MAX_CHUNK),
                           "cols": (B, nc, H, tiles, MAX_CHUNK),
+                          "cum": (B, nc, H, MAX_CHUNK),
                           "decay": (B, nc, H)}}
 
 

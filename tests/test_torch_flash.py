@@ -7,6 +7,9 @@ mode and the reference's jnp oracle, forward at the reference's tolerances
 gradients. The cases marked ``gpu`` hold the CUDA kernels, forward and
 backward, against the plain version on the card and skip without one.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -221,12 +224,48 @@ def test_train_loss_and_gradients_kernel_against_plain_on_card(cuda):
 
 @pytest.mark.parametrize("hd", fk.HEAD_DIMS)
 def test_forward_route_table(hd):
-    """The fixed route table of the forward: bf16 on wgmma at hd 64 and 128
-    (whole 64-column panels), on mma.sync at 32, 80, 96 and 112; fp32 on
-    the CUDA cores at every head dim."""
-    want = "wgmma" if hd in (64, 128) else "mma.sync"
-    assert fk.fwd_route(torch.bfloat16, hd) == want
+    """The fixed route table of the forward: bf16 on wgmma at every head
+    dim (64-column panels, then 32- and 16-column ones for the rest of hd);
+    fp32 on the CUDA cores at every head dim."""
+    assert fk.fwd_route(torch.bfloat16, hd) == "wgmma"
     assert fk.fwd_route(torch.float32, hd) == "cuda cores"
+
+
+def chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_route_shapes_time_every_route_at_a_checked_shape():
+    """Phase 7's route timing covers every bf16 head dim and fp32 once,
+    each at a causal T == S shape that phase 7 also checks."""
+    smoke = chip_smoke()
+    timed = [(dtype, shape[6]) for dtype, shape in smoke.ROUTE_SHAPES]
+    assert sorted(hd for dtype, hd in timed if dtype == torch.bfloat16) \
+        == sorted(fk.HEAD_DIMS)
+    assert [hd for dtype, hd in timed if dtype == torch.float32] == [64]
+    for _, shape in smoke.ROUTE_SHAPES:
+        assert shape in smoke.FLASH_SHAPES
+        assert shape[7] and shape[2] == shape[3]
+
+
+@pytest.mark.parametrize("dtype,peak", [("bfloat16", 989e12),
+                                        ("float32", 67e12)])
+def test_flash_bound_counts_the_causal_half(dtype, peak):
+    """The bound at zamba2's training shape: 4 B Hq hd T (T + 1) / 2
+    operations forward, 2.5 times that backward, at the type's peak (the
+    tensor cores for bf16, the CUDA cores for fp32); bytes bind neither."""
+    smoke = chip_smoke()
+    _, B, T, S, Hq, Hkv, hd, _ = smoke.ZAMBA_FLASH_TRAIN
+    got = smoke.flash_bound(smoke.ZAMBA_FLASH_TRAIN, getattr(torch, dtype))
+    flops = 4 * B * Hq * hd * T * (T + 1) // 2
+    assert got["flops"] == flops == 171882577920
+    assert got["fwd_bound_by"] == got["bwd_bound_by"] == "operations"
+    np.testing.assert_allclose(got["fwd_bound_ms"], flops / peak * 1e3)
+    np.testing.assert_allclose(got["bwd_bound_ms"], 2.5 * flops / peak * 1e3)
 
 
 @pytest.mark.gpu
@@ -255,11 +294,15 @@ def scaled_lse(q, k, causal):
     (8, 2048, 2048, 9, 3, 64, True), (2, 1000, 1000, 9, 3, 64, True),
     (3, 1, 1, 4, 2, 64, True), (1, 130, 300, 4, 2, 64, True),
     (2, 256, 256, 32, 8, 128, True), (2, 77, 200, 8, 2, 128, False),
-    (2, 300, 130, 4, 4, 128, True), (1, 1, 50, 2, 1, 128, False)])
+    (2, 300, 130, 4, 4, 128, True), (1, 1, 50, 2, 1, 128, False),
+    (2, 1024, 1024, 32, 32, 80, True), (1, 200, 333, 4, 2, 80, False),
+    (2, 256, 256, 8, 2, 32, True), (1, 300, 300, 8, 8, 96, True),
+    (1, 333, 333, 16, 2, 112, True), (2, 77, 77, 4, 4, 80, True)])
 def test_wgmma_forward_out_and_lse_on_card(cuda, B, T, S, Hq, Hkv, hd,
                                            causal):
-    """The bf16 forward at hd 64 and 128 (the wgmma route): O against the
-    plain version at 2e-2, lse against ``logsumexp`` of the scaled fp32
+    """The bf16 forward on the wgmma route at every head dim (whole
+    64-column panels at 64 and 128, narrower tail panels at 32, 80, 96 and
+    112): O against the plain version at 2e-2, lse against ``logsumexp`` of the scaled fp32
     scores of the same bf16 inputs at 1e-3 (sums in another order and
     exp2 for exp), and three calls bit-identical."""
     assert fk.fwd_route(torch.bfloat16, hd) == "wgmma"
@@ -280,10 +323,9 @@ def test_wgmma_forward_out_and_lse_on_card(cuda, B, T, S, Hq, Hkv, hd,
 
 @pytest.mark.parametrize("hd", fk.HEAD_DIMS)
 def test_backward_route_table(hd):
-    """The fixed route table of the backward: bf16 on wgmma at hd 64 and
-    128, on mma.sync at 32, 80, 96 and 112; fp32 on the CUDA cores."""
-    want = "wgmma" if hd in (64, 128) else "mma.sync"
-    assert fk.bwd_route(torch.bfloat16, hd) == want
+    """The fixed route table of the backward: bf16 on wgmma at every head
+    dim, as the forward; fp32 on the CUDA cores."""
+    assert fk.bwd_route(torch.bfloat16, hd) == "wgmma"
     assert fk.bwd_route(torch.float32, hd) == "cuda cores"
 
 
@@ -302,10 +344,13 @@ def test_library_backward_route_table_matches(cuda, hd):
     (2, 1000, 1000, 9, 3, 64, True), (2, 333, 333, 8, 1, 128, True),
     (3, 1, 1, 4, 2, 64, True), (2, 1, 1, 8, 1, 128, True),
     (2, 77, 200, 8, 2, 128, False), (2, 300, 130, 6, 3, 64, False),
-    (1, 130, 300, 4, 4, 128, True)])
+    (1, 130, 300, 4, 4, 128, True), (2, 1024, 1024, 32, 32, 80, True),
+    (2, 333, 333, 8, 2, 80, True), (1, 77, 200, 4, 4, 80, False),
+    (2, 256, 256, 8, 2, 32, True), (1, 300, 300, 8, 8, 96, True),
+    (1, 333, 333, 16, 2, 112, True)])
 def test_wgmma_backward_matches_autograd_on_card(cuda, B, T, S, Hq, Hkv, hd,
                                                  causal):
-    """The bf16 backward at hd 64 and 128 (the wgmma route) against
+    """The bf16 backward on the wgmma route at every head dim against
     autograd through the plain version: GQA groups 1, 3 and 8, ragged T,
     T = 1, full attention with T != S; two more backwards bit-identical."""
     assert fk.bwd_route(torch.bfloat16, hd) == "wgmma"
@@ -325,7 +370,7 @@ def test_wgmma_backward_matches_autograd_on_card(cuda, B, T, S, Hq, Hkv, hd,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", fk.HEAD_DIMS)
 def test_wgmma_backward_reads_strided_inputs_and_gradient(cuda, hd):
     """q, k, v as slices of one fused projection and a dO transposed in
     memory, through the wgmma backward, against the plain version on

@@ -312,33 +312,50 @@ def test_autograd_function_saves_states_and_routes_the_gradient(
 @pytest.mark.parametrize("B,T,H,P,N,Q", [(8, 2048, 64, 64, 128, 256),
                                          (8, 2048, 80, 64, 64, 256), *SWEEP])
 def test_ssd_bwd_plan_covers_every_tile_once(B, T, H, P, N, Q):
-    """b2 takes every (N tile, P tile, head, chunk, b) once, b4 every tile
-    (it >= jt) of each chunk's panel, b5 every (head, chunk, b), b6 every
-    (row tile, N tile) for dC and for dB; the workspace's parts."""
+    """b2 takes every (P slice, head, chunk, b) once, as the forward's pass
+    2; b4 every tile (it, jt) of each chunk's panel once (x = it * tiles +
+    jt; those above the diagonal only write zeros), b5 every (head, chunk,
+    b), b6 every 128-row tile for dC and for dB over all of N, 2 x N rounded
+    up threads; the workspace's parts."""
     plan = sk.ssd_bwd_plan(B, T, H, P, N, Q)
     nc = T // Q
-    tq, tn, tp = -(-Q // 64), -(-N // 64), -(-P // 64)
+    tq = -(-Q // 64)
+    ps = plan["p_slice"]
+    assert P % ps == 0 and ps == sk.ssd_plan(B, T, H, P, N, Q)["p_slice"]
     g = plan["grids"]
-    assert g["summaries"] == (tn * tp, H, B * nc)
-    assert g["panel"] == (tq * (tq + 1) // 2, B * nc, 1)
+    assert g["summaries"] == sk.ssd_plan(B, T, H, P, N, Q)["grids"][
+        "summaries"] == (P // ps, H, B * nc)
+    assert g["panel"] == (tq * tq, B * nc, 1)
+    tiles = {(x // tq, x % tq) for x in range(g["panel"][0])}
+    assert tiles == {(i, j) for i in range(tq) for j in range(tq)}
     assert g["du"] == (H, B * nc, 1)
-    assert g["dbc"] == (tq * tn, 2, B * nc)
+    x, y, z = g["dbc"]
+    assert (x - 1) * 128 < Q <= x * 128 and (y, z) == (2, B * nc)
+    threads = plan["threads"]
+    n_pad = plan["workspace"]["ct"][2]
+    assert N <= n_pad and threads["dbc"] == 2 * n_pad
+    assert threads["panel"] == 64 and threads["du"] == 256
     x, y, z = g["states"]
     assert (x - 1) * 256 < N * P <= x * 256 and (y, z) == (H, B)
     ws = plan["workspace"]
-    assert list(ws) == ["cbt", "ct", "g", "panel", "rows", "cols", "decay"]
+    assert list(ws) == ["cbt", "ct", "g", "panel", "rows", "cols", "cum",
+                        "decay"]
     assert ws["g"] == (B, nc, H, N, P) and ws["decay"] == (B, nc, H)
+    assert ws["cum"] == (B, nc, H, 256)
     for name in list(ws)[:-1]:
         assert np.prod(ws[name]) % 4 == 0
 
 
 def test_ssd_bwd_workspace_at_the_training_shape():
     """mamba2-1.3b's training scan (B 8, T 2048): the state gradients take
-    134 MB, as the states the forward keeps for the backward do."""
+    134 MB, as the states the forward keeps for the backward do; the prefix
+    sums of loga 4 MB; 214 MB in all."""
     plan = sk.ssd_bwd_plan(8, 2048, 64, 64, 128, 256)
     nbytes = {k: 4 * int(np.prod(v)) for k, v in plan["workspace"].items()}
     assert nbytes["g"] == 8 * 8 * 64 * 128 * 64 * 4 == 134217728
     assert nbytes["panel"] == nbytes["cbt"] == 64 * 2 ** 18
+    assert nbytes["cum"] == 8 * 8 * 64 * 256 * 4 == 4194304
+    assert sum(nbytes.values()) == 213925888
 
 
 # ---------------------------------------------------------------------------
