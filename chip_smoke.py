@@ -168,7 +168,24 @@ Phases, each fatal on failure (nothing is caught):
      against the plain scan (and attention): fp32 at 4 and 6 layers at
      phase 9's tolerances, bf16 at full depth within 3x a control (the
      plain scan at chunk 128) that a planted fault (dloga dropped) must
-     exceed; two identical 2-step mamba2 runs bit-identical.
+     exceed; two identical 2-step mamba2 runs bit-identical;
+ 22. the distributed layer (run right after phase 9), in a process group
+     of one rank over NCCL (a ``FileStore`` under ``build/``; no other
+     backend), the EP policy installed only inside ``logical.policy``:
+     (a) ``sharding.shard_train_step`` on a (1, 1) ("data", "model") mesh
+     at full-width smollm-135m (bf16, remat "block", AdamW, 3 steps of 8 x
+     2048): each step's loss and grad norm and the params after 3 steps
+     bit-identical to the unsharded step's, 2 x 30 forward and 30 backward
+     flash launches a step, both steps' ms, device busy ms, NCCL ms and
+     peak memory; 6 steps with the int8 error-feedback compressor, finite
+     falling losses, the residual ``corrected - dequantized`` exactly; (b)
+     ``pipeline`` over a one-rank ("stage",) mesh running the 30 layers on
+     4 microbatches of 2 x 2048, bit-identical to the sequential trunk,
+     120 flash forward launches; (c) ``moe_block`` under the policy
+     (``moe_block_ep``) against ``moe_block`` on one layer of
+     qwen2-moe-a2.7b (fp32 at a capacity factor where neither drops: 2e-5,
+     aux 1e-4 relative) at 8 and 1536 tokens, and both paths' device ms in
+     bf16 at the config's capacity factor.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -1187,7 +1204,10 @@ def train_full_width(cfg):
     return stats, launches
 
 
-def fresh_training(cfg):
+def fresh_training(cfg, mesh=None, compress=None):
+    """(model, train state, step, data) from the seed; on ``mesh`` the
+    state is placed by its specs and the step is the sharded one."""
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.transformer import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
@@ -1200,7 +1220,14 @@ def fresh_training(cfg):
                              .manual_seed(SEED))
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_T, TRAIN_B,
                                   seed=SEED), device=DEV)
-    return model, state, build_train_step(model, opt), data
+    if mesh is None:
+        return model, state, build_train_step(model, opt,
+                                              compress=compress), data
+    pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), state["params"])
+    specs = shd.train_state_specs(state, "adamw", pspecs)
+    state = shd.place(state, shd.to_named(mesh, specs))
+    return model, state, shd.shard_train_step(model, opt, mesh,
+                                              compress=compress), data
 
 
 def profile_train_step(cfg, step_ms, label="[profile train]"):
@@ -2516,6 +2543,284 @@ def ssm_train_phase(mamba, zamba):
     return [int(n) for n in launches]
 
 
+# -------------------------------------------------------------- phase 22 --
+DIST_STEPS, COMPRESS_STEPS = 3, 6
+PIPE_MICRO, PIPE_B = 4, 2
+# moe_block_ep against moe_block at qwen2-moe-a2.7b's width: the decode
+# shape (8 slots) and a prefill; fp32 at a capacity factor where neither
+# drops, the bounds of tests/test_distributed.py's EP test
+EP_SHAPES = (("decode", B), ("prefill_1536", 1536))
+EP_OUT_ATOL, EP_AUX_RTOL = 2e-5, 1e-4
+EP_TIMED = 5
+
+
+@contextlib.contextmanager
+def nccl_group():
+    """A process group of one rank over NCCL (a ``FileStore`` under
+    ``build/``), destroyed on exit. An all-reduce starts the communicator:
+    if NCCL cannot, the phase fails; there is no other backend."""
+    import torch.distributed as dist
+    store = ROOT / "build" / "nccl-store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        probe = torch.full((4,), 3.0, device=DEV)
+        dist.all_reduce(probe)
+        if dist.get_backend() != "nccl" or probe.tolist() != [3.0] * 4:
+            raise AssertionError(f"NCCL did not start: {dist.get_backend()}"
+                                 f" {probe.tolist()}")
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def profiled_ms(fn, n: int) -> dict:
+    """``fn()`` n times under the profiler after a warm-up: the device busy
+    ms a call (every kernel's) and the NCCL kernels' ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof, n)
+    return {"device_ms": sum(ms for _, _, ms in kernels),
+            "nccl_ms": sum(ms for name, _, ms in kernels
+                           if "nccl" in name.lower())}
+
+
+def flash_launches(reset: bool = False) -> tuple[int, int]:
+    from repro_torch.kernels import flash_attention as fk
+    if reset:
+        fk.flash_attention_fwd.launches = 0
+        fk.flash_attention_bwd.launches = 0
+    return fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches
+
+
+def distributed_train(cfg, mesh) -> tuple[int, int]:
+    """(a) The sharded train step on a (1, 1) ("data", "model") mesh
+    against the unsharded step from the same seed, 3 steps of 8 x 2048:
+    each step's loss and grad norm and the params after 3 steps the same
+    bits (on one rank every collective copies, and the loss's share of the
+    global token count is 1.0 exactly); 2 x 30 forward and 30 backward
+    flash launches a step; step ms, device busy ms, NCCL ms and peak
+    memory of each. Then 6 compressed steps: finite falling losses, and the
+    residual after the last is ``corrected - dequantized`` exactly.
+    Returns the flash launches (forward, backward) in it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.compression import (
+        dequantize_int8, make_error_feedback_compressor, quantize_int8)
+    from repro_torch.models.common import tree_leaves
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    total = np.zeros(2, dtype=int)
+    runs = {}
+    for label, on in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step, data = fresh_training(cfg, mesh=on)
+        flash_launches(reset=True)
+        metrics, step_s = [], []
+        for i in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch(i))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            step_s.append(time.perf_counter() - t0)
+        launches = flash_launches()
+        want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
+        if launches != want:
+            raise AssertionError(f"{label}: flash launches {launches}, "
+                                 f"want {want}")
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        prof = profiled_ms(lambda: step(state, data.batch(DIST_STEPS)), 1)
+        require_device_time(f"[distributed] {label} step",
+                            {"step": prof["device_ms"]})
+        total += flash_launches()
+        runs[label] = {"metrics": metrics,
+                       "params": [whole(p) for p in
+                                  tree_leaves(state["params"])],
+                       "stats": {"step_ms": float(np.mean(step_s[1:])) * 1e3,
+                                 **prof, "peak_gb": peak,
+                                 "flash_launches": launches}}
+        del state, step
+    got, want = runs["sharded"], runs["unsharded"]
+    same = got["metrics"] == want["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
+    stats = {"arch": cfg.name, "B": TRAIN_B, "T": TRAIN_T,
+             "steps": DIST_STEPS, "bit_identical": same,
+             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             "loss_grad_norm": got["metrics"],
+             **{label: run["stats"] for label, run in runs.items()}}
+    log(f"[distributed] train {json.dumps(stats)}")
+    if not same:
+        raise AssertionError(f"sharded step differs: {got['metrics']} "
+                             f"against {want['metrics']}")
+    del runs, got, want
+
+    seen = {}
+    compressor = make_error_feedback_compressor()
+
+    def hook(grads, residual):
+        out = compressor(grads, residual)
+        seen.update(grads=grads, residual=residual, new_residual=out[1])
+        return out
+
+    _, state, step, data = fresh_training(cfg, mesh=mesh, compress=hook)
+    flash_launches(reset=True)
+    losses = []
+    for i in range(COMPRESS_STEPS):
+        state, m = step(state, data.batch(i))
+        losses.append(m["loss"].item())
+    total += flash_launches()
+    exact = True
+    for g, r, new in zip(tree_leaves(seen["grads"]),
+                         tree_leaves(seen["residual"]),
+                         tree_leaves(seen["new_residual"])):
+        corrected = whole(g).float() + whole(r)
+        exact &= torch.equal(whole(new), corrected - dequantize_int8(
+            *quantize_int8(corrected)))
+    stats = {"steps": COMPRESS_STEPS, "losses": losses,
+             "residual_exact": exact}
+    log(f"[distributed] compress {json.dumps(stats)}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and exact):
+        raise AssertionError(f"compressed training: losses {losses}, "
+                             f"residual exact {exact}")
+    return tuple(int(n) for n in total)
+
+
+def distributed_pipeline(cfg) -> int:
+    """(b) ``pipeline`` over a one-rank ("stage",) mesh: the 30 layers of
+    full-width smollm-135m (bf16, flash forward) on 4 microbatches of 2 x
+    2048, the same bits as the layers run on each microbatch in turn, 120
+    flash forward launches; its time beside the sequential run's. Returns
+    the flash forward launches in it, the timed runs' too."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.pipeline import pipeline, split_stages
+    from repro_torch.models.transformer import build_model, unstack
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    mesh = init_device_mesh(DEV, (1,), mesh_dim_names=("stage",))
+    model = build_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    tokens = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_T,
+                                    PIPE_MICRO * PIPE_B, seed=SEED + 3),
+                         device=DEV).batch(0)["tokens"]
+
+    def stage_fn(layers, h):
+        for lp in unstack(layers):
+            h = model._layer(h, lp)
+        return h
+
+    run = pipeline(stage_fn, mesh, n_microbatches=PIPE_MICRO)
+    with torch.no_grad():
+        x = model._embed(params, tokens).reshape(PIPE_MICRO, PIPE_B,
+                                                 TRAIN_T, cfg.d_model)
+        flash_launches(reset=True)
+        got = run(split_stages(params["layers"], 1), x)
+        launches = flash_launches()[0]
+        want = torch.stack([stage_fn(params["layers"], x[m])
+                            for m in range(PIPE_MICRO)])
+        ms = eager_ms(lambda i: run(split_stages(params["layers"], 1), x), 3)
+        seq_ms = eager_ms(lambda i: [stage_fn(params["layers"], x[m])
+                                     for m in range(PIPE_MICRO)], 3)
+        timed = flash_launches()[0]
+    same = torch.equal(got, want)
+    stats = {"stages": 1, "microbatches": PIPE_MICRO,
+             "microbatch": [PIPE_B, TRAIN_T], "layers": cfg.n_layers,
+             "bit_identical": same, "flash_fwd_launches": launches,
+             "ms": ms, "sequential_ms": seq_ms}
+    log(f"[distributed] pipeline {json.dumps(stats)}")
+    if not same or launches != PIPE_MICRO * cfg.n_layers:
+        raise AssertionError(f"pipeline: bit-identical {same}, flash "
+                             f"launches {launches}")
+    return timed
+
+
+def distributed_ep(cfg, mesh) -> None:
+    """(c) ``moe_block`` under an installed policy (so ``moe_block_ep``
+    over the one-rank group) against ``moe_block`` without one, on one
+    layer's weights of qwen2-moe-a2.7b (60 experts of d 2048, ff 1408,
+    top-4, 4 shared; 2.1 GB in fp32) at ``EP_SHAPES``: fp32 at a capacity
+    factor where neither drops (E / k: C reaches every token) within
+    ``EP_OUT_ATOL`` and aux within ``EP_AUX_RTOL`` relative; then the
+    device ms of both in bf16 at the config's capacity factor."""
+    from repro_torch.distributed import logical
+    from repro_torch.models import ffn, moe_ep
+    from repro_torch.models.common import tree_map
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    cfg32 = replace(cfg, param_dtype=torch.float32,
+                    compute_dtype=torch.float32)
+    p = ffn.init_moe(gen, cfg32, DEV)
+    pb = ffn.MoEParams(p.router, *tree_map(lambda t: t.to(cfg.param_dtype),
+                                           tuple(p[1:])))
+    whole = replace(cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    rows = []
+    for shape, n in EP_SHAPES:
+        x = torch.randn((1, n, cfg.d_model), generator=gen, device=DEV)
+        want, want_aux = ffn.moe_block(p, x, whole)
+        calls = []
+        block = moe_ep.moe_block_ep
+        moe_ep.moe_block_ep = lambda *a: calls.append(1) or block(*a)
+        try:
+            with logical.policy(mesh):
+                got, aux = ffn.moe_block(p, x, whole)
+                xb = x.to(cfg.compute_dtype)
+                ep = profiled_ms(lambda: ffn.moe_block(pb, xb, cfg),
+                                 EP_TIMED)
+        finally:
+            moe_ep.moe_block_ep = block
+        local = profiled_ms(lambda: ffn.moe_block(pb, xb, cfg), EP_TIMED)
+        row = {"shape": shape, "tokens": n, "ep_calls": len(calls),
+               "fp32_max_abs_err": (got - want).abs().max().item(),
+               "fp32_aux_rel_err": abs(aux.item() - want_aux.item())
+               / abs(want_aux.item()),
+               "bf16_ep_ms": ep["device_ms"], "bf16_ep_nccl_ms": ep["nccl_ms"],
+               "bf16_local_ms": local["device_ms"],
+               "ep_capacity": moe_ep._capacity(n, cfg, p.w_gate.shape[0]),
+               "local_capacity": ffn._capacity(n, cfg)}
+        rows.append(row)
+        require_device_time(f"[distributed] ep {shape}",
+                            {"ep": ep["device_ms"],
+                             "local": local["device_ms"]})
+        # the fp32 call, then the timed calls and their warm-up
+        if (row["ep_calls"] != 2 + EP_TIMED
+                or row["fp32_max_abs_err"] > EP_OUT_ATOL
+                or row["fp32_aux_rel_err"] > EP_AUX_RTOL):
+            raise AssertionError(f"moe_block_ep: {row}")
+    log(f"[distributed] ep {json.dumps({'arch': cfg.name, 'rows': rows})}")
+
+
+def distributed_phase(smollm, qwen) -> tuple[int, int]:
+    """Phase 22, run after phase 9 (the profiler reads device time there).
+    Returns the flash launches (forward, backward) in it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import logical
+    t0 = time.perf_counter()
+    with nccl_group():
+        mesh = init_device_mesh(DEV, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        fwd, bwd = distributed_train(smollm, mesh)
+        torch.cuda.empty_cache()
+        fwd += distributed_pipeline(smollm)
+        torch.cuda.empty_cache()
+        distributed_ep(qwen, mesh)
+        torch.cuda.empty_cache()
+    if logical.active():
+        raise AssertionError("a logical policy outlived phase 22")
+    log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, flash "
+        f"launches (fwd, bwd) ({fwd}, {bwd})")
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2585,6 +2890,9 @@ def main() -> int:
     profile_train_step(smollm, train_stats["step_ms_after_first"])
     train_parity(smollm)
     deterministic_runs(smollm)
+    fwd, bwd = distributed_phase(smollm, qwen)
+    fwd_launches += fwd
+    bwd_launches += bwd
 
     ssd_rows = check_ssd_scan()
     ssd_timing, _ = time_ssd_scan(0), time_ssd_scan(1)   # mamba2, zamba2

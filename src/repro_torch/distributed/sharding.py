@@ -1,0 +1,440 @@
+"""Sharding rules and the sharded train step (counterpart of
+``repro/distributed/sharding.py`` and of ``jax.jit(build_train_step(...),
+in_shardings=...)``).
+
+Specs (``logical.P``) for every param, cache, batch and optimizer tree,
+per architecture family and mesh, entry for entry the reference's:
+  * TP over "model": attention heads / d_ff / experts / vocab;
+  * FSDP over "data": the non-TP matrix dimension of every large weight;
+  * batch over ("pod", "data");
+  * "pod" additionally shards MoE expert weights;
+  * KV caches shard heads over "model" when H_kv >= axis size, else
+    head_dim;
+  * SSM states shard heads over "model", batch over data.
+Spec trees have the exact structure of the trees they describe
+(NamedTuples preserved). A mesh is a ``DeviceMesh`` with
+``mesh_dim_names``; the spec functions read only its names and shape.
+
+``to_named`` gives each spec its DTensor placements, ``place`` lays a
+tree out by them, and ``shard_train_step`` trains on the placed state.
+``"model"`` shards storage only here: each leaf is gathered whole for the
+step, so ranks along ``model`` compute the same rows.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch.models.attention import AttnParams
+from repro_torch.models.common import ArchConfig, tree_map
+from repro_torch.models.ffn import MLPParams, MoEParams
+from repro_torch.models.mamba2 import Mamba2Params, MambaState
+from repro_torch.models.transformer import (DecLayer, DenseLayer, EncLayer,
+                                            MoELayer, SSMLayer)
+from repro_torch.train.train_step import build_train_step
+
+from .logical import P, placements
+
+
+def _axis(mesh, name: str) -> int:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))[name]
+
+
+def batch_axes(mesh):
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else "data"
+
+
+def map_specs(fn, spec_tree, *rest):
+    """``fn(spec, *matching subtrees of rest)`` at every ``P`` of
+    ``spec_tree``, keeping its dicts, lists, tuples and NamedTuples (the
+    trees in ``rest`` are matched by key and position, so they may be of
+    other NamedTuple types); None stays None."""
+    if isinstance(spec_tree, P):
+        return fn(spec_tree, *rest)
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, s, *(r[k] for r in rest))
+                for k, s in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        out = [map_specs(fn, s, *(r[i] for r in rest))
+               for i, s in enumerate(spec_tree)]
+        return (type(spec_tree)(*out) if hasattr(spec_tree, "_fields")
+                else type(spec_tree)(out))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# per-structure specs (leading L axis on stacked layer params is unsharded)
+# ---------------------------------------------------------------------------
+def attn_specs(l=None) -> AttnParams:
+    lead = (None,) if l is not None else ()
+    return AttnParams(
+        wq=P(*lead, "data", "model"),
+        wk=P(*lead, "data", "model"),
+        wv=P(*lead, "data", "model"),
+        wo=P(*lead, "model", "data"),
+    )
+
+
+def mlp_specs(l=None) -> MLPParams:
+    lead = (None,) if l is not None else ()
+    return MLPParams(
+        w_gate=P(*lead, "data", "model"),
+        w_up=P(*lead, "data", "model"),
+        w_down=P(*lead, "model", "data"),
+    )
+
+
+def moe_specs(cfg: ArchConfig, mesh, l=None) -> MoEParams:
+    lead = (None,) if l is not None else ()
+    # experts over model (EP) + Megatron col/row split of each expert's MLP
+    # over data; "pod" additionally shards the expert dim when present and
+    # divisible
+    if cfg.moe_impl == "ep" and cfg.moe_pad_experts:
+        # EP: whole experts sharded over EVERY mesh axis (tokens a2a to them)
+        e_axis = tuple(mesh.mesh_dim_names)
+        return MoEParams(
+            router=P(*lead, None, None),
+            w_gate=P(*lead, e_axis, None, None),
+            w_up=P(*lead, e_axis, None, None),
+            w_down=P(*lead, e_axis, None, None),
+            shared=mlp_specs(l) if cfg.n_shared_experts else None,
+        )
+    e_axis: object = "model"
+    if "pod" in mesh.mesh_dim_names and cfg.n_experts % (
+            _axis(mesh, "model") * _axis(mesh, "pod")) == 0:
+        e_axis = ("pod", "model")
+    # grouped dispatch: experts over model; when the per-model-shard slab
+    # is small (qwen-class), keep d/ff unsharded so the expert einsum is
+    # fully local
+    per_shard_gb = (cfg.n_experts / _axis(mesh, "model") * cfg.d_model
+                    * cfg.d_ff * 3 * 2 * (cfg.n_layers)) / 1e9
+    if per_shard_gb <= 4.0:
+        return MoEParams(
+            router=P(*lead, None, None),
+            w_gate=P(*lead, e_axis, None, None),
+            w_up=P(*lead, e_axis, None, None),
+            w_down=P(*lead, e_axis, None, None),
+            shared=mlp_specs(l) if cfg.n_shared_experts else None,
+        )
+    return MoEParams(
+        router=P(*lead, None, None),
+        w_gate=P(*lead, e_axis, "data", None),
+        w_up=P(*lead, e_axis, "data", None),
+        w_down=P(*lead, e_axis, "data", None),
+        shared=mlp_specs(l) if cfg.n_shared_experts else None,
+    )
+
+
+def mamba_specs(cfg: ArchConfig, l=None) -> Mamba2Params:
+    lead = (None,) if l is not None else ()
+    return Mamba2Params(
+        in_proj=P(*lead, "data", "model"),
+        conv_w=P(*lead, None, "model"),
+        conv_b=P(*lead, "model"),
+        dt_bias=P(*lead, None),
+        A_log=P(*lead, None),
+        D=P(*lead, None),
+        norm_w=P(*lead, "model"),
+        out_proj=P(*lead, "model", "data"),
+    )
+
+
+def _norm(l=None):
+    return P(None, None) if l is not None else P(None)
+
+
+# ---------------------------------------------------------------------------
+def param_specs(cfg: ArchConfig, mesh):
+    """Spec tree matching ``model.init``'s structure."""
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        specs = {
+            "embed": P("model", "data"),
+            "layers": DenseLayer(attn=attn_specs(l=0), mlp=mlp_specs(l=0),
+                                 norm1=_norm(0), norm2=_norm(0)),
+            "final_norm": _norm(),
+            "lm_head": P("data", "model"),
+        }
+        if fam == "vlm":
+            specs["patch_proj"] = P("data", "model")
+        return specs
+    if fam == "moe":
+        return {
+            "embed": P("model", "data"),
+            "layers": MoELayer(attn=attn_specs(l=0),
+                               moe=moe_specs(cfg, mesh, l=0),
+                               norm1=_norm(0), norm2=_norm(0)),
+            "final_norm": _norm(),
+            "lm_head": P("data", "model"),
+        }
+    if fam == "ssm":
+        return {
+            "embed": P("model", "data"),
+            "layers": SSMLayer(mamba=mamba_specs(cfg, l=0), norm=_norm(0)),
+            "final_norm": _norm(),
+            "lm_head": P("data", "model"),
+        }
+    if fam == "hybrid":
+        # layers have an extra (group, per_group) leading pair
+        g = map_specs(lambda s: P(None, *s), mamba_specs(cfg, l=0))
+        return {
+            "embed": P("model", "data"),
+            "layers": SSMLayer(mamba=g, norm=P(None, None, None)),
+            "shared_attn": attn_specs(),
+            "shared_mlp": mlp_specs(),
+            "shared_norm1": _norm(), "shared_norm2": _norm(),
+            "final_norm": _norm(),
+            "lm_head": P("data", "model"),
+        }
+    if fam == "encdec":
+        return {
+            "embed": P("model", "data"),
+            "enc_layers": EncLayer(attn=attn_specs(l=0), mlp=mlp_specs(l=0),
+                                   norm1=_norm(0), norm2=_norm(0)),
+            "dec_layers": DecLayer(self_attn=attn_specs(l=0),
+                                   cross_attn=attn_specs(l=0),
+                                   mlp=mlp_specs(l=0), norm1=_norm(0),
+                                   norm2=_norm(0), norm3=_norm(0)),
+            "enc_norm": _norm(),
+            "final_norm": _norm(),
+            "lm_head": P("data", "model"),
+        }
+    raise ValueError(fam)
+
+
+# ---------------------------------------------------------------------------
+def _kv_spec(cfg: ArchConfig, mesh, *, lead: int) -> P:
+    """(lead..., B, S, H_kv, hd): shard heads over model if divisible-ish,
+    else shard head_dim."""
+    m = _axis(mesh, "model")
+    pre = (None,) * lead
+    b = batch_axes(mesh)
+    if cfg.n_kv_heads >= m:
+        return P(*pre, b, None, "model", None)
+    return P(*pre, b, None, None, "model")
+
+
+def cache_specs(cfg: ArchConfig, mesh):
+    """Spec tree matching ``model.init_cache``'s structure."""
+    fam = cfg.family
+    b = batch_axes(mesh)
+    if fam in ("dense", "vlm", "moe"):
+        return {"k": _kv_spec(cfg, mesh, lead=1),
+                "v": _kv_spec(cfg, mesh, lead=1),
+                "index": P(b)}
+    if fam == "ssm":
+        return {"state": _mamba_state_spec(cfg, mesh, lead=1),
+                "index": P(b)}
+    if fam == "hybrid":
+        return {"state": _mamba_state_spec(cfg, mesh, lead=2),
+                "k": _kv_spec(cfg, mesh, lead=1),
+                "v": _kv_spec(cfg, mesh, lead=1),
+                "index": P(b)}
+    if fam == "encdec":
+        return {"k": _kv_spec(cfg, mesh, lead=1),
+                "v": _kv_spec(cfg, mesh, lead=1),
+                "cross_k": _kv_spec(cfg, mesh, lead=1),
+                "cross_v": _kv_spec(cfg, mesh, lead=1),
+                "index": P(b)}
+    raise ValueError(fam)
+
+
+def _mamba_state_spec(cfg: ArchConfig, mesh, *, lead: int):
+    pre = (None,) * lead
+    b = batch_axes(mesh)
+    return MambaState(
+        conv_tail=P(*pre, b, None, "model"),
+        ssm=P(*pre, b, "model", None, None),
+    )
+
+
+# ---------------------------------------------------------------------------
+def batch_specs(cfg: ArchConfig, mesh, batch: dict) -> dict:
+    """Input batch: shard the leading (global batch) dim."""
+    b = batch_axes(mesh)
+    out = {}
+    for k, v in batch.items():
+        if k in ("frames", "patch_embeds"):
+            out[k] = P(b, None, None)
+        else:
+            out[k] = P(b, None)
+    return out
+
+
+def opt_state_specs(opt_name: str, pspecs, params_shape):
+    """Optimizer-slot specs derived from param specs, in the reference's
+    structure. adamw: m/v mirror params. adafactor: row drops the last
+    param axis, col drops the second-to-last."""
+    if opt_name == "adamw":
+        return {"m": pspecs, "v": pspecs, "step": P()}
+
+    def slot_spec(spec: P, x):
+        if len(x.shape) >= 2:
+            return {"row": P(*spec[:-1]), "col": P(*spec[:-2], spec[-1])}
+        return {"v": spec}
+
+    return {"v": map_specs(slot_spec, pspecs, params_shape), "step": P()}
+
+
+def _axes_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, (tuple, list)):
+        return math.prod(_axis(mesh, a) for a in entry)
+    return _axis(mesh, entry)
+
+
+def fit_spec(mesh, spec: P, shape) -> P:
+    """Drop mesh axes that do not divide the corresponding dim (every
+    shard even; e.g. whisper's vocab 51865 is indivisible by any axis ->
+    replicate that dim)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    fitted = []
+    for dim, entry in zip(shape, entries[:len(shape)]):
+        if entry is not None and dim % _axes_size(mesh, entry) != 0:
+            # try single-axis fallback for multi-axis entries
+            if isinstance(entry, (tuple, list)):
+                kept = [a for a in entry
+                        if dim % _axis(mesh, a) == 0]
+                entry = tuple(kept[:1]) if kept else None
+                if entry and dim % _axes_size(mesh, entry) != 0:
+                    entry = None
+            else:
+                entry = None
+        fitted.append(entry)
+    return P(*fitted)
+
+
+def fit_tree(mesh, spec_tree, shape_tree):
+    """fit_spec over matching trees (NamedTuple structures preserved)."""
+    return map_specs(lambda s, x: fit_spec(mesh, s, x.shape), spec_tree,
+                     shape_tree)
+
+
+# ---------------------------------------------------------------------------
+# placement on a DeviceMesh
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout: its mesh and DTensor placements (one a mesh dim)."""
+    mesh: object
+    placements: tuple
+
+
+def to_named(mesh, spec_tree):
+    return map_specs(lambda s: NamedSharding(mesh, tuple(placements(mesh, s))),
+                     spec_tree)
+
+
+def place(tree, shardings):
+    """Each leaf as a DTensor laid out by its ``NamedSharding`` (the
+    counterpart of ``jax.device_put(tree, shardings)``): rank 0's values
+    are scattered, and each rank keeps exactly the slice its spec names
+    (``fit_spec`` has made every shard even)."""
+    return tree_map(lambda t, s: distribute_tensor(t, s.mesh,
+                                                   list(s.placements)),
+                    tree, shardings)
+
+
+def local_shard(mesh, t: torch.Tensor, placement) -> torch.Tensor:
+    """The slice of the whole tensor ``t`` that this rank holds under
+    ``placement`` (even shards; a dim sharded over several mesh dims is cut
+    major to minor, as DTensor cuts it)."""
+    for j, p in enumerate(placement):
+        if isinstance(p, Shard):
+            t = t.chunk(mesh.size(j), dim=p.dim)[mesh.get_local_rank(j)]
+    return t
+
+
+def train_state_specs(state: dict, opt_name: str, pspecs) -> dict:
+    """The spec tree of the port's train state ``{"params", "opt"}``:
+    ``opt_state_specs`` laid out as the port's optimizer keeps its state
+    (Adafactor's slots as a list in ``tree_leaves`` order, its bf16
+    momentum, where kept, as the params)."""
+    params = state["params"]
+    ospecs = opt_state_specs(opt_name, pspecs, params)
+    if opt_name == "adafactor":
+        slots = []
+        tree_map(lambda p, s: slots.append(s), params, ospecs["v"])
+        ospecs = {"v": slots, "step": ospecs["step"]}
+        if "m" in state["opt"]:
+            ospecs["m"] = pspecs
+    return {"params": pspecs, "opt": ospecs}
+
+
+class _LocalLoss:
+    """``model.loss_fn`` on this rank's rows of a global batch, with each
+    DTensor leaf gathered whole by a differentiable redistribute; its
+    gradient comes back a partial sum over the batch axes (every rank
+    along them saw other rows) and equal along the others, so autograd
+    reduce-scatters it into the leaf's placements. The local loss is
+    scaled by this rank's share of the global token count, so the sum
+    over ranks is the global mean whatever each rank's mask holds."""
+
+    def __init__(self, model, mesh) -> None:
+        self.model, self.mesh = model, mesh
+        names = mesh.mesh_dim_names
+        baxes = ("pod", "data") if "pod" in names else ("data",)
+        self.full = [Replicate()] * mesh.ndim
+        self.partial = [Partial() if n in baxes else Replicate()
+                        for n in names]
+        self.n_rows = math.prod(_axis(mesh, a) for a in baxes)
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the batch axes (ranks along the others
+        hold the same value)."""
+        return DTensor.from_local(x, self.mesh, self.partial).full_tensor()
+
+    def rows(self, batch: dict) -> dict:
+        specs = batch_specs(self.model.cfg, self.mesh, batch)
+        for k, v in batch.items():
+            if v.shape[0] % self.n_rows:
+                raise ValueError(f"batch {k}: {v.shape[0]} rows do not "
+                                 f"divide over {self.n_rows} batch ranks")
+        return {k: local_shard(self.mesh, v, placements(self.mesh, specs[k]))
+                for k, v in batch.items()}
+
+    def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
+        local = tree_map(lambda t: t.redistribute(self.mesh, self.full)
+                         .to_local(grad_placements=self.partial), params)
+        mb = self.rows(batch)
+        mask = mb.get("loss_mask")
+        count = (mask.float().sum() if mask is not None else
+                 torch.tensor(float(mb["labels"].numel()),
+                              device=mb["labels"].device))
+        share = count / torch.clamp_min(self.batch_sum(count), 1.0)
+        return self.model.loss_fn(local, mb) * share
+
+
+def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
+    """The train step on a state placed by ``place`` (params and
+    optimizer state as DTensors in their specs' placements): the
+    counterpart of ``jax.jit(build_train_step(model, opt, ...),
+    in_shardings=...)``. It takes the global batch (the same on every
+    rank), as ``build_train_step`` does; each rank runs the model's
+    ``loss_fn`` on its ``batch_specs`` rows (microbatches along axis 0 of
+    the global batch first when ``grad_accum`` > 1). The gradients come
+    back as DTensors in the params' placements, the optimizer and
+    ``compress`` run on them (DTensor reduces the global norm, Adafactor's
+    means and the int8 scale over whole leaves), and the metrics are the
+    global loss and the norm over whole gradients.
+
+    The MoE loss adds an auxiliary term that is not a mean over tokens, so
+    an MoE model trains here only with the batch on one rank."""
+    loss = _LocalLoss(model, mesh)
+    if model.cfg.family == "moe" and loss.n_rows > 1:
+        raise NotImplementedError(
+            "the MoE auxiliary loss over a batch split across ranks")
+    step = build_train_step(loss, opt, grad_accum=grad_accum,
+                            compress=compress)
+
+    def sharded(state: dict, batch: dict):
+        state, m = step(state, batch)
+        return state, {"loss": loss.batch_sum(m["loss"]),
+                       "grad_norm": m["grad_norm"].full_tensor()}
+
+    return sharded

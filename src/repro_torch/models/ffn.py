@@ -5,9 +5,10 @@ MoE uses the reference's sort-based capacity dispatch: each group's
 (token, choice) pairs are sorted by expert (stably), the first ``C`` of
 each expert land in a (E, C, d) buffer, the experts run as one batched
 product over E, and each token gathers its k weighted results back. No
-(T, E, C) one-hot dispatch tensor is built. The port has no mesh, so the
-expert-parallel configs (``moe_impl="ep"``) take this path, as the
-reference does when no mesh is set.
+(T, E, C) one-hot dispatch tensor is built. The expert-parallel configs
+(``moe_impl="ep"``) take ``moe_ep.moe_block_ep`` under an installed
+``distributed.logical`` policy, and this path without one, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import logical
 
 from .common import ArchConfig, dense_init
 
@@ -148,7 +151,13 @@ def moe_block(p: MoEParams, x: torch.Tensor, cfg: ArchConfig
 
     Every part works in the flat (token, choice) order, so no row is summed
     into twice and the output is the same bits on every run: the fabric
-    publishes outputs by content hash."""
+    publishes outputs by content hash. An EP config under an installed
+    mesh policy runs ``moe_block_ep`` instead."""
+    mesh = logical.current_mesh()
+    if cfg.moe_impl == "ep" and mesh is not None:
+        from .moe_ep import moe_block_ep
+        return moe_block_ep(p, x, cfg, mesh)
+
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T

@@ -58,8 +58,9 @@ def build_train_step(model, opt: Optimizer, *, grad_accum: int = 1,
                      for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            # zeros like each leaf: a DTensor's keep its placements
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(grad_accum):
                 mb = {k: v[i] for k, v in micro.items()}
                 l, g = value_and_grad(model.loss_fn, params, mb)
