@@ -20,7 +20,9 @@ Phases, each fatal on failure (nothing is caught):
      (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
      bf16 at 2e-2, repeated calls bit-identical, and times kernel, plain
      version and a library call (with the split plan, the achieved GB/s
-     and the kernel on a head-major copy of the cache);
+     and the kernel on a head-major copy of the cache); and at zamba2's
+     ``long_500k`` cell (S 524288, 32/32, hd 80: checked at B 3 with
+     lengths 0, S and a ragged one, timed at B 1 with its split plan);
   4. serves 16 requests at the full width of smollm-135m in bf16 through
      ``ServingEngine`` (8 slots, max_len 2048, prompts of 8 to 1500 tokens,
      32 new tokens, one request submitted mid-flight) and checks that every
@@ -37,8 +39,9 @@ Phases, each fatal on failure (nothing is caught):
      ragged T, T = 1, a non-causal T != S, the fabric executor's train
      shape (B 4, T 32), whisper-tiny's decoder (B 8, T 448, 6/6/64),
      llava-next-34b's 576 patches + 512 tokens (B 2, T 1088, 56/8/128),
-     zamba2's training shape (B 8, T 2048, 32/32/80) and hd 32 (B 2, T
-     1024, 16/4) (the bf16 forward and backward on wgmma at every head
+     zamba2's training shape (B 8, T 2048, 32/32/80), hd 32 (B 2, T
+     1024, 16/4) and phase 23's ``train_4k`` microbatch (B 16, T 4096,
+     9/3/64) (the bf16 forward and backward on wgmma at every head
      dim, the library's route tables checked against the wrapper's;
      repeated forwards bit-identical), and times kernel, plain version and
      SDPA at the training shape, forward and backward (with achieved
@@ -185,7 +188,23 @@ Phases, each fatal on failure (nothing is caught):
      (``moe_block_ep``) against ``moe_block`` on one layer of
      qwen2-moe-a2.7b (fp32 at a capacity factor where neither drops: 2e-5,
      aux 1e-4 relative) at 8 and 1536 tokens, and both paths' device ms in
-     bf16 at the config's capacity factor.
+     bf16 at the config's capacity factor;
+ 23. the launch tooling (run last): (a) ``python -m
+     repro_torch.launch.dryrun`` in a process per cell (at the same time
+     as (b)'s predictions) for llava-next-34b x ``train_4k`` on both
+     production meshes, a ``[dryrun]`` line each (the other cells are
+     counted on the CPU: ``--all`` and ``tests/test_torch_launch.py``); (b)
+     two table cells built by ``launch.build.build_cell`` on the card on a
+     (1, 1) ("data", "model") mesh of one NCCL rank, each beside its dry
+     run on the same mesh (a fake world of one rank; the dry run's peak of
+     one smollm-135m train step equal to ``MemTracker``'s): zamba2-2.7b x
+     ``long_500k`` (one token against a populated cache of 524288
+     positions, 9 ``decode_attention`` launches, logits bit-identical to
+     ``model.decode``) and smollm-135m x ``train_4k`` at the smallest
+     grad_accum that the dry run fits on the card (two steps bit-identical
+     to the unsharded step's, 2 x 30 forward and 30 backward flash
+     launches a microbatch); the card's peak may exceed the predicted one
+     by ``PEAK_MARGIN`` and no more.
 
 It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
@@ -286,7 +305,10 @@ FLASH_SHAPES = [("smollm-135m train", 8, 2048, 2048, 9, 3, 64, True),
                 ("llava-next-34b 576 patches + 512 text, group 7", 2, 1088,
                  1088, 56, 8, 128, True),
                 ZAMBA_FLASH_TRAIN,
-                ("hd 32", 2, 1024, 1024, 16, 4, 32, True)]
+                ("hd 32", 2, 1024, 1024, 16, 4, 32, True),
+                # phase 23's train_4k microbatch (the plain version's fp32
+                # forward and backward peak at 30 GB)
+                ("smollm-135m train_4k", 16, 4096, 4096, 9, 3, 64, True)]
 # Phase 7's route timing: each bf16 head dim at its shape above (hd 80 at
 # zamba2's training shape), and fp32 at smollm-135m's training shape.
 ROUTE_SHAPES = [(torch.bfloat16, FLASH_SHAPES[i]) for i in (13, 0, 12, 4, 5, 2)
@@ -394,11 +416,14 @@ def log_dynamic_smem(build) -> None:
 
 # --------------------------------------------------------------- phase 3 --
 def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
-                                    lengths=None):
+                                    lengths=None, timed_lengths=None):
     """Kernel against plain on the card in fp32 and bf16, then timings in
     bf16 over L layers of cache (more bytes than the 50 MB L2 holds, as a
     decode step finds them); L = 0 checks only. B slots of S keys; the
-    slots' lengths are drawn unless given (the first must be 0)."""
+    slots' lengths are drawn unless given (the first must be 0). The
+    timings take the same slots, or ``timed_lengths`` where given (with the
+    split plan of that batch). Each dtype's inputs are freed before the
+    next are drawn (S 524288 is 32 GB of fp32 cache at B 3)."""
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
     decode_attention = dk.decode_attention
@@ -424,6 +449,7 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
         for _ in range(2):
             if not torch.equal(decode_attention(q, kv[0], kv[1], lens), got):
                 raise AssertionError("repeated decode_attention calls differ")
+        del q, kv, got, want
     splits, tps = dk.split_plan(B, Hkv, S, dk._sm_count(dev))
     row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
            "splits": splits, "tiles_per_split": tps,
@@ -433,6 +459,13 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
     if not L:
         log(f"[kernel] decode_attention check {json.dumps(row)}")
         return row
+    if timed_lengths is not None:
+        lengths = np.asarray(timed_lengths, np.int32)
+        lens = torch.from_numpy(lengths).to(dev)
+        B = len(lengths)
+        row["timed_lengths"] = lengths.tolist()
+        row["timed_splits"], row["timed_tiles_per_split"] = dk.split_plan(
+            B, Hkv, S, dk._sm_count(dev))
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     q = torch.randn((L, B, Hq, hd), generator=gen, device=dev
                     ).to(torch.bfloat16)
@@ -2821,6 +2854,418 @@ def distributed_phase(smollm, qwen) -> tuple[int, int]:
     return fwd, bwd
 
 
+# -------------------------------------------------------------- phase 23 --
+# (a) cells dry-run on the production meshes by ``python -m
+# repro_torch.launch.dryrun``, a subprocess each: (arch, shape, multi_pod).
+# The dry run never touches the card, so the card's host runs the largest
+# cell on both meshes only, to show the tooling on the card's PyTorch; the
+# other cells are counted on the CPU (``--all``).
+DRYRUN_CELLS = [("llava-next-34b", "train_4k", False),
+                ("llava-next-34b", "train_4k", True)]
+DRYRUN_WORKERS = 8          # the card's host has 8 cores
+DRYRUN_TIMEOUT_S = 300
+LONG_S = 524288             # long_500k's cache
+# (b) smollm-135m x train_4k runs at the smallest grad_accum whose (1, 1)
+# dry run fits the card; the search starts at these two (a larger
+# microbatch only adds memory, so the answer lies above one that does not
+# fit and at or below one that does) and goes on a power of two at a time
+GRAD_ACCUM_FIRST = (8, 16)
+# The card's peak may exceed the dry run's by this share and no more. The
+# dry run counts every tensor the step holds, at its exact size, on the
+# plain route, which holds more than the kernels (chunked attention's
+# score blocks, fp32 copies of the KV cache); what it cannot see is the
+# caching allocator's rounding (512 B a block), the kernels' workspaces
+# (the split-KV merge buffer and counters, a few MB) and cuBLAS's workspace
+# (32 MiB a stream): under 0.1% of either cell's peak. 5% keeps the check
+# to what a wrong count would move: a leaf or a cache counted once
+# instead of twice is 5.4 GB (10%) of the decode cell. H100 runs read
+# 0.908 (the decode cell; the plain route holds an fp32 copy of a layer's
+# K) and 1.00007 (the train cell, whose peak is at the loss on both
+# routes).
+PEAK_MARGIN = 0.05
+# the (1, 1) dry run in a process of its own: a fake world of one rank
+PREDICT = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch.dryrun import count_cell
+from repro_torch.launch.mesh import fake_world
+arch, shape, k, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    result = count_cell(arch, shape, mesh, mesh_name="1x1", grad_accum=k)
+with open(out, "w") as f:
+    json.dump(result, f)
+"""
+
+# The dry run's peak (StepCounter's) of one full-width step against
+# MemTracker's, PyTorch's own count of the bytes held, on the card's
+# PyTorch: they must agree to the byte, as tests/test_torch_analysis.py
+# holds them on reduced cells on the CPU
+PEAK_READING = """
+import json, sys, torch
+from torch.distributed._tools.mem_tracker import MemTracker
+from torch.distributed.device_mesh import init_device_mesh
+from torch.utils._pytree import tree_flatten
+from repro_torch.configs import ShapeCell
+from repro_torch.launch.analysis import StepCounter
+from repro_torch.launch.build import build_cell
+from repro_torch.launch.mesh import fake_world
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    make = lambda: build_cell("smollm-135m",
+                              ShapeCell("train_4k", "train", 2, 4096), mesh)
+    cell = make()
+    with StepCounter(track=cell.args) as counter:
+        cell.step(*cell.args)
+    cell = make()
+    tracker = MemTracker()
+    tracker.track_external(*(t for t in tree_flatten(cell.args)[0]
+                             if isinstance(t, torch.Tensor)))
+    with tracker:
+        cell.step(*cell.args)
+    [snap] = tracker.get_tracker_snapshot("peak").values()
+with open(sys.argv[1], "w") as f:
+    json.dump({"step_counter": counter.peak, "inputs": counter.inputs,
+               "mem_tracker": snap["Total"],
+               "mem_tracker_by_kind": {str(k): v for k, v in snap.items()}},
+              f)
+"""
+
+
+def run_dryruns(jobs) -> dict:
+    """Runs each job's command (label, argv, JSON it writes) in a process
+    of its own, ``DRYRUN_WORKERS`` at a time, its output into a log beside
+    the JSON; raises on a nonzero exit or a process over
+    ``DRYRUN_TIMEOUT_S`` (which is killed). Returns {label: (JSON,
+    seconds)}."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def one(job):
+        label, argv, out = job
+        t0 = time.perf_counter()
+        with open(f"{out}.log", "w") as f:
+            rc = subprocess.run(argv, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                timeout=DRYRUN_TIMEOUT_S).returncode
+        if rc != 0:
+            raise AssertionError(f"dry run {label}: exit {rc}, see "
+                                 f"{out}.log")
+        with open(out) as f:
+            return label, json.load(f), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
+        return {label: (result, s) for label, result, s in
+                pool.map(one, jobs)}
+
+
+def predict_job(arch, shape, k):
+    out = ROOT / "build" / "dryrun-1x1" / f"{arch}__{shape}__ga{k}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return ((arch, shape, k), [sys.executable, "-c", PREDICT, arch, shape,
+                               str(k), str(out)], str(out))
+
+
+def peak_reading_job():
+    out = ROOT / "build" / "dryrun-1x1" / "peak_reading.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return ("peak reading", [sys.executable, "-c", PEAK_READING, str(out)],
+            str(out))
+
+
+def production_dryruns(extra) -> dict:
+    """(a) and the first (1, 1) predictions of (b), ``extra``, in one pool.
+    Prints a ``[dryrun]`` line per production cell; fails on a cell that
+    neither ran nor was skipped by the table. Returns the (1, 1)
+    results."""
+    from repro_torch.launch.dryrun import OUT_DIR, _outfile
+    jobs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape] + (["--multi-pod"] if multi else [])
+        jobs.append(((arch, shape, multi), argv,
+                     str(ROOT / _outfile(arch, shape, multi))))
+    (ROOT / OUT_DIR).mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    done = run_dryruns(jobs + extra)
+    seconds = time.perf_counter() - t0
+    for arch, shape, multi in DRYRUN_CELLS:
+        r, s = done[(arch, shape, multi)]
+        row = {"arch": arch, "shape": shape, "mesh": r["mesh"],
+               "status": r["status"], "seconds": s}
+        if r["status"] == "ok":
+            row.update({k: r[k] for k in (
+                "bytes_per_device", "fits_h100", "compute_s", "memory_s",
+                "collective_s", "dominant", "useful_fraction")})
+        else:
+            row["reason"] = r.get("reason") or r.get("error")
+        log(f"[dryrun] {json.dumps(row)}")
+        if r["status"] not in ("ok", "skipped"):
+            raise AssertionError(f"dry run of {arch} x {shape}: {row}")
+    log(f"[dryrun] {len(jobs)} production cells and {len(extra)} (1, 1) "
+        f"jobs in {seconds:.1f} s")
+    return {label: done[label][0] for label, _, _ in extra}
+
+
+def smallest_fitting_grad_accum(first: dict) -> tuple[int, dict]:
+    """The smallest grad_accum (a power of two) whose (1, 1) dry run of
+    smollm-135m x train_4k fits the card, from the first candidates'
+    results, running more as needed. Returns it and its prediction."""
+    from repro_torch.configs import SHAPES
+    fits = {k: r for (_, _, k), r in first.items()}
+
+    def run(k):
+        job = predict_job("smollm-135m", "train_4k", k)
+        fits[k] = run_dryruns([job])[job[0]][0]
+
+    while not any(r["fits_h100"] for r in fits.values()):
+        k = 2 * max(fits)
+        if k > SHAPES["train_4k"].global_batch:
+            raise AssertionError("no microbatch of smollm-135m x train_4k "
+                                 "fits the card by the dry run")
+        run(k)
+    k = min(k for k, r in fits.items() if r["fits_h100"])
+    while k > 1 and k // 2 not in fits:
+        run(k // 2)
+        if not fits[k // 2]["fits_h100"]:
+            break
+        k //= 2
+    log(f"[launch] smollm-135m x train_4k on (1, 1): fits_h100 by "
+        f"grad_accum " + json.dumps({k: (r["fits_h100"],
+                                         r["bytes_per_device"])
+                                     for k, r in sorted(fits.items())}))
+    return k, fits[k]
+
+
+def local_tree(tree):
+    """A tree of DTensors on a (1, 1) mesh as their local tensors (a block
+    of one rank is the whole leaf)."""
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.to_local(), tree)
+
+
+def profiled_step_ms(fn) -> float:
+    """Device busy ms of one ``fn()`` under the profiler (no warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, _, ms in device_kernels(prof, 1))
+
+
+def predicted_against_measured(pred: dict, measured: dict) -> dict:
+    """The (1, 1) dry run's numbers beside the card's; fails where the
+    card's peak exceeds the predicted one by more than ``PEAK_MARGIN``."""
+    from repro_torch.launch.roofline import HBM_BW
+    flops = pred["semantic"]["flops"]
+    row = {"arch": pred["arch"], "shape": pred["shape"],
+           "grad_accum": pred["grad_accum"],
+           "predicted": {
+               "bytes_per_device": pred["bytes_per_device"],
+               "semantic_flops": flops,
+               "compute_ms": pred["compute_s"] * 1e3,
+               "memory_ms": pred["memory_s"] * 1e3,
+               "memory_kernel_ms": pred["memory_kernel_s"] * 1e3,
+               "floor_ms": pred["min_bytes"] / HBM_BW * 1e3,
+               "fits_h100": pred["fits_h100"]},
+           "measured": {
+               **measured,
+               "achieved_tflops_host": flops / measured["host_ms"] / 1e9,
+               "achieved_tflops_device": flops / measured["device_busy_ms"]
+               / 1e9},
+           "peak_over_predicted": measured["peak_bytes"]
+           / pred["bytes_per_device"], "peak_margin": PEAK_MARGIN}
+    log(f"[launch] cell {json.dumps(row)}")
+    if measured["peak_bytes"] > pred["bytes_per_device"] * (1 + PEAK_MARGIN):
+        raise AssertionError(f"{pred['arch']} x {pred['shape']}: the card's "
+                             f"peak exceeds the dry run's: {row}")
+    return row
+
+
+def long_decode_cell(mesh, pred) -> int:
+    """(b) zamba2-2.7b x long_500k built by ``build_cell`` on the card: one
+    token decoded at B 1 against a populated cache of 524288 positions
+    (K/V and SSM states drawn from the seed, the index at S - 1), 9
+    ``decode_attention`` launches a step, logits bit-identical to
+    ``model.decode`` called on the same params and cache; its peak, host
+    ms (3 steps) and device busy ms beside the dry run's. Returns the
+    decode launches in it."""
+    from repro_torch.launch.build import build_cell
+    from repro_torch.models.transformer import build_model
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell("zamba2-2.7b", "long_500k", mesh, device=DEV,
+                      seed=SEED)
+    params, inputs, cache = cell.args
+    held = local_tree(cache)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    for leaf in (held["k"], held["v"], *held["state"]):
+        for part in leaf:
+            part.normal_(generator=gen)
+    index = held["index"]
+    index.fill_(LONG_S - 1)
+    kept = [t.clone() for t in held["state"]] + [
+        held[k][:, :, LONG_S - 1].clone() for k in ("k", "v")]
+
+    def restore():
+        for t, k in zip(held["state"], kept):
+            t.copy_(k)
+        for name, k in zip(("k", "v"), kept[2:]):
+            held[name][:, :, LONG_S - 1] = k
+        index.fill_(LONG_S - 1)
+
+    groups = cell.cfg.n_layers // cell.cfg.attn_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    logits, _ = cell.step(*cell.args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    step_launches = launch_counts()["decode_attention"]
+    restore()
+    model = build_model(cell.cfg, device=DEV)
+    want, _ = model.decode(local_tree(params), inputs["tokens"].to_local(),
+                           held)
+    same = torch.equal(logits, want)
+    finite = bool(torch.isfinite(logits).all())
+    host = []
+    for _ in range(3):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.step(*cell.args)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    restore()
+    busy = profiled_step_ms(lambda: cell.step(*cell.args))
+    launches = launch_counts()["decode_attention"]
+    log(f"[launch] long_500k {json.dumps({'logits': list(logits.shape), 'bit_identical': same, 'finite': finite, 'launches_a_step': step_launches, 'first_ms': first_ms})}")
+    if step_launches != groups or not same or not finite:
+        raise AssertionError(f"zamba2-2.7b x long_500k: launches "
+                             f"{step_launches} (want {groups}), "
+                             f"bit-identical {same}, finite {finite}")
+    require_device_time("[launch] long_500k step", {"step": busy})
+    predicted_against_measured(pred, {
+        "peak_bytes": peak, "host_ms": float(np.mean(host)),
+        "device_busy_ms": busy})
+    del cell, params, inputs, cache, held, kept, model, logits, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_cell(mesh, k, pred) -> tuple[int, int]:
+    """(b) smollm-135m x train_4k (256 x 4096 tokens) built by
+    ``build_cell`` on the card at ``grad_accum`` k: two steps with finite
+    losses, loss and grad norm bit-identical to the unsharded step's from
+    the same seed and batch (and the params after), 2 x 30 flash forward
+    and 30 backward launches a microbatch; its peak, host ms and device
+    busy ms (a third step under the profiler) beside the dry run's.
+    Returns the flash launches (forward, backward) in it."""
+    from repro_torch.launch.build import OPT_FOR_ARCH, build_cell
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from repro_torch.train.train_step import build_train_step
+    runs = {}
+    total = np.zeros(2, dtype=int)
+    for label in ("sharded", "unsharded"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cell = build_cell("smollm-135m", "train_4k", mesh, grad_accum=k,
+                          device=DEV, seed=SEED)
+        state, batch = cell.args
+        step, n_layers = cell.step, cell.cfg.n_layers
+        if label == "unsharded":
+            state = local_tree(state)
+            step = build_train_step(
+                build_model(cell.cfg, device=DEV),
+                build_optimizer(OPT_FOR_ARCH.get(cell.arch,
+                                                 OptimizerConfig())),
+                grad_accum=k)
+        flash_launches(reset=True)
+        metrics, host = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            host.append((time.perf_counter() - t0) * 1e3)
+        launches = flash_launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        params = [t.to_local() if hasattr(t, "to_local") else t
+                  for t in tree_leaves(state["params"])]
+        runs[label] = {"metrics": metrics, "host_ms": host,
+                       "params": [p.clone() for p in params],
+                       "peak": peak, "launches": launches}
+        if label == "sharded":
+            runs[label]["busy"] = profiled_step_ms(
+                lambda: step(state, batch))
+        total += flash_launches()
+        del cell, state, batch, step, params
+    torch.cuda.empty_cache()
+    got, want = runs["sharded"], runs["unsharded"]
+    same = got["metrics"] == want["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
+    finite = all(np.isfinite(v) for m in got["metrics"] for v in m)
+    per = (2 * n_layers * k * 2, n_layers * k * 2)
+    log(f"[launch] train_4k {json.dumps({'grad_accum': k, 'loss_grad_norm': got['metrics'], 'unsharded': want['metrics'], 'bit_identical': same, 'host_ms': got['host_ms'], 'unsharded_host_ms': want['host_ms'], 'unsharded_peak_bytes': want['peak'], 'flash_launches': got['launches']})}")
+    if (not same or not finite
+            or tuple(got["launches"]) != per
+            or tuple(want["launches"]) != per):
+        raise AssertionError(f"smollm-135m x train_4k: bit-identical {same},"
+                             f" finite {finite}, flash launches "
+                             f"{got['launches']} and {want['launches']} "
+                             f"(want {per})")
+    require_device_time("[launch] train_4k step", {"step": got["busy"]})
+    predicted_against_measured(pred, {
+        "peak_bytes": got["peak"], "host_ms": float(np.mean(got["host_ms"])),
+        "device_busy_ms": got["busy"]})
+    return tuple(int(n) for n in total)
+
+
+def launch_phase() -> tuple[int, int, int]:
+    """Phase 23: the dry runs (a) and the two table cells on the card (b).
+    Returns the decode launches and the flash launches (forward,
+    backward) in it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import _FAKE_PG, fake_pg_available
+    t0 = time.perf_counter()
+    present = fake_pg_available()
+    log(f"[launch] {_FAKE_PG} in torch {torch.__version__}: {present}")
+    if not present:
+        raise AssertionError("the fake process group is missing")
+    first = production_dryruns(
+        [predict_job("smollm-135m", "train_4k", k) for k in GRAD_ACCUM_FIRST]
+        + [predict_job("zamba2-2.7b", "long_500k", 1),
+           predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()])
+    reading = first.pop("peak reading")
+    log(f"[launch] peak of one smollm-135m train step (B 2, T 4096) on "
+        f"(1, 1), torch {torch.__version__}: {json.dumps(reading)}")
+    if reading["step_counter"] != reading["mem_tracker"]:
+        raise AssertionError("the dry run's peak and MemTracker's differ")
+    unrun = first.pop(("smollm-135m", "decode_32k", 1))
+    log(f"[launch] smollm-135m x decode_32k on (1, 1) (B 128, S 32768): "
+        f"fits_h100 {unrun['fits_h100']} at "
+        f"{unrun['bytes_per_device'] / 1e9:.1f} GB a device; not run")
+    long_pred = first.pop(("zamba2-2.7b", "long_500k", 1))
+    k, train_pred = smallest_fitting_grad_accum(first)
+    with nccl_group():
+        mesh = init_device_mesh(DEV, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        decode = long_decode_cell(mesh, long_pred)
+        fwd, bwd = train_cell(mesh, k, train_pred)
+    log(f"[launch] phase {time.perf_counter() - t0:.1f} s, decode launches "
+        f"{decode}, flash launches (fwd, bwd) ({fwd}, {bwd})")
+    return decode, fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2868,6 +3313,13 @@ def main() -> int:
         c = get_config(arch)
         check_and_time_decode_attention(c.name, c.n_heads, c.n_kv_heads,
                                         c.hd, 0, rng)
+    # zamba2's long_500k cell (phase 23): checked at B 3 with lengths 0, S
+    # and a ragged one, timed at B 1 over one layer (5.4 GB of cache)
+    check_and_time_decode_attention(
+        f"{zamba.name} long_500k", zamba.n_heads, zamba.n_kv_heads, zamba.hd,
+        1, rng, B=3, S=LONG_S, lengths=[0, LONG_S, 300001],
+        timed_lengths=[LONG_S])
+    torch.cuda.empty_cache()
 
     model, params, reqs, records, counts = serve_full_width(smollm, rng)
     launches = counts["decode_attention"]
@@ -2929,6 +3381,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     scan_fwd, scan_bwd, fwd, bwd = ssm_train_phase(mamba, zamba)
     ssd_launches += scan_fwd
+    fwd_launches += fwd
+    bwd_launches += bwd
+    torch.cuda.empty_cache()
+    decode, fwd, bwd = launch_phase()
+    launches += decode
     fwd_launches += fwd
     bwd_launches += bwd
 

@@ -1,0 +1,337 @@
+"""Cell builders (counterpart of ``repro/launch/build.py``): (architecture
+x shape x mesh) -> the step one rank runs and its inputs, placed on the
+mesh by the port's sharding specs.
+
+On ``device="meta"`` (the dry run) the params' shapes come from
+``model.init`` under ``FakeTensorMode`` (no draws: the counterpart of
+``jax.eval_shape(model.init, key)``) and every input is an empty ``meta``
+tensor; on ``"cuda"`` the params are drawn from ``seed`` and the inputs
+are the card's. Importing this module starts no process group.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import Callable
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.configs import (SHAPES, ShapeCell, cell_inputs,
+                                 cell_runnable, get_config)
+from repro_torch.distributed import logical
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.common import ArchConfig, tree_leaves, tree_map
+from repro_torch.models.transformer import build_model
+from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
+from repro_torch.train.train_step import build_train_step
+
+from .mesh import data_axes
+
+#: momentum-light optimizer for the HBM-bound giants (see DESIGN.md)
+OPT_FOR_ARCH = {
+    "kimi-k2-1t-a32b": OptimizerConfig(name="adafactor", momentum=False),
+    "llava-next-34b": OptimizerConfig(name="adamw",
+                                      moment_dtype=torch.bfloat16),
+}
+
+
+def active_params(cfg: ArchConfig) -> float:
+    """Per-token active parameter count (MoE: top_k + shared experts)."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    if cfg.family == "moe":
+        ffn = 3 * d * cfg.d_ff * (cfg.top_k + cfg.n_shared_experts)
+        ffn += d * cfg.n_experts                    # router
+    elif cfg.family == "ssm":
+        attn = 0
+        din = cfg.d_inner
+        ffn = d * (2 * din + 2 * cfg.ssm_state + cfg.ssm_heads) + din * d
+    elif cfg.family == "hybrid":
+        din = cfg.d_inner
+        mamba = d * (2 * din + 2 * cfg.ssm_state + cfg.ssm_heads) + din * d
+        shared = (attn + 3 * d * cfg.d_ff) / cfg.attn_every  # amortized
+        return cfg.n_layers * (mamba + shared) + 2 * cfg.vocab_size * d
+    else:
+        ffn = 3 * d * cfg.d_ff
+    layers = cfg.n_layers + cfg.n_enc_layers
+    return layers * (attn + ffn) + 2 * cfg.vocab_size * d
+
+
+def shared_memory_kernel_bytes(cfg: ArchConfig, kind: str, B: int,
+                               S: int) -> float:
+    """HBM bytes that the port's kernels keep in shared memory and
+    registers on the card, which the plain route of the ``meta`` device
+    writes out (score/prob blocks of the chunked attention; SSD
+    intra-chunk decay/CB matrices): the reference's ``vmem_kernel_bytes``
+    (its Pallas kernels keep them in VMEM), the same formula. Subtracting
+    this from the counted traffic gives the kernel-adjusted memory term.
+
+    Accounting: attention fwd materializes scores+probs (2 fp32 tensors);
+    backward recomputes them and forms dP (3 more) -> ~5 x B*Hq*Tq*Tk*4 per
+    layer for train, 2 x for inference. SSD analogous on (nc, H+1, Q, Q).
+    """
+    total = 0.0
+    mult = 5.0 if kind == "train" else 2.0
+    if cfg.n_heads:
+        layers = cfg.n_layers + cfg.n_enc_layers
+        if cfg.family == "hybrid":
+            layers = cfg.n_layers // cfg.attn_every
+        if cfg.family == "encdec":
+            total = mult * 4.0 * B * cfg.n_heads * (
+                cfg.n_layers * (S * S + S * cfg.enc_len)
+                + cfg.n_enc_layers * cfg.enc_len * cfg.enc_len)
+        else:
+            seq = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+            total = mult * 4.0 * B * cfg.n_heads * layers * seq * seq
+    if cfg.family in ("ssm", "hybrid"):
+        Q = cfg.ssm_chunk
+        nc = max(1, S // Q)
+        total += mult * 4.0 * B * cfg.n_layers * nc * Q * Q * (
+            cfg.ssm_heads + 1)
+    if kind == "decode":
+        total = 0.0     # decode kernels stream the cache; nothing to adjust
+    return total
+
+
+def min_step_bytes(kind: str, *, param_bytes: float, cache_bytes: float,
+                   tokens: float, d_model: int, n_layers: int) -> float:
+    """Minimum HBM traffic per step (the memory-roofline floor):
+      train   : params fwd-read + bwd-read + grad write + opt update r/w
+                (~5x params) + per-layer activation in/out (fwd+bwd)
+      prefill : params read + KV-cache write + activations
+      decode  : params read (every step reads all weights) + cache read
+    """
+    act = 4.0 * tokens * d_model * n_layers * 2.0    # bf16 in+out, fwd+bwd
+    if kind == "train":
+        return 5.0 * param_bytes + act
+    if kind == "prefill":
+        return param_bytes + cache_bytes + act / 2.0
+    return param_bytes + cache_bytes
+
+
+@dataclass
+class Cell:
+    arch: str
+    shape: str
+    cfg: ArchConfig
+    kind: str
+    step: Callable              # this rank's step: step(*args)
+    args: tuple                 # its inputs, placed on the mesh
+    semantic: Callable          # () -> (fn, args): the unsharded step at
+    #                             the global shape, on the meta device
+    tokens_processed: float     # per step (for MODEL_FLOPS)
+    n_active: float
+    min_bytes: float = 0.0      # HBM-traffic floor (roofline denominator)
+    grad_accum: int = 1
+    rows: int = 0               # this rank's rows of the global batch
+    chips: int = 1              # ranks of the mesh
+
+
+def _tree_bytes(tree) -> float:
+    return float(sum(t.numel() * t.element_size()
+                     for t in tree_leaves(tree)))
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """``model.init``'s tree as empty ``meta`` tensors: the init runs under
+    ``FakeTensorMode``, so no number is drawn and nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    model = build_model(cfg, device="meta")
+    with FakeTensorMode():
+        fake = model.init(torch.Generator().manual_seed(0))
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
+def _place(tree, shardings):
+    """Each leaf as a DTensor holding this rank's block of it. Every rank
+    holds the whole leaf (empty on meta, drawn from the same seed on the
+    card), so this is ``sharding.place`` without its scatter from rank 0."""
+    def block(t, s):
+        local = shd.local_shard(s.mesh, t, s.placements)
+        if local.numel() != t.numel():
+            local = local.clone()
+        return DTensor.from_local(local, s.mesh, list(s.placements),
+                                  shape=t.shape, stride=t.stride())
+    return tree_map(block, tree, shardings)
+
+
+def _same_layout(mesh, have, want) -> bool:
+    """Placements that differ only on mesh dims of one rank lay a tensor
+    out alike (a one-rank block is the whole)."""
+    return all(a == b or mesh.size(j) == 1
+               for j, (a, b) in enumerate(zip(have, want)))
+
+
+def _local(t: DTensor, want: list) -> torch.Tensor:
+    """``t``'s local tensor in the placements ``want``."""
+    if _same_layout(t.device_mesh, t.placements, want):
+        return t.to_local()
+    return t.redistribute(t.device_mesh, want).to_local()
+
+
+def _put_back(local: torch.Tensor, t: DTensor, have: list) -> DTensor:
+    """``local``, laid out by ``have``, as a DTensor in ``t``'s placements."""
+    mesh = t.device_mesh
+    if _same_layout(mesh, have, t.placements):
+        return DTensor.from_local(local, mesh, t.placements, shape=t.shape,
+                                  stride=t.stride())
+    return DTensor.from_local(local, mesh, have).redistribute(
+        mesh, t.placements)
+
+
+def serve_step(model, mesh, kind: str) -> Callable:
+    """The prefill or decode step one rank runs on placed params, inputs
+    and cache: each param leaf gathered whole (``"model"`` shards storage
+    only, as in ``sharding.shard_train_step``), this rank's rows of the
+    inputs and cache (gathered along the other axes), then the model's
+    own ``prefill`` or ``decode``; the cache comes back in its placements.
+    Returns (this rank's logits, cache).
+
+    The model runs with no logical policy installed: ``moe_block_ep``
+    takes the whole batch on every rank, and a rank here holds its own
+    rows, so an MoE layer routes them by ``moe_block``'s grouped dispatch,
+    one group a rank, as ``moe_groups`` (the batch ranks) groups the
+    tokens in the reference."""
+    baxes = data_axes(mesh)
+    names = mesh.mesh_dim_names
+    full = [Replicate()] * mesh.ndim
+
+    def rows(t: DTensor) -> list:
+        return [p if names[j] in baxes else Replicate()
+                for j, p in enumerate(t.placements)]
+
+    def step(params, inputs: dict, cache: dict):
+        local = tree_map(lambda t: _local(t, full), params)
+        mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
+        held = tree_map(lambda t: _local(t, rows(t)), cache)
+        if kind == "decode":
+            logits, held = model.decode(local, mine["tokens"], held)
+        else:
+            logits, held = model.prefill(local, mine, held)
+        return logits, tree_map(lambda new, t: _put_back(new, t, rows(t)),
+                                held, cache)
+
+    return step
+
+
+def _draw_inputs(cfg: ArchConfig, kind: str, B: int, S: int, device,
+                 seed: int) -> dict:
+    """The cell's inputs on a real device: uniform tokens and labels,
+    N(0, 1) frames and patch embeddings, from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    out = {}
+    for k, t in cell_inputs(cfg, kind, B, S).items():
+        if t.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                   device=device, dtype=torch.int32)
+        else:
+            out[k] = torch.randn(t.shape, generator=gen, device=device,
+                                 dtype=t.dtype)
+    return out
+
+
+def resolve_shape(shape_id: str | ShapeCell) -> ShapeCell:
+    return shape_id if isinstance(shape_id, ShapeCell) else SHAPES[shape_id]
+
+
+def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
+               grad_accum: int = 1, remat: str | None = None,
+               extra_cfg: dict | None = None,
+               device: str | torch.device = "meta", seed: int = 0) -> Cell:
+    """The cell's step on ``mesh`` and its placed inputs. ``shape_id`` may
+    be a ``ShapeCell`` of its own (a small cell for tests); ``extra_cfg``
+    overrides config fields, input widths included."""
+    cfg = get_config(arch)
+    n_rows = math.prod(mesh.size(j) for j, a in enumerate(mesh.mesh_dim_names)
+                       if a in data_axes(mesh))        # the batch shards
+    if cfg.family == "moe":
+        cfg = replace(cfg, moe_groups=n_rows)
+        if cfg.moe_impl == "ep":
+            from repro_torch.models.moe_ep import pad_experts
+            cfg = replace(cfg, moe_pad_experts=pad_experts(cfg, mesh))
+    if remat is not None or extra_cfg:
+        over = dict(extra_cfg or {})
+        if remat is not None:
+            over["remat"] = remat
+        cfg = replace(cfg, **over)
+    shape = resolve_shape(shape_id)
+    ok, why = cell_runnable(cfg, shape)
+    if not ok:
+        raise ValueError(f"cell {arch}x{shape.name} skipped: {why}")
+    device = torch.device(device)
+    on_meta = device.type == "meta"
+    B, S = shape.global_batch, shape.seq_len
+    kind = shape.kind
+    rows = B // n_rows if B % n_rows == 0 else B
+
+    shapes = param_shapes(cfg)
+    pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), shapes)
+    param_bytes = _tree_bytes(shapes)
+    model = build_model(cfg, device=device)
+    params = shapes if on_meta else model.init(
+        torch.Generator(device=device).manual_seed(seed))
+    inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
+              _draw_inputs(cfg, kind, B, S, device, seed))
+    opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
+    common = dict(n_active=active_params(cfg), grad_accum=grad_accum,
+                  rows=rows, chips=mesh.size())
+
+    def meta_model():
+        return build_model(cfg, device="meta")
+
+    if kind == "train":
+        opt = build_optimizer(opt_cfg)
+        sharded = shd.shard_train_step(model, opt, mesh,
+                                       grad_accum=grad_accum)
+
+        def step(state: dict, batch: dict):
+            with logical.policy(mesh):    # activation-sharding policy
+                return sharded(state, batch)
+
+        state = {"params": params, "opt": opt.init(params)}
+        specs = shd.train_state_specs(state, opt_cfg.name, pspecs)
+        state = _place(state, shd.to_named(mesh, specs))
+
+        def semantic():
+            p = param_shapes(cfg)
+            return (build_train_step(meta_model(), opt,
+                                     grad_accum=grad_accum),
+                    ({"params": p, "opt": opt.init(p)},
+                     cell_inputs(cfg, kind, B, S)))
+
+        return Cell(arch, shape.name, cfg, kind, step, (state, inputs),
+                    semantic, tokens_processed=B * S,
+                    min_bytes=min_step_bytes(
+                        "train", param_bytes=param_bytes, cache_bytes=0.0,
+                        tokens=B * S, d_model=cfg.d_model,
+                        n_layers=cfg.n_layers + cfg.n_enc_layers),
+                    **common)
+
+    cache = model.init_cache(B, S)
+    cache_bytes = _tree_bytes(cache)
+    cspecs = shd.fit_tree(mesh, shd.cache_specs(cfg, mesh), cache)
+    bspecs = {k: shd.fit_spec(mesh, v, inputs[k].shape)
+              for k, v in shd.batch_specs(cfg, mesh, inputs).items()}
+    placed = (_place(params, shd.to_named(mesh, pspecs)),
+              _place(inputs, shd.to_named(mesh, bspecs)),
+              _place(cache, shd.to_named(mesh, cspecs)))
+
+    def semantic():
+        m = meta_model()
+        fn = m.decode if kind == "decode" else m.prefill
+        x = cell_inputs(cfg, kind, B, S)
+        return fn, (param_shapes(cfg),
+                    x["tokens"] if kind == "decode" else x,
+                    m.init_cache(B, S))
+
+    return Cell(arch, shape.name, cfg, kind, serve_step(model, mesh, kind),
+                placed, semantic,
+                tokens_processed=B * S if kind == "prefill" else B,
+                min_bytes=min_step_bytes(
+                    kind, param_bytes=param_bytes, cache_bytes=cache_bytes,
+                    tokens=B * S if kind == "prefill" else B,
+                    d_model=cfg.d_model,
+                    n_layers=cfg.n_layers + cfg.n_enc_layers),
+                **common)

@@ -1,0 +1,302 @@
+"""The port's shape tables and launch tooling against the reference's
+(``repro/configs/__init__.py``, ``repro/launch/build.py``,
+``repro/launch/dryrun.py``).
+
+The 40-cell table, ``input_specs`` and ``cache_specs`` are compared entry
+for entry (exact: shapes, dtypes and skip reasons are data). The dry run
+itself runs in subprocesses, each with its own time limit: a fake world
+of 16 ranks on an (8, 2) mesh counts reduced smollm-135m's train and
+decode cells, and the CLI writes the table's skip and the port's refusal
+of an MoE train cell over several batch ranks.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.configs import (ASSIGNED as REF_ASSIGNED, SHAPES as REF_SHAPES,
+                           cache_specs as ref_cache_specs,
+                           cell_runnable as ref_cell_runnable,
+                           get_config as ref_get_config,
+                           input_specs as ref_input_specs)
+from repro_torch.configs import (_MODULES, ASSIGNED, SHAPES,
+                                 SUBQUADRATIC_FAMILIES, cache_specs,
+                                 cell_runnable, get_config, input_specs)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DTYPES = {jnp.dtype(jnp.float32): torch.float32,
+          jnp.dtype(jnp.bfloat16): torch.bfloat16,
+          jnp.dtype(jnp.int32): torch.int32}
+CELLS = [(a, s) for a in ASSIGNED for s in SHAPES]
+DECODE_CELLS = [(a, s) for a, s in CELLS if SHAPES[s].kind == "decode"
+                and cell_runnable(get_config(a), SHAPES[s])[0]]
+SUBPROCESS_S = 120
+
+
+def test_forty_cells_enumerate():
+    assert ASSIGNED == REF_ASSIGNED
+    assert list(SHAPES) == list(REF_SHAPES)
+    assert len(CELLS) == 40
+    runnable = [c for c in CELLS
+                if cell_runnable(get_config(c[0]), SHAPES[c[1]])[0]]
+    skipped = [c for c in CELLS if c not in runnable]
+    assert len(runnable) == 32
+    assert all(s == "long_500k" for _, s in skipped)
+    assert {a for a, _ in skipped} == set(ASSIGNED) - {"mamba2-1.3b",
+                                                       "zamba2-2.7b"}
+    assert SUBQUADRATIC_FAMILIES == {"ssm", "hybrid"}
+    for name, cell in SHAPES.items():
+        assert dataclasses.asdict(cell) == dataclasses.asdict(
+            REF_SHAPES[name])
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_cell_runnable_matches_reference(arch, shape):
+    assert cell_runnable(get_config(arch), SHAPES[shape]) == \
+        ref_cell_runnable(ref_get_config(arch), REF_SHAPES[shape])
+
+
+def assert_same_specs(port: dict, ref: dict):
+    assert list(port) == list(ref)
+    for k, want in ref.items():
+        got = port[k]
+        assert isinstance(got, torch.Tensor) and got.device.type == "meta", k
+        assert tuple(got.shape) == tuple(want.shape), k
+        assert got.dtype == DTYPES[jnp.dtype(want.dtype)], k
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_specs_match_reference(arch, shape, reduced):
+    assert_same_specs(input_specs(arch, shape, reduced=reduced),
+                      ref_input_specs(arch, shape, reduced=reduced))
+
+
+def flat_by_path(tree, prefix=()):
+    """{path: leaf} of a port tree: dict keys, NamedTuple field names."""
+    if isinstance(tree, dict):
+        return {p: x for k, v in tree.items()
+                for p, x in flat_by_path(v, prefix + (k,)).items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {p: x for f, v in zip(tree._fields, tree)
+                for p, x in flat_by_path(v, prefix + (f,)).items()}
+    return {prefix: tree}
+
+
+def ref_flat_by_path(tree) -> dict:
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[tuple(getattr(k, "key", getattr(k, "name", None))
+                  for k in path)] = leaf
+    return out
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch,shape", DECODE_CELLS)
+def test_cache_specs_match_reference(arch, shape, reduced):
+    got = flat_by_path(cache_specs(arch, shape, reduced=reduced))
+    want = ref_flat_by_path(ref_cache_specs(arch, shape, reduced=reduced))
+    assert set(got) == set(want)
+    for path, leaf in want.items():
+        assert got[path].device.type == "meta", path
+        assert tuple(got[path].shape) == tuple(leaf.shape), path
+        assert got[path].dtype == DTYPES[jnp.dtype(leaf.dtype)], path
+
+
+@pytest.mark.parametrize("arch", list(_MODULES))
+def test_build_models_match_reference(arch):
+    """``active_params`` and, for every kind at two (B, S), the renamed
+    ``vmem_kernel_bytes`` and ``min_step_bytes``: the same floats."""
+    from repro.launch import build as ref_build
+    from repro_torch.launch import build
+    cfg, ref = get_config(arch), ref_get_config(arch)
+    assert build.active_params(cfg) == ref_build.active_params(ref)
+    for kind in ("train", "prefill", "decode"):
+        for B, S in ((4, 1024), (32, 32768)):
+            assert build.shared_memory_kernel_bytes(cfg, kind, B, S) == \
+                ref_build.vmem_kernel_bytes(ref, kind, B, S)
+            kw = dict(param_bytes=2.0 * build.active_params(cfg),
+                      cache_bytes=1e9 * B, tokens=B * S,
+                      d_model=cfg.d_model,
+                      n_layers=cfg.n_layers + cfg.n_enc_layers)
+            assert build.min_step_bytes(kind, **kw) == \
+                ref_build.min_step_bytes(kind, **kw)
+
+
+def test_active_params_sane():
+    from repro_torch.launch.build import active_params
+    a = active_params(get_config("kimi-k2-1t-a32b"))
+    assert 15e9 < a < 60e9
+    assert 1e8 < active_params(get_config("smollm-135m")) < 3e8
+
+
+def test_opt_for_arch_matches_reference():
+    from repro.launch.build import OPT_FOR_ARCH as REF
+    from repro_torch.launch.build import OPT_FOR_ARCH
+    assert set(OPT_FOR_ARCH) == set(REF)
+    for arch, want in REF.items():
+        got = OPT_FOR_ARCH[arch]
+        for f in dataclasses.fields(want):
+            w = getattr(want, f.name)
+            if f.name == "moment_dtype":
+                w = DTYPES[jnp.dtype(w)]
+            assert getattr(got, f.name) == w, (arch, f.name)
+
+
+def run_python(code: str, cwd) -> None:
+    out = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=cwd,
+        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")},
+        capture_output=True, text=True, timeout=SUBPROCESS_S)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+# the reduced smollm-135m's cells on an (8, 2) mesh: 16 rows, 8 a rank
+DRYRUN = """
+import dataclasses, json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.launch import build, dryrun
+from repro_torch.launch.mesh import fake_world
+
+def reduced(arch):
+    cfg = get_config(arch)
+    red = cfg.reduced()
+    return {f.name: getattr(red, f.name) for f in dataclasses.fields(cfg)
+            if f.name != "name" and getattr(red, f.name) != getattr(cfg, f.name)}
+
+out = {}
+with fake_world(16):
+    mesh = init_device_mesh("cpu", (8, 2), mesh_dim_names=("data", "model"))
+    over = reduced("smollm-135m")
+    for name, kind in (("train", "train"), ("decode", "decode")):
+        shape = ShapeCell(name, kind, 64, 16)
+        out[name] = dryrun.count_cell("smollm-135m", shape, mesh,
+                                      mesh_name="8x2", extra_cfg=over)
+    # the extension of a 4-microbatch step from 2 and 3, against its count
+    shape = ShapeCell("train", "train", 64, 32)
+    make = lambda s, k: build.build_cell("smollm-135m", s, mesh,
+                                         grad_accum=k, extra_cfg=over)
+    out["extended"] = dryrun.cell_counts(make(shape, 4), shape, make)
+    out["exact"] = dryrun._counts(make(shape, 4))
+import torch.distributed as dist
+from repro_torch.launch import mesh as meshes
+out["meshes"] = {}
+for n, multi in ((256, False), (512, True), (8, None)):
+    with fake_world(n):
+        m = (meshes.make_test_mesh() if multi is None else
+             meshes.make_production_mesh(multi_pod=multi))
+        out["meshes"][n] = [list(m.mesh_dim_names), list(m.shape),
+                            list(meshes.data_axes(m)), meshes.n_chips(m),
+                            m.device_type]
+    out["meshes"][n].append(dist.is_initialized())
+with open("records.json", "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def dryrun_records(tmp_path_factory):
+    cwd = tmp_path_factory.mktemp("dryrun")
+    run_python(DRYRUN, cwd)
+    with open(cwd / "records.json") as f:
+        return json.load(f)
+
+
+KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
+        "coll_bytes", "coll_by_kind", "model_flops", "bytes_per_device",
+        "compute_s", "memory_s", "collective_s", "min_bytes", "dominant",
+        "useful_fraction", "roofline_fraction", "bound_s", "status", "tag",
+        "shared_memory_kernel_bytes", "memory_kernel_s", "bound_kernel_s",
+        "roofline_fraction_kernel", "semantic", "rank0", "peak_by_kind",
+        "t_count_s", "grad_accum", "remat", "hbm_bytes_per_device",
+        "fits_h100"}
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dryrun_record(dryrun_records, kind):
+    r = dryrun_records[kind]
+    assert set(r) == KEYS
+    assert r["status"] == "ok" and r["chips"] == 16 and r["mesh"] == "8x2"
+    assert r["rank0"]["rows"] == 2
+    assert r["bytes_per_device"] == r["peak_by_kind"]["Total"] > 0
+    assert r["fits_h100"] is True
+    # every rank executes its rows, and the 2 ranks along "model" the same
+    # ones, so the cards' FLOPs are at least twice the semantic count (the
+    # gathers' copies add the rest)
+    assert r["rank0"]["flops"] * 8 >= r["semantic"]["flops"]
+    assert r["hlo_flops"] == 16 * r["rank0"]["flops"]
+    assert r["useful_fraction"] == r["model_flops"] / r["hlo_flops"]
+    assert r["compute_s"] > 0 and r["memory_s"] > 0
+    # the step gathers every sharded leaf whole: all-gathers; training
+    # reduce-scatters the gradients back
+    assert r["coll_by_kind"]["all-gather"] > 0
+    assert ("reduce-scatter" in r["coll_by_kind"]) == (kind == "train")
+
+
+def test_meshes_over_a_fake_world(dryrun_records):
+    """The production meshes over 256 and 512 fake ranks, the test mesh
+    over 8; each world ends with its block."""
+    assert dryrun_records["meshes"] == {
+        "256": [["data", "model"], [16, 16], ["data"], 256, "cpu", False],
+        "512": [["pod", "data", "model"], [2, 16, 16], ["pod", "data"], 512,
+                "cpu", False],
+        "8": [["data", "model"], [4, 2], ["data"], 8, "cpu", False]}
+
+
+def test_dryrun_extends_microbatches_exactly(dryrun_records):
+    got, want = dryrun_records["extended"], dryrun_records["exact"]
+    assert set(got) == set(want)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-9, abs=1e-6), key
+
+
+def test_dryrun_cli_skips_and_refuses(tmp_path):
+    """A dense long_500k cell: ``skipped`` with the reference's reason. A
+    reduced MoE train cell on 8 data ranks: ``error`` with
+    ``shard_train_step``'s refusal."""
+    run_python("""
+        import sys
+        from repro_torch.launch import dryrun
+        sys.exit(dryrun.main(["--arch", "smollm-135m", "--shape",
+                              "long_500k"]))
+    """, tmp_path)
+    with open(tmp_path / "experiments/dryrun_torch/"
+              "smollm-135m__long_500k__pod16x16.json") as f:
+        r = json.load(f)
+    want = ref_cell_runnable(ref_get_config("smollm-135m"),
+                             REF_SHAPES["long_500k"])[1]
+    assert r == {"arch": "smollm-135m", "shape": "long_500k",
+                 "mesh": "pod16x16", "status": "skipped", "reason": want}
+
+    out = subprocess.run(
+        [sys.executable, "-c", DRYRUN.split("out = {}")[0] + textwrap.dedent("""
+            from repro_torch.launch.mesh import fake_world
+            def small(arch, shape_id, *, multi_pod, **kw):
+                with fake_world(8):
+                    mesh = init_device_mesh("cpu", (8, 1),
+                                            mesh_dim_names=("data", "model"))
+                    return dryrun.count_cell(
+                        arch, ShapeCell(shape_id, "train", 64, 16), mesh,
+                        mesh_name="8x1", extra_cfg=reduced(arch))
+            dryrun.run_cell = small
+            sys.exit(dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape",
+                                  "train_4k"]))
+        """)], cwd=tmp_path, capture_output=True, text=True,
+        timeout=SUBPROCESS_S,
+        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+    assert out.returncode == 1, out.stderr[-4000:]
+    with open(tmp_path / "experiments/dryrun_torch/"
+              "qwen2-moe-a2.7b__train_4k__pod16x16.json") as f:
+        r = json.load(f)
+    assert r["status"] == "error"
+    assert r["error"] == ("NotImplementedError: the MoE auxiliary loss over "
+                          "a batch split across ranks")
