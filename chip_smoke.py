@@ -26,7 +26,15 @@ Phases, each fatal on failure (nothing is caught):
   4. serves 16 requests at the full width of smollm-135m in bf16 through
      ``ServingEngine`` (8 slots, max_len 2048, prompts of 8 to 1500 tokens,
      32 new tokens, one request submitted mid-flight) and checks that every
-     decode step of every layer launched the kernel;
+     decode step of every layer launched the kernel. The traffic runs
+     twice, through the graphed engine (its decode step a CUDA graph,
+     ``repro_torch.graphs``) and an eager one (``_decode.fn``), each step's
+     logits recorded from the engine's ``logits``: bit for bit equal at
+     every step; a third, graphed run with a stale token buffer in one
+     replay must fail that check. ``[profile]`` prints host ms, device
+     ms and the idle share of a decode step, graphed (the top-level keys)
+     and eager (``eager``); over the profiled replays the launch counters
+     equal the profiler's count of ``decode_attention_kernel``;
   5. parity: a served bf16 stream teacher-forced through the same model with
      the plain attention, and fp32 engine streams against a sequential
      single-request reference with the plain attention;
@@ -50,13 +58,19 @@ Phases, each fatal on failure (nothing is caught):
      (``ROUTE_SHAPES``); and the decode kernel against its plain version
      at the fabric executor's serving shape (4 slots, S 256, 9/3/64);
   8. trains full-width smollm-135m in bf16 with ``remat="block"`` through
-     ``repro_torch.launch.train`` (AdamW, 6 steps of 8 x 2048 tokens) and
-     checks falling finite losses and that every layer's attention went
-     through the kernels (2 x 30 forward and 30 backward launches a step);
-     profiles one train step;
+     ``repro_torch.launch.train`` (its step ``make_training``'s, graphed;
+     AdamW, 6 steps of 8 x 2048 tokens) and checks falling finite losses
+     and that every layer's attention went through the kernels (2 x 30
+     forward and 30 backward launches a step); then the eager and the
+     graphed step from the seed, 4 steps each: losses and grad norms bit
+     for bit equal, the graphed peak at most 1.05 times the eager, and the
+     last step of each profiled (``[profile train]``: host ms, device ms,
+     idle share, peak memory, graphed beside ``eager``; in the graphed
+     step the flash counters equal the profiler's kernel counts);
   9. train parity: one step's loss and gradients with the kernels against
-     the plain attention (fp32 at 4 layers, bf16 at the full config), and
-     two identical 2-step runs with bit-identical losses;
+     the plain attention (fp32 at 4 layers, bf16 at the full config) (two
+     identical runs from the seed are phase 8's eager and graphed ones,
+     bit-identical over 4 steps);
  10. holds the SSD scan kernel against the chunked plain version (2e-4)
      and the sequential recurrence (y 2e-4, state 1e-3) in fp32 at the
      prefill shapes of mamba2-1.3b and zamba2-2.7b, a single chunk of 37
@@ -67,7 +81,9 @@ Phases, each fatal on failure (nothing is caught):
  11. serves 16 requests at the full width of mamba2-1.3b in bf16 (8 slots,
      max_len 2048, prompts of 8 to 256, 512, 1024 and 1536 tokens, 32 new
      tokens, one submitted mid-flight), checks 48 scan launches a
-     prefill, and profiles decode steps and a prefill;
+     prefill, holds the graphed steps to the eager ones and the planted
+     stale buffer as phase 4 does, and profiles decode steps (graphed and
+     eager) and a prefill;
  12. the same for zamba2-2.7b: 54 scan launches a prefill, 9
      ``decode_attention`` launches a decode step (hd 80);
  13. parity of both families as in phase 5, with the plain scan and the
@@ -85,8 +101,10 @@ Phases, each fatal on failure (nothing is caught):
      the same output for every H_task both ran; every served payload
      equals its prompt run alone through a fresh ``ServingEngine``. Prints
      a ``[fabric]`` line (the executor's median wall ms per op type, the
-     phase's launches and seconds; dollars and energy are the cost
-     model's, labelled modelled);
+     phase's launches and seconds, the graph captures and their seconds
+     in the runs and in the "alone" checks, each of which makes a fresh
+     engine; dollars and energy are the cost model's, labelled
+     modelled);
  16. the service: ``launch.rlhf``'s journaled ``FabricService`` (a fresh
      ``DiskCAS`` under ``build/``) with a full-width ``TorchExecutor``
      behind ``FabricHTTPServer`` on loopback (auto-pumped); a
@@ -102,7 +120,8 @@ Phases, each fatal on failure (nothing is caught):
      journal and equals the live one (jobs, lineage, the event-sourced
      usage, traces, result index); t0's resubmission completes with no
      execution; after ``compact()`` and ``gc()`` a third restore equals
-     the second. Prints a ``[service]`` line;
+     the second. Prints a ``[service]`` line (with the graph captures,
+     as phase 15's);
  17. the scenarios: ``steady_mix`` and ``worker_preemption`` (held here as
      dicts, compiled by ``repro_torch.scenarios``) through
      ``launch.scenario`` on a fresh service and full-width
@@ -118,12 +137,15 @@ Phases, each fatal on failure (nothing is caught):
      launched in each run. Prints a ``[scenario]`` line a run (the report,
      its cost and energy as the cost model's, labelled modelled, the
      executor's median wall ms per op type, the engine's executions and
-     retries, the launches and seconds);
+     retries, the launches and seconds, the graph captures);
  18. the MoE family: serves 16 requests at the full width of
      qwen2-moe-a2.7b in bf16 as in phase 4 (24 ``decode_attention``
      launches a decode step), profiles decode steps and prefills with the
      device ms of ``moe_block``'s parts against the step's bound (the
-     weights' bytes); bf16 parity as in phase 5 with the count of tokens
+     weights' bytes); the graphed decode steps bit for bit equal to the
+     eager ones, whose routing (``recording_routing``) the parity reads,
+     and the planted stale buffer caught, as in phase 4; bf16 parity as
+     in phase 5 with the count of tokens
      whose top-k experts differ from the plain path's, by layer, controls
      (the kernels at batch 1, the plain model at batch 8) and two planted
      faults (a neighbouring request's KV cache, gates not renormalised);
@@ -147,7 +169,8 @@ Phases, each fatal on failure (nothing is caught):
  20. the vlm family: llava-next-34b at full width (60 layers, d 7168, 56/8
      heads of hd 128, 68.9 GB of bf16 weights drawn a layer at a time)
      served text-only as in phase 4 (60 ``decode_attention`` launches a
-     step), the decode step's device ms against its bound (the weights'
+     step; graphed against eager and the planted fault as there), the
+     decode step's device ms against its bound (the weights'
      and KV rows' bytes), bf16 parity with a control (the kernels at batch
      1) and a planted fault (a neighbouring request's KV cache); a prefill
      of 576 seeded patch embeddings and 64 tokens (``index`` 640) and 8
@@ -164,14 +187,16 @@ Phases, each fatal on failure (nothing is caught):
      bit-identical; times the backward, each of its six passes (b1 to b6)
      and the plain version at mamba2's training shape, and flash at
      zamba2's hd 80 beside SDPA (with each backward kernel's ms); trains full-width mamba2-1.3b and zamba2-2.7b through
-     ``repro_torch.launch.train`` (bf16, remat "block", AdamW, 6 steps of 8
+     ``repro_torch.launch.train`` (bf16, remat "block", AdamW, 3 steps of 8
      x 2048 tokens: finite falling losses, 2 x layers forward and 1 x
      layers backward scan launches a step, for zamba2 2 x 9 and 9 flash
-     launches) and profiles a step of each (``[train ssm]``); train parity
+     launches), then holds each graphed step to the eager one as phase 8
+     does (``[profile train ssm]``, with the scan's counters against the
+     profiler's counts); train parity
      against the plain scan (and attention): fp32 at 4 and 6 layers at
      phase 9's tolerances, bf16 at full depth within 3x a control (the
      plain scan at chunk 128) that a planted fault (dloga dropped) must
-     exceed; two identical 2-step mamba2 runs bit-identical;
+     exceed (two identical runs are the eager and graphed ones above);
  22. the distributed layer (run right after phase 9), in a process group
      of one rank over NCCL (a ``FileStore`` under ``build/``; no other
      backend), the EP policy installed only inside ``logical.policy``:
@@ -206,12 +231,15 @@ Phases, each fatal on failure (nothing is caught):
      launches a microbatch); the card's peak may exceed the predicted one
      by ``PEAK_MARGIN`` and no more.
 
-It then prints the kernels line and, last, the device line as JSON. Exits
+After each group of phases a ``[time]`` line gives the seconds since the
+start. It then prints the kernels line and, last, the device line as JSON. Exits
 non-zero without a CUDA card or outside a checkout of the repository.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -320,7 +348,15 @@ ROUTE_SHAPES = [(torch.bfloat16, FLASH_SHAPES[i]) for i in (13, 0, 12, 4, 5, 2)
 # difference in one term of a sum.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 6
+# phase 21's launch.train runs of mamba2-1.3b and zamba2-2.7b (6 until PR
+# 26, cut to fit the graphed-against-eager steps in the smoke's time)
+SSM_TRAIN_STEPS = 3
 TRAIN_B, TRAIN_T = 8, 2048
+# graphed against eager train steps: this many from the seed, bit-identical
+# (the graph's warm-up, capture and two replays), the last profiled; the
+# graph's private pool may raise the step's peak by this factor and no more
+GRAPH_TRAIN_STEPS = 4
+GRAPH_PEAK_RATIO = 1.05
 # Train parity, kernel against the plain attention on the same params and
 # batch. fp32 (4 layers, B 2, T 1024): sums in another order only; per leaf
 # max |dg| <= 1e-4 of the leaf's max |g|, loss within 1e-5 relative. bf16
@@ -566,6 +602,15 @@ def fabric_launches(reset: bool = False) -> dict:
     return launches
 
 
+def graph_captures(since: dict | None = None) -> dict:
+    """Every compiled step's captures so far and their host seconds, or
+    those since ``since`` (an earlier reading)."""
+    from repro_torch.graphs import CompiledStep
+    now = {"captures": CompiledStep.captures,
+           "capture_s": CompiledStep.capture_s}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
 @contextlib.contextmanager
 def recording_routing(sink: list):
     """While open, every MoE layer's top-k expert ids, (B, T, k) sorted
@@ -587,13 +632,97 @@ def recording_routing(sink: list):
         tm.moe_block = block
 
 
+def served_run(model, params, prompts, *, eager=False, routing=None,
+               fault=False):
+    """The phase's traffic through a fresh engine (8 slots of 2048): 16
+    requests of 32 new tokens, the last submitted after the first step.
+    The engine is graphed, or eager with its decode step called unwrapped
+    (``_decode.fn``). Returns (engine, requests, records): a record a
+    decode step of (slot -> req_id, the step's logits (B, V) as the engine
+    exposes them, cloned, and with ``routing`` (the sink
+    ``recording_routing`` fills) its top-k expert ids by layer, (L, B, 1,
+    k), else None). ``fault`` plants a stale token buffer: at the first
+    replay whose tokens differ from the last step's, ``_feed`` is skipped;
+    the run stops a step later (the step is ``eng.planted``)."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
+    if eager:
+        eng._decode = eng._decode.fn
+    eng.planted = None
+    if fault:
+        feed = eng._feed
+
+        def stale():
+            want = [eng.active[s].generated[-1] if s in eng.active else 0
+                    for s in range(B)]
+            if eng.planted is None and eng.steps >= 2 and \
+                    want != eng.tokens[:, 0].tolist():
+                eng.planted = eng.steps + 1
+                return
+            feed()
+
+        eng._feed = stale
+    reqs = [Request(p, max_new_tokens=32, tenant=f"tenant-{i % 4}")
+            for i, p in enumerate(prompts)]
+    records, L = [], model.cfg.n_layers
+
+    def step():
+        n = eng.steps
+        done = eng.step()
+        if eng.steps > n:
+            slots = {s: r.req_id for s, r in eng.active.items()}
+            slots.update({r.slot: r.req_id for r in done})
+            # the last L entries are the decode step's, the rest prefills'
+            records.append((slots, eng.logits.clone(),
+                            torch.stack(routing[-L:]) if routing else None))
+        if routing is not None:
+            routing.clear()
+        return done
+
+    for r in reqs[:-1]:
+        eng.submit(r)
+    step()
+    eng.submit(reqs[-1])                         # arrives mid-flight
+    while eng.waiting or eng.active:
+        step()
+        if eng.planted is not None and eng.steps > eng.planted:
+            break
+    if fault:
+        del eng._feed      # the closure holds eng: free it with the engine
+    return eng, reqs, records
+
+
+def same_steps(got, want, what: str) -> None:
+    """Raises unless two runs' decode steps gave the same logits bit for
+    bit, with the same requests (by their place in the run) in the same
+    slots. ``got`` and ``want`` are (requests, records) of a run."""
+    (got_reqs, got), (want_reqs, want) = got, want
+    place = [{r.req_id: i for i, r in enumerate(reqs)}
+             for reqs in (got_reqs, want_reqs)]
+    if len(got) > len(want):
+        raise AssertionError(f"{what}: {len(got)} decode steps against "
+                             f"{len(want)}")
+    for i, ((slots, logits, _), (want_slots, want_logits, _)) in enumerate(
+            zip(got, want)):
+        slots = {s: place[0][r] for s, r in slots.items()}
+        want_slots = {s: place[1][r] for s, r in want_slots.items()}
+        if slots != want_slots or not torch.equal(logits, want_logits):
+            err = (logits.float() - want_logits.float()).abs().max().item()
+            raise AssertionError(f"{what}: decode step {i + 1} differs (max "
+                                 f"|dlogit| {err}, slots {slots} against "
+                                 f"{want_slots})")
+
+
 def serve_full_width(cfg, rng):
-    """Serves 16 requests at full width in bf16. Returns the model, its
-    params, the requests, each decode step's logits with the slot map it
-    ran under (and for MoE its top-k expert ids by layer, (L, B, 1, k);
-    else None), and the kernels' launches in the run: ``decode_attention``
-    on every attention layer of every decode step, ``ssd_scan`` on every
-    SSM layer of every prefill."""
+    """Serves 16 requests at full width in bf16, eagerly and graphed. The
+    graphed engine's logits equal the eager engine's bit for bit at every
+    decode step, and a planted stale token buffer must break that check.
+    Returns the model, its params, the eager run's requests and records
+    (each decode step's slot map, logits and, for MoE, top-k expert ids by
+    layer; routing is recorded in the eager run, where Python runs every
+    step), and the graphed run's kernel launches: ``decode_attention`` on
+    every attention layer of every decode step, ``ssd_scan`` on every SSM
+    layer of every prefill."""
     from repro_torch.models.transformer import build_model
     from repro_torch.serve.engine import Request, ServingEngine
     model = build_model(cfg, device=DEV)
@@ -607,63 +736,133 @@ def serve_full_width(cfg, rng):
               Request(prompts[2], max_new_tokens=4)])
     del warm          # its cache, 4.03 GB at llava-next-34b, before eng's
 
-    eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
-    records, finite = [], torch.ones((), dtype=torch.bool, device=DEV)
-    plain_decode = model.decode
-    routing = []
-
-    def recording_decode(p, tokens, cache):
-        nonlocal finite
-        routing.clear()                          # drops the prefills' ids
-        logits, cache = plain_decode(p, tokens, cache)
-        finite = finite & torch.isfinite(logits).all()
-        records.append(({s: r.req_id for s, r in eng.active.items()},
-                        logits[:, -1].clone(),
-                        torch.stack(routing) if routing else None))
-        return logits, cache
-
-    model.decode = recording_decode
-    reqs = [Request(p, max_new_tokens=32, tenant=f"tenant-{i % 4}")
-            for i, p in enumerate(prompts)]
-    launch_counts(reset=True)
+    routing = [] if cfg.family == "moe" else None
+    walls = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with (recording_routing(routing) if cfg.family == "moe"
+    with (recording_routing(routing) if routing is not None
           else contextlib.nullcontext()):
-        for r in reqs[:-1]:
-            eng.submit(r)
-        done = eng.step()
-        eng.submit(reqs[-1])                     # arrives mid-flight
-        while eng.waiting or eng.active:
-            done.extend(eng.step())
+        eng, reqs, records = served_run(model, params, prompts, eager=True,
+                                        routing=routing)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls["eager"] = time.perf_counter() - t0
+    del eng
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    eng, graphed_reqs, graphed = served_run(model, params, prompts)
+    torch.cuda.synchronize()
+    walls["graphed"] = time.perf_counter() - t0
     launches = launch_counts()
-    model.decode = plain_decode
+    steps, generated = eng.steps, eng.tokens_generated
+    replays = eng._decode.replays
+    del eng           # its cache and graph pool, before the fault run's
+    if len(graphed) != len(records):
+        raise AssertionError(f"{len(graphed)} graphed decode steps, "
+                             f"{len(records)} eager")
+    same_steps((graphed_reqs, graphed), (reqs, records),
+               f"{cfg.name} graphed against eager")
+    if [r.generated for r in graphed_reqs] != [r.generated for r in reqs]:
+        raise AssertionError("graphed and eager streams differ")
+    del graphed
+    faulty, stale_reqs, stale = served_run(model, params, prompts,
+                                           fault=True)
+    try:
+        same_steps((stale_reqs, stale), (reqs, records), "planted fault")
+    except AssertionError as caught:
+        planted = f"step {faulty.planted}: {caught}"
+    else:
+        raise AssertionError(f"a stale token buffer at step "
+                             f"{faulty.planted} went unseen")
+    del faulty, stale, stale_reqs
 
+    done = [r for r in graphed_reqs if r.done]
     if len(done) != len(reqs) or not all(r.done for r in reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
-    if not bool(finite):
+    if not all(bool(torch.isfinite(lg).all()) for _, lg, _ in records):
         raise AssertionError("non-finite logits in a served decode step")
     attn_layers = {"dense": cfg.n_layers, "moe": cfg.n_layers,
                    "vlm": cfg.n_layers, "ssm": 0,
                    "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}
-    want = {"decode_attention": attn_layers[cfg.family] * eng.steps,
+    want = {"decode_attention": attn_layers[cfg.family] * steps,
             "ssd_scan": cfg.n_layers * len(reqs)
             if cfg.family in ("ssm", "hybrid") else 0}
-    if launches != want or eng.steps == 0:
-        raise AssertionError(f"launches {launches} in {eng.steps} steps and "
-                             f"{len(reqs)} prefills, want {want}")
+    if launches != want or steps == 0 or replays != steps - 1:
+        raise AssertionError(f"launches {launches} in {steps} steps "
+                             f"({replays} replayed) and {len(reqs)} "
+                             f"prefills, want {want}")
     stats = {"arch": cfg.name, "requests": len(done),
              "routing_recorded": cfg.family == "moe",
              "prompt_tokens": int(lens.sum()),
-             "tokens_generated": eng.tokens_generated,
-             "engine_steps": eng.steps, "wall_s": wall,
-             "tok_per_s": eng.tokens_generated / wall,
-             "mean_occupancy": eng.tokens_generated / (eng.steps * B),
+             "tokens_generated": generated,
+             "engine_steps": steps, "graph_replays": replays,
+             "wall_s": walls["graphed"],
+             "tok_per_s": generated / walls["graphed"],
+             "eager_wall_s": walls["eager"],
+             "eager_tok_per_s": generated / walls["eager"],
+             "logits_bit_identical_steps": len(records),
+             "mean_occupancy": generated / (steps * B),
              **{f"{k}_launches": v for k, v in launches.items()}}
     log(f"[serve] {json.dumps(stats)}")
+    log(f"[serve] {cfg.name}: graphed logits equal the eager engine's at "
+        f"all {len(records)} decode steps; planted stale token buffer "
+        f"caught at {planted}")
     return model, params, reqs, records, launches
+
+
+# which kernel of each wrapper's launch the profiler counts
+PROFILED_KERNEL = {"decode_attention": "decode_attention_kernel",
+                   "flash_attention_fwd": "flash_fwd_",
+                   "flash_attention_bwd": "flash_delta_kernel",
+                   "ssd_scan_fwd": "ssd_output_kernel",
+                   "ssd_scan_bwd": "ssd_grad_du_kernel"}
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by wrapper."""
+    from repro_torch import graphs
+    return {fn.__name__: fn.launches for fn in graphs.counters()}
+
+
+def launches_against_profiler(what: str, before: dict, prof,
+                              expect: tuple) -> dict:
+    """Raises unless, over a profiled window of replays, each launch
+    counter moved by the number of executions the profiler counted of its
+    wrapper's kernel (``PROFILED_KERNEL``), and the wrappers in ``expect``
+    launched; the counters advance at a replay by the delta its capture
+    recorded. Returns the counts."""
+    moved = {name: n - before[name] for name, n in kernel_counters().items()}
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    counted = {name: sum(e.count for e in events if kernel in e.key)
+               for name, kernel in PROFILED_KERNEL.items()}
+    log(f"[launches] {what}: counters moved {moved}, profiler counted "
+        f"{counted}")
+    if moved != counted or not all(moved[name] for name in expect):
+        raise AssertionError(f"{what}: launch counters {moved}, the "
+                             f"profiler's kernel executions {counted}, "
+                             f"want launches of {expect}")
+    return counted
+
+
+def hold_launches(what: str, before: dict, prof, expect: tuple,
+                  window) -> None:
+    """``launches_against_profiler`` over a profiled window already run
+    (``before``, ``prof``); on a mismatch once more, over ``window()`` run
+    under the profiler, which must agree. The profiler has read one kernel
+    execution fewer than ran in a train step's replay (95 of 96
+    ``ssd_output_kernel`` at mamba2-1.3b, 17 of 18 flash forwards at
+    zamba2-2.7b: twice in about 30 windows, the next window right), while
+    the counters move only by what a replay launched."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        launches_against_profiler(what, before, prof, expect)
+    except AssertionError as missed:
+        log(f"[launches] {what}: {missed}; profiling one more window")
+        before = kernel_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as again:
+            window()
+            torch.cuda.synchronize()
+        launches_against_profiler(what, before, again, expect)
 
 
 def require_device_time(what: str, parts: dict) -> None:
@@ -684,25 +883,21 @@ def device_kernels(prof, per: int) -> list:
     return sorted(kernels, key=lambda k: -k[2])
 
 
-def where_the_time_goes(model, params, rng, n_steps=10):
-    """Decode steps of a full engine by host clock, then the same number of
-    steps under the profiler for device busy time by kernel; prefill time
-    of one request at a few prompt lengths, and the longest prefill under
-    the profiler."""
+def decode_steps_timed(model, params, prompts, n_steps, eager: bool
+                       ) -> dict:
+    """A full engine (8 busy slots), graphed or eager: 3 steps (the graph's
+    warm-up and capture among them), then ``n_steps`` by host clock, then
+    ``n_steps`` under the profiler for device busy time by kernel; in the
+    graphed profiled window the launch counters against the profiler's
+    kernel executions. Returns the step's stats."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request, ServingEngine
-    cfg = model.cfg
-    if cfg.family in ("dense", "moe", "vlm"):
-        lens, prefill_lens = (8, 1500, 1024, 300, 500, 700, 900, 100), \
-            (1500, 1024, 300)
-    else:
-        lens, prefill_lens = (8, 1536, 1024, 256, 512, 100, 200, 37), \
-            (1536, 1024, 256)
     eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
-    for n in lens:
-        eng.submit(Request(rng.integers(0, cfg.vocab_size, n)
-                           .astype(np.int32), max_new_tokens=4 * n_steps))
+    if eager:
+        eng._decode = eng._decode.fn
+    for p in prompts:
+        eng.submit(Request(p, max_new_tokens=4 * n_steps))
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
@@ -711,15 +906,48 @@ def where_the_time_goes(model, params, rng, n_steps=10):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     rows = [eng.cache["index"].clamp(max=S).sum().item()]
-    with profile(activities=activities) as prof:
+    before = kernel_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
     rows.append(eng.cache["index"].clamp(max=S).sum().item())
+    if not eager:
+        attends = model.cfg.family != "ssm"
+        hold_launches(f"{model.cfg.name} decode, {n_steps} replays", before,
+                      prof, ("decode_attention",) if attends else (),
+                      lambda: [eng.step() for _ in range(n_steps)])
     kernels = device_kernels(prof, n_steps)
     busy_ms = sum(ms for _, _, ms in kernels)
+    require_device_time(f"{model.cfg.name} decode step", {"step": busy_ms})
+    return {"decode_step_ms": step_ms,
+            "kv_rows": sum(rows) / 2,     # cached rows a profiled step reads
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / step_ms,
+            "top_kernels_per_step": [[name[:60], calls, ms]
+                                     for name, calls, ms in kernels[:6]]}
+
+
+def where_the_time_goes(model, params, rng, n_steps=10):
+    """Decode steps of a full engine, graphed and eager on the same
+    prompts (``decode_steps_timed``); prefill time of one request at a few
+    prompt lengths, and the longest prefill under the profiler. The
+    graphed step's numbers are the top-level keys."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    if cfg.family in ("dense", "moe", "vlm"):
+        lens, prefill_lens = (8, 1500, 1024, 300, 500, 700, 900, 100), \
+            (1500, 1024, 300)
+    else:
+        lens, prefill_lens = (8, 1536, 1024, 256, 512, 100, 200, 37), \
+            (1536, 1024, 256)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    graphed = decode_steps_timed(model, params, prompts, n_steps, False)
+    eager = decode_steps_timed(model, params, prompts, n_steps, True)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     prefill_ms = {}
     for n in prefill_lens:
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
@@ -738,12 +966,10 @@ def where_the_time_goes(model, params, rng, n_steps=10):
         model.prefill(params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
     prefill_kernels = device_kernels(prof, 1)
-    stats = {"arch": cfg.name, "decode_step_ms": step_ms,
-             "kv_rows": sum(rows) / 2,     # cached rows a profiled step reads
-             "device_busy_ms_per_step": busy_ms,
-             "device_idle_share": 1 - busy_ms / step_ms,
-             "top_kernels_per_step": [[name[:60], calls, ms]
-                                      for name, calls, ms in kernels[:6]],
+    stats = {"arch": cfg.name, **graphed,
+             "eager": {k: eager[k] for k in (
+                 "decode_step_ms", "device_busy_ms_per_step",
+                 "device_idle_share")},
              "prefill_ms": prefill_ms,
              f"prefill_{n}_device_busy_ms":
                  sum(ms for _, _, ms in prefill_kernels),
@@ -756,13 +982,35 @@ def where_the_time_goes(model, params, rng, n_steps=10):
 
 
 # ----------------------------------------------------------- phases 5, 13 --
+def forced_decode_step(model, compiled: bool = True):
+    """``step(params, tokens, cache)`` -> the (B, V) logits of one decode
+    step of ``model`` on ``cache``, the tokens (B, 1) copied into a static
+    buffer first: the engine's own step (``serve.engine.greedy_step``),
+    graphed as the engine's is unless ``compiled`` is False (where Python
+    must run at every step, as ``recording_routing`` needs). The logits
+    are the step's output, overwritten by its next call."""
+    from repro_torch.graphs import CompiledStep
+    from repro_torch.serve.engine import greedy_step
+    run = functools.partial(greedy_step, model)
+    if compiled:
+        run = CompiledStep(run, DEV)
+    held = []
+
+    def step(params, tokens, cache):
+        if not held:
+            held.append(torch.empty_like(tokens, dtype=torch.int64))
+        held[0].copy_(tokens)
+        return run(params, held[0], cache)[0]
+    return step
+
+
 def teacher_forced_logits(model, params, prompt, generated,
-                          state_from=None):
+                          state_from=None, compiled=True):
     """(n - 1, V) logits of the decode steps of one stream of n tokens, fed
-    its own tokens, on a one-slot cache. ``state_from``, another prompt,
-    plants a fault: the SSM state its prefill leaves (without one, its KV
-    cache) replaces the stream's own before the first decode step, as a
-    slot mix-up would."""
+    its own tokens, on a one-slot cache (``forced_decode_step``).
+    ``state_from``, another prompt, plants a fault: the SSM state its
+    prefill leaves (without one, its KV cache) replaces the stream's own
+    before the first decode step, as a slot mix-up would."""
     from repro_torch.models.common import tree_leaves
     cache = model.init_cache(1, S)
     tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=DEV)
@@ -775,12 +1023,10 @@ def teacher_forced_logits(model, params, prompt, generated,
         for leaf, bad in zip(tree_leaves([cache[n] for n in names]),
                              tree_leaves([wrong[n] for n in names])):
             leaf.copy_(bad)
-    out = []
-    for tok in generated[:-1]:
-        logits, cache = model.decode(
-            params, torch.tensor([[tok]], device=DEV), cache)
-        out.append(logits[0, -1])
-    return torch.stack(out)
+    step = forced_decode_step(model, compiled)
+    fed = torch.as_tensor(np.asarray(generated[:-1], np.int64), device=DEV)
+    return torch.stack([step(params, fed[t].reshape(1, 1), cache)[0].clone()
+                        for t in range(fed.shape[0])])
 
 
 def teacher_forced_batch(model, params, streams):
@@ -793,11 +1039,9 @@ def teacher_forced_batch(model, params, streams):
     for slot, (prompt, _) in enumerate(streams):
         eng._prefill(prompt, slot)
     toks = torch.tensor([g[:-1] for _, g in streams], device=DEV)
-    cache, out = eng.cache, []
-    for t in range(toks.shape[1]):
-        logits, cache = model.decode(params, toks[:, t:t + 1], cache)
-        out.append(logits[:, -1])
-    return torch.stack(out, dim=1)
+    step = forced_decode_step(model)
+    return torch.stack([step(params, toks[:, t:t + 1], eng.cache).clone()
+                        for t in range(toks.shape[1])], dim=1)
 
 
 @contextlib.contextmanager
@@ -890,7 +1134,8 @@ def parity_bf16(model, params, reqs, records):
         sink = []
         with (recording_routing(sink) if cfg.family == "moe"
               else contextlib.nullcontext()):
-            want = forced(plain, req).float()
+            # routing is recorded where Python runs every step: eagerly
+            want = forced(plain, req, compiled=cfg.family != "moe").float()
         if served.shape != want.shape:
             raise AssertionError(f"{served.shape} served steps, "
                                  f"{want.shape} teacher-forced")
@@ -1237,22 +1482,26 @@ def train_full_width(cfg):
     return stats, launches
 
 
-def fresh_training(cfg, mesh=None, compress=None):
+def fresh_training(cfg, mesh=None, compress=None, graphed=False):
     """(model, train state, step, data) from the seed; on ``mesh`` the
-    state is placed by its specs and the step is the sharded one."""
+    state is placed by its specs and the step is the sharded one;
+    ``graphed``: the state and compiled step of ``make_training``."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.transformer import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
     from repro_torch.train.train_step import (build_train_step,
-                                              init_train_state)
+                                              init_train_state,
+                                              make_training)
     model = build_model(cfg, device=DEV)
-    opt = build_optimizer(OptimizerConfig(peak_lr=3e-3, warmup=2,
-                                          total_steps=100))
-    state = init_train_state(model, opt, torch.Generator(device=DEV)
-                             .manual_seed(SEED))
+    opt_cfg = OptimizerConfig(peak_lr=3e-3, warmup=2, total_steps=100)
+    generator = torch.Generator(device=DEV).manual_seed(SEED)
     data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_T, TRAIN_B,
                                   seed=SEED), device=DEV)
+    if graphed:
+        return (model, *make_training(model, opt_cfg, generator), data)
+    opt = build_optimizer(opt_cfg)
+    state = init_train_state(model, opt, generator)
     if mesh is None:
         return model, state, build_train_step(model, opt,
                                               compress=compress), data
@@ -1263,50 +1512,96 @@ def fresh_training(cfg, mesh=None, compress=None):
                                               compress=compress), data
 
 
-def profile_train_step(cfg, step_ms, label="[profile train]"):
-    """One train step under the profiler: device busy time by kernel
-    against the step time of the train phase (host clock); with the SSD
-    scan's forward passes (2 to 4), backward passes (b2 to b6) and C B^T
-    (pass 1, which both run) where the model has them. Returns the
-    stats."""
+def train_graphed_against_eager(cfg, label="[profile train]"):
+    """The eager train step (``build_train_step``) and the graphed one
+    (``make_training``), each from the seed on the same batches (B 8, T
+    2048), ``GRAPH_TRAIN_STEPS`` steps, the last under the profiler: the
+    losses and grad norms bit-identical; each run's host ms a step (step
+    3, the graph's first replay alone), device busy ms by
+    kernel, idle share and peak memory, the graphed peak at most
+    ``GRAPH_PEAK_RATIO`` times the eager; in the graphed profiled step,
+    each launch counter's delta equal to the profiler's count of its
+    kernel. Returns the graphed run's stats with the eager run's beside
+    them; with the SSD scan the scan's forward passes (2 to 4), backward
+    passes (b2 to b6) and C B^T (pass 1, which both run) where the model
+    has them."""
     from torch.profiler import ProfilerActivity, profile
-    _, state, step, data = fresh_training(cfg)
-    for i in range(2):
-        state, m = step(state, data.batch(i))
-        float(m["loss"])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, m = step(state, data.batch(2))
-        float(m["loss"])
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy_ms = sum(ms for _, _, ms in kernels)
-    top = sorted(kernels, key=lambda k: -k[2])[:8]
-    flash = {part: sum(ms for name, _, ms in kernels if f"flash_{part}" in name)
-             for part in ("fwd", "delta", "dkdv", "dq")}
-    require_device_time(f"{label} {cfg.name}", {"step": busy_ms})
-    if cfg.family != "ssm":
-        require_device_time(f"{label} {cfg.name} flash", flash)
-    stats = {"train_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,
-             "device_idle_share": 1 - busy_ms / step_ms,
-             "flash_ms_per_step": flash,
-             "top_kernels_per_step": [[name[:80], calls, ms]
-                                      for name, calls, ms in top]}
-    if cfg.ssm_state:
-        stats["scan_ms_per_step"] = {
-            part: sum(ms for name, _, ms in kernels
-                      if any(f"ssd_{k}_kernel" in name for k in keys))
-            for part, keys in (("forward", ("summary", "state", "output")),
-                               ("backward", ("grad_summary", "grad_state",
-                                             "grad_panel", "grad_du",
-                                             "grad_bc")),
-                               ("cb", ("cb",)))}
-        require_device_time(f"{label} {cfg.name} ssd_scan",
-                            stats["scan_ms_per_step"])
+    runs = {}
+    for mode in ("eager", "graphed"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step, data = fresh_training(cfg, graphed=mode == "graphed")
+        metrics, host = [], []
+        for i in range(GRAPH_TRAIN_STEPS):
+            last = i == GRAPH_TRAIN_STEPS - 1
+            before = kernel_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                state, m = step(state, data.batch(i))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        if mode == "graphed":
+            if step.compiled.replays != GRAPH_TRAIN_STEPS - 1:
+                raise AssertionError(f"{step.compiled.replays} replays of "
+                                     f"{GRAPH_TRAIN_STEPS} steps")
+            expect = (("flash_attention_fwd", "flash_attention_bwd")
+                      if cfg.family != "ssm" else ()) + \
+                (("ssd_scan_fwd", "ssd_scan_bwd") if cfg.ssm_state else ())
+            hold_launches(f"{cfg.name} train step, one replay", before,
+                          prof, expect, lambda: float(step(
+                              state, data.batch(GRAPH_TRAIN_STEPS))[1]
+                              ["loss"]))
+        kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and e.self_device_time_total]
+        busy_ms = sum(ms for _, _, ms in kernels)
+        step_ms = host[2]
+        top = sorted(kernels, key=lambda k: -k[2])[:8]
+        flash = {part: sum(ms for name, _, ms in kernels
+                           if f"flash_{part}" in name)
+                 for part in ("fwd", "delta", "dkdv", "dq")}
+        require_device_time(f"{label} {cfg.name} {mode}", {"step": busy_ms})
+        if cfg.family != "ssm":
+            require_device_time(f"{label} {cfg.name} {mode} flash", flash)
+        stats = {"train_step_ms": step_ms, "step_ms": host,
+                 "device_busy_ms_per_step": busy_ms,
+                 "device_idle_share": 1 - busy_ms / step_ms,
+                 "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                    - base) / 1e9,
+                 "flash_ms_per_step": flash,
+                 "top_kernels_per_step": [[name[:80], calls, ms]
+                                          for name, calls, ms in top]}
+        if cfg.ssm_state:
+            stats["scan_ms_per_step"] = {
+                part: sum(ms for name, _, ms in kernels
+                          if any(f"ssd_{k}_kernel" in name for k in keys))
+                for part, keys in (("forward", ("summary", "state",
+                                                "output")),
+                                   ("backward", ("grad_summary",
+                                                 "grad_state", "grad_panel",
+                                                 "grad_du", "grad_bc")),
+                                   ("cb", ("cb",)))}
+            require_device_time(f"{label} {cfg.name} {mode} ssd_scan",
+                                stats["scan_ms_per_step"])
+        runs[mode] = stats, metrics
+        del state, step, data, m, prof
+    (eager, want), (graphed, got) = runs["eager"], runs["graphed"]
+    ratio = graphed["peak_memory_gb"] / eager["peak_memory_gb"]
+    stats = {"arch": cfg.name, **graphed, "eager": eager,
+             "loss_grad_norm": got, "bit_identical": got == want,
+             "graphed_over_eager_peak": ratio}
     log(f"{label} {json.dumps(stats)}")
+    if got != want:
+        raise AssertionError(f"{cfg.name}: graphed train steps {got}, eager "
+                             f"{want}")
+    if ratio > GRAPH_PEAK_RATIO:
+        raise AssertionError(f"{cfg.name}: the graphed step's peak is "
+                             f"{ratio:.4f} times the eager step's")
     return stats
 
 
@@ -1369,22 +1664,6 @@ def train_parity(cfg, n_layers=4, bf16=True, B=2, T=1024):
             raise AssertionError(f"bf16 train parity off: {stats}")
         del model, plain, params, grads, want
     return fk.flash_attention_fwd.launches, fk.flash_attention_bwd.launches
-
-
-def deterministic_runs(cfg):
-    """Two identical 2-step runs: bit-identical losses and grad norms."""
-    runs = []
-    for _ in range(2):
-        _, state, step, data = fresh_training(cfg)
-        run = []
-        for i in range(2):
-            state, m = step(state, data.batch(i))
-            run.append((float(m["loss"]), float(m["grad_norm"])))
-        runs.append(run)
-        del state
-    if runs[0] != runs[1]:
-        raise AssertionError(f"two identical runs differ: {runs}")
-    log(f"[parity train] two 2-step runs bit-identical: {runs[0]}")
 
 
 # -------------------------------------------------------------- phase 10 --
@@ -1499,6 +1778,7 @@ def fabric_phase():
     from repro_torch.launch import rlhf
     fabric_launches(reset=True)
     t0 = time.perf_counter()
+    captured = graph_captures()
     runs = []
     for _ in range(2):
         executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
@@ -1514,6 +1794,8 @@ def fabric_phase():
     if not both or differ:
         raise AssertionError(f"{len(differ)} of {len(both)} H_tasks that "
                              f"both runs ran published different outputs")
+    in_runs, captured = graph_captures(captured), graph_captures()
+    t_alone = time.perf_counter()
     alone = [rlhf.check_alone(eng, ex) for eng, ex, _, _ in runs]
     stats = {"arch": runs[0][1].cfg.name, "workflows": s["tasks"],
              "executions": s["executions"],
@@ -1526,6 +1808,9 @@ def fabric_phase():
                                  len(eng_b.result_index)],
              "h_tasks_both_ran": len(both),
              "payloads_checked_alone": alone,
+             "alone_s": time.perf_counter() - t_alone,
+             "graph_captures": {"runs": in_runs,
+                                "alone": graph_captures(captured)},
              "launches": launches,
              "modelled_cost_usd": s["total_cost_usd"],
              "modelled_energy_kj": s["total_energy_kj"],
@@ -1597,6 +1882,7 @@ def service_phase() -> dict:
     shutil.rmtree(store, ignore_errors=True)
     fabric_launches(reset=True)
     t0 = time.perf_counter()
+    captured = graph_captures()
     executor = TorchExecutor(seed=SEED, full_width=True, device=DEV)
     svc = rlhf.service(executor, str(store))
     follower = FollowerFabric(DiskCAS(str(store)))
@@ -1646,7 +1932,11 @@ def service_phase() -> dict:
         server.stop()
     launches = fabric_launches()
     s = rlhf.check(svc.engine)
+    in_runs, captured = graph_captures(captured), graph_captures()
+    t_alone = time.perf_counter()
     alone = rlhf.check_alone(svc.engine, executor)
+    alone_s = time.perf_counter() - t_alone
+    in_alone = graph_captures(captured)
     live = durable_view(svc)
     chain = svc.journal.chain_stats()
 
@@ -1680,7 +1970,8 @@ def service_phase() -> dict:
              "executions": s["executions"],
              "dedup_savings": s["dedup_savings"],
              "mean_batch": s["mean_batch"],
-             "payloads_checked_alone": alone,
+             "payloads_checked_alone": alone, "alone_s": alone_s,
+             "graph_captures": {"runs": in_runs, "alone": in_alone},
              "metrics_workflow_completed": completed,
              "journal_live": {"segments": chain["segments"],
                               "bytes": chain["bytes"]},
@@ -1766,10 +2057,12 @@ def scenario_run(stem: str, mode: str) -> dict:
         svc.engine.inject_crash(lane, svc.engine.now)
 
     fabric_launches(reset=True)
+    captured = graph_captures()
     t0 = time.perf_counter()
     report = scenario.run(sc, svc, mode=mode,
                           actions=FaultActions({"worker-a": preempt}))
     run_s = time.perf_counter() - t0
+    in_run, captured = graph_captures(captured), graph_captures()
     launches = fabric_launches()
     if tuple(report) != REPORT_KEYS:
         raise AssertionError(f"report keys {tuple(report)}")
@@ -1781,12 +2074,17 @@ def scenario_run(stem: str, mode: str) -> dict:
     fired = [f["fired"] for f in report["faults"]]
     if fired != [True] * len(sc.faults):
         raise AssertionError(f"faults {report['faults']}")
+    t_alone = time.perf_counter()
     alone = rlhf.check_alone(svc.engine, executor)
+    alone_s = time.perf_counter() - t_alone
     stats = {"scenario": stem, "arch": executor.cfg.name,
              "report": {k: v for k, v in report.items() if k != "cost"},
              "modelled_cost": report["cost"],
              "sim_executor_dedup": sim, "engine": engine,
              "crash": crash or None, "payloads_checked_alone": alone,
+             "alone_s": alone_s,
+             "graph_captures": {"run": in_run,
+                                "alone": graph_captures(captured)},
              "median_op_ms": rlhf.median_op_ms(executor),
              "launches": launches, "run_s": run_s}
     log(f"[scenario] {json.dumps(stats)}")
@@ -2397,10 +2695,11 @@ def train_ssm_full_width(cfg):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
-    result = train.main(["--arch", cfg.name, "--steps", str(TRAIN_STEPS),
-                         "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
-                         "--lr", "3e-3", "--warmup", "2", "--ckpt-every",
-                         "0", "--log-every", "1", "--seed", str(SEED)])
+    result = train.main(["--arch", cfg.name, "--steps",
+                         str(SSM_TRAIN_STEPS), "--batch", str(TRAIN_B),
+                         "--seq", str(TRAIN_T), "--lr", "3e-3", "--warmup",
+                         "2", "--ckpt-every", "0", "--log-every", "1",
+                         "--seed", str(SEED)])
     launches = tuple(fn.launches for fn in counters)
     losses = result["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2408,7 +2707,7 @@ def train_ssm_full_width(cfg):
                              f"{losses}")
     passes = 2 if cfg.remat == "block" else 1
     groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-    want = tuple(n * TRAIN_STEPS for n in (passes * cfg.n_layers,
+    want = tuple(n * SSM_TRAIN_STEPS for n in (passes * cfg.n_layers,
                                            cfg.n_layers, passes * groups,
                                            groups))
     if launches != want:
@@ -2416,7 +2715,7 @@ def train_ssm_full_width(cfg):
                              f"flash fwd, flash bwd) {launches}, want {want}")
     step_ms = float(np.mean(result["step_s"][1:])) * 1e3
     stats = {"arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_T,
-             "steps": TRAIN_STEPS, "step_ms_after_first": step_ms,
+             "steps": SSM_TRAIN_STEPS, "step_ms_after_first": step_ms,
              "median_step_ms_after_first":
                  float(np.median(result["step_s"][1:])) * 1e3,
              "first_step_ms": result["step_s"][0] * 1e3,
@@ -2561,8 +2860,8 @@ def ssm_train_phase(mamba, zamba):
         stats, counts = train_ssm_full_width(cfg)
         launches += counts
         torch.cuda.empty_cache()
-        profiled = profile_train_step(cfg, stats["step_ms_after_first"],
-                                      label="[profile train ssm]")
+        profiled = train_graphed_against_eager(
+            cfg, label="[profile train ssm]")
         stats["profiled_step"] = {k: profiled[k] for k in (
             "device_busy_ms_per_step", "device_idle_share",
             "scan_ms_per_step", "flash_ms_per_step")}
@@ -2570,7 +2869,6 @@ def ssm_train_phase(mamba, zamba):
         torch.cuda.empty_cache()
     for cfg, depth in ((mamba, 4), (zamba, 6)):
         ssm_train_parity(cfg, depth)
-    deterministic_runs(mamba)
     log(f"[train ssm] phase {time.perf_counter() - t0:.1f} s, launches "
         f"(scan fwd, scan bwd, flash fwd, flash bwd) {launches.tolist()}")
     return [int(n) for n in launches]
@@ -3271,6 +3569,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card", file=sys.stderr)
         return 1
+    started = time.perf_counter()
+
+    def mark(done: str) -> None:
+        log(f"[time] {time.perf_counter() - started:.1f} s, after {done}")
+
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -3320,6 +3623,7 @@ def main() -> int:
         1, rng, B=3, S=LONG_S, lengths=[0, LONG_S, 300001],
         timed_lengths=[LONG_S])
     torch.cuda.empty_cache()
+    mark("phases 1 to 3")
 
     model, params, reqs, records, counts = serve_full_width(smollm, rng)
     launches = counts["decode_attention"]
@@ -3331,6 +3635,7 @@ def main() -> int:
     from repro_torch.launch import serve
     serve.main(["--arch", "smollm-135m", "--requests", "8", "--max-new",
                 "16", "--slots", "8", "--max-len", "512"])
+    mark("phases 4 to 6")
 
     flash_rows = check_flash_attention()
     check_and_time_decode_attention(
@@ -3338,18 +3643,20 @@ def main() -> int:
         smollm.hd, 0, rng, B=4, S=256, lengths=[0, 12, 19, 256 + 5])
     timing = time_flash_attention()
     time_flash_routes()
+    mark("phase 7")
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
-    profile_train_step(smollm, train_stats["step_ms_after_first"])
+    train_graphed_against_eager(smollm)
     train_parity(smollm)
-    deterministic_runs(smollm)
     fwd, bwd = distributed_phase(smollm, qwen)
     fwd_launches += fwd
     bwd_launches += bwd
+    mark("phases 8, 9 and 22")
 
     ssd_rows = check_ssd_scan()
     ssd_timing, _ = time_ssd_scan(0), time_ssd_scan(1)   # mamba2, zamba2
     bwd_rows, bwd_timing = ssd_bwd_kernel_phase()
     ssd_launches = 0
+    mark("phases 10 and 21 (a, b)")
     # fp32 parity at reduced depth: 4 SSM layers; 12 hybrid layers, two
     # groups of attn_every 6
     for cfg, depth in ((mamba, 4), (zamba, 12)):
@@ -3364,12 +3671,17 @@ def main() -> int:
     serve.main(["--arch", "mamba2-1.3b", "--requests", "8", "--max-new",
                 "16", "--slots", "8", "--max-len", "512"])
     torch.cuda.empty_cache()
+    mark("phases 11 to 14")
     fabric_phase()
     service_phase()
     t0 = time.perf_counter()
     scenario_phase()
     log(f"[scenario] phase {time.perf_counter() - t0:.1f} s")
+    # the services' objects hold reference cycles; each executor holds a
+    # full-width train state (1.6 GB), so free them before the MoE phase
+    gc.collect()
     torch.cuda.empty_cache()
+    mark("phases 15 to 17")
     for phase in (lambda: moe_phase(qwen, rng),
                   lambda: encdec_phase(whisper),
                   lambda: vlm_phase(llava, rng)):
@@ -3379,15 +3691,18 @@ def main() -> int:
         fwd_launches += fwd
         bwd_launches += bwd
     torch.cuda.empty_cache()
+    mark("phases 18 to 20")
     scan_fwd, scan_bwd, fwd, bwd = ssm_train_phase(mamba, zamba)
     ssd_launches += scan_fwd
     fwd_launches += fwd
     bwd_launches += bwd
     torch.cuda.empty_cache()
+    mark("phase 21")
     decode, fwd, bwd = launch_phase()
     launches += decode
     fwd_launches += fwd
     bwd_launches += bwd
+    mark("phase 23")
 
     served = rows[0]
     kernels = [{"name": "decode_attention", "route": "cuda",

@@ -5,7 +5,10 @@ SimExecutor answers "what would this cost on an H100 fleet"; this executor
 runs the operators: generation, scoring and eval through the
 continuous-batching ``ServingEngine`` (the ``decode_attention`` kernel on
 every decode step), SFT/DPO/PPO through the train step (the flash attention
-kernels forward and backward). Durations are measured wall clock, after
+kernels forward and backward). Both are compiled, as the reference jits
+them: on the card CUDA graphs, the engines' through ``ServingEngine`` and
+the train step through ``make_training``, whose state every train op
+loads its own start into. Durations are measured wall clock, after
 ``torch.cuda.synchronize()`` on a card; outputs are deterministic functions
 of the inputs (greedy decode, seeded data), so dedup, speculation and CAS
 semantics hold bit for bit.
@@ -37,8 +40,8 @@ from repro_torch.models.common import tree_map
 from repro_torch.models.transformer import build_model
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.train.data import DataConfig, SyntheticLM
-from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
-from repro_torch.train.train_step import build_train_step, init_train_state
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.train_step import make_training
 
 from .dag import OpType
 from .identity import digest
@@ -74,8 +77,13 @@ class TorchExecutor(Executor):
             lambda dcfg: SyntheticLM(dcfg, device=self.device))
         self.train_steps_per_op = train_steps_per_op
         self.gen_tokens = gen_tokens
-        self.opt = build_optimizer(OptimizerConfig(peak_lr=1e-3, warmup=2))
-        self._train_step = build_train_step(self.model, self.opt)
+        self._train_state, self._train_step = make_training(
+            self.model, OptimizerConfig(peak_lr=1e-3, warmup=2),
+            torch.Generator(device=self.device).manual_seed(1))
+        # every op starts from these params and a zeroed optimizer state
+        if self.train_init is None:
+            self.train_init = tree_map(torch.clone,
+                                       self._train_state["params"])
         self._engines: dict[str, ServingEngine] = {}   # worker_id -> engine
         #: wall ms of each executed batch, by op type value
         self.op_ms: dict[str, list[float]] = defaultdict(list)
@@ -97,12 +105,14 @@ class TorchExecutor(Executor):
         return eng
 
     def _fresh_train_state(self) -> dict:
-        if self.train_init is None:
-            return init_train_state(self.model, self.opt, torch.Generator(
-                device=self.device).manual_seed(1))
-        # the train step updates in place: every op starts from a copy
-        params = tree_map(torch.clone, self.train_init)
-        return {"params": params, "opt": self.opt.init(params)}
+        """The compiled step's own state, set to ``train_init`` and a
+        zeroed optimizer state: never new tensors, which the step's graph
+        does not read."""
+        state = self._train_state
+        self._train_step.load({"params": self.train_init,
+                               "opt": tree_map(torch.zeros_like,
+                                               state["opt"])})
+        return state
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

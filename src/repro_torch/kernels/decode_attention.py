@@ -72,7 +72,11 @@ def _workspace(device: torch.device, n_float: int, n_count: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The partials' fp32 workspace and the int32 counters, made with
     ``torch.zeros`` once per (device, size) and kept: the kernel leaves the
-    counters at zero, so no call allocates or clears anything."""
+    counters at zero, so no call allocates or clears anything, and a CUDA
+    graph's replays find them at zero too. They must exist before a
+    capture (a ``torch.zeros`` inside one would land in the graph's pool
+    and never be cleared again): ``graphs.CompiledStep`` runs its first
+    call eagerly, which makes them."""
     key = (device, n_float, n_count)
     if key not in _WORKSPACE:
         _WORKSPACE[key] = (

@@ -120,6 +120,10 @@ def ssd_bwd_plan(B: int, T: int, H: int, P: int, N: int, Q: int) -> dict:
 
 
 def _workspace(device: torch.device, plan: dict) -> torch.Tensor:
+    """The plan's fp32 workspace, made once per (device, size) and kept.
+    It must exist before a CUDA graph is captured, or it would be made in
+    the graph's pool: ``graphs.CompiledStep`` runs its first call eagerly,
+    which makes it."""
     n = sum(math.prod(shape) for shape in plan["workspace"].values())
     key = (device, n)
     if key not in _WORKSPACE:

@@ -16,7 +16,9 @@ The SSM and hybrid families (mamba2-1.3b, zamba2-2.7b) train through the
 SSD scan's forward and backward kernels on the card; a ``--seq`` longer
 than their chunk (256) must be a multiple of it, as the reference
 asserts. The vlm backbone trains text-only and the enc-dec family is
-refused, as in the reference: ``SyntheticLM`` gives no frames.
+refused, as in the reference: ``SyntheticLM`` gives no frames. The step is
+``make_training``'s compiled one (a CUDA graph on the card, from its second
+step on); a resumed state is loaded into the state that step owns.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ from repro_torch.core.cas import DiskCAS
 from repro_torch.models.transformer import build_model
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.data import DataConfig, SyntheticLM
-from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
-from repro_torch.train.train_step import build_train_step, init_train_state
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.train_step import make_training
 
 DEFAULT_CAS = Path(__file__).resolve().parents[3] / "build" / "flowmesh-cas"
 
@@ -70,23 +72,23 @@ def main(argv=None) -> dict:
     model = build_model(cfg, device=args.device)
     opt_cfg = OptimizerConfig(peak_lr=args.lr, warmup=args.warmup,
                               total_steps=max(args.steps, 100))
-    opt = build_optimizer(opt_cfg)
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                   seed=args.seed), device=model.device)
     cas = DiskCAS(args.cas)
     ckpt = Checkpointer(cas, args.run_name)
+    state, step_fn = make_training(
+        model, opt_cfg, torch.Generator(device=model.device).manual_seed(
+            args.seed), grad_accum=args.grad_accum)
 
     start_step = 0
     if args.resume:
         mh = None if args.resume == "latest" else args.resume
-        state, start_step, _ = ckpt.restore(mh, device=model.device)
+        restored, start_step, _ = ckpt.restore(mh, device=model.device)
+        step_fn.load(restored)
+        del restored
         print(f"[train] resumed from step {start_step} "
               f"(manifest {ckpt.latest or mh})")
-    else:
-        state = init_train_state(model, opt, torch.Generator(
-            device=model.device).manual_seed(args.seed))
 
-    step_fn = build_train_step(model, opt, grad_accum=args.grad_accum)
     losses, gnorms, step_s = [], [], []
     t0 = time.perf_counter()
     last_manifest = None

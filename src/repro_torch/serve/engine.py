@@ -13,18 +13,40 @@ The cache is updated in place: an admitted request is prefilled straight
 into its slot of every leaf (the model names each leaf's slot axis), which
 is zeroed first, so the slot ends up as the reference's one-slot mini
 cache spliced into the big one.
+
+The decode step is compiled, as the reference jits it: on the card a
+CUDA graph (``repro_torch.graphs``) over static inputs, the params, a
+``(n_slots, 1)`` token buffer and the cache, with the greedy argmax of
+every row inside it; on the CPU the same function runs eagerly. A step
+reads the device once, for the chosen tokens and the slots' lengths
+together. Rows that sample draw from the step's logits outside the graph.
+The prefill stays eager: one per request, at its exact length.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.graphs import CompiledStep
 from repro_torch.models.common import tree_leaves, tree_map
 
 _req_ids = itertools.count()
+
+
+def greedy_step(model, params: dict, tokens: torch.Tensor, cache: dict
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step over every slot, in place: the model writes the
+    cache's leaves, and the advanced ``index`` is copied into the cache's
+    own. Returns (logits (n_slots, V), the greedy token of every row then
+    every slot's index, as one int64 vector of 2 * n_slots)."""
+    logits, new = model.decode(params, tokens, cache)
+    cache["index"].copy_(new["index"])
+    last = logits[:, -1]
+    return last, torch.cat([last.argmax(dim=-1), cache["index"].long()])
 
 
 @dataclass
@@ -53,6 +75,13 @@ class ServingEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.cache = model.init_cache(n_slots, max_len)
+        self.tokens = torch.zeros((n_slots, 1), dtype=torch.int64,
+                                  device=self.device)
+        #: the last decode step's logits (n_slots, V); on the card a view
+        #: of the graph's output, overwritten by the next step
+        self.logits: torch.Tensor | None = None
+        self._decode = CompiledStep(functools.partial(greedy_step, model),
+                                    self.device)
         self.free_slots = list(range(n_slots))
         self.active: dict[int, Request] = {}       # slot -> request
         self.waiting: list[Request] = []
@@ -101,7 +130,12 @@ class ServingEngine:
                 ) -> list[int]:
         """Next token for each row of ``logits`` (n, V): greedy argmax for
         all rows in one pass, a draw for rows whose request samples."""
-        out = logits.argmax(dim=-1).tolist()
+        return self._draws(logits, reqs, logits.argmax(dim=-1).tolist())
+
+    def _draws(self, logits: torch.Tensor, reqs: list[Request | None],
+               out: list[int]) -> list[int]:
+        """``out`` with each row whose request samples replaced by a draw
+        from its row of ``logits`` with the engine's generator."""
         for i, req in enumerate(reqs):
             if req is not None and req.temperature > 0.0:
                 probs = torch.softmax(logits[i].float() / req.temperature, -1)
@@ -109,21 +143,29 @@ class ServingEngine:
                                                generator=self.generator))
         return out
 
+    def _feed(self) -> None:
+        """Each active slot's last token into the static token buffer
+        (idle slots read 0)."""
+        toks = np.zeros((self.n_slots, 1), np.int64)
+        for slot, req in self.active.items():
+            toks[slot, 0] = req.generated[-1]
+        self.tokens.copy_(torch.from_numpy(toks), non_blocking=True)
+
     def step(self) -> list[Request]:
         """One engine iteration: admit -> one batched decode -> retire.
         Returns requests completed this step."""
         self._admit()
         if not self.active:
             return []
-        toks = np.zeros((self.n_slots, 1), np.int64)
-        for slot, req in self.active.items():
-            toks[slot, 0] = req.generated[-1]
-        logits, self.cache = self.model.decode(
-            self.params, torch.as_tensor(toks, device=self.device), self.cache)
+        self._feed()
+        self.logits, picked = self._decode(self.params, self.tokens,
+                                           self.cache)
         self.steps += 1
-        nxt = self._sample(logits[:, -1], [self.active.get(s)
-                                           for s in range(self.n_slots)])
-        index = self.cache["index"].tolist()
+        picked = picked.tolist()        # the step's one device-to-host read
+        index = picked[self.n_slots:]
+        nxt = self._draws(self.logits, [self.active.get(s) for s in
+                                        range(self.n_slots)],
+                          picked[:self.n_slots])
         finished = []
         for slot, req in list(self.active.items()):
             req.generated.append(nxt[slot])

@@ -11,7 +11,9 @@ Adafactor factors them over (layers, d) exactly as the reference does.
 
 Unlike the reference's pure functions, ``update`` writes the new params
 and optimizer state IN PLACE, under ``torch.no_grad()``, and returns the
-same objects: no second copy of params and moments.
+same objects: no second copy of params and moments. The step count too is
+a device tensor advanced in place, so a captured step
+(``repro_torch.graphs``) reads and writes the same one at every replay.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params):
         grads, _ = _clip_by_global_norm(grads, cfg.grad_clip)
-        step = state["step"] + 1
+        step = state["step"].add_(1)
         lr = sched(step)
         b1, b2 = cfg.b1, cfg.b2
         bc1 = 1 - b1 ** step.float()
@@ -119,7 +121,6 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
             parts = zip(p, g, m, v) if p.ndim >= 3 else [(p, g, m, v)]
             for part in parts:
                 upd(*part, decay=p.ndim >= 2)
-        state["step"] = step
         return params, state
 
     return Optimizer(init, update)
@@ -154,7 +155,7 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params):
         grads, _ = _clip_by_global_norm(grads, cfg.grad_clip)
-        step = state["step"] + 1
+        step = state["step"].add_(1)
         lr = sched(step)
         decay = 1.0 - step.float() ** -0.8     # t^-0.8 schedule
 
@@ -187,7 +188,6 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
         ms = tree_leaves(state["m"]) if "m" in state else [None] * len(leaves_p)
         for p, g, v, m in zip(leaves_p, tree_leaves(grads), state["v"], ms):
             upd(p, g, v, m)
-        state["step"] = step
         return params, state
 
     return Optimizer(init, update)
