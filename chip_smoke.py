@@ -202,22 +202,28 @@ Phases, each fatal on failure (nothing is caught):
      backend), the EP policy installed only inside ``logical.policy``:
      (a) ``sharding.shard_train_step`` on a (1, 1) ("data", "model") mesh
      at full-width smollm-135m (bf16, remat "block", AdamW, 3 steps of 8 x
-     2048): each step's loss and grad norm and the params after 3 steps
-     bit-identical to the unsharded step's, 2 x 30 forward and 30 backward
-     flash launches a step, both steps' ms, device busy ms, NCCL ms and
-     peak memory; 6 steps with the int8 error-feedback compressor, finite
-     falling losses, the residual ``corrected - dequantized`` exactly; (b)
+     2048) through the tensor-parallel route (a route a step, over a
+     "model" axis of one rank): each step's loss and grad norm and the
+     params after 3 steps bit-identical to the unsharded step's, 2 x 30
+     forward and 30 backward flash launches a step, both steps' ms, device
+     busy ms, NCCL ms and peak memory; 6 steps with the int8
+     error-feedback compressor, finite falling losses, the residual
+     ``corrected - dequantized`` exactly; (b)
      ``pipeline`` over a one-rank ("stage",) mesh running the 30 layers on
      4 microbatches of 2 x 2048, bit-identical to the sequential trunk,
      120 flash forward launches; (c) ``moe_block`` under the policy
      (``moe_block_ep``) against ``moe_block`` on one layer of
      qwen2-moe-a2.7b (fp32 at a capacity factor where neither drops: 2e-5,
      aux 1e-4 relative) at 8 and 1536 tokens, and both paths' device ms in
-     bf16 at the config's capacity factor;
+     bf16 at the config's capacity factor; (d) ``launch.build.serve_step``
+     on the (1, 1) mesh (run after (a): a prefill of 8 x 256 tokens into a
+     cache of 512, then 4 greedy decode steps) through the route, its
+     logits bit-identical to ``model.prefill``/``decode``'s at every step;
  23. the launch tooling (run last): (a) ``python -m
      repro_torch.launch.dryrun`` in a process per cell (at the same time
      as (b)'s predictions) for llava-next-34b x ``train_4k`` on both
-     production meshes, a ``[dryrun]`` line each (the other cells are
+     production meshes and for (c)'s two cells, a ``[dryrun]`` line each
+     with its tensor-parallel plan (the other cells are
      counted on the CPU: ``--all`` and ``tests/test_torch_launch.py``); (b)
      two table cells built by ``launch.build.build_cell`` on the card on a
      (1, 1) ("data", "model") mesh of one NCCL rank, each beside its dry
@@ -229,7 +235,16 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more.
+     by ``PEAK_MARGIN`` and no more; (c) rank 0's share of two
+     tensor-parallel cells, phi3-mini-3.8b x ``train_4k`` (one step after
+     a warm-up, 2 x 32 forward and 32 backward flash launches) and x
+     ``decode_32k`` (3 steps, 32 ``decode_attention`` launches a step),
+     built by ``build_cell`` on the card in a fake world of 256 ranks on
+     the (16, 16) mesh (the collectives move no data, so no value is
+     checked), a ``[launch] tp`` line each beside the dry run of the same
+     cell (run in (a)'s pool), the peak within ``PEAK_MARGIN`` of it;
+     before them, ``decode_attention`` and flash held to their plain
+     versions at the shapes the shares give them.
 
 After each group of phases a ``[time]`` line gives the seconds since the
 start. It then prints the kernels line and, last, the device line as JSON. Exits
@@ -1281,13 +1296,13 @@ def flash_inputs(B, T, S, Hq, Hkv, hd, dtype, seed):
         r(B, T, Hq, hd)
 
 
-def check_flash_attention():
+def check_flash_attention(shapes=FLASH_SHAPES):
     """Forward against the plain version, dq/dk/dv against autograd
-    through it, fp32 and bf16, at every shape of FLASH_SHAPES."""
+    through it, fp32 and bf16, at every shape of ``shapes``."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
     rows = []
-    for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(FLASH_SHAPES):
+    for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(shapes):
         row = {"shape": name, "B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv,
                "hd": hd, "causal": causal,
                "bf16_fwd_route": fk.fwd_route(torch.bfloat16, hd),
@@ -2877,6 +2892,9 @@ def ssm_train_phase(mamba, zamba):
 # -------------------------------------------------------------- phase 22 --
 DIST_STEPS, COMPRESS_STEPS = 3, 6
 PIPE_MICRO, PIPE_B = 4, 2
+# (d) serve_step on the (1, 1) mesh: 8 prompts of 256 tokens into a cache
+# of 512, then greedy decode steps
+SERVE_B, SERVE_PROMPT, SERVE_LEN, SERVE_DECODES = 8, 256, 512, 4
 # moe_block_ep against moe_block at qwen2-moe-a2.7b's width: the decode
 # shape (8 slots) and a prefill; fp32 at a capacity factor where neither
 # drops, the bounds of tests/test_distributed.py's EP test
@@ -2926,6 +2944,35 @@ def profiled_ms(fn, n: int) -> dict:
                            if "nccl" in name.lower())}
 
 
+@contextlib.contextmanager
+def counting_routes():
+    """The plans of the tensor-parallel routes the models take in the
+    block (``tensor_parallel.route`` calls that return one)."""
+    from repro_torch.distributed import tensor_parallel
+    plans = []
+    route = tensor_parallel.route
+
+    def counted(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if r is not None:
+            plans.append(r.plan)
+        return r
+
+    tensor_parallel.route = counted
+    try:
+        yield plans
+    finally:
+        tensor_parallel.route = route
+
+
+def require_routes(what: str, plans: list, n: int) -> None:
+    """Fails unless the block took ``n`` tensor-parallel routes, each
+    over a ``"model"`` axis of one rank."""
+    if len(plans) != n or any(p.model != 1 for p in plans):
+        raise AssertionError(f"{what}: tensor-parallel routes {plans}, "
+                             f"want {n} on one rank")
+
+
 def flash_launches(reset: bool = False) -> tuple[int, int]:
     from repro_torch.kernels import flash_attention as fk
     if reset:
@@ -2937,6 +2984,8 @@ def flash_launches(reset: bool = False) -> tuple[int, int]:
 def distributed_train(cfg, mesh) -> tuple[int, int]:
     """(a) The sharded train step on a (1, 1) ("data", "model") mesh
     against the unsharded step from the same seed, 3 steps of 8 x 2048:
+    the sharded one through the tensor-parallel route (a route a step,
+    its "model" axis of one rank, where each collective is the identity),
     each step's loss and grad norm and the params after 3 steps the same
     bits (on one rank every collective copies, and the loss's share of the
     global token count is 1.0 exactly); 2 x 30 forward and 30 backward
@@ -2959,12 +3008,15 @@ def distributed_train(cfg, mesh) -> tuple[int, int]:
         _, state, step, data = fresh_training(cfg, mesh=on)
         flash_launches(reset=True)
         metrics, step_s = [], []
-        for i in range(DIST_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, data.batch(i))
-            metrics.append((m["loss"].item(), m["grad_norm"].item()))
-            step_s.append(time.perf_counter() - t0)
+        with counting_routes() as plans:
+            for i in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, data.batch(i))
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+                step_s.append(time.perf_counter() - t0)
+        require_routes(f"[distributed] {label}", plans,
+                       DIST_STEPS if on is not None else 0)
         launches = flash_launches()
         want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
         if launches != want:
@@ -3007,9 +3059,11 @@ def distributed_train(cfg, mesh) -> tuple[int, int]:
     _, state, step, data = fresh_training(cfg, mesh=mesh, compress=hook)
     flash_launches(reset=True)
     losses = []
-    for i in range(COMPRESS_STEPS):
-        state, m = step(state, data.batch(i))
-        losses.append(m["loss"].item())
+    with counting_routes() as plans:
+        for i in range(COMPRESS_STEPS):
+            state, m = step(state, data.batch(i))
+            losses.append(m["loss"].item())
+    require_routes("[distributed] compress", plans, COMPRESS_STEPS)
     total += flash_launches()
     exact = True
     for g, r, new in zip(tree_leaves(seen["grads"]),
@@ -3025,6 +3079,61 @@ def distributed_train(cfg, mesh) -> tuple[int, int]:
         raise AssertionError(f"compressed training: losses {losses}, "
                              f"residual exact {exact}")
     return tuple(int(n) for n in total)
+
+
+def distributed_serve(cfg, mesh) -> int:
+    """(d) ``launch.build.serve_step`` on the (1, 1) mesh at full-width
+    smollm-135m (bf16): a prefill of 8 prompts of 256 tokens into a cache
+    of 512, then 4 greedy decode steps, through the tensor-parallel route
+    (a route a step), against ``model.prefill`` and ``model.decode`` on
+    the same params and a cache of their own: the logits of every step
+    bit-identical, the same greedy tokens fed to both, 30
+    ``decode_attention`` launches a decode step each. Returns the decode
+    launches in it."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.build import serve_step
+    from repro_torch.models.transformer import build_model
+    model = build_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                           generator=gen, device=DEV, dtype=torch.int32)
+
+    def placed(tree, specs):
+        return shd.place(tree, shd.to_named(mesh, shd.fit_tree(mesh, specs,
+                                                               tree)))
+
+    def inputs(t):
+        return placed({"tokens": t}, shd.batch_specs(cfg, mesh,
+                                                     {"tokens": t}))
+
+    ps = placed(params, shd.param_specs(cfg, mesh))
+    cache = placed(model.init_cache(SERVE_B, SERVE_LEN),
+                   shd.cache_specs(cfg, mesh))
+    want_cache = model.init_cache(SERVE_B, SERVE_LEN)
+    prefill, decode = serve_step(model, mesh, "prefill"), serve_step(
+        model, mesh, "decode")
+    launch_counts(reset=True)
+    with torch.no_grad(), counting_routes() as plans:
+        got, cache = prefill(ps, inputs(tokens), cache)
+        want, want_cache = model.prefill(params, {"tokens": tokens},
+                                         want_cache)
+        same = [torch.equal(got, want)]
+        for _ in range(SERVE_DECODES):
+            nxt = want.argmax(-1).to(torch.int32)
+            got, cache = decode(ps, inputs(nxt), cache)
+            want, want_cache = model.decode(params, nxt, want_cache)
+            same.append(torch.equal(got, want))
+    launches = launch_counts()["decode_attention"]
+    require_routes("[distributed] serve", plans, 1 + SERVE_DECODES)
+    stats = {"arch": cfg.name, "prompts": [SERVE_B, SERVE_PROMPT],
+             "cache": SERVE_LEN, "decode_steps": SERVE_DECODES,
+             "logits": list(got.shape), "bit_identical": same,
+             "decode_launches": launches}
+    log(f"[distributed] serve {json.dumps(stats)}")
+    if not all(same) or launches != 2 * cfg.n_layers * SERVE_DECODES:
+        raise AssertionError(f"serve_step on (1, 1): {stats}")
+    return launches
 
 
 def distributed_pipeline(cfg) -> int:
@@ -3129,9 +3238,10 @@ def distributed_ep(cfg, mesh) -> None:
     log(f"[distributed] ep {json.dumps({'arch': cfg.name, 'rows': rows})}")
 
 
-def distributed_phase(smollm, qwen) -> tuple[int, int]:
+def distributed_phase(smollm, qwen) -> tuple[int, int, int]:
     """Phase 22, run after phase 9 (the profiler reads device time there).
-    Returns the flash launches (forward, backward) in it."""
+    Returns the decode launches and the flash launches (forward, backward)
+    in it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed import logical
@@ -3141,25 +3251,39 @@ def distributed_phase(smollm, qwen) -> tuple[int, int]:
                                 mesh_dim_names=("data", "model"))
         fwd, bwd = distributed_train(smollm, mesh)
         torch.cuda.empty_cache()
+        decode = distributed_serve(smollm, mesh)
+        torch.cuda.empty_cache()
         fwd += distributed_pipeline(smollm)
         torch.cuda.empty_cache()
         distributed_ep(qwen, mesh)
         torch.cuda.empty_cache()
     if logical.active():
         raise AssertionError("a logical policy outlived phase 22")
-    log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, flash "
-        f"launches (fwd, bwd) ({fwd}, {bwd})")
-    return fwd, bwd
+    log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, decode "
+        f"launches {decode}, flash launches (fwd, bwd) ({fwd}, {bwd})")
+    return decode, fwd, bwd
 
 
 # -------------------------------------------------------------- phase 23 --
 # (a) cells dry-run on the production meshes by ``python -m
 # repro_torch.launch.dryrun``, a subprocess each: (arch, shape, multi_pod).
 # The dry run never touches the card, so the card's host runs the largest
-# cell on both meshes only, to show the tooling on the card's PyTorch; the
-# other cells are counted on the CPU (``--all``).
+# cell on both meshes, to show the tooling on the card's PyTorch, and the
+# two tensor-parallel cells of (c), their predictions; the other cells are
+# counted on the CPU (``--all``).
+TP_CELLS = [("phi3-mini-3.8b", "train_4k"), ("phi3-mini-3.8b", "decode_32k")]
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False),
-                ("llava-next-34b", "train_4k", True)]
+                ("llava-next-34b", "train_4k", True),
+                *((arch, shape, False) for arch, shape in TP_CELLS)]
+# (c) rank 0's share of the tensor-parallel cells runs in a fake world of
+# this many ranks on the (16, 16) production mesh; the decode cell takes
+# this many steps against a cache filled to its last positions
+TP_WORLD = 256
+TP_DECODE_STEPS = 3
+TP_DECODE_S = 32768         # decode_32k's cache
+# the train share's attention (B, T, S, Hq, Hkv, hd, causal): 2 of
+# phi3-mini's 32 heads (the plain version's fp32 scores are 2.1 GB)
+TP_FLASH_SHAPE = ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True)
 DRYRUN_WORKERS = 8          # the card's host has 8 cores
 DRYRUN_TIMEOUT_S = 300
 LONG_S = 524288             # long_500k's cache
@@ -3295,7 +3419,7 @@ def production_dryruns(extra) -> dict:
         if r["status"] == "ok":
             row.update({k: r[k] for k in (
                 "bytes_per_device", "fits_h100", "compute_s", "memory_s",
-                "collective_s", "dominant", "useful_fraction")})
+                "collective_s", "dominant", "useful_fraction", "tp")})
         else:
             row["reason"] = r.get("reason") or r.get("error")
         log(f"[dryrun] {json.dumps(row)}")
@@ -3303,7 +3427,8 @@ def production_dryruns(extra) -> dict:
             raise AssertionError(f"dry run of {arch} x {shape}: {row}")
     log(f"[dryrun] {len(jobs)} production cells and {len(extra)} (1, 1) "
         f"jobs in {seconds:.1f} s")
-    return {label: done[label][0] for label, _, _ in extra}
+    return ({label: done[label][0] for label, _, _ in extra},
+            {cell: done[cell][0] for cell in DRYRUN_CELLS})
 
 
 def smallest_fitting_grad_accum(first: dict) -> tuple[int, dict]:
@@ -3456,6 +3581,24 @@ def long_decode_cell(mesh, pred) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator grows one segment a stream by mapping pages
+    inside the block, instead of a segment per request: memory freed in
+    the middle of a segment then serves a later request of any size.
+    Without it, (b)'s unsharded step (69.7 GB held at its peak) asked for
+    its 12 GiB of fp32 logits while 13 to 19 GiB lay free in segments that
+    live blocks pinned, and ran out of memory (H100 runs); on an allocator
+    no phase had used it still reserved 83.0 GB. Its cached pages are
+    released on exit."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
 def train_cell(mesh, k, pred) -> tuple[int, int]:
     """(b) smollm-135m x train_4k (256 x 4096 tokens) built by
     ``build_cell`` on the card at ``grad_accum`` k: two steps with finite
@@ -3471,39 +3614,50 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
     from repro_torch.train.train_step import build_train_step
     runs = {}
     total = np.zeros(2, dtype=int)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = [torch.cuda.memory_allocated(), torch.cuda.memory_reserved()]
     for label in ("sharded", "unsharded"):
+        # the unsharded step peaks within 10 GB of the card: no garbage of
+        # the sharded run may hold a page
+        gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        cell = build_cell("smollm-135m", "train_4k", mesh, grad_accum=k,
-                          device=DEV, seed=SEED)
-        state, batch = cell.args
-        step, n_layers = cell.step, cell.cfg.n_layers
-        if label == "unsharded":
-            state = local_tree(state)
-            step = build_train_step(
-                build_model(cell.cfg, device=DEV),
-                build_optimizer(OPT_FOR_ARCH.get(cell.arch,
-                                                 OptimizerConfig())),
-                grad_accum=k)
-        flash_launches(reset=True)
-        metrics, host = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            metrics.append((m["loss"].item(), m["grad_norm"].item()))
-            host.append((time.perf_counter() - t0) * 1e3)
-        launches = flash_launches()
-        peak = torch.cuda.max_memory_allocated() - base
-        params = [t.to_local() if hasattr(t, "to_local") else t
-                  for t in tree_leaves(state["params"])]
-        runs[label] = {"metrics": metrics, "host_ms": host,
-                       "params": [p.clone() for p in params],
-                       "peak": peak, "launches": launches}
-        if label == "sharded":
-            runs[label]["busy"] = profiled_step_ms(
-                lambda: step(state, batch))
+        with expandable_segments():
+            cell = build_cell("smollm-135m", "train_4k", mesh, grad_accum=k,
+                              device=DEV, seed=SEED)
+            state, batch = cell.args
+            step, n_layers = cell.step, cell.cfg.n_layers
+            if label == "unsharded":
+                state = local_tree(state)
+                step = build_train_step(
+                    build_model(cell.cfg, device=DEV),
+                    build_optimizer(OPT_FOR_ARCH.get(cell.arch,
+                                                     OptimizerConfig())),
+                    grad_accum=k)
+            flash_launches(reset=True)
+            metrics, host = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+                host.append((time.perf_counter() - t0) * 1e3)
+            launches = flash_launches()
+            peak = torch.cuda.max_memory_allocated() - base
+            params = [t.to_local() if hasattr(t, "to_local") else t
+                      for t in tree_leaves(state["params"])]
+            # compared on the host: copies on the card would pin segments
+            # that the next run's step needs whole
+            runs[label] = {"metrics": metrics, "host_ms": host,
+                           "params": [p.detach().cpu() for p in params],
+                           "peak": peak, "launches": launches,
+                           "reserved": torch.cuda.max_memory_reserved()}
+            del m
+            if label == "sharded":
+                runs[label]["busy"] = profiled_step_ms(
+                    lambda: step(state, batch))
         total += flash_launches()
         del cell, state, batch, step, params
     torch.cuda.empty_cache()
@@ -3512,7 +3666,7 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
         torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
     finite = all(np.isfinite(v) for m in got["metrics"] for v in m)
     per = (2 * n_layers * k * 2, n_layers * k * 2)
-    log(f"[launch] train_4k {json.dumps({'grad_accum': k, 'loss_grad_norm': got['metrics'], 'unsharded': want['metrics'], 'bit_identical': same, 'host_ms': got['host_ms'], 'unsharded_host_ms': want['host_ms'], 'unsharded_peak_bytes': want['peak'], 'flash_launches': got['launches']})}")
+    log(f"[launch] train_4k {json.dumps({'grad_accum': k, 'loss_grad_norm': got['metrics'], 'unsharded': want['metrics'], 'bit_identical': same, 'host_ms': got['host_ms'], 'unsharded_host_ms': want['host_ms'], 'unsharded_peak_bytes': want['peak'], 'held_before_bytes': held, 'peak_reserved_bytes': [got['reserved'], want['reserved']], 'flash_launches': got['launches']})}")
     if (not same or not finite
             or tuple(got["launches"]) != per
             or tuple(want["launches"]) != per):
@@ -3527,10 +3681,122 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
     return tuple(int(n) for n in total)
 
 
+def tp_share_kernels() -> None:
+    """(c) The kernels against their plain versions at the shapes the two
+    shares give them, with phases 3 and 7's tolerances:
+    ``decode_attention`` at 8 slots of 32768 and 2 of 32 heads (the decode
+    share's split plan), lengths 0, S and ragged ones; flash, forward and
+    backward, at ``TP_FLASH_SHAPE``. Run after (b), whose unsharded step
+    peaks within 10 GB of the card."""
+    from repro_torch.configs import get_config
+    c = get_config("phi3-mini-3.8b")
+    m = 16
+    check_and_time_decode_attention(
+        f"{c.name} TP share", c.n_heads // m, c.n_kv_heads // m, c.hd, 0,
+        np.random.default_rng(SEED), B=8, S=TP_DECODE_S,
+        lengths=[0, 1, TP_DECODE_S, TP_DECODE_S - TP_DECODE_STEPS,
+                 TP_DECODE_S + 5, 20001, 4097, 129])
+    check_flash_attention([TP_FLASH_SHAPE])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_share(arch: str, shape: str, pred: dict) -> tuple[int, int, int]:
+    """(c) Rank 0's share of a tensor-parallel cell, built by
+    ``build_cell`` on the card in a fake world of ``TP_WORLD`` ranks on
+    the (16, 16) production mesh: the train cell one step after a warm-up,
+    the decode cell ``TP_DECODE_STEPS`` steps against a cache whose index
+    is at its last positions. The fake group's collectives move no data,
+    so the values are not the job's and none is checked; the plan's local
+    widths are (``Route.check``), and a step's flash forward and backward
+    launches (2 x layers with remat, and layers) or ``decode_attention``
+    launches (layers). Prints a ``[launch] tp`` line: the plan and its
+    local heads, the card's peak beside the dry run's ``bytes_per_device``
+    of the same cell (failing above ``PEAK_MARGIN``), host ms and device
+    busy ms. Returns the decode and flash (forward, backward) launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.build import build_cell
+    from repro_torch.launch.mesh import fake_world
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with fake_world(TP_WORLD):
+        # the production (16, 16) mesh, on the card
+        mesh = init_device_mesh(DEV, (16, 16),
+                                mesh_dim_names=("data", "model"))
+        cell = build_cell(arch, shape, mesh, device=DEV, seed=SEED)
+        args, cell.args = cell.args, ()
+        step, L = cell.step, cell.cfg.n_layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        flash_launches(reset=True)
+        with counting_routes() as plans:
+            if cell.kind == "train":
+                state, batch = args
+                del args
+                state, _ = step(state, batch)            # warm-up
+                torch.cuda.synchronize()
+                before = flash_launches()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                host = [(time.perf_counter() - t0) * 1e3]
+                per = tuple(a - b for a, b in zip(flash_launches(), before))
+                want = (2 * L, L)
+                busy = profiled_step_ms(lambda: step(state, batch))
+                out = None
+            else:
+                params, inputs, cache = args
+                del args
+                if cache["k"].shape[2] != TP_DECODE_S:
+                    raise AssertionError(f"the share's cache holds "
+                                         f"{cache['k'].shape[2]} positions, "
+                                         f"phase 3 checks {TP_DECODE_S}")
+                cache["index"].to_local().fill_(
+                    TP_DECODE_S - TP_DECODE_STEPS - 1)
+                host = []
+                for _ in range(TP_DECODE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, cache = step(params, inputs, cache)
+                    torch.cuda.synchronize()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                per = (launch_counts()["decode_attention"]
+                       / TP_DECODE_STEPS,)
+                want = (L,)
+                busy = profiled_step_ms(lambda: step(params, inputs, cache))
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = launch_counts()["decode_attention"], *flash_launches()
+        route_ok = bool(plans) and all(p.record() == cell.tp for p in plans)
+        row = {"arch": arch, "shape": shape, "mesh": "pod16x16",
+               "fake_world": TP_WORLD, "tp": cell.tp,
+               "local_heads": cell.tp["local_heads"], "routes": len(plans),
+               "values_checked": False,
+               "launches_a_step": list(per),
+               "logits": None if out is None else list(out.shape),
+               "peak_bytes": peak,
+               "predicted_bytes_per_device": pred["bytes_per_device"],
+               "peak_over_predicted": peak / pred["bytes_per_device"],
+               "peak_margin": PEAK_MARGIN,
+               "host_ms": host, "device_busy_ms": busy}
+        log(f"[launch] tp {json.dumps(row)}")
+        require_device_time(f"[launch] tp {arch} x {shape}", {"step": busy})
+        if (tuple(per) != want or not route_ok
+                or peak > pred["bytes_per_device"] * (1 + PEAK_MARGIN)):
+            raise AssertionError(f"{arch} x {shape} share: launches a step "
+                                 f"{per} (want {want}), routes {plans}, "
+                                 f"peak {peak} against "
+                                 f"{pred['bytes_per_device']}")
+    return launches
+
+
 def launch_phase() -> tuple[int, int, int]:
-    """Phase 23: the dry runs (a) and the two table cells on the card (b).
-    Returns the decode launches and the flash launches (forward,
-    backward) in it."""
+    """Phase 23: the dry runs (a), the two table cells on the card (b)
+    and rank 0's share of the two tensor-parallel cells (c). Returns the
+    decode launches and the flash launches (forward, backward) in it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import _FAKE_PG, fake_pg_available
@@ -3539,7 +3805,7 @@ def launch_phase() -> tuple[int, int, int]:
     log(f"[launch] {_FAKE_PG} in torch {torch.__version__}: {present}")
     if not present:
         raise AssertionError("the fake process group is missing")
-    first = production_dryruns(
+    first, production = production_dryruns(
         [predict_job("smollm-135m", "train_4k", k) for k in GRAD_ACCUM_FIRST]
         + [predict_job("zamba2-2.7b", "long_500k", 1),
            predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()])
@@ -3559,6 +3825,12 @@ def launch_phase() -> tuple[int, int, int]:
                                 mesh_dim_names=("data", "model"))
         decode = long_decode_cell(mesh, long_pred)
         fwd, bwd = train_cell(mesh, k, train_pred)
+    tp_share_kernels()
+    for arch, shape in TP_CELLS:
+        n = tp_share(arch, shape, production[(arch, shape, False)])
+        decode, fwd, bwd = decode + n[0], fwd + n[1], bwd + n[2]
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"[launch] phase {time.perf_counter() - t0:.1f} s, decode launches "
         f"{decode}, flash launches (fwd, bwd) ({fwd}, {bwd})")
     return decode, fwd, bwd
@@ -3647,7 +3919,8 @@ def main() -> int:
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
     train_graphed_against_eager(smollm)
     train_parity(smollm)
-    fwd, bwd = distributed_phase(smollm, qwen)
+    decode, fwd, bwd = distributed_phase(smollm, qwen)
+    launches += decode
     fwd_launches += fwd
     bwd_launches += bwd
     mark("phases 8, 9 and 22")

@@ -4,10 +4,12 @@
 Model code may name an activation's axes logically (``constrain(h,
 "batch", "seq", "embed")``); ``install`` maps the logical names to the
 axes of a ``DeviceMesh`` for the current thread. With no policy installed,
-or on a plain tensor, ``constrain`` is a no-op. The port's model code runs
-on local tensors (the sharded train step gathers each leaf before the
-loss), so the port's models do not call it yet; on a ``DTensor`` it
-redistributes to the placements the rules give.
+or on a plain tensor, ``constrain`` is a no-op; on a ``DTensor`` it
+redistributes to the placements the rules give. The port's model code
+runs on local tensors, so it pins no activation this way: the policy also
+carries the mesh's ``"model"`` process group (``model_group``), over which
+``tensor_parallel`` runs the dense and vlm families' collectives where the
+reference pins its activations.
 
 ``P``, the stand-in for ``jax.sharding.PartitionSpec``, and
 ``placements``, which turns a spec into DTensor placements, live here
@@ -85,20 +87,27 @@ def install(mesh, rules: dict[str, Any] | None = None) -> None:
         r.update(rules)
     _state.mesh = mesh
     _state.rules = r
+    _state.group = (mesh.get_group("model")
+                    if "model" in mesh.mesh_dim_names else None)
 
 
 def clear() -> None:
     _state.mesh = None
     _state.rules = None
+    _state.group = None
 
 
 @contextlib.contextmanager
 def policy(mesh, rules: dict[str, Any] | None = None):
+    """``install`` for the block; on exit the policy installed before it,
+    if any, is back."""
+    before = (getattr(_state, "mesh", None), getattr(_state, "rules", None),
+              getattr(_state, "group", None))
     install(mesh, rules)
     try:
         yield
     finally:
-        clear()
+        _state.mesh, _state.rules, _state.group = before
 
 
 def active() -> bool:
@@ -107,6 +116,12 @@ def active() -> bool:
 
 def current_mesh():
     return getattr(_state, "mesh", None)
+
+
+def model_group():
+    """The installed mesh's ``"model"`` process group, or None (no policy,
+    or a mesh without that axis)."""
+    return getattr(_state, "group", None)
 
 
 def constrain(x, *logical_axes: str | None):

@@ -17,8 +17,12 @@ Spec trees have the exact structure of the trees they describe
 
 ``to_named`` gives each spec its DTensor placements, ``place`` lays a
 tree out by them, and ``shard_train_step`` trains on the placed state.
-``"model"`` shards storage only here: each leaf is gathered whole for the
-step, so ranks along ``model`` compute the same rows.
+Every leaf is gathered along the data axes for the step (FSDP). Along
+``"model"`` the dense and vlm families compute tensor-parallel
+(``tensor_parallel.plan``: heads, ``d_ff`` and vocab local to a rank where
+m divides them, ``tp_layouts`` the leaves' layouts for it); the other
+families gather each leaf whole along ``"model"`` too, so their ranks
+along it compute the same rows.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+
+from repro_torch.distributed import logical, tensor_parallel
 
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import ArchConfig, tree_map
@@ -366,14 +372,52 @@ def train_state_specs(state: dict, opt_name: str, pspecs) -> dict:
     return {"params": pspecs, "opt": ospecs}
 
 
+def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
+    """Each param leaf of a dense or vlm model under a tensor-parallel
+    ``plan``, as (the placements it is computed in, its gradient's): whole
+    along the data axes, where the gradient is a partial sum (each rank
+    saw its own rows); along ``"model"`` sharded where the plan makes its
+    product local (the gradient is then the shard's own), else whole, its
+    gradient a partial sum where sequence-parallel ranks each saw a slice
+    of the positions (and ``patch_proj`` where the vocab is local: it
+    counts on rank 0 alone, ``Route.embed``), else equal on every rank."""
+    names = mesh.mesh_dim_names
+    baxes = ("pod", "data") if "pod" in names else ("data",)
+    sp = plan.seq_parallel
+
+    def lay(dim: int, local: bool, partial: bool = sp) -> tuple:
+        along = (Shard(dim) if local else Partial() if partial
+                 else Replicate())
+        return ([Shard(dim) if n == "model" and local else Replicate()
+                 for n in names],
+                [Partial() if n in baxes else along if n == "model"
+                 else Replicate() for n in names])
+
+    h, f = plan.heads_local, plan.mlp_local
+    out = {"embed": lay(0, plan.vocab_local),
+           "layers": DenseLayer(
+               attn=AttnParams(lay(2, h), lay(2, h), lay(2, h), lay(1, h)),
+               mlp=MLPParams(lay(2, f), lay(2, f), lay(1, f)),
+               norm1=lay(0, False), norm2=lay(0, False)),
+           "final_norm": lay(0, False),
+           "lm_head": lay(1, plan.vocab_local, partial=False)}
+    if cfg.family == "vlm":
+        out["patch_proj"] = lay(0, False, partial=sp or plan.vocab_local)
+    return out
+
+
 class _LocalLoss:
-    """``model.loss_fn`` on this rank's rows of a global batch, with each
-    DTensor leaf gathered whole by a differentiable redistribute; its
-    gradient comes back a partial sum over the batch axes (every rank
-    along them saw other rows) and equal along the others, so autograd
-    reduce-scatters it into the leaf's placements. The local loss is
-    scaled by this rank's share of the global token count, so the sum
-    over ranks is the global mean whatever each rank's mask holds."""
+    """``model.loss_fn`` on this rank's rows of a global batch. Each
+    DTensor leaf is redistributed by a differentiable redistribute: for
+    the dense and vlm families into its ``tp_layouts`` placements under
+    the tensor-parallel plan of the batch, with the logical policy (and so
+    the ``"model"`` group) installed around the model's loss; for the
+    others gathered whole. Its gradient comes back in the placements
+    given to ``to_local`` (a partial sum over the batch axes, as every
+    rank along them saw other rows), so autograd reduces it into the
+    leaf's placements. The local loss is scaled by this rank's share of
+    the global token count, so the sum over ranks is the global mean
+    whatever each rank's mask holds."""
 
     def __init__(self, model, mesh) -> None:
         self.model, self.mesh = model, mesh
@@ -399,15 +443,25 @@ class _LocalLoss:
                 for k, v in batch.items()}
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
-        local = tree_map(lambda t: t.redistribute(self.mesh, self.full)
-                         .to_local(grad_placements=self.partial), params)
         mb = self.rows(batch)
         mask = mb.get("loss_mask")
         count = (mask.float().sum() if mask is not None else
                  torch.tensor(float(mb["labels"].numel()),
                               device=mb["labels"].device))
         share = count / torch.clamp_min(self.batch_sum(count), 1.0)
-        return self.model.loss_fn(local, mb) * share
+        cfg = self.model.cfg
+        plan = tensor_parallel.mesh_plan(
+            cfg, self.mesh, kind="train",
+            seq_len=tensor_parallel.residual_len(cfg, mb))
+        if plan is None:
+            local = tree_map(lambda t: t.redistribute(self.mesh, self.full)
+                             .to_local(grad_placements=self.partial), params)
+            return self.model.loss_fn(local, mb) * share
+        local = tree_map(lambda t, lay: t.redistribute(self.mesh, lay[0])
+                         .to_local(grad_placements=lay[1]),
+                         params, tp_layouts(cfg, self.mesh, plan))
+        with logical.policy(self.mesh):
+            return self.model.loss_fn(local, mb) * share
 
 
 def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
@@ -421,7 +475,8 @@ def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
     back as DTensors in the params' placements, the optimizer and
     ``compress`` run on them (DTensor reduces the global norm, Adafactor's
     means and the int8 scale over whole leaves), and the metrics are the
-    global loss and the norm over whole gradients.
+    global loss and the norm over whole gradients. The dense and vlm
+    families compute tensor-parallel along ``"model"`` (``_LocalLoss``).
 
     The MoE loss adds an auxiliary term that is not a mean over tokens, so
     an MoE model trains here only with the batch on one rank."""

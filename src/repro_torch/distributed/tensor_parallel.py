@@ -1,0 +1,349 @@
+"""Tensor-parallel compute along ``"model"`` for the dense and vlm
+families: the port's counterpart of GSPMD's partitioning of the
+reference's ``DenseLM`` under ``param_specs`` and its ``constrain`` sites
+(``repro/models/transformer.py``, ``repro/distributed/logical.py``).
+
+``plan`` derives, from the config and the ``"model"`` axis size m, what a
+rank computes locally:
+  * attention heads, when m divides both head counts: ``wq``/``wk``/``wv``
+    column-parallel, ``wo`` row-parallel, and the rank's KV cache heads
+    local; otherwise the sublayer's weights are gathered and every rank
+    computes it whole;
+  * the MLP, when m divides ``d_ff``: ``w_gate``/``w_up`` column-parallel,
+    ``w_down`` row-parallel; otherwise gathered;
+  * the vocab, when m divides it: the embedding lookup and the logits are
+    this rank's rows and columns, and the loss is
+    ``vocab_parallel_cross_entropy``; otherwise whole;
+  * sequence-parallel residuals in training where m divides the residual
+    sequence (the reference's ``"seq_res"``): RMSNorm on the rank's slice,
+    an all-gather before each sublayer and a reduce-scatter after its
+    row-parallel product. Otherwise (serving, or T not divisible) the
+    residual is whole on every rank and each row-parallel product ends in
+    one all-reduce.
+
+A ``Route`` is a plan and the process group it runs over. The model code
+computes on plain local tensors and calls the route at the sublayer
+boundaries; the collectives are ``torch.autograd.Function`` pairs over the
+functional collectives (Megatron's f and g, and the all-gather and
+reduce-scatter along the sequence). Over a group of one rank, or with no
+route, each is the identity. Nothing here imports the models.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from . import logical
+
+#: the families whose layers are attention and an MLP only
+TP_FAMILIES = ("dense", "vlm")
+
+_c10d = torch.ops._c10d_functional
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Plan:
+    """What one rank of a ``"model"`` axis of size ``model`` holds and
+    computes; ``local_heads`` is (query, KV) heads a rank attends with."""
+    model: int
+    heads_local: bool
+    mlp_local: bool
+    vocab_local: bool
+    seq_parallel: bool
+    local_heads: tuple[int, int]
+
+    def record(self) -> dict:
+        """The plan as the dry run writes it."""
+        return {"model": self.model,
+                "heads": "local" if self.heads_local else "gathered",
+                "local_heads": list(self.local_heads),
+                "mlp": "local" if self.mlp_local else "gathered",
+                "vocab": "local" if self.vocab_local else "whole",
+                "seq_parallel": self.seq_parallel}
+
+
+def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
+    """The plan of a ``kind`` step ("train", "prefill" or "decode") whose
+    residual stream is ``seq_len`` positions long (a vlm's patches
+    included), for a ``"model"`` axis of ``m`` ranks."""
+    heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    div = m if heads else 1
+    return Plan(model=m, heads_local=heads, mlp_local=cfg.d_ff % m == 0,
+                vocab_local=cfg.vocab_size % m == 0,
+                seq_parallel=kind == "train" and seq_len % m == 0,
+                local_heads=(cfg.n_heads // div, cfg.n_kv_heads // div))
+
+
+def mesh_plan(cfg, mesh, *, kind: str, seq_len: int) -> Plan | None:
+    """``plan`` on ``mesh``'s ``"model"`` axis, or None: a family that
+    computes whole, or a mesh without that axis."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if cfg.family not in TP_FAMILIES or "model" not in sizes:
+        return None
+    return plan(cfg, sizes["model"], kind=kind, seq_len=seq_len)
+
+
+def residual_len(cfg, batch: dict) -> int:
+    """The residual stream's length of a training batch: the text, after
+    the patches where the family is vlm."""
+    n = batch["tokens"].shape[1]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
+
+
+# ---------------------------------------------------------------------------
+# collectives over the "model" group (the identity over one rank)
+# ---------------------------------------------------------------------------
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    out = _c10d.all_reduce(x.contiguous(), op, group.group_name)
+    return _c10d.wait_tensor(out)
+
+
+def _all_gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' (B, T/m, ...) slices as (B, T, ...), rank-major."""
+    m = group.size()
+    out = _c10d.wait_tensor(_c10d.all_gather_into_tensor(
+        x.contiguous(), m, group.group_name))
+    return torch.cat(out.chunk(m, 0), 1)
+
+
+def _reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks of (B, T, ...), this rank's T/m slice."""
+    m = group.size()
+    return _c10d.wait_tensor(_c10d.reduce_scatter_tensor(
+        torch.cat(x.chunk(m, 1), 0).contiguous(), "sum", m,
+        group.group_name))
+
+
+class _CopyIn(torch.autograd.Function):
+    """f: the identity forward, an all-reduce of the gradient (a
+    column-parallel product's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """g: an all-reduce forward, the identity backward (a row-parallel
+    product's partial sums)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """An all-gather along the sequence; backward a reduce-scatter (the
+    consumers' gradients are partial sums) or, with ``reduce_grad``
+    False, the rank's slice (they are equal on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, reduce_grad):
+        ctx.group, ctx.reduce_grad = group, reduce_grad
+        return _all_gather_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            return _reduce_scatter_seq(g, ctx.group), None, None
+        m, r = ctx.group.size(), ctx.group.rank()
+        return g.chunk(m, 1)[r].contiguous(), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """A reduce-scatter along the sequence; backward an all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group), None
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel embedding and loss
+# ---------------------------------------------------------------------------
+def vocab_parallel_embedding(tokens: torch.Tensor, table: torch.Tensor,
+                             start: int) -> torch.Tensor:
+    """This rank's share of the lookup: rows ``start`` to ``start +
+    len(table)`` of the whole table; ids outside them read zeros, so the
+    sum over the ranks is the whole lookup."""
+    local = tokens.long() - start
+    outside = (local < 0) | (local >= table.shape[0])
+    h = F.embedding(local.masked_fill(outside, 0), table)
+    return h.masked_fill(outside[..., None], 0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's NLL from this rank's vocab columns of the fp32 logits:
+    the max, the sum of exponentials and the gold logit all-reduced over
+    the group; the gradient is local. It never builds the whole logits.
+
+    Over one rank it computes ``torch.logsumexp`` and ``torch.gather``'s
+    values and their autograd's gradient op for op, so the same bits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        mx = logits.amax(-1, keepdim=True)
+        if group is not None and group.size() > 1:
+            mx = _all_reduce(mx, "max", group)
+        mx.masked_fill_(mx.abs() == float("inf"), 0)
+        sumexp = (logits - mx).exp().sum(-1)
+        local = labels.long() - start
+        inside = (local >= 0) & (local < logits.shape[-1])
+        idx = local.clamp(0, logits.shape[-1] - 1)[..., None]
+        gold = torch.where(inside, torch.gather(logits, -1, idx).squeeze(-1),
+                           0.0)
+        if group is not None and group.size() > 1:
+            sumexp = _all_reduce(sumexp, "sum", group)
+            gold = _all_reduce(gold, "sum", group)
+        logz = sumexp.log() + mx.squeeze(-1)
+        ctx.save_for_backward(logits, logz, idx, inside)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, idx, inside = ctx.saved_tensors
+        soft = g[..., None] * (logits - logz[..., None]).exp()
+        gold = torch.zeros_like(logits).scatter_add_(
+            -1, idx, torch.where(inside, -g, 0.0)[..., None])
+        return soft + gold, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 start: int, group) -> torch.Tensor:
+    """Per-token NLL (fp32) from this rank's vocab columns ``start`` to
+    ``start + logits.shape[-1]``."""
+    return _VocabParallelNLL.apply(logits.float(), labels, start, group)
+
+
+# ---------------------------------------------------------------------------
+# the route a step runs
+# ---------------------------------------------------------------------------
+class Route:
+    """A plan and the ``"model"`` group it runs over: the model calls it
+    where the reference pins an activation's sharding."""
+
+    def __init__(self, plan: Plan, group) -> None:
+        if group is not None and group.size() != plan.model:
+            raise ValueError(f"a plan for {plan.model} ranks on a group of "
+                             f"{group.size()}")
+        self.plan, self.group = plan, group
+        self.rank = group.rank() if group is not None else 0
+        self.sp = plan.seq_parallel
+
+    @property
+    def _many(self) -> bool:
+        return self.plan.model > 1
+
+    # -- collectives, the identity over one rank ------------------------------
+    def copy_in(self, x):
+        return _CopyIn.apply(x, self.group) if self._many else x
+
+    def reduce_out(self, x):
+        return _ReduceOut.apply(x, self.group) if self._many else x
+
+    def gather_seq(self, x, reduce_grad: bool = True):
+        return (_GatherSeq.apply(x, self.group, reduce_grad)
+                if self._many else x)
+
+    def scatter_seq(self, x):
+        return _ReduceScatterSeq.apply(x, self.group) if self._many else x
+
+    def split_seq(self, x):
+        """This rank's slice of a sequence every rank holds whole (its
+        gradient is the slice's alone)."""
+        return x.chunk(self.plan.model, 1)[self.rank] if self._many else x
+
+    # -- the model's boundaries -----------------------------------------------
+    def sublayer(self, fn, x: torch.Tensor, local: bool) -> torch.Tensor:
+        """``fn`` (attention or the MLP, without its residual) on the
+        normed residual ``x``: column- then row-parallel when its weights
+        are ``local``, else on whole weights, every rank alike. Returns
+        the output in the residual's layout."""
+        if local:
+            if self.sp:
+                return self.scatter_seq(fn(self.gather_seq(x)))
+            return self.reduce_out(fn(self.copy_in(x)))
+        if self.sp:
+            return self.split_seq(fn(self.gather_seq(x)))
+        return fn(x)
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor,
+              prefix: torch.Tensor | None = None) -> torch.Tensor:
+        """The residual stream's entry: the lookup (vocab-parallel where
+        the vocab is local) after ``prefix`` (a vlm's projected patches),
+        in the residual's layout. Where the lookup is a partial sum, the
+        prefix counts on rank 0 alone (zeros elsewhere, so its gradient
+        stays on the graph of every rank)."""
+        if self.plan.vocab_local:
+            h = vocab_parallel_embedding(tokens, table,
+                                         self.rank * table.shape[0])
+            if prefix is not None:
+                h = torch.cat([prefix if self.rank == 0 else prefix * 0, h],
+                              dim=1)
+            return self.scatter_seq(h) if self.sp else self.reduce_out(h)
+        h = F.embedding(tokens.long(), table)
+        if prefix is not None:
+            h = torch.cat([prefix, h], dim=1)
+        return self.split_seq(h) if self.sp else h
+
+    def head_input(self, h: torch.Tensor) -> torch.Tensor:
+        """The normed residual, whole on every rank, for the logits: a
+        column-parallel product where the vocab is local."""
+        if self.sp:
+            return self.gather_seq(h, reduce_grad=self.plan.vocab_local)
+        return self.copy_in(h) if self.plan.vocab_local else h
+
+    def nll(self, logits: torch.Tensor, labels: torch.Tensor
+            ) -> torch.Tensor:
+        """Per-token NLL of this rank's logits (its vocab columns where
+        the vocab is local)."""
+        return vocab_parallel_cross_entropy(
+            logits, labels, self.rank * logits.shape[-1], self.group)
+
+    def check(self, cfg, params: dict) -> None:
+        """Raises unless the local leaves have the widths the plan says."""
+        p, hd, m = self.plan, cfg.hd, self.plan.model
+        attn, mlp = params["layers"].attn, params["layers"].mlp
+        want = {"embed rows": (params["embed"].shape[0],
+                               cfg.vocab_size // (m if p.vocab_local else 1)),
+                "lm_head columns": (params["lm_head"].shape[-1],
+                                    cfg.vocab_size // (m if p.vocab_local
+                                                       else 1)),
+                "wq columns": (attn.wq.shape[-1], p.local_heads[0] * hd),
+                "wk columns": (attn.wk.shape[-1], p.local_heads[1] * hd),
+                "w_gate columns": (mlp.w_gate.shape[-1],
+                                   cfg.d_ff // (m if p.mlp_local else 1))}
+        bad = {k: v for k, v in want.items() if v[0] != v[1]}
+        if bad:
+            raise ValueError(f"leaves not laid out as {p}: {bad}")
+
+
+def route(cfg, *, kind: str, seq_len: int) -> Route | None:
+    """The installed policy's route for a ``kind`` step of ``cfg`` (its
+    ``"model"`` group's size is m), or None: no policy, a mesh without a
+    ``"model"`` axis, or a family that computes whole."""
+    group = logical.model_group()
+    if cfg.family not in TP_FAMILIES or group is None:
+        return None
+    return Route(plan(cfg, group.size(), kind=kind, seq_len=seq_len), group)

@@ -21,6 +21,7 @@ from repro_torch.configs import (SHAPES, ShapeCell, cell_inputs,
                                  cell_runnable, get_config)
 from repro_torch.distributed import logical
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models.common import ArchConfig, tree_leaves, tree_map
 from repro_torch.models.transformer import build_model
 from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
@@ -126,6 +127,8 @@ class Cell:
     grad_accum: int = 1
     rows: int = 0               # this rank's rows of the global batch
     chips: int = 1              # ranks of the mesh
+    tp: dict | None = None      # the tensor-parallel plan's record (dense
+    #                             and vlm), else None: computed whole
 
 
 def _tree_bytes(tree) -> float:
@@ -157,6 +160,19 @@ def _place(tree, shardings):
     return tree_map(block, tree, shardings)
 
 
+def _zeros_placed(tree, shardings, device) -> dict:
+    """Each leaf of ``tree`` (``meta`` tensors of a fresh cache, whose
+    leaves start at zero) as a DTensor whose block on this rank is zeros
+    on ``device``: the whole leaf is never allocated (a decode cell's
+    cache is over a TB whole)."""
+    def block(t, s):
+        shape = shd.local_shard(s.mesh, t, s.placements).shape
+        return DTensor.from_local(
+            torch.zeros(shape, dtype=t.dtype, device=device), s.mesh,
+            list(s.placements), shape=t.shape, stride=t.stride())
+    return tree_map(block, tree, shardings)
+
+
 def _same_layout(mesh, have, want) -> bool:
     """Placements that differ only on mesh dims of one rank lay a tensor
     out alike (a one-rank block is the whole)."""
@@ -183,35 +199,54 @@ def _put_back(local: torch.Tensor, t: DTensor, have: list) -> DTensor:
 
 def serve_step(model, mesh, kind: str) -> Callable:
     """The prefill or decode step one rank runs on placed params, inputs
-    and cache: each param leaf gathered whole (``"model"`` shards storage
-    only, as in ``sharding.shard_train_step``), this rank's rows of the
-    inputs and cache (gathered along the other axes), then the model's
-    own ``prefill`` or ``decode``; the cache comes back in its placements.
-    Returns (this rank's logits, cache).
+    and cache: this rank's rows of the inputs and cache, each param leaf
+    gathered along the data axes, then the model's own ``prefill`` or
+    ``decode``; the cache comes back in its placements. Returns (this
+    rank's logits, cache).
 
-    The model runs with no logical policy installed: ``moe_block_ep``
-    takes the whole batch on every rank, and a rank here holds its own
-    rows, so an MoE layer routes them by ``moe_block``'s grouped dispatch,
-    one group a rank, as ``moe_groups`` (the batch ranks) groups the
-    tokens in the reference."""
+    The dense and vlm families compute tensor-parallel along ``"model"``
+    (``tensor_parallel``), with the logical policy installed around the
+    model's step: each leaf in its ``sharding.tp_layouts`` placements, the
+    cache kept local along ``"model"`` where the heads are (its KV heads
+    are sharded there), else gathered; the logits are this rank's vocab
+    columns where the vocab is local, as the reference's ``out_shardings``
+    (``P(batch, None, "model")``) leave them. The other families gather
+    every leaf and the cache whole along ``"model"`` and run with no
+    policy installed: ``moe_block_ep`` takes the whole batch on every
+    rank, and a rank here holds its own rows, so an MoE layer routes them
+    by ``moe_block``'s grouped dispatch, one group a rank, as
+    ``moe_groups`` (the batch ranks) groups the tokens in the
+    reference."""
     baxes = data_axes(mesh)
     names = mesh.mesh_dim_names
     full = [Replicate()] * mesh.ndim
+    plan = tensor_parallel.mesh_plan(model.cfg, mesh, kind=kind, seq_len=1)
+    layouts = None if plan is None else shd.tp_layouts(model.cfg, mesh, plan)
+    keep_heads = plan is not None and plan.heads_local
 
     def rows(t: DTensor) -> list:
         return [p if names[j] in baxes else Replicate()
                 for j, p in enumerate(t.placements)]
 
-    def step(params, inputs: dict, cache: dict):
-        local = tree_map(lambda t: _local(t, full), params)
-        mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
-        held = tree_map(lambda t: _local(t, rows(t)), cache)
+    def run(local, mine, held):
         if kind == "decode":
-            logits, held = model.decode(local, mine["tokens"], held)
+            return model.decode(local, mine["tokens"], held)
+        return model.prefill(local, mine, held)
+
+    def step(params, inputs: dict, cache: dict):
+        mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
+        have = tree_map(lambda t: list(t.placements) if keep_heads
+                        else rows(t), cache)
+        held = tree_map(_local, cache, have)
+        if plan is None:
+            logits, held = run(tree_map(lambda t: _local(t, full), params),
+                               mine, held)
         else:
-            logits, held = model.prefill(local, mine, held)
-        return logits, tree_map(lambda new, t: _put_back(new, t, rows(t)),
-                                held, cache)
+            local = tree_map(lambda t, lay: _local(t, lay[0]), params,
+                             layouts)
+            with logical.policy(mesh):
+                logits, held = run(local, mine, held)
+        return logits, tree_map(_put_back, held, cache, have)
 
     return step
 
@@ -275,8 +310,11 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
+    plan = tensor_parallel.mesh_plan(cfg, mesh, kind=kind,
+                                     seq_len=S if kind == "train" else 1)
     common = dict(n_active=active_params(cfg), grad_accum=grad_accum,
-                  rows=rows, chips=mesh.size())
+                  rows=rows, chips=mesh.size(),
+                  tp=None if plan is None else plan.record())
 
     def meta_model():
         return build_model(cfg, device="meta")
@@ -309,14 +347,14 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
                         n_layers=cfg.n_layers + cfg.n_enc_layers),
                     **common)
 
-    cache = model.init_cache(B, S)
+    cache = meta_model().init_cache(B, S)
     cache_bytes = _tree_bytes(cache)
     cspecs = shd.fit_tree(mesh, shd.cache_specs(cfg, mesh), cache)
     bspecs = {k: shd.fit_spec(mesh, v, inputs[k].shape)
               for k, v in shd.batch_specs(cfg, mesh, inputs).items()}
     placed = (_place(params, shd.to_named(mesh, pspecs)),
               _place(inputs, shd.to_named(mesh, bspecs)),
-              _place(cache, shd.to_named(mesh, cspecs)))
+              _zeros_placed(cache, shd.to_named(mesh, cspecs), device))
 
     def semantic():
         m = meta_model()

@@ -17,10 +17,13 @@ For each cell it records
     temporaries);
   * the roofline terms, the kernel-adjusted memory term and ``fits_h100``.
 
-The port's sharded step gathers each leaf whole, and "model" shards
-storage only, so the FLOPs the cards execute (rank 0's times the chips,
-``hlo_flops``) repeat the work along "model"; ``useful_fraction`` shows
-it, and the semantic count is kept beside it.
+The dense and vlm families compute tensor-parallel along "model"
+(``distributed/tensor_parallel.py``); the record's ``"tp"`` is the plan
+(heads local or gathered, the MLP and the vocab local or whole, the
+residuals sequence-parallel or not), None for the other families, whose
+step gathers each leaf whole, so the FLOPs the cards execute (rank 0's
+times the chips, ``hlo_flops``) repeat their work along "model";
+``useful_fraction`` shows it, and the semantic count is kept beside it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -157,6 +160,7 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
         grad_accum=grad_accum, remat=remat or cell.cfg.remat,
         hbm_bytes_per_device=HBM_BYTES,
         fits_h100=bool(bytes_per_device <= HBM_BYTES),
+        tp=cell.tp,
     )
     print(f"[dryrun] {arch} x {cell.shape} x {mesh_name}: "
           f"{bytes_per_device / 1e9:.2f} GB/device "
@@ -166,6 +170,7 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
           f"kernel-adj bound={bound_kernel * 1e3:.2f} ms "
           f"frac={result['roofline_fraction_kernel']:.3f} "
           f"({t_count:.1f} s)", flush=True)
+    print(f"  tp: {json.dumps(cell.tp)}", flush=True)
     print(f"  semantic: flops={c['sem_flops']:.3e} "
           f"bytes={c['sem_bytes']:.3e}; rank 0: flops={c['flops']:.3e} "
           f"bytes={c['bytes']:.3e} collective={coll_rank:.3e}B", flush=True)

@@ -136,7 +136,10 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     past the end overwrites its last row. Returns (out, (K, V) or None).
     """
     B, T, d = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # the head counts of the weights given: under tensor parallelism a
+    # rank's own heads (``cfg.hd`` is the same on every rank)
+    hd = cfg.hd
+    hq, hkv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
     cd = cfg.compute_dtype
     q = (x @ p.wq.to(cd)).reshape(B, T, hq, hd)
     if cross_kv is not None:

@@ -155,12 +155,17 @@ def tree_map(fn, tree, *rest):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token NLL in fp32. labels: integer, mask: optional {0,1}."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
-    nll = logz - gold
+                  mask: torch.Tensor | None = None, tp=None) -> torch.Tensor:
+    """Mean token NLL in fp32. labels: integer, mask: optional {0,1}.
+    ``tp``: a ``tensor_parallel.Route`` whose vocab is local, under which
+    ``logits`` are this rank's vocab columns (the vocab-parallel loss)."""
+    if tp is not None:
+        nll = tp.nll(logits, labels)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -19,12 +19,14 @@ stacked leaves. Caches are updated in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops as kops
 
 from .attention import AttnParams, attention_block, init_attn
@@ -52,6 +54,21 @@ def unstack(tree):
     return list(tree.unbind(0))
 
 
+def _routes(tp) -> tuple:
+    """The trunk's extra arguments: the route where there is one (only
+    the dense and vlm families get one), else none."""
+    return () if tp is None else (tp,)
+
+
+def _sublayer(tp, fn, x: torch.Tensor, part: str) -> torch.Tensor:
+    """``fn(x)`` (a sublayer on its normed input); under a route, its
+    tensor-parallel form, local where the plan's ``part`` ("heads" or
+    "mlp") is."""
+    if tp is None:
+        return fn(x)
+    return tp.sublayer(fn, x, getattr(tp.plan, f"{part}_local"))
+
+
 class DecoderLM:
     """What the families share: the embedding lookup, the trunk without a
     cache (``_layer`` per stacked layer), the loss, prefill and decode
@@ -69,10 +86,19 @@ class DecoderLM:
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
-    def _trunk(self, params: dict, h: torch.Tensor) -> torch.Tensor:
-        """Every layer without a cache, each through ``_remat``."""
+    def _tp(self, kind: str, seq_len: int):
+        """The ``tensor_parallel.Route`` of an installed policy (the dense
+        and vlm families on a mesh with a ``"model"`` axis), else None."""
+        return tensor_parallel.route(self.cfg, kind=kind, seq_len=seq_len)
+
+    def _trunk(self, params: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
+        """Every layer without a cache, each through ``_remat``; under a
+        route the layers get it as an argument, so a checkpoint's
+        recompute in the backward runs the same route."""
+        layer = self._layer if tp is None else functools.partial(
+            self._layer, tp=tp)
         for lp in unstack(params["layers"]):
-            h = self._remat(self._layer, h, lp)
+            h = self._remat(layer, h, lp)
         return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
     def _patches(self, batch: dict) -> torch.Tensor | None:
@@ -81,46 +107,71 @@ class DecoderLM:
         return batch.get("patch_embeds") if self.cfg.family == "vlm" else None
 
     def _embed(self, params: dict, tokens: torch.Tensor,
-               patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+               patch_embeds: torch.Tensor | None = None, tp=None
+               ) -> torch.Tensor:
         """The lookup as ``F.embedding``: its backward sums each row's
         gradient in a fixed order (advanced indexing's backward on the CPU
         does not), so losses are reproducible from run to run. Patch
-        embeddings, projected by ``patch_proj``, go before the text."""
+        embeddings, projected by ``patch_proj``, go before the text. Under
+        a route, the residual stream in its layout (``Route.embed``)."""
         cd = self.cfg.compute_dtype
-        h = F.embedding(tokens.long(), params["embed"].to(cd))
-        if patch_embeds is None:
-            return h
-        return torch.cat([patch_embeds.to(cd) @ params["patch_proj"].to(cd),
-                          h], dim=1)
+        table = params["embed"].to(cd)
+        pe = None if patch_embeds is None else \
+            patch_embeds.to(cd) @ params["patch_proj"].to(cd)
+        if tp is not None:
+            return tp.embed(tokens, table, pe)
+        h = F.embedding(tokens.long(), table)
+        return h if pe is None else torch.cat([pe, h], dim=1)
+
+    def _logits(self, params: dict, h: torch.Tensor, tp=None
+                ) -> torch.Tensor:
+        """The normed residual's logits: this rank's vocab columns under a
+        route whose vocab is local."""
+        if tp is not None:
+            h = tp.head_input(h)
+        return h @ params["lm_head"].to(self.cfg.compute_dtype)
+
+    def _routed(self, params: dict, kind: str, seq_len: int):
+        """``_tp``, with the leaves checked against its plan."""
+        tp = self._tp(kind, seq_len)
+        if tp is not None:
+            tp.check(self.cfg, params)
+        return tp
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token NLL over the text positions (the patches'
         positions are sliced off)."""
         cfg = self.cfg
         patches = self._patches(batch)
-        h = self._trunk(params, self._embed(params, batch["tokens"], patches))
+        tp = self._routed(params, "train",
+                          tensor_parallel.residual_len(cfg, batch))
+        h = self._trunk(params, self._embed(params, batch["tokens"], patches,
+                                            tp), *_routes(tp))
+        if tp is not None:
+            h = tp.head_input(h)
         if patches is not None:
             h = h[:, patches.shape[1]:]
         logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        vocab_tp = tp if tp is not None and tp.plan.vocab_local else None
+        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                             tp=vocab_tp)
 
     def prefill(self, params: dict, batch: dict, cache: dict
                 ) -> tuple[torch.Tensor, dict]:
         """The prompt (after its patches, for vlm) into the cache; ``index``
-        advances by every position written."""
-        cfg = self.cfg
-        h = self._embed(params, batch["tokens"], self._patches(batch))
-        h, cache = self._cached_trunk(params, h, cache)
-        logits = h[:, -1:] @ params["lm_head"].to(cfg.compute_dtype)
-        return logits, cache
+        advances by every position written. Under a route, the logits are
+        this rank's vocab columns where the vocab is local."""
+        tp = self._routed(params, "prefill", batch["tokens"].shape[1])
+        h = self._embed(params, batch["tokens"], self._patches(batch), tp)
+        h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
+        return self._logits(params, h[:, -1:], tp), cache
 
     def decode(self, params: dict, tokens: torch.Tensor, cache: dict
                ) -> tuple[torch.Tensor, dict]:
-        cfg = self.cfg
-        h = self._embed(params, tokens)                        # (B,1,d)
-        h, cache = self._cached_trunk(params, h, cache)
-        logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        return logits, cache
+        tp = self._routed(params, "decode", 1)
+        h = self._embed(params, tokens, tp=tp)                 # (B,1,d)
+        h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
+        return self._logits(params, h, tp), cache
 
 
 class DenseLM(DecoderLM):
@@ -175,12 +226,20 @@ class DenseLM(DecoderLM):
         """The layer's feed-forward on its normed input."""
         return swiglu(lp.mlp, x, self.cfg.compute_dtype)
 
-    def _layer(self, x: torch.Tensor, lp: DenseLayer) -> torch.Tensor:
+    def _layer(self, x: torch.Tensor, lp: DenseLayer, tp=None
+               ) -> torch.Tensor:
+        """One layer; under a route each sublayer in its tensor-parallel
+        form (``Route.sublayer``)."""
         cfg = self.cfg
-        a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
-                               cfg, flash_attention=self.flash_attention)
-        x = x + a
-        return x + self._ffn(lp, rmsnorm(x, lp.norm2, cfg.norm_eps))
+
+        def attn(h):
+            return attention_block(lp.attn, h, cfg,
+                                   flash_attention=self.flash_attention)[0]
+
+        x = x + _sublayer(tp, attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
+                          "heads")
+        return x + _sublayer(tp, functools.partial(self._ffn, lp),
+                             rmsnorm(x, lp.norm2, cfg.norm_eps), "mlp")
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -193,20 +252,26 @@ class DenseLM(DecoderLM):
                 "index": torch.zeros((batch,), dtype=torch.int32,
                                      device=self.device)}
 
-    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict
-                      ) -> tuple[torch.Tensor, dict]:
+    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict,
+                      tp=None) -> tuple[torch.Tensor, dict]:
         """Runs every layer against the cache. K/V land in ``cache["k"]``
         and ``cache["v"]`` in place; the returned cache holds those same
-        tensors and a new ``index`` advanced by the number of tokens."""
+        tensors and a new ``index`` advanced by the number of tokens.
+        Under a route whose heads are local the cache holds this rank's
+        KV heads."""
         cfg = self.cfg
         idx = cache["index"]
         for i, lp in enumerate(unstack(params["layers"])):
-            a, _ = attention_block(
-                lp.attn, rmsnorm(h, lp.norm1, cfg.norm_eps), cfg,
-                kv_cache=(cache["k"][i], cache["v"][i]), cache_index=idx,
-                decode_attention=self.decode_attention)
-            h = h + a
-            h = h + self._ffn(lp, rmsnorm(h, lp.norm2, cfg.norm_eps))
+            def attn(x, lp=lp, i=i):
+                return attention_block(
+                    lp.attn, x, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
+                    cache_index=idx,
+                    decode_attention=self.decode_attention)[0]
+
+            h = h + _sublayer(tp, attn, rmsnorm(h, lp.norm1, cfg.norm_eps),
+                              "heads")
+            h = h + _sublayer(tp, functools.partial(self._ffn, lp),
+                              rmsnorm(h, lp.norm2, cfg.norm_eps), "mlp")
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}

@@ -218,7 +218,7 @@ KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
         "shared_memory_kernel_bytes", "memory_kernel_s", "bound_kernel_s",
         "roofline_fraction_kernel", "semantic", "rank0", "peak_by_kind",
         "t_count_s", "grad_accum", "remat", "hbm_bytes_per_device",
-        "fits_h100"}
+        "fits_h100", "tp"}
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -229,10 +229,14 @@ def test_dryrun_record(dryrun_records, kind):
     assert r["rank0"]["rows"] == 2
     assert r["bytes_per_device"] == r["peak_by_kind"]["Total"] > 0
     assert r["fits_h100"] is True
-    # every rank executes its rows, and the 2 ranks along "model" the same
-    # ones, so the cards' FLOPs are at least twice the semantic count (the
-    # gathers' copies add the rest)
-    assert r["rank0"]["flops"] * 8 >= r["semantic"]["flops"]
+    # every rank executes its rows, and the step is tensor-parallel along
+    # "model" (the reduced smollm's heads, d_ff and vocab divide by 2), so
+    # the cards' FLOPs are at least the semantic count (the gathers' copies
+    # add the rest)
+    assert r["tp"] == {"model": 2, "heads": "local", "local_heads": [2, 1],
+                       "mlp": "local", "vocab": "local",
+                       "seq_parallel": kind == "train"}
+    assert r["rank0"]["flops"] * 16 >= r["semantic"]["flops"]
     assert r["hlo_flops"] == 16 * r["rank0"]["flops"]
     assert r["useful_fraction"] == r["model_flops"] / r["hlo_flops"]
     assert r["compute_s"] > 0 and r["memory_s"] > 0

@@ -1,0 +1,543 @@
+"""The port's tensor-parallel compute along "model" (dense and vlm
+families, ``repro_torch/distributed/tensor_parallel.py``) against the
+reference's single-device steps.
+
+The reference's own sharded step fails in this JAX (a
+``ShardingTypeError`` at the vocab-sharded embedding gather), and GSPMD's
+sharded program computes the single-device function, so the port's
+sharded steps are held to the reference's single-device ones. As in
+``tests/test_torch_distributed.py``, the reference runs once in a
+subprocess and the port in 8 gloo processes, in a module fixture; the
+weights come from the reference's ``init`` through the weight bridge, the
+batches and prompts are made with numpy from seeds.
+
+Cases (name -> (arch, reduced config, ("data", "model") mesh, training
+sequence length)):
+  * ``heads_local``: the reduced smollm of ``test_torch_distributed.py``
+    (4 heads, 2 KV heads, hd 16, vocab 256, d_ff 128) on (4, 2), T 32:
+    heads, d_ff and vocab local, sequence-parallel residuals in training;
+  * ``not_seq_parallel``: the same at T 31, which 2 ranks do not divide:
+    one all-reduce after each row-parallel product in training too;
+  * ``gathered``: the same with vocab 250 on (2, 4): the attention
+    gathered (2 KV heads on 4 ranks), the vocab whole, the MLP local;
+  * ``gathered_vocab_local``: vocab 256 on (2, 4): the attention gathered
+    and the vocab local, the plan of llama-3.1-8b, minitron-4b and
+    llava-next-34b at 16 ranks along "model";
+  * ``vlm``: a reduced llava-next-34b (8 patch embeddings before the text)
+    on (4, 2).
+Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
+steps from the initial weights. A fake world of 16 ranks on ``meta``
+counts a reduced dense cell on (4, 4) under both plans.
+"""
+import datetime
+import json
+import logging
+import os
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOLLM = dict(n_layers=2, d_model=64, vocab_size=256, d_ff=128, n_heads=4,
+              n_kv_heads=2, head_dim=16)
+CASES = {"heads_local": ("smollm-135m", SMOLLM, (4, 2), 32),
+         "not_seq_parallel": ("smollm-135m", SMOLLM, (4, 2), 31),
+         "gathered": ("smollm-135m", dict(SMOLLM, vocab_size=250), (2, 4),
+                      32),
+         "gathered_vocab_local": ("smollm-135m", SMOLLM, (2, 4), 32),
+         "vlm": ("llava-next-34b", dict(SMOLLM, n_patches=8), (4, 2), 32)}
+HEADS_LOCAL = {"model": 2, "heads": "local", "local_heads": [2, 1],
+               "mlp": "local", "vocab": "local"}
+# each case's plan, and whether its train steps are sequence-parallel
+PLANS = {"heads_local": (HEADS_LOCAL, True),
+         "not_seq_parallel": (HEADS_LOCAL, False),
+         "gathered": ({"model": 4, "heads": "gathered",
+                       "local_heads": [4, 2], "mlp": "local",
+                       "vocab": "whole"}, True),
+         "gathered_vocab_local": ({"model": 4, "heads": "gathered",
+                                   "local_heads": [4, 2], "mlp": "local",
+                                   "vocab": "local"}, True),
+         "vlm": (HEADS_LOCAL, True)}
+STEPS, BATCH = 3, 8
+PROMPT, DECODES, MAX_LEN = 12, 8, 32
+TOL = 1e-5
+RANK_TIMEOUT_S = 300
+
+
+def reduced(arch: str, over: dict):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(**over)
+
+
+# ---------------------------------------------------------------------------
+# inputs, made with numpy from seeds
+# ---------------------------------------------------------------------------
+def make_inputs() -> dict:
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, (arch, over, _, seq) in CASES.items():
+        cfg = reduced(arch, over)
+        vlm = cfg.family == "vlm"
+        for i in range(STEPS):
+            out[f"{name}/batch{i}/tokens"] = rng.integers(
+                0, cfg.vocab_size, (BATCH, seq), dtype=np.int32)
+            out[f"{name}/batch{i}/labels"] = rng.integers(
+                0, cfg.vocab_size, (BATCH, seq), dtype=np.int32)
+            lens = rng.integers(1, seq + 1, BATCH)
+            out[f"{name}/batch{i}/loss_mask"] = (
+                np.arange(seq)[None, :] < lens[:, None]).astype(np.int32)
+            if vlm:
+                out[f"{name}/batch{i}/patch_embeds"] = rng.standard_normal(
+                    (BATCH, cfg.n_patches, cfg.d_model), np.float32)
+        out[f"{name}/prompt/tokens"] = rng.integers(
+            0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)
+        if vlm:
+            out[f"{name}/prompt/patch_embeds"] = rng.standard_normal(
+                (BATCH, cfg.n_patches, cfg.d_model), np.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reference, in one subprocess
+# ---------------------------------------------------------------------------
+REF_CODE = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models.transformer import build_model
+    from repro.train.optimizer import OptimizerConfig, build_optimizer
+    from repro.train.train_step import build_train_step
+
+    CASES, STEPS, DECODES, MAX_LEN = {consts}
+    inp = np.load(sys.argv[1])
+    out = {{}}
+
+    def part(prefix):
+        return {{k[len(prefix):]: jnp.asarray(v) for k, v in inp.items()
+                 if k.startswith(prefix)}}
+
+    for name, (arch, over, *_) in CASES.items():
+        model = build_model(get_config(arch).reduced(**over))
+        params = model.init(jax.random.key(0))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            key = "/".join(str(getattr(k, "key", getattr(k, "name", k)))
+                           for k in path)
+            out[f"{{name}}/params/{{key}}"] = np.asarray(leaf)
+        opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
+        state = {{"params": params, "opt": opt.init(params)}}
+        step = jax.jit(build_train_step(model, opt))
+        for i in range(STEPS):
+            state, m = step(state, part(f"{{name}}/batch{{i}}/"))
+            out[f"{{name}}/loss{{i}}"] = np.asarray(m["loss"])
+            out[f"{{name}}/grad_norm{{i}}"] = np.asarray(m["grad_norm"])
+        for j, leaf in enumerate(jax.tree_util.tree_leaves(state["params"])):
+            out[f"{{name}}/final{{j}}"] = np.asarray(leaf)
+        prompt = part(f"{{name}}/prompt/")
+        cache = model.init_cache(prompt["tokens"].shape[0], MAX_LEN)
+        logits, cache = model.prefill(params, prompt, cache)
+        out[f"{{name}}/logits0"] = np.asarray(logits)
+        for j in range(DECODES):
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+            out[f"{{name}}/tokens{{j}}"] = np.asarray(tok)
+            logits, cache = model.decode(params, tok[:, None], cache)
+            out[f"{{name}}/logits{{j + 1}}"] = np.asarray(logits)
+    np.savez(sys.argv[2], **out)
+""")
+
+
+def run_reference(inputs_path: str, out_path: str) -> None:
+    consts = repr((CASES, STEPS, DECODES, MAX_LEN))
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run(
+        [sys.executable, "-c", REF_CODE.format(consts=consts), inputs_path,
+         out_path], env=env, capture_output=True, text=True, timeout=540)
+    assert res.returncode == 0, f"reference failed:\n{res.stderr[-4000:]}"
+
+
+# ---------------------------------------------------------------------------
+# the port, in gloo processes
+# ---------------------------------------------------------------------------
+def counting_routes(plans: list):
+    """Patches ``tensor_parallel.route`` to append the plan of each route
+    it returns; returns the function that undoes it."""
+    from repro_torch.distributed import tensor_parallel
+    route = tensor_parallel.route
+
+    def counted(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if r is not None:
+            plans.append(r.plan.record())
+        return r
+
+    tensor_parallel.route = counted
+    return lambda: setattr(tensor_parallel, "route", route)
+
+
+def case_run(inp: dict, name: str, record: dict) -> None:
+    """3 sharded AdamW steps and the served prefill and decode steps of
+    one case on its mesh, into ``record``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.build import serve_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from repro_torch.weights import dense_params_from_flat
+    arch, over, shape, _ = CASES[name]
+    cfg = reduced(arch, over)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    flat = {k[len(f"{name}/params/"):]: v for k, v in inp.items()
+            if k.startswith(f"{name}/params/")}
+    model = build_model(cfg, device="cpu")
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(v.copy())
+                for k, v in inp.items() if k.startswith(prefix)}
+
+    def placed(tree, specs):
+        return shd.place(tree, shd.to_named(mesh, shd.fit_tree(mesh, specs,
+                                                               tree)))
+
+    params = dense_params_from_flat(flat, cfg, "cpu")
+    opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
+    state = {"params": params, "opt": opt.init(params)}
+    pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), params)
+    state = shd.place(state, shd.to_named(
+        mesh, shd.train_state_specs(state, "adamw", pspecs)))
+    step = shd.shard_train_step(model, opt, mesh)
+    plans = []
+    undo = counting_routes(plans)
+    try:
+        for i in range(STEPS):
+            state, m = step(state, part(f"{name}/batch{i}/"))
+            record[f"{name}/loss{i}"] = m["loss"].numpy()
+            record[f"{name}/grad_norm{i}"] = m["grad_norm"].numpy()
+        record[f"{name}/train_plans"] = np.array(json.dumps(plans))
+        for j, p in enumerate(tree_leaves(state["params"])):
+            record[f"{name}/final{j}"] = p.full_tensor().numpy()
+
+        vocab = [Shard(0) if n == "data" else
+                 Shard(2) if cfg.vocab_size % mesh.size(1) == 0 else
+                 Replicate() for n in mesh.mesh_dim_names]
+
+        def whole(logits):
+            return DTensor.from_local(logits, mesh, vocab).full_tensor()
+
+        ps = placed(dense_params_from_flat(flat, cfg, "cpu"),
+                    shd.param_specs(cfg, mesh))
+        prompt = part(f"{name}/prompt/")
+        cache = placed(model.init_cache(BATCH, MAX_LEN),
+                       shd.cache_specs(cfg, mesh))
+        prefill = serve_step(model, mesh, "prefill")
+        decode = serve_step(model, mesh, "decode")
+        plans.clear()
+        with torch.no_grad():
+            logits, cache = prefill(ps, placed(prompt, shd.batch_specs(
+                cfg, mesh, prompt)), cache)
+            record[f"{name}/local_logits"] = np.array(logits.shape)
+            record[f"{name}/logits0"] = whole(logits).numpy()
+            for j in range(DECODES):
+                tok = torch.from_numpy(record[f"{name}/logits{j}"][:, -1]
+                                       .argmax(-1).astype(np.int32))
+                record[f"{name}/tokens{j}"] = tok.numpy()
+                feed = {"tokens": tok[:, None]}
+                logits, cache = decode(ps, placed(feed, shd.batch_specs(
+                    cfg, mesh, feed)), cache)
+                record[f"{name}/logits{j + 1}"] = whole(logits).numpy()
+        record[f"{name}/serve_plans"] = np.array(json.dumps(plans))
+    finally:
+        undo()
+
+
+def _rank_main(rank: int, world: int, store: str, inputs: str,
+               out_dir: str) -> None:
+    torch.set_num_threads(1)
+    # DTensor warns that a norm over a leaf sharded on both axes takes two
+    # all-reduces
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        inp = dict(np.load(inputs))
+        record = {}
+        for name in CASES:
+            case_run(inp, name, record)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **record)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, tmp, inputs: str) -> list[dict]:
+    """``_rank_main`` on ``world`` gloo processes; a rank's exception fails
+    the caller with its traceback, and a run past ``RANK_TIMEOUT_S`` is
+    killed and fails."""
+    out_dir = tmp / f"world{world}"
+    out_dir.mkdir()
+    ctx = mp.start_processes(
+        _rank_main, args=(world, str(tmp / f"store{world}"), inputs,
+                          str(out_dir)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail(f"{world} gloo ranks ran past {RANK_TIMEOUT_S} s")
+    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the reference's outputs, the 8 ranks' records)."""
+    tmp = tmp_path_factory.mktemp("tensor_parallel")
+    np.savez(tmp / "inputs.npz", **make_inputs())
+    run_reference(str(tmp / "inputs.npz"), str(tmp / "ref.npz"))
+    ref = dict(np.load(tmp / "ref.npz"))
+    inp = {**dict(np.load(tmp / "inputs.npz")),
+           **{k: v for k, v in ref.items() if "/params/" in k}}
+    np.savez(tmp / "port_inputs.npz", **inp)
+    return ref, spawn_ranks(8, tmp, str(tmp / "port_inputs.npz"))
+
+
+# ---------------------------------------------------------------------------
+# against the reference
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_train_steps_match_reference(runs, name):
+    """3 AdamW steps: losses and grad norms within 1e-5 relative of the
+    reference's single-device step, every leaf within 1e-5."""
+    ref, ranks = runs
+    rec = ranks[0]
+    for i in range(STEPS):
+        for m in ("loss", "grad_norm"):
+            np.testing.assert_allclose(rec[f"{name}/{m}{i}"],
+                                       ref[f"{name}/{m}{i}"], rtol=TOL)
+    finals = sorted(k for k in ref if k.startswith(f"{name}/final"))
+    assert finals and len(finals) == len(
+        [k for k in rec if k.startswith(f"{name}/final")])
+    for k in finals:
+        np.testing.assert_allclose(rec[k], ref[k], atol=TOL, rtol=0,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_serve_steps_match_reference(runs, name):
+    """The prefill and 8 greedy decode steps of ``serve_step``: the logits
+    gathered over the vocab (and the batch) within 1e-5 of the reference's
+    ``prefill``/``decode``, the greedy tokens identical."""
+    ref, ranks = runs
+    rec = ranks[0]
+    for j in range(DECODES + 1):
+        np.testing.assert_allclose(rec[f"{name}/logits{j}"],
+                                   ref[f"{name}/logits{j}"], atol=TOL,
+                                   rtol=0, err_msg=f"step {j}")
+    for j in range(DECODES):
+        np.testing.assert_array_equal(rec[f"{name}/tokens{j}"],
+                                      ref[f"{name}/tokens{j}"])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_every_rank_reports_the_same(runs, name):
+    """The global metrics, the final leaves and the gathered logits are
+    the same bits on every rank."""
+    _, ranks = runs
+    keys = [k for k in ranks[0] if k.startswith(f"{name}/") and k.split(
+        "/")[1].startswith(("loss", "grad_norm", "final", "logits"))]
+    for rec in ranks[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(rec[k], ranks[0][k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_the_steps_take_the_plan(runs, name):
+    """Each train step takes one route of the case's plan,
+    sequence-parallel where "model" divides the residual length (32 text
+    positions, and 8 patches; not 31); the prefill and each decode step
+    one, not sequence-parallel. A rank's logits are its batch rows and,
+    where the vocab is local, its vocab columns."""
+    _, ranks = runs
+    arch, over, (data, model), _ = CASES[name]
+    want, seq_parallel = PLANS[name]
+    cfg = reduced(arch, over)
+    for rec in ranks:
+        assert json.loads(str(rec[f"{name}/train_plans"])) == [
+            dict(want, seq_parallel=seq_parallel)] * STEPS
+        assert json.loads(str(rec[f"{name}/serve_plans"])) == [
+            dict(want, seq_parallel=False)] * (1 + DECODES)
+        vocab = cfg.vocab_size // (model if want["vocab"] == "local" else 1)
+        assert list(rec[f"{name}/local_logits"]) == [BATCH // data, 1, vocab]
+
+
+# ---------------------------------------------------------------------------
+# the plan and the pieces, in this process
+# ---------------------------------------------------------------------------
+# (heads, MLP, vocab) at m = 16 for every dense and vlm config: heads local
+# only where 16 divides both head counts
+AT_16 = {"phi3-mini-3.8b": ("local", "local", "local"),
+         "llama-3.1-8b": ("gathered", "local", "local"),
+         "llama-3.2-1b": ("gathered", "local", "local"),
+         "minitron-4b": ("gathered", "local", "local"),
+         "llava-next-34b": ("gathered", "local", "local"),
+         "smollm-135m": ("gathered", "local", "local"),
+         "smollm-360m": ("gathered", "local", "local")}
+
+
+@pytest.mark.parametrize("arch", sorted(AT_16))
+def test_plan_at_sixteen(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import plan
+    cfg = get_config(arch)
+    assert cfg.family in ("dense", "vlm")
+    p = plan(cfg, 16, kind="train", seq_len=4096).record()
+    assert (p["heads"], p["mlp"], p["vocab"]) == AT_16[arch]
+    assert p["seq_parallel"] is True
+    div = 16 if p["heads"] == "local" else 1
+    assert p["local_heads"] == [cfg.n_heads // div, cfg.n_kv_heads // div]
+    for kind, seq in (("train", 4095), ("prefill", 4096), ("decode", 1)):
+        assert plan(cfg, 16, kind=kind, seq_len=seq).seq_parallel is False
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
+                                  "zamba2-2.7b", "whisper-tiny",
+                                  "smollm-135m"])
+def test_route_only_for_dense_and_vlm_under_a_policy(arch):
+    """No policy: no route for any family. Under a policy on a mesh with
+    a ``"model"`` axis, a route for the dense and vlm families alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import logical, tensor_parallel
+
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+
+        def get_group(self, name):
+            return Group()
+
+    class Group:
+        group_name = "stand-in"
+
+        def size(self):
+            return 1
+
+        def rank(self):
+            return 0
+
+    cfg = get_config(arch)
+    assert tensor_parallel.route(cfg, kind="train", seq_len=8) is None
+    with logical.policy(Mesh()):
+        r = tensor_parallel.route(cfg, kind="train", seq_len=8)
+        assert (r is not None) == (cfg.family in ("dense", "vlm"))
+    assert logical.model_group() is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_vocab_parallel_loss_is_the_plain_loss_on_one_rank(dtype, masked):
+    """Over one rank the vocab-parallel loss computes the plain loss's
+    value and gradient op for op: the same bits."""
+    from repro_torch.distributed.tensor_parallel import Route, plan
+    from repro_torch.models.common import cross_entropy
+    cfg = reduced("smollm-135m", SMOLLM)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 7, 256), np.float32) * 4)
+    x = x.to(getattr(torch, dtype))
+    labels = torch.from_numpy(rng.integers(0, 256, (3, 7), dtype=np.int32))
+    mask = (torch.from_numpy(rng.integers(0, 2, (3, 7), dtype=np.int32))
+            if masked else None)
+    route = Route(plan(cfg, 1, kind="train", seq_len=7), None)
+    out = []
+    for tp in (None, route):
+        logits = x.clone().requires_grad_(True)
+        loss = cross_entropy(logits, labels, mask, tp=tp)
+        loss.backward()
+        out.append((loss.detach(), logits.grad))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_vocab_parallel_embedding_sums_to_the_lookup():
+    """Each rank's rows of the table: the lookups, summed over the ranks,
+    are the whole lookup (each id is on one rank, the rest read 0)."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.tensor_parallel import \
+        vocab_parallel_embedding
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.standard_normal((24, 5), np.float32))
+    ids = torch.from_numpy(rng.integers(0, 24, (2, 9), dtype=np.int32))
+    parts = [vocab_parallel_embedding(ids, chunk, 6 * r)
+             for r, chunk in enumerate(table.chunk(4))]
+    assert all(int((p != 0).any(-1).sum()) < ids.numel() for p in parts)
+    assert torch.equal(sum(parts), F.embedding(ids.long(), table))
+
+
+# ---------------------------------------------------------------------------
+# the dry run of a reduced dense cell on a (4, 4) mesh
+# ---------------------------------------------------------------------------
+FAKE = """
+import json, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeCell
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world
+
+out = {}
+with fake_world(16):
+    mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
+    for name, kv in (("local", 4), ("gathered", 2)):
+        over = dict(n_layers=2, d_model=256, n_heads=8, n_kv_heads=kv,
+                    head_dim=32, d_ff=1024, vocab_size=1024,
+                    param_dtype=torch.float32, compute_dtype=torch.float32,
+                    remat="none")
+        out[name] = dryrun.count_cell(
+            "smollm-135m", ShapeCell("train", "train", 256, 16), mesh,
+            mesh_name="4x4", extra_cfg=over)
+with open("records.json", "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def fake_cells(tmp_path_factory):
+    cwd = tmp_path_factory.mktemp("tp_dryrun")
+    out = subprocess.run(
+        [sys.executable, "-c", FAKE], cwd=cwd, capture_output=True,
+        text=True, timeout=240,
+        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+    assert out.returncode == 0, out.stderr[-4000:]
+    with open(cwd / "records.json") as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ["local", "gathered"])
+def test_dry_run_divides_the_work(fake_cells, name):
+    """A reduced dense train cell (16 x 256 tokens, 8 heads, d_ff 1024,
+    vocab 1024) in a fake world of 16 on a (4, 4) mesh: ``"tp"`` is the
+    plan; with the heads local rank 0 counts within 1.25x of the semantic
+    FLOPs over 16; with them gathered it repeats attention along "model",
+    and counts more."""
+    r = fake_cells[name]
+    assert r["status"] == "ok" and r["chips"] == 16
+    assert r["tp"] == {"model": 4, "heads": name,
+                       "local_heads": [2, 1] if name == "local" else [8, 2],
+                       "mlp": "local", "vocab": "local",
+                       "seq_parallel": True}
+    share = r["rank0"]["flops"] / (r["semantic"]["flops"] / 16)
+    assert share >= 1.0
+    if name == "local":
+        assert share <= 1.25, share
+    else:
+        assert share > fake_cells["local"]["rank0"]["flops"] / (
+            fake_cells["local"]["semantic"]["flops"] / 16)
