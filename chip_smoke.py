@@ -49,8 +49,9 @@ Phases, each fatal on failure (nothing is caught):
      llava-next-34b's 576 patches + 512 tokens (B 2, T 1088, 56/8/128),
      zamba2's training shape (B 8, T 2048, 32/32/80), hd 32 (B 2, T
      1024, 16/4) and phase 23's ``train_4k`` microbatch (B 16, T 4096,
-     9/3/64) (the bf16 forward and backward on wgmma at every head
-     dim, the library's route tables checked against the wrapper's;
+     9/3/64), each at query offset 0, the path without one (the bf16
+     forward and backward on wgmma at every head dim, the library's route
+     tables checked against the wrapper's;
      repeated forwards bit-identical), and times kernel, plain version and
      SDPA at the training shape, forward and backward (with achieved
      TFLOP/s, the routes and the device ms of each backward kernel), and
@@ -222,10 +223,10 @@ Phases, each fatal on failure (nothing is caught):
  23. the launch tooling (run last): (a) ``python -m
      repro_torch.launch.dryrun`` in a process per cell (at the same time
      as (b)'s predictions) for llava-next-34b x ``train_4k`` on both
-     production meshes and for (c)'s two cells, a ``[dryrun]`` line each
-     with its tensor-parallel plan (the other cells are
-     counted on the CPU: ``--all`` and ``tests/test_torch_launch.py``); (b)
-     two table cells built by ``launch.build.build_cell`` on the card on a
+     production meshes and for (c)'s five cells on (c)'s ranks, a
+     ``[dryrun]`` line each with its tensor-parallel plan (the other cells
+     are counted on the CPU: ``--all`` and ``tests/test_torch_launch.py``);
+     (b) two table cells built by ``launch.build.build_cell`` on the card on a
      (1, 1) ("data", "model") mesh of one NCCL rank, each beside its dry
      run on the same mesh (a fake world of one rank; the dry run's peak of
      one smollm-135m train step equal to ``MemTracker``'s): zamba2-2.7b x
@@ -235,16 +236,22 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) rank 0's share of two
-     tensor-parallel cells, phi3-mini-3.8b x ``train_4k`` (one step after
-     a warm-up, 2 x 32 forward and 32 backward flash launches) and x
-     ``decode_32k`` (3 steps, 32 ``decode_attention`` launches a step),
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of five
+     tensor-parallel cells (``TP_CELLS``), each train cell one step after
+     a warm-up (2 x 32 forward and 32 backward flash launches), each
+     decode cell 3 steps (32 ``decode_attention`` launches a step):
+     phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
+     "local"), llama-3.1-8b x ``train_4k`` and x ``decode_32k``
+     ("kv_replicated": 2 query heads on one KV head a rank, the rank's KV
+     head's cache) and minitron-4b x ``train_4k`` on its last rank along
+     "model" ("q_seq": query rows 3840 to 4096, flash at that offset),
      built by ``build_cell`` on the card in a fake world of 256 ranks on
      the (16, 16) mesh (the collectives move no data, so no value is
      checked), a ``[launch] tp`` line each beside the dry run of the same
-     cell (run in (a)'s pool), the peak within ``PEAK_MARGIN`` of it;
-     before them, ``decode_attention`` and flash held to their plain
-     versions at the shapes the shares give them.
+     cell and rank (run in (a)'s pool), the peak within ``PEAK_MARGIN`` of
+     it; before them, ``decode_attention`` and flash (with and without a
+     query offset) held to their plain versions at the shapes the shares
+     give them, and flash timed at the q_seq share's offset.
 
 After each group of phases a ``[time]`` line gives the seconds since the
 start. It then prints the kernels line and, last, the device line as JSON. Exits
@@ -372,6 +379,10 @@ TRAIN_B, TRAIN_T = 8, 2048
 # graph's private pool may raise the step's peak by this factor and no more
 GRAPH_TRAIN_STEPS = 4
 GRAPH_PEAK_RATIO = 1.05
+# decode steps that phases 11, 12, 18 and 20 time and profile, graphed and
+# eager (``where_the_time_goes``; 10 until PR 28, cut to fit phase 23's
+# tensor-parallel shares in the smoke's time; phase 4 keeps 10)
+LATE_PROFILE_STEPS = 5
 # Train parity, kernel against the plain attention on the same params and
 # batch. fp32 (4 layers, B 2, T 1024): sums in another order only; per leaf
 # max |dg| <= 1e-4 of the leaf's max |g|, loss within 1e-5 relative. bf16
@@ -1296,15 +1307,23 @@ def flash_inputs(B, T, S, Hq, Hkv, hd, dtype, seed):
         r(B, T, Hq, hd)
 
 
+def q_offset_of(shape) -> int:
+    """A flash shape's causal query offset: its ninth entry, else 0."""
+    return shape[8] if len(shape) > 8 else 0
+
+
 def check_flash_attention(shapes=FLASH_SHAPES):
     """Forward against the plain version, dq/dk/dv against autograd
-    through it, fp32 and bf16, at every shape of ``shapes``."""
+    through it, fp32 and bf16, at every shape of ``shapes`` (each at its
+    ``q_offset_of``)."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
     rows = []
-    for i, (name, B, T, S, Hq, Hkv, hd, causal) in enumerate(shapes):
+    for i, shape in enumerate(shapes):
+        name, B, T, S, Hq, Hkv, hd, causal = shape[:8]
+        off = q_offset_of(shape)
         row = {"shape": name, "B": B, "T": T, "S": S, "Hq": Hq, "Hkv": Hkv,
-               "hd": hd, "causal": causal,
+               "hd": hd, "causal": causal, "q_offset": off,
                "bf16_fwd_route": fk.fwd_route(torch.bfloat16, hd),
                "bf16_bwd_route": fk.bwd_route(torch.bfloat16, hd)}
         for dtype, key in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
@@ -1314,14 +1333,16 @@ def check_flash_attention(shapes=FLASH_SHAPES):
                 raise AssertionError(f"route table of the library and of "
                                      f"the wrapper differ at {dtype} {hd}")
             q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, dtype, SEED + i)
-            out, lse = fk.flash_attention_fwd(q, k, v, causal)
-            grads = fk.flash_attention_bwd(q, k, v, out, lse, do, causal)
-            again, again_lse = fk.flash_attention_fwd(q, k, v, causal)
+            out, lse = fk.flash_attention_fwd(q, k, v, causal, off)
+            grads = fk.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                           off)
+            again, again_lse = fk.flash_attention_fwd(q, k, v, causal, off)
             if not (torch.equal(again, out) and torch.equal(again_lse, lse)):
                 raise AssertionError("repeated flash forwards differ")
             torch.cuda.synchronize()
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            want = ref.flash_attention_ref(*leaves, causal=causal)
+            want = ref.flash_attention_ref(*leaves, causal=causal,
+                                           q_offset=off)
             want.backward(do)
             torch.cuda.synchronize()
             row[f"fwd_err_{key}"] = max_err(out, want, TOL[dtype])
@@ -1394,15 +1415,17 @@ def time_flash_attention(shape=FLASH_SHAPES[0]):
 
 
 def flash_bound(shape, dtype) -> dict:
-    """The least time of a causal forward and backward at a shape with
-    T == S: their operations at the peak for the inputs' type (the tensor
-    cores for bf16, the CUDA cores for fp32) or their bytes (each input
-    read once, each output written once), whichever is larger."""
-    _, B, T, S, Hq, Hkv, hd, _ = shape
+    """The least time of a causal forward and backward at a shape: their
+    operations at the peak for the inputs' type (the tensor cores for bf16,
+    the CUDA cores for fp32) or their bytes (each input read once, each
+    output written once), whichever is larger. Query row i sees
+    ``q_offset + i + 1`` keys (``q_offset_of``; T == S at offset 0)."""
+    _, B, T, S, Hq, Hkv, hd, _ = shape[:8]
+    off = q_offset_of(shape)
     elt = torch.finfo(dtype).bits // 8
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     io = (2 * B * T * Hq * hd + 2 * B * S * Hkv * hd) * elt   # q, k, v, out
-    flops = 4 * B * Hq * hd * T * (T + 1) // 2
+    flops = 4 * B * Hq * hd * (T * off + T * (T + 1) // 2)
     bounds = {"flops": flops}
     for key, nbytes, ops in (
             ("fwd", io + 4 * B * Hq * T, flops),
@@ -1448,6 +1471,54 @@ def time_flash_route(dtype, shape) -> dict:
            "fwd_tflop_per_s": bounds["flops"] / times["fwd_ms"] / 1e9,
            "bwd_tflop_per_s": 2.5 * bounds["flops"] / times["bwd_ms"] / 1e9}
     log(f"[kernel] flash_attention route timing {json.dumps(row)}")
+    return row
+
+
+def time_flash_offset(shape) -> dict:
+    """bf16 at a causal shape with a query offset: the kernel's forward and
+    backward launches, the same at offset 0 (the same T and S: rows that
+    see fewer keys), the plain version's and SDPA's (its mask the offset
+    rows', K and V repeated to the query heads before the timing) forward
+    and backward (forward + backward less forward), device ms from graph
+    replays, beside the bound of the offset call."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    name, B, T, S, Hq, Hkv, hd, _ = shape[:8]
+    off = q_offset_of(shape)
+    q, k, v, do = flash_inputs(B, T, S, Hq, Hkv, hd, torch.bfloat16, SEED)
+    times = {}
+    for key, o in (("", off), ("offset0_", 0)):
+        out, lse = fk.flash_attention_fwd(q, k, v, True, o)
+        times[f"{key}fwd_ms"] = device_ms(
+            lambda i, o=o: fk.flash_attention_fwd(q, k, v, True, o), 10)
+        times[f"{key}bwd_ms"] = device_ms(
+            lambda i, o=o, out=out, lse=lse: fk.flash_attention_bwd(
+                q, k, v, out, lse, do, True, o), 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = Hq // Hkv
+    mask = torch.arange(T, device=DEV)[:, None] + off >= \
+        torch.arange(S, device=DEV)[None, :]
+    impls = {"plain_": (lambda a, b, c: ref.flash_attention_ref(
+                 a, b, c, causal=True, q_offset=off), (q, k, v), do),
+             "library_": (lambda a, b, c: sdpa(a, b, c, attn_mask=mask),
+                          (q.transpose(1, 2),
+                           k.repeat_interleave(g, 2).transpose(1, 2),
+                           v.repeat_interleave(g, 2).transpose(1, 2)),
+                          do.transpose(1, 2))}
+    for key, (f, args, grad_out) in impls.items():
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        times[f"{key}fwd_ms"] = device_ms(lambda i, f=f, a=args: f(*a), 5)
+        both = device_ms(lambda i, f=f, lv=leaves, go=grad_out:
+                         torch.autograd.grad(f(*lv), lv, go), 3)
+        times[f"{key}bwd_ms"] = both - times[f"{key}fwd_ms"]
+        del leaves
+    bounds = flash_bound(shape, torch.bfloat16)
+    row = {"shape": name, "dtype": "bfloat16", "q_offset": off,
+           **times, **bounds,
+           "fwd_tflop_per_s": bounds["flops"] / times["fwd_ms"] / 1e9,
+           "bwd_tflop_per_s": 2.5 * bounds["flops"] / times["bwd_ms"] / 1e9}
+    log(f"[kernel] flash_attention offset timing {json.dumps(row)}")
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2223,7 +2294,8 @@ def moe_phase(cfg, rng):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model, params, reqs, records, counts = serve_full_width(cfg, rng)
-    moe_breakdown(model, params, where_the_time_goes(model, params, rng))
+    moe_breakdown(model, params, where_the_time_goes(
+        model, params, rng, n_steps=LATE_PROFILE_STEPS))
     parity_bf16(model, params, reqs, records)
     moe_determinism(model, params, reqs)
     del model, params, records
@@ -2472,7 +2544,8 @@ def vlm_phase(cfg, rng):
     bound = decode_step_bound(
         cfg, tree_leaves([params["layers"], params["lm_head"],
                           params["final_norm"]]),
-        where_the_time_goes(model, params, rng))
+        where_the_time_goes(model, params, rng,
+                            n_steps=LATE_PROFILE_STEPS))
     log(f"[profile vlm] {json.dumps(bound)}")
     parity_bf16(model, params, reqs, records)
     launches = counts["decode_attention"] + vlm_patches(model, params)
@@ -3266,24 +3339,42 @@ def distributed_phase(smollm, qwen) -> tuple[int, int, int]:
 
 # -------------------------------------------------------------- phase 23 --
 # (a) cells dry-run on the production meshes by ``python -m
-# repro_torch.launch.dryrun``, a subprocess each: (arch, shape, multi_pod).
-# The dry run never touches the card, so the card's host runs the largest
-# cell on both meshes, to show the tooling on the card's PyTorch, and the
-# two tensor-parallel cells of (c), their predictions; the other cells are
-# counted on the CPU (``--all``).
-TP_CELLS = [("phi3-mini-3.8b", "train_4k"), ("phi3-mini-3.8b", "decode_32k")]
-DRYRUN_CELLS = [("llava-next-34b", "train_4k", False),
-                ("llava-next-34b", "train_4k", True),
-                *((arch, shape, False) for arch, shape in TP_CELLS)]
-# (c) rank 0's share of the tensor-parallel cells runs in a fake world of
-# this many ranks on the (16, 16) production mesh; the decode cell takes
-# this many steps against a cache filled to its last positions
+# repro_torch.launch.dryrun``, a subprocess each: (arch, shape, multi_pod,
+# the rank counted). The dry run never touches the card, so the card's host
+# runs the largest cell on both meshes, to show the tooling on the card's
+# PyTorch, and the tensor-parallel cells of (c) on the rank (c) runs, their
+# predictions; the other cells are counted on the CPU (``--all``).
+# (c) runs one rank's share of each of these (arch, shape, rank): phi3-mini
+# (attention "local"), llama-3.1-8b ("kv_replicated") and minitron-4b's last
+# rank along "model" ("q_seq": rank 15 of the (16, 16) mesh is data 0,
+# model 15, the rank with the most attention)
+TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
+            ("phi3-mini-3.8b", "decode_32k", 0),
+            ("llama-3.1-8b", "train_4k", 0),
+            ("llama-3.1-8b", "decode_32k", 0),
+            ("minitron-4b", "train_4k", 15)]
+DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
+                ("llava-next-34b", "train_4k", True, 0),
+                *((arch, shape, False, rank)
+                  for arch, shape, rank in TP_CELLS)]
+# (c) the shares run in a fake world of this many ranks on the (16, 16)
+# production mesh; a decode cell takes this many steps against a cache
+# filled to its last positions
 TP_WORLD = 256
 TP_DECODE_STEPS = 3
 TP_DECODE_S = 32768         # decode_32k's cache
-# the train share's attention (B, T, S, Hq, Hkv, hd, causal): 2 of
-# phi3-mini's 32 heads (the plain version's fp32 scores are 2.1 GB)
-TP_FLASH_SHAPE = ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True)
+# the train shares' attention (name, B, T, S, Hq, Hkv, hd, causal[,
+# q_offset]): 2 of phi3-mini's 32 heads (heads local; the plain version's
+# fp32 scores are 2.1 GB), minitron-4b's last rank along "model" (q_seq: all
+# 24/8 heads, query rows 3840 to 4096 against keys 0 to 4096), llama-3.1-8b's
+# 2 query heads on their one KV head (kv_replicated), and a ragged offset
+# (rows and keys that no tile divides)
+TP_FLASH_SHAPES = [
+    ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True),
+    ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
+     3840),
+    ("llama-3.1-8b kv_replicated share", 16, 4096, 4096, 2, 1, 128, True),
+    ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
 DRYRUN_WORKERS = 8          # the card's host has 8 cores
 DRYRUN_TIMEOUT_S = 300
 LONG_S = 524288             # long_500k's cache
@@ -3403,19 +3494,20 @@ def production_dryruns(extra) -> dict:
     results."""
     from repro_torch.launch.dryrun import OUT_DIR, _outfile
     jobs = []
-    for arch, shape, multi in DRYRUN_CELLS:
+    for arch, shape, multi, rank in DRYRUN_CELLS:
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                arch, "--shape", shape] + (["--multi-pod"] if multi else [])
-        jobs.append(((arch, shape, multi), argv,
-                     str(ROOT / _outfile(arch, shape, multi))))
+                arch, "--shape", shape, "--rank", str(rank)] + (
+                    ["--multi-pod"] if multi else [])
+        jobs.append(((arch, shape, multi, rank), argv,
+                     str(ROOT / _outfile(arch, shape, multi, rank=rank))))
     (ROOT / OUT_DIR).mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     done = run_dryruns(jobs + extra)
     seconds = time.perf_counter() - t0
-    for arch, shape, multi in DRYRUN_CELLS:
-        r, s = done[(arch, shape, multi)]
+    for arch, shape, multi, rank in DRYRUN_CELLS:
+        r, s = done[(arch, shape, multi, rank)]
         row = {"arch": arch, "shape": shape, "mesh": r["mesh"],
-               "status": r["status"], "seconds": s}
+               "rank": rank, "status": r["status"], "seconds": s}
         if r["status"] == "ok":
             row.update({k: r[k] for k in (
                 "bytes_per_device", "fits_h100", "compute_s", "memory_s",
@@ -3682,27 +3774,35 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
 
 
 def tp_share_kernels() -> None:
-    """(c) The kernels against their plain versions at the shapes the two
+    """(c) The kernels against their plain versions at the shapes the
     shares give them, with phases 3 and 7's tolerances:
-    ``decode_attention`` at 8 slots of 32768 and 2 of 32 heads (the decode
-    share's split plan), lengths 0, S and ragged ones; flash, forward and
-    backward, at ``TP_FLASH_SHAPE``. Run after (b), whose unsharded step
-    peaks within 10 GB of the card."""
+    ``decode_attention`` at 8 slots of 32768 (the decode shares' split
+    plan) with phi3-mini's 2 of 32 heads and llama-3.1-8b's 2 query heads
+    on one KV head (timed too), lengths 0, S and ragged ones; flash,
+    forward and backward, fp32 and bf16, at ``TP_FLASH_SHAPES``, and the
+    q_seq share's timing beside the same call at offset 0. Run after (b),
+    whose unsharded step peaks within 10 GB of the card."""
     from repro_torch.configs import get_config
-    c = get_config("phi3-mini-3.8b")
-    m = 16
-    check_and_time_decode_attention(
-        f"{c.name} TP share", c.n_heads // m, c.n_kv_heads // m, c.hd, 0,
-        np.random.default_rng(SEED), B=8, S=TP_DECODE_S,
-        lengths=[0, 1, TP_DECODE_S, TP_DECODE_S - TP_DECODE_STEPS,
-                 TP_DECODE_S + 5, 20001, 4097, 129])
-    check_flash_attention([TP_FLASH_SHAPE])
+    lengths = [0, 1, TP_DECODE_S, TP_DECODE_S - TP_DECODE_STEPS,
+               TP_DECODE_S + 5, 20001, 4097, 129]
+    # llama's share also timed over 2 layers of cache (134 MB each, past
+    # the 50 MB L2)
+    for arch, (hq, hkv), timed in (("phi3-mini-3.8b", (2, 2), 0),
+                                   ("llama-3.1-8b", (2, 1), 2)):
+        c = get_config(arch)
+        check_and_time_decode_attention(
+            f"{c.name} TP share", hq, hkv, c.hd, timed,
+            np.random.default_rng(SEED), B=8, S=TP_DECODE_S,
+            lengths=lengths)
+    check_flash_attention(TP_FLASH_SHAPES)
+    time_flash_offset(TP_FLASH_SHAPES[1])
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def tp_share(arch: str, shape: str, pred: dict) -> tuple[int, int, int]:
-    """(c) Rank 0's share of a tensor-parallel cell, built by
+def tp_share(arch: str, shape: str, rank: int, pred: dict
+             ) -> tuple[int, int, int]:
+    """(c) Rank ``rank``'s share of a tensor-parallel cell, built by
     ``build_cell`` on the card in a fake world of ``TP_WORLD`` ranks on
     the (16, 16) production mesh: the train cell one step after a warm-up,
     the decode cell ``TP_DECODE_STEPS`` steps against a cache whose index
@@ -3710,17 +3810,18 @@ def tp_share(arch: str, shape: str, pred: dict) -> tuple[int, int, int]:
     so the values are not the job's and none is checked; the plan's local
     widths are (``Route.check``), and a step's flash forward and backward
     launches (2 x layers with remat, and layers) or ``decode_attention``
-    launches (layers). Prints a ``[launch] tp`` line: the plan and its
-    local heads, the card's peak beside the dry run's ``bytes_per_device``
-    of the same cell (failing above ``PEAK_MARGIN``), host ms and device
-    busy ms. Returns the decode and flash (forward, backward) launches."""
+    launches (layers). Prints a ``[launch] tp`` line: the plan, its local
+    heads and the rank's query rows, the card's peak beside the dry run's
+    ``bytes_per_device`` of the same cell and rank (failing above
+    ``PEAK_MARGIN``), host ms and device busy ms. Returns the decode and
+    flash (forward, backward) launches."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.build import build_cell
     from repro_torch.launch.mesh import fake_world
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    with fake_world(TP_WORLD):
+    with fake_world(TP_WORLD, rank=rank):
         # the production (16, 16) mesh, on the card
         mesh = init_device_mesh(DEV, (16, 16),
                                 mesh_dim_names=("data", "model"))
@@ -3770,10 +3871,13 @@ def tp_share(arch: str, shape: str, pred: dict) -> tuple[int, int, int]:
                 busy = profiled_step_ms(lambda: step(params, inputs, cache))
         peak = torch.cuda.max_memory_allocated() - base
         launches = launch_counts()["decode_attention"], *flash_launches()
-        route_ok = bool(plans) and all(p.record() == cell.tp for p in plans)
+        route_ok = bool(plans) and all(
+            p.record(cell.tp["model_rank"]) == cell.tp for p in plans)
         row = {"arch": arch, "shape": shape, "mesh": "pod16x16",
-               "fake_world": TP_WORLD, "tp": cell.tp,
-               "local_heads": cell.tp["local_heads"], "routes": len(plans),
+               "fake_world": TP_WORLD, "rank": rank, "tp": cell.tp,
+               "heads": cell.tp["heads"],
+               "local_heads": cell.tp["local_heads"],
+               "q_rows": cell.tp["q_rows"], "routes": len(plans),
                "values_checked": False,
                "launches_a_step": list(per),
                "logits": None if out is None else list(out.shape),
@@ -3795,8 +3899,9 @@ def tp_share(arch: str, shape: str, pred: dict) -> tuple[int, int, int]:
 
 def launch_phase() -> tuple[int, int, int]:
     """Phase 23: the dry runs (a), the two table cells on the card (b)
-    and rank 0's share of the two tensor-parallel cells (c). Returns the
-    decode launches and the flash launches (forward, backward) in it."""
+    and one rank's share of each tensor-parallel cell of ``TP_CELLS``
+    (c). Returns the decode launches and the flash launches (forward,
+    backward) in it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import _FAKE_PG, fake_pg_available
@@ -3826,8 +3931,9 @@ def launch_phase() -> tuple[int, int, int]:
         decode = long_decode_cell(mesh, long_pred)
         fwd, bwd = train_cell(mesh, k, train_pred)
     tp_share_kernels()
-    for arch, shape in TP_CELLS:
-        n = tp_share(arch, shape, production[(arch, shape, False)])
+    for arch, shape, rank in TP_CELLS:
+        n = tp_share(arch, shape, rank, production[(arch, shape, False,
+                                                    rank)])
         decode, fwd, bwd = decode + n[0], fwd + n[1], bwd + n[2]
         gc.collect()
         torch.cuda.empty_cache()
@@ -3935,7 +4041,7 @@ def main() -> int:
     for cfg, depth in ((mamba, 4), (zamba, 12)):
         model, params, reqs, records, counts = serve_full_width(cfg, rng)
         ssd_launches += counts["ssd_scan"]
-        where_the_time_goes(model, params, rng)
+        where_the_time_goes(model, params, rng, n_steps=LATE_PROFILE_STEPS)
         parity_bf16(model, params, reqs, records)
         del model, params, records
         torch.cuda.empty_cache()

@@ -19,10 +19,22 @@ Spec trees have the exact structure of the trees they describe
 tree out by them, and ``shard_train_step`` trains on the placed state.
 Every leaf is gathered along the data axes for the step (FSDP). Along
 ``"model"`` the dense and vlm families compute tensor-parallel
-(``tensor_parallel.plan``: heads, ``d_ff`` and vocab local to a rank where
-m divides them, ``tp_layouts`` the leaves' layouts for it); the other
-families gather each leaf whole along ``"model"`` too, so their ranks
-along it compute the same rows.
+(``tensor_parallel.plan``: attention in one of its four modes, ``d_ff``
+and vocab local to a rank where m divides them, ``tp_layouts`` the
+leaves' layouts for it); the other families gather each leaf whole along
+``"model"`` too, so their ranks along it compute the same rows.
+
+A serve cell's KV cache under the "kv_replicated" plan (m divides the
+query heads, the KV heads divide m) is the port's own layout, ``tp_cache``:
+(L, B, S, m, hd), each KV head repeated m / Hkv times in rank order and
+sharded on the head dim along ``"model"``, so a rank holds its own KV head
+whole, (B/data, S, 1, hd) a layer, and decode runs ``decode_attention`` on
+it with no gather along ``"model"``. The reference's spec shards
+``head_dim`` there instead (``_kv_spec``: Hkv < m), which cannot feed a
+kernel that takes whole heads without an all-to-all each step. So a rank
+holds 1/Hkv of the cache's heads where the reference holds 1/m of its
+``head_dim``: m / Hkv times the reference's bytes a rank (twice for
+llama-3.1-8b and llama-3.2-1b, 8 KV heads, at m = 16).
 """
 from __future__ import annotations
 
@@ -249,6 +261,24 @@ def cache_specs(cfg: ArchConfig, mesh):
     raise ValueError(fam)
 
 
+def tp_cache(cfg: ArchConfig, mesh, cache: dict) -> tuple[dict, dict]:
+    """A serve cell's cache tree (``model.init_cache``'s) and its fitted
+    spec tree on ``mesh``: ``cache_specs``'s, except where the
+    tensor-parallel plan is "kv_replicated", whose K and V become (L, B,
+    S, m, hd), each KV head repeated for the m / Hkv ranks that attend
+    with it, the head dim sharded along ``"model"`` (the module's
+    docstring says why)."""
+    specs = fit_tree(mesh, cache_specs(cfg, mesh), cache)
+    plan = tensor_parallel.mesh_plan(cfg, mesh, kind="decode", seq_len=1)
+    if plan is None or plan.heads != "kv_replicated":
+        return cache, specs
+    kv = {k: cache[k].repeat_interleave(plan.kv_share, dim=3)
+          for k in ("k", "v")}
+    spec = fit_spec(mesh, P(None, batch_axes(mesh), None, "model", None),
+                    kv["k"].shape)
+    return {**cache, **kv}, {**specs, "k": spec, "v": spec}
+
+
 def _mamba_state_spec(cfg: ArchConfig, mesh, *, lead: int):
     pre = (None,) * lead
     b = batch_axes(mesh)
@@ -379,8 +409,12 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     saw its own rows); along ``"model"`` sharded where the plan makes its
     product local (the gradient is then the shard's own), else whole, its
     gradient a partial sum where sequence-parallel ranks each saw a slice
-    of the positions (and ``patch_proj`` where the vocab is local: it
-    counts on rank 0 alone, ``Route.embed``), else equal on every rank."""
+    of the positions or (``wk``/``wv`` under "kv_replicated") each took
+    its KV head's columns (and ``patch_proj`` where the vocab is local: it
+    counts on rank 0 alone, ``Route.embed``), else equal on every rank.
+    Under "q_seq" the attention's leaves are whole, their gradients partial
+    sums (its training is sequence-parallel: each rank saw its own query
+    rows)."""
     names = mesh.mesh_dim_names
     baxes = ("pod", "data") if "pod" in names else ("data",)
     sp = plan.seq_parallel
@@ -394,9 +428,11 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
                  else Replicate() for n in names])
 
     h, f = plan.heads_local, plan.mlp_local
+    kv = lay(2, plan.heads == "local",
+             partial=sp or plan.heads == "kv_replicated")
     out = {"embed": lay(0, plan.vocab_local),
            "layers": DenseLayer(
-               attn=AttnParams(lay(2, h), lay(2, h), lay(2, h), lay(1, h)),
+               attn=AttnParams(lay(2, h), kv, kv, lay(1, h)),
                mlp=MLPParams(lay(2, f), lay(2, f), lay(1, f)),
                norm1=lay(0, False), norm2=lay(0, False)),
            "final_norm": lay(0, False),

@@ -5,10 +5,35 @@ reference's ``DenseLM`` under ``param_specs`` and its ``constrain`` sites
 
 ``plan`` derives, from the config and the ``"model"`` axis size m, what a
 rank computes locally:
-  * attention heads, when m divides both head counts: ``wq``/``wk``/``wv``
-    column-parallel, ``wo`` row-parallel, and the rank's KV cache heads
-    local; otherwise the sublayer's weights are gathered and every rank
-    computes it whole;
+  * attention, in one of four modes (``Plan.heads``):
+    - ``"local"``, where m divides both head counts: ``wq``/``wk``/``wv``
+      column-parallel, ``wo`` row-parallel, the rank's KV cache heads
+      local;
+    - ``"kv_replicated"``, where m divides the query heads and the KV heads
+      divide m (llama-3.1-8b and llama-3.2-1b at m = 16): rank r attends
+      with query heads ``[r Hq/m, (r+1) Hq/m)`` and the one KV head they
+      share, ``r // (m / Hkv)``. ``wq`` and ``wo`` as under "local";
+      ``wk``/``wv`` are whole along ``"model"`` and each rank takes its KV
+      head's columns (``Route.kv_slice``), so their gradient is a partial
+      sum along ``"model"`` (the ranks of one KV head add into its
+      columns, zeros elsewhere). A serve cell's rank holds its KV head's
+      cache whole (``sharding.tp_cache``);
+    - ``"q_seq"``, where neither holds and m divides the sequence (T > 1;
+      the reference's ``"q_seq"`` rule, which pins the score tensor's
+      query dimension to ``"model"``): every rank holds the four weights
+      whole (their gradient a partial sum) and attends from its own rows
+      ``[a, b) = [r T/m, (r+1) T/m)`` against keys ``[0, b)`` with all
+      heads (flash's ``q_offset = a``). In training the sequence-parallel
+      residual is gathered, K/V computed over ``[0, b)``, Q, attention and
+      ``wo`` over ``[a, b)``, which is the rank's residual slice, so no
+      reduce follows. In prefill the residual is whole: K/V over every row
+      into the cache (gathered along ``"model"``), Q to ``wo`` over
+      ``[a, b)``, then the rows all-gathered (forward only). The rows are
+      contiguous, so the last rank does (2m - 1)/m times the mean rank's
+      attention work (1.94 at m = 16);
+    - ``"gathered"`` otherwise (decode where neither of the first two
+      holds, T not divisible by m): every rank computes the sublayer whole
+      and keeps its slice;
   * the MLP, when m divides ``d_ff``: ``w_gate``/``w_up`` column-parallel,
     ``w_down`` row-parallel; otherwise gathered;
   * the vocab, when m divides it: the embedding lookup and the logits are
@@ -49,34 +74,72 @@ _c10d = torch.ops._c10d_functional
 @dataclass(frozen=True)
 class Plan:
     """What one rank of a ``"model"`` axis of size ``model`` holds and
-    computes; ``local_heads`` is (query, KV) heads a rank attends with."""
+    computes for a step whose residual stream is ``seq_len`` long;
+    ``heads`` is the attention's mode ("local", "kv_replicated", "q_seq"
+    or "gathered", the module's docstring says which), ``local_heads``
+    the (query, KV) heads a rank attends with, ``kv_share`` the ranks
+    that share one KV head ("kv_replicated"; 1 else)."""
     model: int
-    heads_local: bool
+    heads: str
     mlp_local: bool
     vocab_local: bool
     seq_parallel: bool
     local_heads: tuple[int, int]
+    seq_len: int
+    kv_share: int
 
-    def record(self) -> dict:
-        """The plan as the dry run writes it."""
-        return {"model": self.model,
-                "heads": "local" if self.heads_local else "gathered",
-                "local_heads": list(self.local_heads),
-                "mlp": "local" if self.mlp_local else "gathered",
-                "vocab": "local" if self.vocab_local else "whole",
-                "seq_parallel": self.seq_parallel}
+    @property
+    def heads_local(self) -> bool:
+        """Whether the attention's products are column- then row-parallel
+        (its heads split over the ranks)."""
+        return self.heads in ("local", "kv_replicated")
+
+    def q_rows(self, rank: int) -> tuple[int, int] | None:
+        """The query rows [a, b) the ``"model"`` rank ``rank`` attends
+        from under "q_seq", else None (every row)."""
+        if self.heads != "q_seq":
+            return None
+        n = self.seq_len // self.model
+        return rank * n, (rank + 1) * n
+
+    def record(self, model_rank: int | None = None) -> dict:
+        """The plan as the dry run writes it; with ``model_rank``, that
+        rank's query rows too, and under "q_seq" the last rank's attention
+        work over the mean rank's."""
+        out = {"model": self.model, "heads": self.heads,
+               "local_heads": list(self.local_heads),
+               "mlp": "local" if self.mlp_local else "gathered",
+               "vocab": "local" if self.vocab_local else "whole",
+               "seq_parallel": self.seq_parallel}
+        if model_rank is not None:
+            rows = self.q_rows(model_rank)
+            out.update(model_rank=model_rank,
+                       q_rows=None if rows is None else list(rows))
+            if rows is not None:
+                out["q_seq_heaviest_over_mean"] = \
+                    (2 * self.model - 1) / self.model
+        return out
 
 
 def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
     """The plan of a ``kind`` step ("train", "prefill" or "decode") whose
     residual stream is ``seq_len`` positions long (a vlm's patches
-    included), for a ``"model"`` axis of ``m`` ranks."""
-    heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
-    div = m if heads else 1
-    return Plan(model=m, heads_local=heads, mlp_local=cfg.d_ff % m == 0,
+    included), for a ``"model"`` axis of ``m`` ranks. At m = 1 every
+    config is "local"."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    share = 1
+    if hq % m == 0 and hkv % m == 0:
+        heads, local = "local", (hq // m, hkv // m)
+    elif hq % m == 0 and m % hkv == 0:
+        heads, local, share = "kv_replicated", (hq // m, 1), m // hkv
+    elif seq_len > 1 and seq_len % m == 0:
+        heads, local = "q_seq", (hq, hkv)
+    else:
+        heads, local = "gathered", (hq, hkv)
+    return Plan(model=m, heads=heads, mlp_local=cfg.d_ff % m == 0,
                 vocab_local=cfg.vocab_size % m == 0,
                 seq_parallel=kind == "train" and seq_len % m == 0,
-                local_heads=(cfg.n_heads // div, cfg.n_kv_heads // div))
+                local_heads=local, seq_len=seq_len, kv_share=share)
 
 
 def mesh_plan(cfg, mesh, *, kind: str, seq_len: int) -> Plan | None:
@@ -274,7 +337,37 @@ class Route:
         gradient is the slice's alone)."""
         return x.chunk(self.plan.model, 1)[self.rank] if self._many else x
 
+    @property
+    def q_rows(self) -> tuple[int, int] | None:
+        """This rank's query rows under "q_seq", else None."""
+        return self.plan.q_rows(self.rank)
+
+    def kv_slice(self, w: torch.Tensor) -> torch.Tensor:
+        """The columns of this rank's KV head in a whole ``wk`` or ``wv``
+        (d, Hkv * hd) under "kv_replicated"; the slice's gradient is zero
+        outside them."""
+        hkv = self.plan.model // self.plan.kv_share
+        width = w.shape[-1] // hkv
+        head = self.rank // self.plan.kv_share
+        return w[..., head * width:(head + 1) * width]
+
     # -- the model's boundaries -----------------------------------------------
+    def attention(self, fn, p, x: torch.Tensor) -> torch.Tensor:
+        """The attention sublayer ``fn(p, x, q_rows)`` (``p`` its params,
+        an ``AttnParams``; ``q_rows`` the rows it returns, None for all) on
+        the normed residual ``x``, in the plan's mode (``Plan.heads``).
+        Returns the output in the residual's layout."""
+        mode = self.plan.heads
+        if mode == "kv_replicated":
+            p = p._replace(wk=self.kv_slice(p.wk), wv=self.kv_slice(p.wv))
+        if mode == "q_seq":
+            if self.sp:           # the output is the rank's residual slice
+                return fn(p, self.gather_seq(x), self.q_rows)
+            # prefill: forward only, each rank's rows gathered
+            return self.gather_seq(fn(p, x, self.q_rows), reduce_grad=False)
+        return self.sublayer(lambda h: fn(p, h, None), x,
+                             self.plan.heads_local)
+
     def sublayer(self, fn, x: torch.Tensor, local: bool) -> torch.Tensor:
         """``fn`` (attention or the MLP, without its residual) on the
         normed residual ``x``: column- then row-parallel when its weights
@@ -322,7 +415,8 @@ class Route:
             logits, labels, self.rank * logits.shape[-1], self.group)
 
     def check(self, cfg, params: dict) -> None:
-        """Raises unless the local leaves have the widths the plan says."""
+        """Raises unless the local leaves have the widths the plan says
+        (``wk`` whole unless the heads are "local")."""
         p, hd, m = self.plan, cfg.hd, self.plan.model
         attn, mlp = params["layers"].attn, params["layers"].mlp
         want = {"embed rows": (params["embed"].shape[0],
@@ -331,7 +425,9 @@ class Route:
                                     cfg.vocab_size // (m if p.vocab_local
                                                        else 1)),
                 "wq columns": (attn.wq.shape[-1], p.local_heads[0] * hd),
-                "wk columns": (attn.wk.shape[-1], p.local_heads[1] * hd),
+                "wk columns": (attn.wk.shape[-1],
+                               (p.local_heads[1] if p.heads == "local"
+                                else cfg.n_kv_heads) * hd),
                 "w_gate columns": (mlp.w_gate.shape[-1],
                                    cfg.d_ff // (m if p.mlp_local else 1))}
         bad = {k: v for k, v in want.items() if v[0] != v[1]}

@@ -1,6 +1,10 @@
 // Flash attention for Hopper (sm_90a): blocked attention with an online
-// softmax, causal (qpos >= kpos, aligned at position 0) or full, grouped-
-// query heads (kv head = h / g), forward and backward.
+// softmax, causal or full, grouped-query heads (kv head = h / g), forward
+// and backward. Causal takes a query offset q_off: query row r is position
+// q_off + r and sees keys c <= q_off + r (q_off 0: the mask aligned at
+// position 0; q_off > 0: rows [q_off, q_off + T) of a longer causal
+// attention over S >= q_off + T keys, as a rank that owns those rows of the
+// sequence computes them).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_flash_kernel
 // (called through repro.kernels.ops.flash_attention from the branch without
@@ -15,7 +19,8 @@
 // aligned. lse and delta (B, Hq, T) fp32, contiguous. bf16 or fp32; hd 32,
 // 64, 80, 96, 112 or 128 (multiples of 16, so the wgmma k-steps, the
 // panels and the 16-column thread tiles cover hd exactly); any T, S >= 1
-// (ragged tails are masked).
+// (ragged tails are masked); causal with q_off >= 0 and q_off + T <= S, full
+// with q_off 0.
 //
 // Bound: operations. At the training shape of smollm-135m (B 8, T 2048,
 // 9/3 heads, hd 64) the causal forward does 4 * B * Hq * hd * T^2 / 2 =
@@ -81,7 +86,7 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  int B, T, S, Hq, Hkv, g, causal;
+  int B, T, S, Hq, Hkv, g, causal, q_off;
   float scale;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
 };
@@ -194,15 +199,27 @@ __device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int r, int c) {
-  return r < p.T && c < p.S && (!p.causal || r >= c);
+  return r < p.T && c < p.S && (!p.causal || r + p.q_off >= c);
 }
 
-// Key tiles that rows [q0, q0 + 64) attend to: up to the diagonal tile when
-// causal.
+// Key tiles that rows [row0, row0 + rows) attend to: up to the tile of the
+// last row's diagonal (its position q_off + row) when causal, n_all else.
+__device__ __forceinline__ int causal_tiles(const Params& p, int row0,
+                                            int rows, int tile, int n_all) {
+  return p.causal
+      ? min(n_all, (min(row0 + rows - 1, p.T - 1) + p.q_off) / tile + 1)
+      : n_all;
+}
+
 __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
-  int n = (p.S + kTile - 1) / kTile;
-  if (p.causal) n = min(n, min(q0 + kTile - 1, p.T - 1) / kTile + 1);
-  return n;
+  return causal_tiles(p, q0, kTile, kTile, (p.S + kTile - 1) / kTile);
+}
+
+// The first query tile of `rows` rows that sees key k0 when causal: the row
+// at position k0 is row k0 - q_off (every row sees a key below q_off).
+__device__ __forceinline__ int first_query_tile(const Params& p, int k0,
+                                                int rows) {
+  return p.causal ? max(k0 - p.q_off, 0) / rows : 0;
 }
 
 template <int HD>
@@ -367,8 +384,7 @@ flash_dkdv_kernel(const Params p) {
   zero(dv);
 
   const int n_qt = (p.T + kTile - 1) / kTile;
-  // causal: the first query row that sees key k0 is row k0
-  const int qt0 = p.causal ? k0 / kTile : 0;
+  const int qt0 = first_query_tile(p, k0, kTile);
   for (int hh = 0; hh < p.g; ++hh) {
     const int h = hk * p.g + hh;
     for (int qt = qt0; qt < n_qt; ++qt) {
@@ -781,10 +797,9 @@ flash_fwd_wgmma_kernel(const Params p) {
 
   // key tiles of the block and of this warpgroup (up to the diagonal)
   const int n_all = (p.S + kKeys - 1) / kKeys;
-  const int n_kt = p.causal
-      ? min(n_all, min(q0 + kQRows - 1, p.T - 1) / kKeys + 1) : n_all;
-  const int n_wg = row_wg >= p.T ? 0 : p.causal
-      ? min(n_all, min(row_wg + kWgRows - 1, p.T - 1) / kKeys + 1) : n_all;
+  const int n_kt = causal_tiles(p, q0, kQRows, kKeys, n_all);
+  const int n_wg =
+      row_wg >= p.T ? 0 : causal_tiles(p, row_wg, kWgRows, kKeys, n_all);
 
   const bf16* kg = static_cast<const bf16*>(p.k);
   const bf16* vg = static_cast<const bf16*>(p.v);
@@ -833,7 +848,8 @@ flash_fwd_wgmma_kernel(const Params p) {
     // tiles that cross the diagonal or the end of S are masked (to -inf, so
     // that exp2 gives 0); m is kept in log2 units of the scaled scores, and
     // p = 2^(s * scale * log2(e) - m) is one FMA and one ex2 an element.
-    if (!(k0 + kKeys <= p.S && (!p.causal || k0 + kKeys - 1 <= row_wg))) {
+    if (!(k0 + kKeys <= p.S &&
+          (!p.causal || k0 + kKeys - 1 <= row_wg + p.q_off))) {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         if (!visible(p, r0 + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t +
@@ -992,7 +1008,7 @@ flash_dkdv_wgmma_kernel(const Params p) {
   // the (head, query tile) steps: for each head of the group, the query
   // tiles from the first that sees key k0 (causal) to the end of T
   const int n_qt = (p.T + kBwdRows - 1) / kBwdRows;
-  const int qt0 = p.causal ? min(k0 / kBwdRows, n_qt) : 0;
+  const int qt0 = min(first_query_tile(p, k0, kBwdRows), n_qt);
   const int n_q = n_qt - qt0, n_it = p.g * n_q;
   const bf16* qg = static_cast<const bf16*>(p.q);
   const bf16* dog = static_cast<const bf16*>(p.dout);
@@ -1027,7 +1043,8 @@ flash_dkdv_wgmma_kernel(const Params p) {
     cp_async_commit();
     const int q0 = (qt0 + it % n_q) * kBwdRows;
     // uniform over the warpgroup: keys past S, or every query before them
-    if (key_wg >= p.S || (p.causal && q0 + kBwdRows <= key_wg)) continue;
+    if (key_wg >= p.S || (p.causal && q0 + kBwdRows + p.q_off <= key_wg))
+      continue;
 
     const uint32_t st = ring + (it % kWgStages) * L::kStageBytes;
     const float* lse_s = reinterpret_cast<const float*>(
@@ -1044,7 +1061,7 @@ flash_dkdv_wgmma_kernel(const Params p) {
 
     // s[4 j + 2 hf + e]: key c0 + 8 hf, query q0 + 8 j + 2 t + e
     if (!(q0 + kBwdRows <= p.T && key_wg + kWgRows <= p.S &&
-          (!p.causal || q0 >= key_wg + kWgRows - 1))) {
+          (!p.causal || q0 + p.q_off >= key_wg + kWgRows - 1))) {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         if (!visible(p, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
@@ -1112,10 +1129,9 @@ flash_dq_wgmma_kernel(const Params p) {
   const int r0 = row_wg + 16 * w + g;     // this thread's rows: r0, r0 + 8
 
   const int n_all = (p.S + kKeys - 1) / kKeys;
-  const int n_kt = p.causal
-      ? min(n_all, min(q0 + kQRows - 1, p.T - 1) / kKeys + 1) : n_all;
-  const int n_wg = row_wg >= p.T ? 0 : p.causal
-      ? min(n_all, min(row_wg + kWgRows - 1, p.T - 1) / kKeys + 1) : n_all;
+  const int n_kt = causal_tiles(p, q0, kQRows, kKeys, n_all);
+  const int n_wg =
+      row_wg >= p.T ? 0 : causal_tiles(p, row_wg, kWgRows, kKeys, n_all);
 
   const bf16* kg = static_cast<const bf16*>(p.k);
   const bf16* vg = static_cast<const bf16*>(p.v);
@@ -1174,7 +1190,8 @@ flash_dq_wgmma_kernel(const Params p) {
     fence_acc(dp);
 
     // s[4 j + 2 hf + e]: row r0 + 8 hf, key k0 + 8 j + 2 t + e
-    if (!(k0 + kKeys <= p.S && (!p.causal || k0 + kKeys - 1 <= row_wg))) {
+    if (!(k0 + kKeys <= p.S &&
+          (!p.causal || k0 + kKeys - 1 <= row_wg + p.q_off))) {
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         if (!visible(p, r0 + 8 * ((i >> 1) & 1), k0 + 8 * (i >> 2) + 2 * t +
@@ -1302,7 +1319,8 @@ Strides strides_at(const long long* st, int i) {
 
 int run(bool backward, const Params& p, int hd, int dtype, void* stream) {
   if (p.B <= 0 || p.T <= 0 || p.S <= 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 ||
-      p.B > 65535 || p.Hq > 65535)
+      p.B > 65535 || p.Hq > 65535 || p.q_off < 0 ||
+      (p.q_off > 0 && (!p.causal || p.q_off + p.T > p.S)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1321,18 +1339,19 @@ int run(bool backward, const Params& p, int hd, int dtype, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. strides: (batch, sequence, head) in elements
-// of q, k, v, out. Returns the CUDA error of the launch (0 when accepted).
+// dtype: 0 = fp32, 1 = bf16. q_off: the causal query offset (0 when full).
+// strides: (batch, sequence, head) in elements of q, k, v, out. Returns the
+// CUDA error of the launch (0 when accepted).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, float* lse, int B, int T, int S,
                                int Hq, int Hkv, int hd, int dtype, int causal,
-                               const long long* st, float scale,
+                               int q_off, const long long* st, float scale,
                                void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
   p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hkv = Hkv;
   p.g = Hkv > 0 ? Hq / Hkv : 0;
-  p.causal = causal; p.scale = scale;
+  p.causal = causal; p.q_off = q_off; p.scale = scale;
   p.sq = strides_at(st, 0); p.sk = strides_at(st, 1);
   p.sv = strides_at(st, 2); p.so = strides_at(st, 3);
   return run(false, p, hd, dtype, stream);
@@ -1381,7 +1400,7 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const float* lse, float* delta, void* dq,
                                void* dk, void* dv, int B, int T, int S,
                                int Hq, int Hkv, int hd, int dtype, int causal,
-                               const long long* st, float scale,
+                               int q_off, const long long* st, float scale,
                                void* stream) {
   Params p{};
   p.q = q; p.k = k; p.v = v; p.o = out; p.dout = dout;
@@ -1389,7 +1408,7 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hkv = Hkv;
   p.g = Hkv > 0 ? Hq / Hkv : 0;
-  p.causal = causal; p.scale = scale;
+  p.causal = causal; p.q_off = q_off; p.scale = scale;
   p.sq = strides_at(st, 0); p.sk = strides_at(st, 1);
   p.sv = strides_at(st, 2); p.so = strides_at(st, 3);
   p.sdo = strides_at(st, 4); p.sdq = strides_at(st, 5);

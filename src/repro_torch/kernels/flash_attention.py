@@ -2,10 +2,14 @@
 ``csrc/flash_attention.cu`` (they replace the Pallas ``_flash_kernel`` of
 ``repro/kernels/flash_attention.py``, and add the backward it lacks).
 
-q: (B, T, Hq, hd); k/v: (B, S, Hkv, hd); causal (``qpos >= kpos`` aligned
-at 0) or full; GQA with kv head ``h // (Hq // Hkv)``. bf16 runs on the
-tensor cores, the forward and the backward on ``wgmma`` at every head dim
-(``fwd_route``, ``bwd_route``); fp32 runs on the CUDA cores. The kernels
+q: (B, T, Hq, hd); k/v: (B, S, Hkv, hd); causal or full; GQA with kv head
+``h // (Hq // Hkv)``. Causal takes ``q_offset``: query row i is position
+``q_offset + i`` and sees keys up to it (``qpos >= kpos`` aligned at 0 when
+it is 0), so a rank that owns rows ``[a, a + T)`` of a causal attention
+passes the keys ``[0, S)`` it needs (S >= a + T) and ``q_offset=a``.
+bf16 runs on the tensor cores, the forward and the backward on ``wgmma``
+at every head dim (``fwd_route``, ``bwd_route``); fp32 runs on the CUDA
+cores. The kernels
 read and write every tensor through its strides, so q, k, v and dO need no
 transposed copy. ``FlashAttention`` is the ``torch.autograd.Function``
 that the model differentiates: its forward saves q, k, v, O and the
@@ -21,6 +25,7 @@ import ctypes
 import torch
 
 from . import build
+from .ref import check_q_offset
 
 KERNEL = "flash_attention"
 HEAD_DIMS = (32, 64, 80, 96, 112, 128)
@@ -63,9 +68,9 @@ def _functions():
     lib = build.load(KERNEL)
     fwd, bwd = lib.repro_flash_fwd, lib.repro_flash_bwd
     if fwd.argtypes is None:
-        fwd.argtypes = [_P] * 5 + [_I] * 8 + [_P, ctypes.c_float, _P]
+        fwd.argtypes = [_P] * 5 + [_I] * 9 + [_P, ctypes.c_float, _P]
         fwd.restype = _I
-        bwd.argtypes = [_P] * 10 + [_I] * 8 + [_P, ctypes.c_float, _P]
+        bwd.argtypes = [_P] * 10 + [_I] * 9 + [_P, ctypes.c_float, _P]
         bwd.restype = _I
     return fwd, bwd
 
@@ -85,7 +90,8 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"strides multiples of {vec}")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           q_offset: int) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}; the plain version is ops' CPU path")
@@ -108,6 +114,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"Hq {Hq} is not a whole multiple of Hkv {Hkv}")
     if not (0 < B <= 65535 and 0 < Hq <= 65535 and T > 0 and S > 0):
         raise ValueError(f"batch {B}, heads {Hq}, T {T} or S {S} out of range")
+    check_q_offset(T, S, causal, q_offset)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
 
@@ -118,13 +125,14 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True
+                        causal: bool = True, q_offset: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, T, Hq, hd) in q's dtype, lse (B, Hq, T) fp32).
+    """Returns (out (B, T, Hq, hd) in q's dtype, lse (B, Hq, T) fp32: a
+    row for each query row, also under ``q_offset``).
 
     Launches on the current stream without synchronising; raises on any
     input the kernel does not take and when the launch is refused."""
-    _check(q, k, v)
+    _check(q, k, v, causal, q_offset)
     B, T, Hq, hd = q.shape
     _, S, Hkv, _ = k.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -134,8 +142,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), B, T, S, Hq, Hkv, hd, _DTYPES[q.dtype],
-                  int(causal), _strides(q, k, v, out), 1.0 / hd ** 0.5,
-                  stream)
+                  int(causal), q_offset, _strides(q, k, v, out),
+                  1.0 / hd ** 0.5, stream)
     _raise_on(err, "flash_attention forward")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -146,13 +154,14 @@ flash_attention_fwd.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, causal: bool = True
+                        dout: torch.Tensor, causal: bool = True,
+                        q_offset: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtype from the forward's out and lse.
     dout may have any strides; one whose last dimension is not contiguous
     or whose strides do not allow 16-byte loads is copied first. Launches
     the three backward kernels in order, counted as one launch."""
-    _check(q, k, v)
+    _check(q, k, v, causal, q_offset)
     for name, t in (("out", out), ("lse", lse), ("dout", dout)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -179,7 +188,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, Hq,
-                  Hkv, hd, _DTYPES[q.dtype], int(causal),
+                  Hkv, hd, _DTYPES[q.dtype], int(causal), q_offset,
                   _strides(q, k, v, out, dout, dq, dk, dv), 1.0 / hd ** 0.5,
                   stream)
     _raise_on(err, "flash_attention backward")
@@ -194,20 +203,21 @@ class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on the card (no double backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        out, lse = flash_attention_fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        out, lse = flash_attention_fwd(q, k, v, causal, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                         ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """(B, T, Hq, hd) in q's dtype; differentiable in q, k and v."""
-    return FlashAttention.apply(q, k, v, causal)
+    return FlashAttention.apply(q, k, v, causal, q_offset)

@@ -21,15 +21,20 @@ PLAIN = ("cpu", "meta")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """On the CPU the reference's XLA route: ``chunked_attention`` from
-    1024 query positions on (no S^2 scores), the plain version below."""
+    1024 query positions on (no S^2 scores), the plain version below.
+    ``q_offset``: query row i is position ``q_offset + i`` of the causal
+    mask (``ref.check_q_offset`` says which offsets either route takes)."""
     if q.device.type in PLAIN:
+        ref.check_q_offset(q.shape[1], k.shape[1], causal, q_offset)
         if q.shape[1] >= 1024:
             from repro_torch.models.attention import chunked_attention
-            return chunked_attention(q, k, v, causal=causal)
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _flash_cuda(q, k, v, causal=causal)
+            return chunked_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    return _flash_cuda(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

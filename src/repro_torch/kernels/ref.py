@@ -10,19 +10,36 @@ import torch
 NEG_INF = -1e30
 
 
+def check_q_offset(T: int, S: int, causal: bool, q_offset: int) -> None:
+    """Raises ``ValueError`` unless ``q_offset`` places T query rows inside
+    a causal attention over S keys: ``q_offset >= 0``, and where it is
+    positive, causal with ``q_offset + T <= S`` (at 0 any T and S, as
+    before the offset)."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} is negative")
+    if q_offset and not causal:
+        raise ValueError(f"q_offset {q_offset} needs causal attention")
+    if q_offset and q_offset + T > S:
+        raise ValueError(f"q_offset {q_offset} + T {T} is past S {S}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, q_offset: int = 0
+                        ) -> torch.Tensor:
     """q: (B, T, Hq, hd); k/v: (B, S, Hkv, hd); GQA by head broadcast.
-    Scores in fp32, the causal mask ``qpos >= kpos`` aligned at 0 (also
-    when T != S), masked scores ``NEG_INF``; returns (B, T, Hq, hd) in q's
-    dtype. Autograd through it is the plain backward."""
+    Scores in fp32, the causal mask ``q_offset + qpos >= kpos`` (aligned at
+    0 by default, also when T != S), masked scores ``NEG_INF``; returns (B,
+    T, Hq, hd) in q's dtype. Autograd through it is the plain backward.
+    ``q_offset`` is checked as the kernel checks it (``check_q_offset``)."""
     B, T, Hq, hd = q.shape
     _, S, Hkv, _ = k.shape
+    if q_offset:
+        check_q_offset(T, S, causal, q_offset)
     g = Hq // Hkv
     qg = q.reshape(B, T, Hkv, g, hd).float()
     scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) / math.sqrt(hd)
     if causal:
-        mask = torch.arange(T, device=q.device)[:, None] >= \
+        mask = torch.arange(T, device=q.device)[:, None] + q_offset >= \
             torch.arange(S, device=q.device)[None, :]
         scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)

@@ -161,10 +161,10 @@ def _place(tree, shardings):
 
 
 def _zeros_placed(tree, shardings, device) -> dict:
-    """Each leaf of ``tree`` (``meta`` tensors of a fresh cache, whose
-    leaves start at zero) as a DTensor whose block on this rank is zeros
-    on ``device``: the whole leaf is never allocated (a decode cell's
-    cache is over a TB whole)."""
+    """Each leaf of ``tree`` (``meta`` tensors of a state whose leaves
+    start at zero: a fresh cache, a fresh optimizer state) as a DTensor
+    whose block on this rank is zeros on ``device``: the whole leaf is
+    never allocated (a decode cell's cache is over a TB whole)."""
     def block(t, s):
         shape = shd.local_shard(s.mesh, t, s.placements).shape
         return DTensor.from_local(
@@ -207,8 +207,11 @@ def serve_step(model, mesh, kind: str) -> Callable:
     The dense and vlm families compute tensor-parallel along ``"model"``
     (``tensor_parallel``), with the logical policy installed around the
     model's step: each leaf in its ``sharding.tp_layouts`` placements, the
-    cache kept local along ``"model"`` where the heads are (its KV heads
-    are sharded there), else gathered; the logits are this rank's vocab
+    cache kept local along ``"model"`` where the heads are "local" or
+    "kv_replicated" (its KV heads are sharded there: the cache's layout is
+    ``sharding.tp_cache``'s), else gathered (a "q_seq" prefill writes every
+    row; the layouts of a "q_seq" and a "gathered" step are the same, so
+    the plan is read at one position); the logits are this rank's vocab
     columns where the vocab is local, as the reference's ``out_shardings``
     (``P(batch, None, "model")``) leave them. The other families gather
     every leaf and the cache whole along ``"model"`` and run with no
@@ -311,10 +314,11 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
     plan = tensor_parallel.mesh_plan(cfg, mesh, kind=kind,
-                                     seq_len=S if kind == "train" else 1)
+                                     seq_len=1 if kind == "decode" else S)
     common = dict(n_active=active_params(cfg), grad_accum=grad_accum,
                   rows=rows, chips=mesh.size(),
-                  tp=None if plan is None else plan.record())
+                  tp=None if plan is None else plan.record(
+                      mesh.get_local_rank("model")))
 
     def meta_model():
         return build_model(cfg, device="meta")
@@ -328,9 +332,14 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
             with logical.policy(mesh):    # activation-sharding policy
                 return sharded(state, batch)
 
-        state = {"params": params, "opt": opt.init(params)}
-        specs = shd.train_state_specs(state, opt_cfg.name, pspecs)
-        state = _place(state, shd.to_named(mesh, specs))
+        # the optimizer's state starts at zeros: each rank allocates its
+        # block of it alone (whole, llama-3.1-8b's AdamW moments would fill
+        # the card), as the cache below
+        opt_state = opt.init(shapes)
+        specs = shd.to_named(mesh, shd.train_state_specs(
+            {"params": shapes, "opt": opt_state}, opt_cfg.name, pspecs))
+        state = {"params": _place(params, specs["params"]),
+                 "opt": _zeros_placed(opt_state, specs["opt"], device)}
 
         def semantic():
             p = param_shapes(cfg)
@@ -349,7 +358,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
 
     cache = meta_model().init_cache(B, S)
     cache_bytes = _tree_bytes(cache)
-    cspecs = shd.fit_tree(mesh, shd.cache_specs(cfg, mesh), cache)
+    cache, cspecs = shd.tp_cache(cfg, mesh, cache)
     bspecs = {k: shd.fit_spec(mesh, v, inputs[k].shape)
               for k, v in shd.batch_specs(cfg, mesh, inputs).items()}
     placed = (_place(params, shd.to_named(mesh, pspecs)),

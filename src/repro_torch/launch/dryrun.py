@@ -4,14 +4,15 @@ H100s, count rank 0's step on the ``meta`` device, check that its memory
 fits the card, and write its roofline terms.
 
 The world is a ``"fake"`` process group (``mesh.fake_world``): this
-process is rank 0 of 256 or 512, and every collective returns at once. No
-environment is set at import and no process group is started: ``run_cell``
-starts the world and ends it.
+process is rank 0 of 256 or 512 (or ``--rank``), and every collective
+returns at once. No environment is set at import and no process group is
+started: ``run_cell`` starts the world and ends it.
 
 For each cell it records
   * the semantic FLOPs and bytes of the unsharded step at the global shape
     (the reference's jaxpr count), on the meta device;
-  * rank 0's sharded step: its FLOPs and bytes, its collectives by kind,
+  * the counted rank's sharded step (under ``"rank0"``, whichever rank
+    ``"rank"`` says): its FLOPs and bytes, its collectives by kind,
     and its peak bytes (``analysis.StepCounter``: the params' and optimizer
     state's shards, the leaves gathered for the step, activations and
     temporaries);
@@ -19,17 +20,23 @@ For each cell it records
 
 The dense and vlm families compute tensor-parallel along "model"
 (``distributed/tensor_parallel.py``); the record's ``"tp"`` is the plan
-(heads local or gathered, the MLP and the vocab local or whole, the
-residuals sequence-parallel or not), None for the other families, whose
-step gathers each leaf whole, so the FLOPs the cards execute (rank 0's
-times the chips, ``hlo_flops``) repeat their work along "model";
-``useful_fraction`` shows it, and the semantic count is kept beside it.
+(the attention's mode, "local", "kv_replicated", "q_seq" or "gathered",
+and its local heads, the counted rank's index along "model" and its query
+rows, with ``q_seq_heaviest_over_mean`` under "q_seq", the MLP and the
+vocab local or whole, the residuals sequence-parallel or not), None for
+the other families, whose step gathers each leaf whole, so the FLOPs the
+cards execute (the counted rank's times the chips, ``hlo_flops``) repeat
+their work along "model"; ``useful_fraction`` shows it, and the semantic
+count is kept beside it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
+  python -m repro_torch.launch.dryrun --arch minitron-4b --shape train_4k \
+      --rank 15                                        # the last "model" rank
   python -m repro_torch.launch.dryrun --all            # all 40 cells
   python -m repro_torch.launch.dryrun --all --multi-pod
-Each cell writes experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
+Each cell writes experiments/dryrun_torch/<arch>__<shape>__<mesh>.json
+(``__rank<r>`` before ``.json`` for a rank other than 0).
 """
 from __future__ import annotations
 
@@ -102,9 +109,11 @@ def cell_counts(cell, shape, build) -> dict:
 def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
                grad_accum: int = 1, remat: str | None = None,
                extra_cfg: dict | None = None, tag: str = "") -> dict:
-    """The dry run of one cell on any mesh of the current process group
-    (``shape_id`` may be a ``ShapeCell`` of its own); returns the JSON
-    record."""
+    """The dry run of one cell on any mesh of the current process group,
+    counted on this process's rank (``shape_id`` may be a ``ShapeCell`` of
+    its own); returns the JSON record."""
+    import torch.distributed as dist
+
     from .build import build_cell, resolve_shape, shared_memory_kernel_bytes
     from .roofline import (HBM_BW, HBM_BYTES, PEAK_FLOPS, Roofline,
                            model_flops_estimate)
@@ -160,7 +169,7 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
         grad_accum=grad_accum, remat=remat or cell.cfg.remat,
         hbm_bytes_per_device=HBM_BYTES,
         fits_h100=bool(bytes_per_device <= HBM_BYTES),
-        tp=cell.tp,
+        tp=cell.tp, rank=dist.get_rank(),
     )
     print(f"[dryrun] {arch} x {cell.shape} x {mesh_name}: "
           f"{bytes_per_device / 1e9:.2f} GB/device "
@@ -172,7 +181,8 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
           f"({t_count:.1f} s)", flush=True)
     print(f"  tp: {json.dumps(cell.tp)}", flush=True)
     print(f"  semantic: flops={c['sem_flops']:.3e} "
-          f"bytes={c['sem_bytes']:.3e}; rank 0: flops={c['flops']:.3e} "
+          f"bytes={c['sem_bytes']:.3e}; rank {result['rank']}: "
+          f"flops={c['flops']:.3e} "
           f"bytes={c['bytes']:.3e} collective={coll_rank:.3e}B", flush=True)
     return result
 
@@ -183,19 +193,19 @@ def mesh_name(multi_pod: bool) -> str:
 
 def run_cell(arch: str, shape_id: str, *, multi_pod: bool,
              grad_accum: int = 1, remat: str | None = None,
-             tag: str = "") -> dict:
+             tag: str = "", rank: int = 0) -> dict:
     """``count_cell`` on a production mesh, in a fake world of 256 (or
-    512) ranks."""
+    512) ranks, counted on ``rank``."""
     from .mesh import fake_world, make_production_mesh
-    with fake_world(512 if multi_pod else 256):
+    with fake_world(512 if multi_pod else 256, rank=rank):
         mesh = make_production_mesh(multi_pod=multi_pod)
         return count_cell(arch, shape_id, mesh,
                           mesh_name=mesh_name(multi_pod),
                           grad_accum=grad_accum, remat=remat, tag=tag)
 
 
-def _outfile(arch, shape_id, multi_pod, tag=""):
-    suffix = f"__{tag}" if tag else ""
+def _outfile(arch, shape_id, multi_pod, tag="", rank=0):
+    suffix = (f"__rank{rank}" if rank else "") + (f"__{tag}" if tag else "")
     safe = arch.replace("/", "_")
     return f"{OUT_DIR}/{safe}__{shape_id}__{mesh_name(multi_pod)}{suffix}.json"
 
@@ -218,6 +228,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", default=None)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank of the fake world whose step is counted")
     args = ap.parse_args(argv)
     os.makedirs(OUT_DIR, exist_ok=True)
 
@@ -251,7 +263,8 @@ def main(argv=None) -> int:
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
-    out = _outfile(args.arch, args.shape, args.multi_pod, args.tag)
+    out = _outfile(args.arch, args.shape, args.multi_pod, args.tag,
+                   args.rank)
     ok, why = cell_runnable(get_config(args.arch), SHAPES[args.shape])
     if not ok:
         _skip(out, args.arch, args.shape, args.multi_pod, why)
@@ -259,7 +272,7 @@ def main(argv=None) -> int:
     try:
         result = run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
                           grad_accum=args.grad_accum, remat=args.remat,
-                          tag=args.tag)
+                          tag=args.tag, rank=args.rank)
     except Exception as e:
         traceback.print_exc()
         result = {"arch": args.arch, "shape": args.shape,

@@ -12,9 +12,9 @@ crosses them), plus extra parameter sharding for the 1T-parameter cells.
 
 ``fake_world(n)`` is the counterpart of the reference's
 ``--xla_force_host_platform_device_count``: a process group of ``n``
-ranks in which this process is rank 0 and every collective returns at
-once without moving data (PyTorch's ``"fake"`` backend), so one process
-builds and counts rank 0's step of a 256- or 512-rank job.
+ranks in which this process is rank 0 (or ``rank``) and every collective
+returns at once without moving data (PyTorch's ``"fake"`` backend), so one
+process builds and counts one rank's step of a 256- or 512-rank job.
 """
 from __future__ import annotations
 
@@ -63,14 +63,24 @@ def fake_pg_available() -> bool:
 
 
 @contextlib.contextmanager
-def fake_world(n: int):
-    """A ``"fake"`` process group of ``n`` ranks, this process rank 0, for
-    the duration of the block; destroyed on exit."""
+def fake_world(n: int, rank: int = 0):
+    """A ``"fake"`` process group of ``n`` ranks, this process ``rank``
+    (0 by default: a q_seq plan's heaviest rank is the last along
+    ``"model"``), for the duration of the block; destroyed on exit."""
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("fake_world needs no process group started")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} is not one of {n}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
     try:
         yield
     finally:
         dist.destroy_process_group()
+        # DTensor caches its sharding decisions by mesh, and the meshes of
+        # two worlds compare equal while a rank's groups are named after
+        # the rank (rank 15's data group "16", rank 0's "1"): a decision
+        # cached here would name a group the next world lacks
+        _clear_sharding_prop_cache()

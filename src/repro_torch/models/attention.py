@@ -58,10 +58,11 @@ def _kv_mask(Tq: int, Tk: int, causal: bool, q_offset: int,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, kv_len: torch.Tensor | None = None,
-                      blk: int = 512) -> torch.Tensor:
+                      blk: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Flash-style attention in plain PyTorch: a loop over KV blocks with
     online softmax, so the (T, S) score tensor never exists whole.
-    q: (B,T,Hq,hd); k/v: (B,S,Hkv,hd)."""
+    q: (B,T,Hq,hd); k/v: (B,S,Hkv,hd); ``q_offset``: the causal mask's
+    position of q[0], as ``gqa_scores_attention``'s."""
     B, T, Hq, hd = q.shape
     _, S, Hkv, _ = k.shape
     g = Hq // Hkv
@@ -72,7 +73,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((B, Hkv, g, T), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, g, T), device=q.device)
     acc = torch.zeros((B, Hkv, g, T, hd), device=q.device)
-    mask = _kv_mask(T, S, causal, 0, kv_len, q.device)
+    mask = _kv_mask(T, S, causal, q_offset, kv_len, q.device)
     for start in range(0, S, blk):
         k_b = k[:, start:start + blk].float()
         v_b = v[:, start:start + blk].float()
@@ -117,6 +118,7 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
                     use_rope: bool = True,
                     decode_attention: Callable = kops.decode_attention,
                     flash_attention: Callable = kops.flash_attention,
+                    q_rows: tuple[int, int] | None = None,
                     ) -> tuple[torch.Tensor,
                                tuple[torch.Tensor, torch.Tensor] | None]:
     """One attention sublayer (no residual/norm). Modes:
@@ -134,19 +136,30 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     new buffers). As ``jax.lax.dynamic_update_slice`` does, the write
     position is clamped to ``max_len - T``, so an idle slot whose index ran
     past the end overwrites its last row. Returns (out, (K, V) or None).
+
+    ``q_rows=(a, b)`` (causal self-attention, T > 1; a rank's rows under
+    the tensor-parallel "q_seq" plan): the output is rows [a, b) alone.
+    Q, its RoPE positions and the attention run on those rows; K/V on rows
+    [0, b) without a cache, on every row where the cache is written; the
+    causal mask puts query row i at position a + i (flash's ``q_offset``).
     """
     B, T, d = x.shape
+    a, b = (0, T) if q_rows is None else q_rows
     # the head counts of the weights given: under tensor parallelism a
     # rank's own heads (``cfg.hd`` is the same on every rank)
     hd = cfg.hd
     hq, hkv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
     cd = cfg.compute_dtype
-    q = (x @ p.wq.to(cd)).reshape(B, T, hq, hd)
+    xq = x if q_rows is None else x[:, a:b]
+    q = (xq @ p.wq.to(cd)).reshape(B, b - a, hq, hd)
     if cross_kv is not None:
         out = gqa_scores_attention(q, *cross_kv, causal=False)
         return out.reshape(B, T, hq * hd) @ p.wo.to(cd), None
-    k = (x @ p.wk.to(cd)).reshape(B, T, hkv, hd)
-    v = (x @ p.wv.to(cd)).reshape(B, T, hkv, hd)
+    # K/V rows: [0, b) where no cache takes them all
+    xkv = x if kv_cache is not None or q_rows is None else x[:, :b]
+    tk = xkv.shape[1]
+    k = (xkv @ p.wk.to(cd)).reshape(B, tk, hkv, hd)
+    v = (xkv @ p.wv.to(cd)).reshape(B, tk, hkv, hd)
 
     steps = torch.arange(T, device=x.device)
     idx = None
@@ -158,14 +171,14 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
             idx[:, None] + steps[None, :]
     if use_rope:
         sin, cos = rope_angles(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        q = apply_rope(q, sin[:, a:b], cos[:, a:b])
+        k = apply_rope(k, sin[:, :tk], cos[:, :tk])
 
     new_cache = None
     if kv_cache is None:
-        if causal and q.shape[1] == k.shape[1]:
+        if causal and (q_rows is not None or q.shape[1] == k.shape[1]):
             # the training hot path: the flash kernel on the card
-            out = flash_attention(q, k, v, causal=True)
+            out = flash_attention(q, k, v, causal=True, q_offset=a)
         else:
             out = gqa_scores_attention(q, k, v, causal=causal)
     else:
@@ -181,10 +194,11 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
             # length mask alone is exact (no causal matrix needed)
             out = decode_attention(q[:, 0], ck, cv, idx + 1)[:, None]
         elif T >= 1024:
-            out = chunked_attention(q, ck, cv, causal=True, kv_len=idx + T)
+            out = chunked_attention(q, ck, cv, causal=True, kv_len=idx + T,
+                                    q_offset=a)
         else:
             # prefill-into-cache (idx == 0 per slot-allocation contract)
-            out = gqa_scores_attention(q, ck, cv, causal=True, q_offset=0,
+            out = gqa_scores_attention(q, ck, cv, causal=True, q_offset=a,
                                        kv_len=idx + T)
-    out = out.reshape(B, T, hq * hd) @ p.wo.to(cd)
+    out = out.reshape(B, b - a, hq * hd) @ p.wo.to(cd)
     return out, new_cache

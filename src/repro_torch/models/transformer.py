@@ -60,13 +60,21 @@ def _routes(tp) -> tuple:
     return () if tp is None else (tp,)
 
 
-def _sublayer(tp, fn, x: torch.Tensor, part: str) -> torch.Tensor:
-    """``fn(x)`` (a sublayer on its normed input); under a route, its
-    tensor-parallel form, local where the plan's ``part`` ("heads" or
-    "mlp") is."""
+def _mlp(tp, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` (the MLP on its normed input); under a route, its
+    tensor-parallel form, local where the plan's MLP is."""
     if tp is None:
         return fn(x)
-    return tp.sublayer(fn, x, getattr(tp.plan, f"{part}_local"))
+    return tp.sublayer(fn, x, tp.plan.mlp_local)
+
+
+def _attention(tp, fn, p: AttnParams, x: torch.Tensor) -> torch.Tensor:
+    """``fn(p, x, None)`` (attention on its normed input, every query
+    row); under a route, in the plan's mode (``Route.attention``: the
+    rank's KV head's columns of ``p``, or its query rows)."""
+    if tp is None:
+        return fn(p, x, None)
+    return tp.attention(fn, p, x)
 
 
 class DecoderLM:
@@ -161,7 +169,8 @@ class DecoderLM:
         """The prompt (after its patches, for vlm) into the cache; ``index``
         advances by every position written. Under a route, the logits are
         this rank's vocab columns where the vocab is local."""
-        tp = self._routed(params, "prefill", batch["tokens"].shape[1])
+        tp = self._routed(params, "prefill",
+                          tensor_parallel.residual_len(self.cfg, batch))
         h = self._embed(params, batch["tokens"], self._patches(batch), tp)
         h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
         return self._logits(params, h[:, -1:], tp), cache
@@ -232,14 +241,14 @@ class DenseLM(DecoderLM):
         form (``Route.sublayer``)."""
         cfg = self.cfg
 
-        def attn(h):
-            return attention_block(lp.attn, h, cfg,
+        def attn(p, h, rows):
+            return attention_block(p, h, cfg, q_rows=rows,
                                    flash_attention=self.flash_attention)[0]
 
-        x = x + _sublayer(tp, attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
-                          "heads")
-        return x + _sublayer(tp, functools.partial(self._ffn, lp),
-                             rmsnorm(x, lp.norm2, cfg.norm_eps), "mlp")
+        x = x + _attention(tp, attn, lp.attn,
+                           rmsnorm(x, lp.norm1, cfg.norm_eps))
+        return x + _mlp(tp, functools.partial(self._ffn, lp),
+                        rmsnorm(x, lp.norm2, cfg.norm_eps))
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -257,21 +266,22 @@ class DenseLM(DecoderLM):
         """Runs every layer against the cache. K/V land in ``cache["k"]``
         and ``cache["v"]`` in place; the returned cache holds those same
         tensors and a new ``index`` advanced by the number of tokens.
-        Under a route whose heads are local the cache holds this rank's
-        KV heads."""
+        Under a route whose heads are "local" the cache holds this rank's
+        KV heads, under "kv_replicated" its one KV head, else every head
+        (a "q_seq" prefill writes every row and attends from its own)."""
         cfg = self.cfg
         idx = cache["index"]
         for i, lp in enumerate(unstack(params["layers"])):
-            def attn(x, lp=lp, i=i):
+            def attn(p, x, rows, i=i):
                 return attention_block(
-                    lp.attn, x, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
-                    cache_index=idx,
+                    p, x, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
+                    cache_index=idx, q_rows=rows,
                     decode_attention=self.decode_attention)[0]
 
-            h = h + _sublayer(tp, attn, rmsnorm(h, lp.norm1, cfg.norm_eps),
-                              "heads")
-            h = h + _sublayer(tp, functools.partial(self._ffn, lp),
-                              rmsnorm(h, lp.norm2, cfg.norm_eps), "mlp")
+            h = h + _attention(tp, attn, lp.attn,
+                               rmsnorm(h, lp.norm1, cfg.norm_eps))
+            h = h + _mlp(tp, functools.partial(self._ffn, lp),
+                         rmsnorm(h, lp.norm2, cfg.norm_eps))
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}

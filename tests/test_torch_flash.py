@@ -116,6 +116,88 @@ def test_seam_long_route_is_chunked_and_matches_oracle(causal):
         np.testing.assert_allclose(g, p, **TOL["float32"])
 
 
+# (B, T, S, Hq, Hkv, hd, q_offset): query rows [a, a + T) of a causal
+# attention over S keys, GQA, offsets on and off a tile, S past a + T
+OFFSET_CASES = [(2, 16, 64, 4, 2, 32, 48), (1, 8, 40, 6, 2, 64, 13),
+                (2, 5, 37, 3, 1, 32, 32), (1, 24, 24, 2, 1, 16, 0),
+                (2, 12, 64, 4, 4, 32, 20)]
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,a", OFFSET_CASES)
+def test_offset_rows_are_rows_of_the_whole_attention(B, T, S, Hq, Hkv, hd,
+                                                     a):
+    """``flash_attention_ref`` with ``q_offset=a`` on query rows [a, a + T)
+    is those rows of the causal attention of all S query rows: values,
+    and autograd's gradients of q (those rows), k and v."""
+    rng = np.random.default_rng(a + 7 * T + S)
+    qf = rng.standard_normal((B, S, Hq, hd), np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, hd), np.float32)
+            for _ in range(2))
+    dout = rng.standard_normal((B, T, Hq, hd), np.float32)
+    whole = [to_torch(x, grad=True) for x in (qf, k, v)]
+    out = ref.flash_attention_ref(*whole, causal=True)
+    (out[:, a:a + T] * to_torch(dout)).sum().backward()
+    part = [to_torch(x, grad=True) for x in (qf[:, a:a + T], k, v)]
+    got = ref.flash_attention_ref(*part, causal=True, q_offset=a)
+    (got * to_torch(dout)).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, out[:, a:a + T], **tol)
+    torch.testing.assert_close(part[0].grad, whole[0].grad[:, a:a + T],
+                               **tol)
+    for p, w in zip(part[1:], whole[1:]):
+        torch.testing.assert_close(p.grad, w.grad, **tol)
+
+
+@pytest.mark.parametrize("with_len", [False, True])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,a", OFFSET_CASES)
+def test_offset_routes_match_reference_scores(B, T, S, Hq, Hkv, hd, a,
+                                              with_len):
+    """The seam's CPU route (``flash_attention_ref``, no lengths) and
+    ``chunked_attention`` (several KV blocks) with ``q_offset`` and
+    ``kv_len`` against the reference's ``gqa_scores_attention(...,
+    q_offset=a, kv_len=...)``, fp32 at 2e-5."""
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(a + T + 3 * S)
+    q, k, v, _ = make_inputs(B, T, S, Hq, Hkv, hd, seed=a + S)
+    lens = (rng.integers(a + 1, S + 1, B).astype(np.int32) if with_len
+            else None)
+    _, jnp, _, _ = jax_side()
+    from repro.models.attention import gqa_scores_attention
+    want = np.asarray(gqa_scores_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=a, kv_len=None if lens is None else jnp.asarray(lens)))
+    tq, tk, tv = (to_torch(x) for x in (q, k, v))
+    got = chunked_attention(
+        tq, tk, tv, causal=True, q_offset=a, blk=S // 4 if S % 4 == 0
+        else S, kv_len=None if lens is None else torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
+    if lens is None:
+        got = ops.flash_attention(tq, tk, tv, causal=True, q_offset=a)
+        np.testing.assert_allclose(got.numpy(), want, **TOL["float32"])
+
+
+def test_q_offset_is_checked():
+    """A negative offset, an offset without causal, and rows past S raise
+    ``ValueError`` on the seam, the plain version and the kernel's checks;
+    the last row at S - 1 does not."""
+    q, k, v, _ = make_inputs(1, 8, 16, 2, 1, 32, seed=5)
+    tq, tk, tv = (to_torch(x) for x in (q, k, v))
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        for kw, msg in ((dict(q_offset=-1), "negative"),
+                        (dict(q_offset=2, causal=False), "needs causal"),
+                        (dict(q_offset=9), "past S")):
+            with pytest.raises(ValueError, match=msg):
+                fn(tq, tk, tv, **{"causal": True, **kw})
+        assert fn(tq, tk, tv, causal=True, q_offset=8).shape == tq.shape
+    for kw, msg in ((dict(q_offset=-1), "negative"),
+                    (dict(q_offset=2, causal=False), "needs causal"),
+                    (dict(q_offset=9), "past S")):
+        with pytest.raises(ValueError, match=msg):
+            ref.check_q_offset(8, 16, kw.get("causal", True),
+                               kw["q_offset"])
+    ref.check_q_offset(300, 100, True, 0)      # offset 0: any T and S
+
+
 def test_cpu_tensors_never_reach_the_kernel():
     q, k, v, _ = make_inputs(1, 16, 16, 2, 1, 32, seed=3)
     before = (fk.flash_attention_fwd.launches,
@@ -266,6 +348,42 @@ def test_flash_bound_counts_the_causal_half(dtype, peak):
     assert got["fwd_bound_by"] == got["bwd_bound_by"] == "operations"
     np.testing.assert_allclose(got["fwd_bound_ms"], flops / peak * 1e3)
     np.testing.assert_allclose(got["bwd_bound_ms"], 2.5 * flops / peak * 1e3)
+
+
+def test_flash_bound_counts_the_offset_rows():
+    """With a query offset a, row i sees a + i + 1 keys: the bound's
+    operations are 4 B Hq hd times their sum (minitron-4b's last q_seq
+    rank: rows 3840 to 4096 of 4096)."""
+    smoke = chip_smoke()
+    shape = next(s for s in smoke.TP_FLASH_SHAPES if len(s) > 8
+                 and s[8] == 3840)
+    _, B, T, S, Hq, Hkv, hd, _, a = shape
+    keys = sum(a + i + 1 for i in range(T))
+    got = smoke.flash_bound(shape, torch.bfloat16)
+    assert got["flops"] == 4 * B * Hq * hd * keys
+    np.testing.assert_allclose(got["fwd_bound_ms"],
+                               got["flops"] / 989e12 * 1e3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,hd,a", OFFSET_CASES + [
+    (16, 256, 4096, 24, 8, 128, 3840), (2, 100, 357, 6, 2, 64, 257),
+    (3, 1, 700, 8, 2, 128, 699), (2, 130, 1000, 32, 32, 80, 600)])
+def test_offset_kernel_matches_plain_on_card(cuda, B, T, S, Hq, Hkv, hd, a,
+                                             dtype):
+    """The kernels with a causal query offset (the q_seq ranks' rows)
+    against the plain version with the same offset, forward and
+    gradients."""
+    import functools
+    q, k, v, dout = make_inputs(B, T, S, Hq, Hkv, hd, seed=a + T + S)
+    got = port_grads(q, k, v, dout, True, dtype, cuda,
+                     fn=functools.partial(fk.flash_attention, q_offset=a))
+    want = port_grads(q, k, v, dout, True, dtype, cuda,
+                      fn=functools.partial(ref.flash_attention_ref,
+                                           q_offset=a))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **CARD_TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -218,7 +218,7 @@ KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
         "shared_memory_kernel_bytes", "memory_kernel_s", "bound_kernel_s",
         "roofline_fraction_kernel", "semantic", "rank0", "peak_by_kind",
         "t_count_s", "grad_accum", "remat", "hbm_bytes_per_device",
-        "fits_h100", "tp"}
+        "fits_h100", "tp", "rank"}
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -235,7 +235,9 @@ def test_dryrun_record(dryrun_records, kind):
     # add the rest)
     assert r["tp"] == {"model": 2, "heads": "local", "local_heads": [2, 1],
                        "mlp": "local", "vocab": "local",
-                       "seq_parallel": kind == "train"}
+                       "seq_parallel": kind == "train", "model_rank": 0,
+                       "q_rows": None}
+    assert r["rank"] == 0
     assert r["rank0"]["flops"] * 16 >= r["semantic"]["flops"]
     assert r["hlo_flops"] == 16 * r["rank0"]["flops"]
     assert r["useful_fraction"] == r["model_flops"] / r["hlo_flops"]

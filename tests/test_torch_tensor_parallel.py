@@ -18,16 +18,26 @@ sequence length)):
     heads, d_ff and vocab local, sequence-parallel residuals in training;
   * ``not_seq_parallel``: the same at T 31, which 2 ranks do not divide:
     one all-reduce after each row-parallel product in training too;
-  * ``gathered``: the same with vocab 250 on (2, 4): the attention
-    gathered (2 KV heads on 4 ranks), the vocab whole, the MLP local;
-  * ``gathered_vocab_local``: vocab 256 on (2, 4): the attention gathered
-    and the vocab local, the plan of llama-3.1-8b, minitron-4b and
-    llava-next-34b at 16 ranks along "model";
+  * ``kv_replicated``: the same with vocab 250 on (2, 4): one query head a
+    rank on its KV head (2 KV heads on 4 ranks), the vocab whole, the MLP
+    local;
+  * ``kv_replicated_vocab_local``: vocab 256 on (2, 4): the same with the
+    vocab local, the plan of llama-3.1-8b and llama-3.2-1b at 16 ranks
+    along "model";
+  * ``q_seq``: a reduced smollm with 3 heads on 1 KV head on (2, 4), T 32,
+    prompt 12: each rank attends from its quarter of the query rows in
+    training and prefill (the plan of minitron-4b, llava-next-34b and the
+    smollms at 16 ranks), decode gathered;
+  * ``q_seq_not_divisible``: the same at T 30, which 4 ranks do not
+    divide: training gathered, prefill q_seq;
   * ``vlm``: a reduced llava-next-34b (8 patch embeddings before the text)
-    on (4, 2).
+    on (4, 2);
+  * ``vlm_q_seq``: the reduced llava with 3 heads on 1 KV head on (4, 2):
+    query rows after the patches, whose RoPE positions count them.
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
 steps from the initial weights. A fake world of 16 ranks on ``meta``
-counts a reduced dense cell on (4, 4) under both plans.
+counts a reduced dense cell on (4, 4) under each attention mode, the
+q_seq one on its last rank along "model".
 """
 import datetime
 import json
@@ -48,24 +58,35 @@ import torch.multiprocessing as mp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOLLM = dict(n_layers=2, d_model=64, vocab_size=256, d_ff=128, n_heads=4,
               n_kv_heads=2, head_dim=16)
+THREE = dict(SMOLLM, n_heads=3, n_kv_heads=1)     # neither divides 2 or 4
 CASES = {"heads_local": ("smollm-135m", SMOLLM, (4, 2), 32),
          "not_seq_parallel": ("smollm-135m", SMOLLM, (4, 2), 31),
-         "gathered": ("smollm-135m", dict(SMOLLM, vocab_size=250), (2, 4),
-                      32),
-         "gathered_vocab_local": ("smollm-135m", SMOLLM, (2, 4), 32),
-         "vlm": ("llava-next-34b", dict(SMOLLM, n_patches=8), (4, 2), 32)}
-HEADS_LOCAL = {"model": 2, "heads": "local", "local_heads": [2, 1],
-               "mlp": "local", "vocab": "local"}
-# each case's plan, and whether its train steps are sequence-parallel
-PLANS = {"heads_local": (HEADS_LOCAL, True),
-         "not_seq_parallel": (HEADS_LOCAL, False),
-         "gathered": ({"model": 4, "heads": "gathered",
-                       "local_heads": [4, 2], "mlp": "local",
-                       "vocab": "whole"}, True),
-         "gathered_vocab_local": ({"model": 4, "heads": "gathered",
-                                   "local_heads": [4, 2], "mlp": "local",
-                                   "vocab": "local"}, True),
-         "vlm": (HEADS_LOCAL, True)}
+         "kv_replicated": ("smollm-135m", dict(SMOLLM, vocab_size=250),
+                           (2, 4), 32),
+         "kv_replicated_vocab_local": ("smollm-135m", SMOLLM, (2, 4), 32),
+         "q_seq": ("smollm-135m", THREE, (2, 4), 32),
+         "q_seq_not_divisible": ("smollm-135m", THREE, (2, 4), 30),
+         "vlm": ("llava-next-34b", dict(SMOLLM, n_patches=8), (4, 2), 32),
+         "vlm_q_seq": ("llava-next-34b", dict(THREE, n_patches=8), (4, 2),
+                       32)}
+LOCAL = ("local", [2, 1])
+KV_REPLICATED = ("kv_replicated", [1, 1])
+Q_SEQ, GATHERED = ("q_seq", [3, 1]), ("gathered", [3, 1])
+# each case's plan: the "model" size and the vocab (the MLP is local in
+# every case), then the attention's mode and local heads in training,
+# whether training is sequence-parallel, and the modes of the prefill and
+# of the decode steps
+PLANS = {"heads_local": (2, "local", LOCAL, True, LOCAL, LOCAL),
+         "not_seq_parallel": (2, "local", LOCAL, False, LOCAL, LOCAL),
+         "kv_replicated": (4, "whole", KV_REPLICATED, True, KV_REPLICATED,
+                           KV_REPLICATED),
+         "kv_replicated_vocab_local": (4, "local", KV_REPLICATED, True,
+                                       KV_REPLICATED, KV_REPLICATED),
+         "q_seq": (4, "local", Q_SEQ, True, Q_SEQ, GATHERED),
+         "q_seq_not_divisible": (4, "local", GATHERED, False, Q_SEQ,
+                                 GATHERED),
+         "vlm": (2, "local", LOCAL, True, LOCAL, LOCAL),
+         "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, GATHERED)}
 STEPS, BATCH = 3, 8
 PROMPT, DECODES, MAX_LEN = 12, 8, 32
 TOL = 1e-5
@@ -168,14 +189,15 @@ def run_reference(inputs_path: str, out_path: str) -> None:
 # ---------------------------------------------------------------------------
 def counting_routes(plans: list):
     """Patches ``tensor_parallel.route`` to append the plan of each route
-    it returns; returns the function that undoes it."""
+    it returns, with the route's rank along "model" and its query rows;
+    returns the function that undoes it."""
     from repro_torch.distributed import tensor_parallel
     route = tensor_parallel.route
 
     def counted(*args, **kwargs):
         r = route(*args, **kwargs)
         if r is not None:
-            plans.append(r.plan.record())
+            plans.append(r.plan.record(r.rank))
         return r
 
     tensor_parallel.route = counted
@@ -237,8 +259,9 @@ def case_run(inp: dict, name: str, record: dict) -> None:
         ps = placed(dense_params_from_flat(flat, cfg, "cpu"),
                     shd.param_specs(cfg, mesh))
         prompt = part(f"{name}/prompt/")
-        cache = placed(model.init_cache(BATCH, MAX_LEN),
-                       shd.cache_specs(cfg, mesh))
+        cache, cspecs = shd.tp_cache(cfg, mesh,
+                                     model.init_cache(BATCH, MAX_LEN))
+        cache = placed(cache, cspecs)
         prefill = serve_step(model, mesh, "prefill")
         decode = serve_step(model, mesh, "decode")
         plans.clear()
@@ -365,49 +388,165 @@ def test_every_rank_reports_the_same(runs, name):
 def test_the_steps_take_the_plan(runs, name):
     """Each train step takes one route of the case's plan,
     sequence-parallel where "model" divides the residual length (32 text
-    positions, and 8 patches; not 31); the prefill and each decode step
-    one, not sequence-parallel. A rank's logits are its batch rows and,
-    where the vocab is local, its vocab columns."""
+    positions, and 8 patches; not 31 or 30); the prefill and each decode
+    step one, not sequence-parallel, in their own attention modes. Under
+    "q_seq" rank i along "model" attends from rows [i n, (i + 1) n), n the
+    residual length over the ranks. A rank's logits are its batch rows
+    and, where the vocab is local, its vocab columns."""
     _, ranks = runs
-    arch, over, (data, model), _ = CASES[name]
-    want, seq_parallel = PLANS[name]
+    arch, over, (data, model), seq = CASES[name]
+    m, vocab_mode, train, seq_parallel, prefill, decode = PLANS[name]
     cfg = reduced(arch, over)
-    for rec in ranks:
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+
+    def want(heads, n, sp, rank):
+        plan = {"model": m, "heads": heads[0], "local_heads": heads[1],
+                "mlp": "local", "vocab": vocab_mode, "seq_parallel": sp,
+                "model_rank": rank % model, "q_rows": None}
+        if heads[0] == "q_seq":
+            rows = (n + patches) // model
+            plan.update(q_rows=[rows * (rank % model),
+                                rows * (rank % model + 1)],
+                        q_seq_heaviest_over_mean=(2 * m - 1) / m)
+        return plan
+
+    assert m == model
+    for rank, rec in enumerate(ranks):
         assert json.loads(str(rec[f"{name}/train_plans"])) == [
-            dict(want, seq_parallel=seq_parallel)] * STEPS
+            want(train, seq, seq_parallel, rank)] * STEPS
         assert json.loads(str(rec[f"{name}/serve_plans"])) == [
-            dict(want, seq_parallel=False)] * (1 + DECODES)
-        vocab = cfg.vocab_size // (model if want["vocab"] == "local" else 1)
+            want(prefill, PROMPT, False, rank)] + [
+            want(decode, 1, False, rank)] * DECODES
+        vocab = cfg.vocab_size // (model if vocab_mode == "local" else 1)
         assert list(rec[f"{name}/local_logits"]) == [BATCH // data, 1, vocab]
 
 
 # ---------------------------------------------------------------------------
 # the plan and the pieces, in this process
 # ---------------------------------------------------------------------------
-# (heads, MLP, vocab) at m = 16 for every dense and vlm config: heads local
-# only where 16 divides both head counts
-AT_16 = {"phi3-mini-3.8b": ("local", "local", "local"),
-         "llama-3.1-8b": ("gathered", "local", "local"),
-         "llama-3.2-1b": ("gathered", "local", "local"),
-         "minitron-4b": ("gathered", "local", "local"),
-         "llava-next-34b": ("gathered", "local", "local"),
-         "smollm-135m": ("gathered", "local", "local"),
-         "smollm-360m": ("gathered", "local", "local")}
+# the attention's mode in train_4k, prefill_32k and decode_32k, its local
+# (query, KV) heads in train_4k, and the MLP and the vocab at m = 16 for
+# every dense and vlm config: heads local only where 16 divides both head
+# counts, the KV heads replicated where 16 divides the query heads and the
+# KV heads divide 16, else the query rows split where 16 divides the
+# sequence (never in decode)
+AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local"),
+         "llama-3.1-8b": (("kv_replicated",) * 3, [2, 1], "local", "local"),
+         "llama-3.2-1b": (("kv_replicated",) * 3, [2, 1], "local", "local"),
+         "minitron-4b": (("q_seq", "q_seq", "gathered"), [24, 8], "local",
+                         "local"),
+         "llava-next-34b": (("q_seq", "q_seq", "gathered"), [56, 8],
+                            "local", "local"),
+         "smollm-135m": (("q_seq", "q_seq", "gathered"), [9, 3], "local",
+                         "local"),
+         "smollm-360m": (("q_seq", "q_seq", "gathered"), [15, 5], "local",
+                         "local")}
 
 
 @pytest.mark.parametrize("arch", sorted(AT_16))
 def test_plan_at_sixteen(arch):
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.tensor_parallel import plan
     cfg = get_config(arch)
     assert cfg.family in ("dense", "vlm")
-    p = plan(cfg, 16, kind="train", seq_len=4096).record()
-    assert (p["heads"], p["mlp"], p["vocab"]) == AT_16[arch]
+    modes, local_heads, mlp, vocab = AT_16[arch]
+    got = []
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        cell = SHAPES[shape]
+        seq = 1 if cell.kind == "decode" else cell.seq_len
+        got.append(plan(cfg, 16, kind=cell.kind, seq_len=seq).record())
+    assert tuple(p["heads"] for p in got) == modes
+    p = got[0]
+    assert (p["local_heads"], p["mlp"], p["vocab"]) == (local_heads, mlp,
+                                                        vocab)
     assert p["seq_parallel"] is True
-    div = 16 if p["heads"] == "local" else 1
-    assert p["local_heads"] == [cfg.n_heads // div, cfg.n_kv_heads // div]
     for kind, seq in (("train", 4095), ("prefill", 4096), ("decode", 1)):
         assert plan(cfg, 16, kind=kind, seq_len=seq).seq_parallel is False
+    # T not divisible by 16: no query rows to split
+    assert plan(cfg, 16, kind="train", seq_len=4095).heads == \
+        ("gathered" if modes[0] == "q_seq" else modes[0])
+    # at m = 1 every config takes the route of one rank
+    assert plan(cfg, 1, kind="train", seq_len=4096).heads == "local"
+
+
+def test_q_rows_tile_the_sequence():
+    """Under "q_seq" the ranks' query rows are contiguous, in rank order,
+    and cover the sequence; the record of the last rank carries them and
+    (2m - 1)/m."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import plan
+    p = plan(get_config("minitron-4b"), 16, kind="train", seq_len=4096)
+    rows = [p.q_rows(r) for r in range(16)]
+    assert rows[0] == (0, 256) and rows[-1] == (3840, 4096)
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    last = p.record(15)
+    assert last["q_rows"] == [3840, 4096] and last["model_rank"] == 15
+    assert last["q_seq_heaviest_over_mean"] == 31 / 16
+
+
+class _Group:
+    """A stand-in process group of ``size`` ranks, this one ``rank``."""
+    group_name = "stand-in"
+
+    def __init__(self, size: int = 1, rank: int = 0) -> None:
+        self._size, self._rank = size, rank
+
+    def size(self):
+        return self._size
+
+    def rank(self):
+        return self._rank
+
+
+def test_kv_slice_takes_the_ranks_kv_head():
+    """Under "kv_replicated" (4 query heads on 2 KV heads, 4 ranks) ranks 0
+    and 1 take KV head 0's columns of a whole ``wk``, ranks 2 and 3 head
+    1's, and a slice's gradient is zero outside its columns."""
+    from repro_torch.distributed.tensor_parallel import Route, plan
+    cfg = reduced("smollm-135m", SMOLLM)
+    p = plan(cfg, 4, kind="decode", seq_len=1)
+    assert (p.heads, p.local_heads, p.kv_share) == ("kv_replicated", (1, 1),
+                                                    2)
+    hd = cfg.hd
+    w = torch.arange(3 * 2 * hd, dtype=torch.float32).reshape(3, 2 * hd)
+    for r in range(4):
+        leaf = w.clone().requires_grad_(True)
+        got = Route(p, _Group(4, r)).kv_slice(leaf)
+        head = r // 2
+        assert torch.equal(got, w[:, head * hd:(head + 1) * hd])
+        got.sum().backward()
+        want = torch.zeros_like(w)
+        want[:, head * hd:(head + 1) * hd] = 1
+        assert torch.equal(leaf.grad, want)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_attention_rows_are_rows_of_the_whole(cached):
+    """``attention_block`` with ``q_rows=(a, b)``: rows [a, b) of the whole
+    sublayer's output, without a cache (K/V over rows [0, b)) and into a
+    cache (every row written, the cache the whole call's)."""
+    from repro_torch.models.attention import attention_block, init_attn
+    cfg = reduced("smollm-135m", THREE)
+    gen = torch.Generator().manual_seed(3)
+    p = init_attn(gen, cfg, "cpu")
+    x = torch.randn((2, 12, cfg.d_model), generator=gen)
+
+    def run(rows):
+        cache = None
+        if cached:
+            cache = tuple(torch.zeros((2, 16, cfg.n_kv_heads, cfg.hd))
+                          for _ in range(2))
+        out, _ = attention_block(p, x, cfg, kv_cache=cache, q_rows=rows)
+        return out, cache
+
+    whole, whole_cache = run(None)
+    for a, b in ((0, 4), (4, 8), (8, 12), (3, 11)):
+        out, cache = run((a, b))
+        assert out.shape == (2, b - a, cfg.d_model)
+        torch.testing.assert_close(out, whole[:, a:b], rtol=1e-5, atol=1e-6)
+        if cached:
+            for c, w in zip(cache, whole_cache):
+                assert torch.equal(c, w)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
@@ -423,16 +562,7 @@ def test_route_only_for_dense_and_vlm_under_a_policy(arch):
         mesh_dim_names = ("data", "model")
 
         def get_group(self, name):
-            return Group()
-
-    class Group:
-        group_name = "stand-in"
-
-        def size(self):
-            return 1
-
-        def rank(self):
-            return 0
+            return _Group()
 
     cfg = get_config(arch)
     assert tensor_parallel.route(cfg, kind="train", seq_len=8) is None
@@ -487,57 +617,88 @@ def test_vocab_parallel_embedding_sums_to_the_lookup():
 # the dry run of a reduced dense cell on a (4, 4) mesh
 # ---------------------------------------------------------------------------
 FAKE = """
-import json, torch
+import json, sys, torch
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import ShapeCell
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world
 
+# name -> (query heads, KV heads, T)
+CELLS = {"local": (8, 4, 256), "kv_replicated": (8, 2, 256),
+         "gathered": (6, 2, 250), "q_seq": (6, 2, 256)}
+rank, names = int(sys.argv[1]), sys.argv[2:]
 out = {}
-with fake_world(16):
+with fake_world(16, rank=rank):
     mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
-    for name, kv in (("local", 4), ("gathered", 2)):
-        over = dict(n_layers=2, d_model=256, n_heads=8, n_kv_heads=kv,
+    for name in names:
+        hq, kv, seq = CELLS[name]
+        over = dict(n_layers=2, d_model=256, n_heads=hq, n_kv_heads=kv,
                     head_dim=32, d_ff=1024, vocab_size=1024,
                     param_dtype=torch.float32, compute_dtype=torch.float32,
                     remat="none")
         out[name] = dryrun.count_cell(
-            "smollm-135m", ShapeCell("train", "train", 256, 16), mesh,
+            "smollm-135m", ShapeCell("train", "train", seq, 16), mesh,
             mesh_name="4x4", extra_cfg=over)
-with open("records.json", "w") as f:
+with open(f"records{rank}.json", "w") as f:
     json.dump(out, f)
 """
+# the rank each process counts and its cells, the two processes side by
+# side: rank 3 is the last along "model" of the (4, 4) mesh, whose query
+# rows are the last quarter
+FAKE_RANKS = {0: ("local", "kv_replicated", "gathered"), 3: ("q_seq",)}
 
 
 @pytest.fixture(scope="module")
 def fake_cells(tmp_path_factory):
     cwd = tmp_path_factory.mktemp("tp_dryrun")
-    out = subprocess.run(
-        [sys.executable, "-c", FAKE], cwd=cwd, capture_output=True,
-        text=True, timeout=240,
-        env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
-    assert out.returncode == 0, out.stderr[-4000:]
-    with open(cwd / "records.json") as f:
-        return json.load(f)
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", FAKE, str(rank), *names], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank, names in FAKE_RANKS.items()]
+    out = {}
+    for rank, proc in zip(FAKE_RANKS, procs):
+        _, err = proc.communicate(timeout=240)
+        assert proc.returncode == 0, err[-4000:]
+        with open(cwd / f"records{rank}.json") as f:
+            out.update(json.load(f))
+    return out
 
 
-@pytest.mark.parametrize("name", ["local", "gathered"])
+# name -> the plan's local heads, its query rows, whether sequence-parallel
+FAKE_PLANS = {"local": ([2, 1], None, True),
+              "kv_replicated": ([2, 1], None, True),
+              "gathered": ([6, 2], None, False),
+              "q_seq": ([6, 2], [192, 256], True)}
+
+
+@pytest.mark.parametrize("name", ["local", "gathered", "kv_replicated",
+                                  "q_seq"])
 def test_dry_run_divides_the_work(fake_cells, name):
-    """A reduced dense train cell (16 x 256 tokens, 8 heads, d_ff 1024,
-    vocab 1024) in a fake world of 16 on a (4, 4) mesh: ``"tp"`` is the
-    plan; with the heads local rank 0 counts within 1.25x of the semantic
-    FLOPs over 16; with them gathered it repeats attention along "model",
-    and counts more."""
+    """A reduced dense train cell (16 x 256 tokens, d_ff 1024, vocab 1024)
+    in a fake world of 16 on a (4, 4) mesh: ``"tp"`` is the plan of the
+    counted rank (rank 3, the last along "model", for q_seq); with the
+    heads local or the KV heads replicated (8 heads on 4 or 2 KV heads)
+    rank 0 counts within 1.25x of the semantic FLOPs over 16; the heaviest
+    q_seq rank (6 heads on 2) within (2m - 1)/m x 1.25 of it; with the
+    attention gathered (T 250, which 4 ranks do not divide) it repeats
+    attention along "model", and counts more than the local plan."""
     r = fake_cells[name]
     assert r["status"] == "ok" and r["chips"] == 16
-    assert r["tp"] == {"model": 4, "heads": name,
-                       "local_heads": [2, 1] if name == "local" else [8, 2],
-                       "mlp": "local", "vocab": "local",
-                       "seq_parallel": True}
+    local_heads, rows, sp = FAKE_PLANS[name]
+    rank = 3 if name == "q_seq" else 0
+    want = {"model": 4, "heads": name, "local_heads": local_heads,
+            "mlp": "local", "vocab": "local", "seq_parallel": sp,
+            "model_rank": rank, "q_rows": rows}
+    if rows is not None:
+        want["q_seq_heaviest_over_mean"] = 7 / 4
+    assert r["tp"] == want and r["rank"] == rank
     share = r["rank0"]["flops"] / (r["semantic"]["flops"] / 16)
     assert share >= 1.0
-    if name == "local":
+    if name in ("local", "kv_replicated"):
         assert share <= 1.25, share
+    elif name == "q_seq":
+        assert share <= 7 / 4 * 1.25, share
     else:
         assert share > fake_cells["local"]["rank0"]["flops"] / (
             fake_cells["local"]["semantic"]["flops"] / 16)
