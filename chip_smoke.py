@@ -220,12 +220,20 @@ Phases, each fatal on failure (nothing is caught):
      on the (1, 1) mesh (run after (a): a prefill of 8 x 256 tokens into a
      cache of 512, then 4 greedy decode steps) through the route, its
      logits bit-identical to ``model.prefill``/``decode``'s at every step;
+     (e) mamba2-1.3b's sharded step on the (1, 1) mesh at 4 of its 48
+     layers (full width, 3 steps of 8 x 2048) through the route (SSM heads
+     "local" over one rank) bit-identical to the unsharded step, 2 x 4
+     forward and 4 backward scan launches a step;
  23. the launch tooling (run last): (a) ``python -m
      repro_torch.launch.dryrun`` in a process per cell (at the same time
-     as (b)'s predictions) for llava-next-34b x ``train_4k`` on both
-     production meshes and for (c)'s five cells on (c)'s ranks, a
-     ``[dryrun]`` line each with its tensor-parallel plan (the other cells
-     are counted on the CPU: ``--all`` and ``tests/test_torch_launch.py``);
+     as (b)'s predictions; the processes start after phase 21's timed
+     trainings and count on the host while the card runs phase 21's
+     parity checks and (c)'s kernel checks)
+     for llava-next-34b x ``train_4k`` on both
+     production meshes, mamba2-1.3b x ``train_4k`` and (c)'s seven cells
+     on (c)'s ranks, a ``[dryrun]`` line each with its tensor-parallel plan
+     (the other cells are counted on the CPU: ``--all`` and
+     ``tests/test_torch_launch.py``);
      (b) two table cells built by ``launch.build.build_cell`` on the card on a
      (1, 1) ("data", "model") mesh of one NCCL rank, each beside its dry
      run on the same mesh (a fake world of one rank; the dry run's peak of
@@ -236,22 +244,26 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of five
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of seven
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
-     a warm-up (2 x 32 forward and 32 backward flash launches), each
-     decode cell 3 steps (32 ``decode_attention`` launches a step):
+     a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
+     9 and 9 flash, 2 x 54 and 54 scan), each decode cell 3 steps (32
+     ``decode_attention`` launches a step; zamba2 9):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
      "local"), llama-3.1-8b x ``train_4k`` and x ``decode_32k``
      ("kv_replicated": 2 query heads on one KV head a rank, the rank's KV
-     head's cache) and minitron-4b x ``train_4k`` on its last rank along
-     "model" ("q_seq": query rows 3840 to 4096, flash at that offset),
-     built by ``build_cell`` on the card in a fake world of 256 ranks on
-     the (16, 16) mesh (the collectives move no data, so no value is
-     checked), a ``[launch] tp`` line each beside the dry run of the same
-     cell and rank (run in (a)'s pool), the peak within ``PEAK_MARGIN`` of
-     it; before them, ``decode_attention`` and flash (with and without a
-     query offset) held to their plain versions at the shapes the shares
-     give them, and flash timed at the q_seq share's offset.
+     head's cache), minitron-4b x ``train_4k`` on its last rank along
+     "model" ("q_seq": query rows 3840 to 4096, flash at that offset) and
+     zamba2-2.7b x ``train_4k`` and x ``decode_32k`` (the shared block's
+     2/2 heads and 5 of the 80 SSM heads "local", the rank's SSM state and
+     conv channels), built by ``build_cell`` on the card in a fake world
+     of 256 ranks on the (16, 16) mesh (the collectives move no data, so
+     no value is checked), a ``[launch] tp`` line each beside the dry run
+     of the same cell and rank (run in (a)'s pool), the peak within
+     ``PEAK_MARGIN`` of it; first of all (before (b)), ``decode_attention``,
+     flash (with and without a query offset) and the scan, forward and
+     backward, held to their plain versions at the shapes the shares give
+     them (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``), and each timed there.
 
 After each group of phases a ``[time]`` line gives the seconds since the
 start. It then prints the kernels line and, last, the device line as JSON. Exits
@@ -380,9 +392,10 @@ TRAIN_B, TRAIN_T = 8, 2048
 GRAPH_TRAIN_STEPS = 4
 GRAPH_PEAK_RATIO = 1.05
 # decode steps that phases 11, 12, 18 and 20 time and profile, graphed and
-# eager (``where_the_time_goes``; 10 until PR 28, cut to fit phase 23's
-# tensor-parallel shares in the smoke's time; phase 4 keeps 10)
-LATE_PROFILE_STEPS = 5
+# eager (``where_the_time_goes``; phase 4 profiles 10: the later phases'
+# windows are cut to fit phase 23's tensor-parallel shares in the smoke's
+# time)
+LATE_PROFILE_STEPS = 4
 # Train parity, kernel against the plain attention on the same params and
 # batch. fp32 (4 layers, B 2, T 1024): sums in another order only; per leaf
 # max |dg| <= 1e-4 of the leaf's max |g|, loss within 1e-5 relative. bf16
@@ -900,6 +913,45 @@ def require_device_time(what: str, parts: dict) -> None:
                              f"for {zero}")
 
 
+# The profiler drops the first kernel records of a session, more the
+# older the process (H100 runs: the first of five calls about 90 s in,
+# all five of flash's backward about 550 s in, a wait before the calls
+# notwithstanding). A kernel breakdown therefore runs its calls twice in
+# a session, with this wait between, and averages what was recorded.
+PROFILE_LEAD_S = 0.1
+
+
+def kernel_breakdown(fn, parts: dict, what: str, n: int = 5
+                     ) -> tuple[dict, dict]:
+    """Device ms a launch of each part's kernels (those whose name holds
+    the part's key; one launch a call of ``fn(i)``), over the launches
+    the profiler recorded, and those launches. A session runs ``fn`` n
+    times, waits ``PROFILE_LEAD_S`` and runs it n times more; one that
+    recorded no launch of some part is taken again with four times the
+    calls, twice at most. Raises if a part still has none."""
+    from torch.profiler import ProfilerActivity, profile
+    for calls in (n, 4 * n, 16 * n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_LEAD_S)
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof, 1)
+        ms, seen = {}, {}
+        for part, key in parts.items():
+            hits = [(c, t) for name, c, t in kernels if key in name]
+            seen[part] = int(sum(c for c, _ in hits))
+            ms[part] = sum(t for _, t in hits) / max(seen[part], 1)
+        if all(seen.values()):
+            break
+    require_device_time(what, ms)
+    return ms, seen
+
+
 def device_kernels(prof, per: int) -> list:
     """(name, calls, device ms) of every CUDA kernel in a profile, per
     ``per`` repetitions, largest first."""
@@ -1356,17 +1408,12 @@ def check_flash_attention(shapes=FLASH_SHAPES):
 
 def bwd_kernel_ms(bwd, n: int) -> dict:
     """Device ms a call of each backward kernel (delta pre-pass, dK/dV,
-    dQ), from the profiler over n eager backward launches."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            bwd(i)
-        torch.cuda.synchronize()
-    parts = {"delta": "delta", "dkdv": "dkdv", "dq": "_dq_"}
-    times = {part: sum(ms for name, _, ms in device_kernels(prof, n)
-                       if key in name) for part, key in parts.items()}
-    require_device_time("flash backward kernels", times)
-    return times
+    dQ), from the profiler over eager backward launches
+    (``kernel_breakdown``), and the launches it recorded."""
+    times, seen = kernel_breakdown(
+        bwd, {"delta": "delta", "dkdv": "dkdv", "dq": "_dq_"},
+        "flash backward kernels", n)
+    return {**times, "recorded": seen}
 
 
 def time_flash_attention(shape=FLASH_SHAPES[0]):
@@ -1781,13 +1828,14 @@ def ssd_inputs(B, T, H, P, N, h0, seed):
             r(B, H, N, P) if h0 else None)
 
 
-def check_ssd_scan():
+def check_ssd_scan(shapes=SSD_SHAPES):
     """The kernel against the chunked plain version and the sequential
-    recurrence at every shape of SSD_SHAPES; chunk 64 against chunk 256."""
+    recurrence at every shape of ``shapes``; the first also at chunk 64
+    against chunk 256."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     rows = []
-    for i, (name, B, T, H, P, N, Q, h0) in enumerate(SSD_SHAPES):
+    for i, (name, B, T, H, P, N, Q, h0) in enumerate(shapes):
         u, loga, Bm, Cm, init = ssd_inputs(B, T, H, P, N, h0, SEED + i)
         y, state = ssd_scan(u, loga, Bm, Cm, chunk=Q, h0=init)
         torch.cuda.synchronize()
@@ -1808,15 +1856,14 @@ def check_ssd_scan():
     return rows
 
 
-def time_ssd_scan(index: int):
-    """Kernel and chunked plain version at SSD_SHAPES[index] (a served
-    prefill shape), with the device ms of each of the kernel's passes. No
-    single PyTorch call computes the scan, so there is no library time."""
-    from torch.profiler import ProfilerActivity, profile
-
+def time_ssd_scan(shape):
+    """Kernel and chunked plain version at ``shape`` (an entry of
+    SSD_SHAPES or TP_SSD_SHAPES), with the device ms of each of the
+    kernel's passes. No single PyTorch call computes the scan, so there is
+    no library time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan
-    name, B, T, H, P, N, Q, _ = SSD_SHAPES[index]
+    name, B, T, H, P, N, Q, _ = shape
     u, loga, Bm, Cm, _ = ssd_inputs(B, T, H, P, N, False, SEED)
     calls = {"": lambda i: ssd_scan(u, loga, Bm, Cm, chunk=Q),
              "plain_": lambda i: ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q)}
@@ -1824,14 +1871,10 @@ def time_ssd_scan(index: int):
     for key, fn in calls.items():
         times[f"{key}ms"] = device_ms(fn, 10)
         times[f"{key}eager_ms"] = eager_ms(fn, 10)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(5):
-            calls[""](i)
-        torch.cuda.synchronize()
-    times["pass_ms"] = {key: sum(ms for k, _, ms in device_kernels(prof, 5)
-                                 if f"ssd_{key}_kernel" in k)
-                        for key in ("cb", "summary", "state", "output")}
-    require_device_time(f"ssd_scan passes at {name}", times["pass_ms"])
+    times["pass_ms"], times["pass_recorded"] = kernel_breakdown(
+        calls[""], {key: f"ssd_{key}_kernel"
+                    for key in ("cb", "summary", "state", "output")},
+        f"ssd_scan passes at {name}")
     # the model's chunked formulation: C B^T once per chunk, then for every
     # head (C B^T * L) u, C h and B^T u; the causal mask leaves Q (Q + 1) / 2
     # of each chunk's (Q, Q) products. All fp32 FMAs on the CUDA cores.
@@ -2617,17 +2660,16 @@ def scan_bwd_call(u, loga, Bm, Cm, init, dy, dstate, Q):
                                         chunk=Q)), (y, state, states)
 
 
-def check_ssd_scan_bwd():
+def check_ssd_scan_bwd(shapes=SSD_SHAPES + SSD_TRAIN_SHAPES):
     """(a) The backward kernel against both plain versions at every shape
-    of SSD_SHAPES and both training shapes, with a nonzero dstate (and h0
-    where the shape has one); repeated calls bit-identical. The forward
-    that keeps the chunk states, against the chunked plain version: y, the
-    final state and the states entering each chunk, which the backward
-    reads. Returns the rows."""
+    of ``shapes`` (those of SSD_SHAPES and both training shapes unless
+    given), with a nonzero dstate (and h0 where the shape has one);
+    repeated calls bit-identical. The forward that keeps the chunk states,
+    against the chunked plain version: y, the final state and the states
+    entering each chunk, which the backward reads. Returns the rows."""
     from repro_torch.kernels import ref
     rows = []
-    for i, (name, B, T, H, P, N, Q, h0) in enumerate(SSD_SHAPES
-                                                     + SSD_TRAIN_SHAPES):
+    for i, (name, B, T, H, P, N, Q, h0) in enumerate(shapes):
         u, loga, Bm, Cm, init, dy, ds = ssd_grad_inputs(B, T, H, P, N, h0,
                                                         SEED + 100 + i)
         bwd, (y, state, states) = scan_bwd_call(u, loga, Bm, Cm, init, dy,
@@ -2707,29 +2749,23 @@ def ssd_bwd_graph_replays():
         f"({name})")
 
 
-def time_ssd_scan_bwd():
+def time_ssd_scan_bwd(shape=SSD_TRAIN_SHAPES[0]):
     """(b) The backward kernel, each of its passes and the plain version
     (autograd through ref.ssd_scan_ref: its forward + backward less its
-    forward) at mamba2-1.3b's training shape, beside the bound. No single
-    PyTorch call computes the scan or its gradient."""
-    from torch.profiler import ProfilerActivity, profile
-
+    forward) at ``shape`` (mamba2-1.3b's training shape unless given),
+    beside the bound. No single PyTorch call computes the scan or its
+    gradient."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_bwd_plan
-    name, B, T, H, P, N, Q, _ = SSD_TRAIN_SHAPES[0]
+    name, B, T, H, P, N, Q, _ = shape
     u, loga, Bm, Cm, _, dy, _ = ssd_grad_inputs(B, T, H, P, N, False, SEED)
     bwd, _ = scan_bwd_call(u, loga, Bm, Cm, None, dy, None, Q)
     times = {"ms": device_ms(bwd, 5), "eager_ms": eager_ms(bwd, 5)}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(5):
-            bwd(i)
-        torch.cuda.synchronize()
-    times["pass_ms"] = {key: sum(ms for k, _, ms in device_kernels(prof, 5)
-                                 if f"ssd_{key}_kernel" in k)
-                        for key in ("cb", "grad_summary", "grad_state",
-                                    "grad_panel", "grad_du", "grad_bc")}
-    require_device_time(f"ssd_scan backward passes at {name}",
-                        times["pass_ms"])
+    times["pass_ms"], times["pass_recorded"] = kernel_breakdown(
+        bwd, {key: f"ssd_{key}_kernel"
+              for key in ("cb", "grad_summary", "grad_state", "grad_panel",
+                          "grad_du", "grad_bc")},
+        f"ssd_scan backward passes at {name}")
     del bwd
     leaves = [x.clone().requires_grad_(True) for x in (u, loga, Bm, Cm)]
     fwd = lambda i: ref.ssd_scan_ref(u, loga, Bm, Cm, chunk=Q)
@@ -2939,9 +2975,10 @@ def ssd_bwd_kernel_phase():
 
 
 def ssm_train_phase(mamba, zamba):
-    """Phase 21 (c) to (e). Returns the main path's launches (scan
-    forward, scan backward, flash forward, flash backward) in the two
-    trainings."""
+    """Phase 21 (c) and the profiled steps beside it, the timed part of
+    the phase ((d), checks only, runs after it). Returns the main path's
+    launches (scan forward, scan backward, flash forward, flash backward)
+    in the two trainings."""
     t0 = time.perf_counter()
     launches = np.zeros(4, dtype=int)
     for cfg in (mamba, zamba):
@@ -2955,15 +2992,15 @@ def ssm_train_phase(mamba, zamba):
             "scan_ms_per_step", "flash_ms_per_step")}
         log(f"[train ssm] {json.dumps(stats)}")
         torch.cuda.empty_cache()
-    for cfg, depth in ((mamba, 4), (zamba, 6)):
-        ssm_train_parity(cfg, depth)
-    log(f"[train ssm] phase {time.perf_counter() - t0:.1f} s, launches "
+    log(f"[train ssm] trainings {time.perf_counter() - t0:.1f} s, launches "
         f"(scan fwd, scan bwd, flash fwd, flash bwd) {launches.tolist()}")
     return [int(n) for n in launches]
 
 
 # -------------------------------------------------------------- phase 22 --
 DIST_STEPS, COMPRESS_STEPS = 3, 6
+# (e) mamba2-1.3b's sharded step at this many of its 48 layers
+DIST_SSM_LAYERS = 4
 PIPE_MICRO, PIPE_B = 4, 2
 # (d) serve_step on the (1, 1) mesh: 8 prompts of 256 tokens into a cache
 # of 512, then greedy decode steps
@@ -3044,6 +3081,16 @@ def require_routes(what: str, plans: list, n: int) -> None:
     if len(plans) != n or any(p.model != 1 for p in plans):
         raise AssertionError(f"{what}: tensor-parallel routes {plans}, "
                              f"want {n} on one rank")
+
+
+def scan_launches(reset: bool = False) -> tuple[int, int]:
+    """The scan's forward and backward launch counts, set to 0 first if
+    ``reset``."""
+    from repro_torch.kernels import ssd_scan as sk
+    if reset:
+        sk.ssd_scan_fwd.launches = 0
+        sk.ssd_scan_bwd.launches = 0
+    return sk.ssd_scan_fwd.launches, sk.ssd_scan_bwd.launches
 
 
 def flash_launches(reset: bool = False) -> tuple[int, int]:
@@ -3151,6 +3198,65 @@ def distributed_train(cfg, mesh) -> tuple[int, int]:
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and exact):
         raise AssertionError(f"compressed training: losses {losses}, "
                              f"residual exact {exact}")
+    return tuple(int(n) for n in total)
+
+
+def distributed_train_ssm(cfg, mesh) -> tuple[int, int]:
+    """(e) The sharded train step of mamba2-1.3b at ``DIST_SSM_LAYERS`` of
+    its 48 layers (full width, bf16, remat "block", AdamW, 3 steps of 8 x
+    2048) on the (1, 1) mesh against the unsharded step from the same
+    seed: through the tensor-parallel route (its SSM heads "local" over a
+    "model" axis of one rank, where each collective is the identity, the
+    rank's columns are the whole leaves and the gated RMSNorm is the
+    unsharded one), each step's loss and grad norm and the params after 3
+    steps the same bits; 2 x layers forward and layers backward scan
+    launches a step in each. Returns the scan launches (forward,
+    backward) in it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_leaves
+    cfg = replace(cfg, n_layers=DIST_SSM_LAYERS)
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    total = np.zeros(2, dtype=int)
+    runs = {}
+    for label, on in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        _, state, step, data = fresh_training(cfg, mesh=on)
+        scan_launches(reset=True)
+        metrics = []
+        t0 = time.perf_counter()
+        with counting_routes() as plans:
+            for i in range(DIST_STEPS):
+                state, m = step(state, data.batch(i))
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        seconds = time.perf_counter() - t0
+        require_routes(f"[distributed] train ssm {label}", plans,
+                       DIST_STEPS if on is not None else 0)
+        if any(p.ssm != "local" for p in plans):
+            raise AssertionError(f"the sharded mamba2 step's SSM heads are "
+                                 f"not local: {plans}")
+        launches = scan_launches()
+        want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
+        if launches != want:
+            raise AssertionError(f"{label} mamba2 step: scan launches "
+                                 f"{launches}, want {want}")
+        total += launches
+        runs[label] = {"metrics": metrics, "seconds": seconds,
+                       "params": [whole(p) for p in
+                                  tree_leaves(state["params"])]}
+        del state, step
+    got, want = runs["sharded"], runs["unsharded"]
+    same = got["metrics"] == want["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "B": TRAIN_B,
+             "T": TRAIN_T, "steps": DIST_STEPS, "bit_identical": same,
+             "loss_grad_norm": got["metrics"],
+             "seconds": {k: r["seconds"] for k, r in runs.items()},
+             "scan_launches_a_step": [2 * cfg.n_layers, cfg.n_layers]}
+    log(f"[distributed] train ssm {json.dumps(stats)}")
+    if not same:
+        raise AssertionError(f"sharded mamba2 step differs: "
+                             f"{got['metrics']} against {want['metrics']}")
     return tuple(int(n) for n in total)
 
 
@@ -3311,10 +3417,11 @@ def distributed_ep(cfg, mesh) -> None:
     log(f"[distributed] ep {json.dumps({'arch': cfg.name, 'rows': rows})}")
 
 
-def distributed_phase(smollm, qwen) -> tuple[int, int, int]:
+def distributed_phase(smollm, qwen, mamba
+                      ) -> tuple[int, int, int, int, int]:
     """Phase 22, run after phase 9 (the profiler reads device time there).
-    Returns the decode launches and the flash launches (forward, backward)
-    in it."""
+    Returns the decode launches, the flash launches (forward, backward)
+    and the scan launches (forward, backward) in it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed import logical
@@ -3330,11 +3437,14 @@ def distributed_phase(smollm, qwen) -> tuple[int, int, int]:
         torch.cuda.empty_cache()
         distributed_ep(qwen, mesh)
         torch.cuda.empty_cache()
+        scan_fwd, scan_bwd = distributed_train_ssm(mamba, mesh)
+        torch.cuda.empty_cache()
     if logical.active():
         raise AssertionError("a logical policy outlived phase 22")
     log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, decode "
-        f"launches {decode}, flash launches (fwd, bwd) ({fwd}, {bwd})")
-    return decode, fwd, bwd
+        f"launches {decode}, flash launches (fwd, bwd) ({fwd}, {bwd}), "
+        f"scan launches (fwd, bwd) ({scan_fwd}, {scan_bwd})")
+    return decode, fwd, bwd, scan_fwd, scan_bwd
 
 
 # -------------------------------------------------------------- phase 23 --
@@ -3345,16 +3455,20 @@ def distributed_phase(smollm, qwen) -> tuple[int, int, int]:
 # PyTorch, and the tensor-parallel cells of (c) on the rank (c) runs, their
 # predictions; the other cells are counted on the CPU (``--all``).
 # (c) runs one rank's share of each of these (arch, shape, rank): phi3-mini
-# (attention "local"), llama-3.1-8b ("kv_replicated") and minitron-4b's last
+# (attention "local"), llama-3.1-8b ("kv_replicated"), minitron-4b's last
 # rank along "model" ("q_seq": rank 15 of the (16, 16) mesh is data 0,
-# model 15, the rank with the most attention)
+# model 15, the rank with the most attention) and zamba2-2.7b (its shared
+# block's heads and its SSM heads "local")
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
             ("llama-3.1-8b", "decode_32k", 0),
-            ("minitron-4b", "train_4k", 15)]
+            ("minitron-4b", "train_4k", 15),
+            ("zamba2-2.7b", "train_4k", 0),
+            ("zamba2-2.7b", "decode_32k", 0)]
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
+                ("mamba2-1.3b", "train_4k", False, 0),
                 *((arch, shape, False, rank)
                   for arch, shape, rank in TP_CELLS)]
 # (c) the shares run in a fake world of this many ranks on the (16, 16)
@@ -3374,7 +3488,13 @@ TP_FLASH_SHAPES = [
     ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
      3840),
     ("llama-3.1-8b kv_replicated share", 16, 4096, 4096, 2, 1, 128, True),
+    ("zamba2-2.7b TP share", 16, 4096, 4096, 2, 2, 80, True),
     ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
+# the scan at the SSM shares' shapes (name, B, T, H, P, N, Q, h0): a rank's
+# 5 of zamba2-2.7b's 80 heads (N 64) in train_4k, and 4 of mamba2-1.3b's 64
+# (N 128), the cell of (a) whose share is not run
+TP_SSD_SHAPES = [("zamba2-2.7b TP share", 16, 4096, 5, 64, 64, 256, False),
+                 ("mamba2-1.3b TP share", 16, 4096, 4, 64, 128, 256, False)]
 DRYRUN_WORKERS = 8          # the card's host has 8 cores
 DRYRUN_TIMEOUT_S = 300
 LONG_S = 524288             # long_500k's cache
@@ -3560,6 +3680,24 @@ def local_tree(tree):
     return tree_map(lambda t: t.to_local(), tree)
 
 
+def busy_ms(prof) -> float:
+    """Device busy ms of a profile: the summed durations of its events on
+    the card (kernels, copies, sets; not the ranges of user annotations),
+    read from the raw trace. ``device_kernels`` builds the profiler's
+    event tree first: with it phase 23 (b) took 132.8 s and a train share
+    of (c) 17.5 to 26.6 s, without it 48.6 s and 4.9 to 7.7 s (H100
+    runs)."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def flag(e, name):
+        return getattr(e, name, lambda: False)()
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda
+               and not flag(e, "is_user_annotation")
+               and not flag(e, "is_hidden_event")) / 1e6
+
+
 def profiled_step_ms(fn) -> float:
     """Device busy ms of one ``fn()`` under the profiler (no warm-up)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3568,7 +3706,7 @@ def profiled_step_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(ms for _, _, ms in device_kernels(prof, 1))
+    return busy_ms(prof)
 
 
 def predicted_against_measured(pred: dict, measured: dict) -> dict:
@@ -3775,20 +3913,25 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
 
 def tp_share_kernels() -> None:
     """(c) The kernels against their plain versions at the shapes the
-    shares give them, with phases 3 and 7's tolerances:
+    shares give them, with phases 3, 7, 10 and 21's tolerances:
     ``decode_attention`` at 8 slots of 32768 (the decode shares' split
-    plan) with phi3-mini's 2 of 32 heads and llama-3.1-8b's 2 query heads
-    on one KV head (timed too), lengths 0, S and ragged ones; flash,
-    forward and backward, fp32 and bf16, at ``TP_FLASH_SHAPES``, and the
-    q_seq share's timing beside the same call at offset 0. Run after (b),
-    whose unsharded step peaks within 10 GB of the card."""
+    plan) with phi3-mini's 2 of 32 heads, llama-3.1-8b's 2 query heads on
+    one KV head and zamba2's 2 of 32 heads at hd 80 (the last two timed
+    too), lengths 0, S and ragged ones; flash, forward and backward, fp32
+    and bf16, at ``TP_FLASH_SHAPES``, the q_seq share's timing beside the
+    same call at offset 0 and zamba2's share's beside SDPA; the scan,
+    forward and backward (fp32, the route's only dtype), at
+    ``TP_SSD_SHAPES``, each timed from CUDA-graph replays, with its
+    passes' device ms from the profiler. Run while (a)'s dry runs count on
+    the host, before (b), whose steps run on expandable segments."""
     from repro_torch.configs import get_config
     lengths = [0, 1, TP_DECODE_S, TP_DECODE_S - TP_DECODE_STEPS,
                TP_DECODE_S + 5, 20001, 4097, 129]
-    # llama's share also timed over 2 layers of cache (134 MB each, past
-    # the 50 MB L2)
+    # llama's and zamba2's shares also timed over 2 layers of cache (134
+    # and 84 MB each, past the 50 MB L2)
     for arch, (hq, hkv), timed in (("phi3-mini-3.8b", (2, 2), 0),
-                                   ("llama-3.1-8b", (2, 1), 2)):
+                                   ("llama-3.1-8b", (2, 1), 2),
+                                   ("zamba2-2.7b", (2, 2), 2)):
         c = get_config(arch)
         check_and_time_decode_attention(
             f"{c.name} TP share", hq, hkv, c.hd, timed,
@@ -3796,57 +3939,76 @@ def tp_share_kernels() -> None:
             lengths=lengths)
     check_flash_attention(TP_FLASH_SHAPES)
     time_flash_offset(TP_FLASH_SHAPES[1])
+    time_flash_attention(TP_FLASH_SHAPES[3])
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_ssd_scan(TP_SSD_SHAPES)
+    check_ssd_scan_bwd(TP_SSD_SHAPES)
+    for shape in TP_SSD_SHAPES:
+        time_ssd_scan(shape)
+        time_ssd_scan_bwd(shape)
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def tp_share(arch: str, shape: str, rank: int, pred: dict
-             ) -> tuple[int, int, int]:
+             ) -> tuple[int, int, int, int, int]:
     """(c) Rank ``rank``'s share of a tensor-parallel cell, built by
     ``build_cell`` on the card in a fake world of ``TP_WORLD`` ranks on
     the (16, 16) production mesh: the train cell one step after a warm-up,
     the decode cell ``TP_DECODE_STEPS`` steps against a cache whose index
     is at its last positions. The fake group's collectives move no data,
     so the values are not the job's and none is checked; the plan's local
-    widths are (``Route.check``), and a step's flash forward and backward
-    launches (2 x layers with remat, and layers) or ``decode_attention``
-    launches (layers). Prints a ``[launch] tp`` line: the plan, its local
-    heads and the rank's query rows, the card's peak beside the dry run's
-    ``bytes_per_device`` of the same cell and rank (failing above
-    ``PEAK_MARGIN``), host ms and device busy ms. Returns the decode and
-    flash (forward, backward) launches."""
+    widths are (``Route.check``), and a step's launches: a train step's
+    flash forward and backward (2 x attention layers with remat, and
+    attention layers: the layers, or the hybrid's groups) and scan forward
+    and backward (2 x SSM layers, and SSM layers), a decode step's
+    ``decode_attention`` (attention layers). Prints a ``[launch] tp``
+    line: the plan, its local heads, SSM mode and SSM heads and the rank's
+    query rows, the card's peak beside the dry run's ``bytes_per_device``
+    of the same cell and rank (failing above ``PEAK_MARGIN``), host ms and
+    device busy ms. Returns the decode, flash (forward, backward) and scan
+    (forward, backward) launches."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.build import build_cell
     from repro_torch.launch.mesh import fake_world
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    started = time.perf_counter()
     with fake_world(TP_WORLD, rank=rank):
         # the production (16, 16) mesh, on the card
         mesh = init_device_mesh(DEV, (16, 16),
                                 mesh_dim_names=("data", "model"))
         cell = build_cell(arch, shape, mesh, device=DEV, seed=SEED)
         args, cell.args = cell.args, ()
-        step, L = cell.step, cell.cfg.n_layers
+        step, cfg = cell.step, cell.cfg
+        # the attention layers (a hybrid's shared block, once a group) and
+        # the SSM layers
+        attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                else 0 if cfg.family == "ssm" else cfg.n_layers)
+        ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
         flash_launches(reset=True)
+        scan_launches(reset=True)
         with counting_routes() as plans:
             if cell.kind == "train":
                 state, batch = args
                 del args
                 state, _ = step(state, batch)            # warm-up
                 torch.cuda.synchronize()
-                before = flash_launches()
+                before = flash_launches() + scan_launches()
                 t0 = time.perf_counter()
                 state, _ = step(state, batch)
                 torch.cuda.synchronize()
                 host = [(time.perf_counter() - t0) * 1e3]
-                per = tuple(a - b for a, b in zip(flash_launches(), before))
-                want = (2 * L, L)
+                per = tuple(a - b for a, b in zip(
+                    flash_launches() + scan_launches(), before))
+                want = (2 * attn, attn, 2 * ssm, ssm)
                 busy = profiled_step_ms(lambda: step(state, batch))
                 out = None
             else:
@@ -3867,16 +4029,19 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                     host.append((time.perf_counter() - t0) * 1e3)
                 per = (launch_counts()["decode_attention"]
                        / TP_DECODE_STEPS,)
-                want = (L,)
+                want = (attn,)
                 busy = profiled_step_ms(lambda: step(params, inputs, cache))
         peak = torch.cuda.max_memory_allocated() - base
-        launches = launch_counts()["decode_attention"], *flash_launches()
+        launches = (launch_counts()["decode_attention"], *flash_launches(),
+                    *scan_launches())
         route_ok = bool(plans) and all(
             p.record(cell.tp["model_rank"]) == cell.tp for p in plans)
         row = {"arch": arch, "shape": shape, "mesh": "pod16x16",
                "fake_world": TP_WORLD, "rank": rank, "tp": cell.tp,
                "heads": cell.tp["heads"],
                "local_heads": cell.tp["local_heads"],
+               "ssm": cell.tp.get("ssm"),
+               "ssm_heads": cell.tp.get("ssm_heads"),
                "q_rows": cell.tp["q_rows"], "routes": len(plans),
                "values_checked": False,
                "launches_a_step": list(per),
@@ -3885,7 +4050,8 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "predicted_bytes_per_device": pred["bytes_per_device"],
                "peak_over_predicted": peak / pred["bytes_per_device"],
                "peak_margin": PEAK_MARGIN,
-               "host_ms": host, "device_busy_ms": busy}
+               "host_ms": host, "device_busy_ms": busy,
+               "seconds": time.perf_counter() - started}
         log(f"[launch] tp {json.dumps(row)}")
         require_device_time(f"[launch] tp {arch} x {shape}", {"step": busy})
         if (tuple(per) != want or not route_ok
@@ -3897,23 +4063,37 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
     return launches
 
 
-def launch_phase() -> tuple[int, int, int]:
-    """Phase 23: the dry runs (a), the two table cells on the card (b)
-    and one rank's share of each tensor-parallel cell of ``TP_CELLS``
-    (c). Returns the decode launches and the flash launches (forward,
-    backward) in it."""
-    from torch.distributed.device_mesh import init_device_mesh
-
+def start_dryruns(pool):
+    """Phase 23 (a) and (b)'s (1, 1) predictions, submitted to ``pool``:
+    the dry-run processes count on the host while the card runs phase
+    21's parity checks and the kernel checks of (c), whose times are
+    graph replays and profiled device time (only their eager columns can
+    feel the host's load). Fails at once without the fake process group.
+    Returns the future of ``production_dryruns``."""
     from repro_torch.launch.mesh import _FAKE_PG, fake_pg_available
-    t0 = time.perf_counter()
     present = fake_pg_available()
     log(f"[launch] {_FAKE_PG} in torch {torch.__version__}: {present}")
     if not present:
         raise AssertionError("the fake process group is missing")
-    first, production = production_dryruns(
-        [predict_job("smollm-135m", "train_4k", k) for k in GRAD_ACCUM_FIRST]
-        + [predict_job("zamba2-2.7b", "long_500k", 1),
-           predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()])
+    return pool.submit(production_dryruns, [
+        predict_job("smollm-135m", "train_4k", k)
+        for k in GRAD_ACCUM_FIRST] + [
+        predict_job("zamba2-2.7b", "long_500k", 1),
+        predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()])
+
+
+def launch_phase(dryruns) -> tuple[int, int, int, int, int]:
+    """Phase 23: the dry runs (a) (``dryruns``, from ``start_dryruns``),
+    the two table cells on the card (b) and one rank's share of each
+    tensor-parallel cell of ``TP_CELLS`` (c). Returns the decode launches,
+    the flash launches (forward, backward) and the scan launches (forward,
+    backward) in it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    t0 = time.perf_counter()
+    tp_share_kernels()
+    first, production = dryruns.result()
+    log(f"[launch] (a) done {time.perf_counter() - t0:.1f} s into the "
+        f"phase")
     reading = first.pop("peak reading")
     log(f"[launch] peak of one smollm-135m train step (B 2, T 4096) on "
         f"(1, 1), torch {torch.__version__}: {json.dumps(reading)}")
@@ -3930,16 +4110,20 @@ def launch_phase() -> tuple[int, int, int]:
                                 mesh_dim_names=("data", "model"))
         decode = long_decode_cell(mesh, long_pred)
         fwd, bwd = train_cell(mesh, k, train_pred)
-    tp_share_kernels()
+    log(f"[launch] (b) done {time.perf_counter() - t0:.1f} s into the "
+        f"phase")
+    scan = np.zeros(2, dtype=int)
     for arch, shape, rank in TP_CELLS:
         n = tp_share(arch, shape, rank, production[(arch, shape, False,
                                                     rank)])
         decode, fwd, bwd = decode + n[0], fwd + n[1], bwd + n[2]
+        scan += n[3:]
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[launch] phase {time.perf_counter() - t0:.1f} s, decode launches "
-        f"{decode}, flash launches (fwd, bwd) ({fwd}, {bwd})")
-    return decode, fwd, bwd
+        f"{decode}, flash launches (fwd, bwd) ({fwd}, {bwd}), scan "
+        f"launches (fwd, bwd) ({scan[0]}, {scan[1]})")
+    return decode, fwd, bwd, int(scan[0]), int(scan[1])
 
 
 def main() -> int:
@@ -4025,16 +4209,17 @@ def main() -> int:
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
     train_graphed_against_eager(smollm)
     train_parity(smollm)
-    decode, fwd, bwd = distributed_phase(smollm, qwen)
+    decode, fwd, bwd, ssd_launches, scan_bwd = distributed_phase(
+        smollm, qwen, mamba)
     launches += decode
     fwd_launches += fwd
     bwd_launches += bwd
     mark("phases 8, 9 and 22")
 
     ssd_rows = check_ssd_scan()
-    ssd_timing, _ = time_ssd_scan(0), time_ssd_scan(1)   # mamba2, zamba2
+    ssd_timing, _ = time_ssd_scan(SSD_SHAPES[0]), time_ssd_scan(
+        SSD_SHAPES[1])                                    # mamba2, zamba2
     bwd_rows, bwd_timing = ssd_bwd_kernel_phase()
-    ssd_launches = 0
     mark("phases 10 and 21 (a, b)")
     # fp32 parity at reduced depth: 4 SSM layers; 12 hybrid layers, two
     # groups of attn_every 6
@@ -4071,16 +4256,25 @@ def main() -> int:
         bwd_launches += bwd
     torch.cuda.empty_cache()
     mark("phases 18 to 20")
-    scan_fwd, scan_bwd, fwd, bwd = ssm_train_phase(mamba, zamba)
+    from concurrent.futures import ThreadPoolExecutor
+    scan_fwd, n, fwd, bwd = ssm_train_phase(mamba, zamba)
     ssd_launches += scan_fwd
+    scan_bwd += n
     fwd_launches += fwd
     bwd_launches += bwd
     torch.cuda.empty_cache()
-    mark("phase 21")
-    decode, fwd, bwd = launch_phase()
+    with ThreadPoolExecutor(1) as pool:
+        # checks only from here until (b), and device times
+        dryruns = start_dryruns(pool)
+        for cfg, depth in ((mamba, 4), (zamba, 6)):
+            ssm_train_parity(cfg, depth)
+        mark("phase 21")
+        decode, fwd, bwd, scan_fwd, n = launch_phase(dryruns)
     launches += decode
     fwd_launches += fwd
     bwd_launches += bwd
+    ssd_launches += scan_fwd
+    scan_bwd += n
     mark("phase 23")
 
     served = rows[0]

@@ -18,11 +18,12 @@ Spec trees have the exact structure of the trees they describe
 ``to_named`` gives each spec its DTensor placements, ``place`` lays a
 tree out by them, and ``shard_train_step`` trains on the placed state.
 Every leaf is gathered along the data axes for the step (FSDP). Along
-``"model"`` the dense and vlm families compute tensor-parallel
-(``tensor_parallel.plan``: attention in one of its four modes, ``d_ff``
-and vocab local to a rank where m divides them, ``tp_layouts`` the
-leaves' layouts for it); the other families gather each leaf whole along
-``"model"`` too, so their ranks along it compute the same rows.
+``"model"`` the dense, vlm, ssm and hybrid families compute
+tensor-parallel (``tensor_parallel.plan``: attention in one of its four
+modes, ``d_ff``, the SSM heads and vocab local to a rank where m divides
+them, ``tp_layouts`` the leaves' layouts for it); the MoE and enc-dec
+families gather each leaf whole along ``"model"`` too, so their ranks
+along it compute the same rows.
 
 A serve cell's KV cache under the "kv_replicated" plan (m divides the
 query heads, the KV heads divide m) is the port's own layout, ``tp_cache``:
@@ -35,6 +36,20 @@ kernel that takes whole heads without an all-to-all each step. So a rank
 holds 1/Hkv of the cache's heads where the reference holds 1/m of its
 ``head_dim``: m / Hkv times the reference's bytes a rank (twice for
 llama-3.1-8b and llama-3.2-1b, 8 KV heads, at m = 16).
+
+A serve cell's mamba2 conv tail where the SSM heads are local (m divides
+them) is the port's own layout too, ``tp_cache``: (..., B, K-1, m (din/m +
+2N)), rank-major, rank r's block its heads' x channels then B and C whole
+(one group: every head reads them), sharded on the last axis along
+``"model"``, so a rank holds (B/data, K-1, din/m + 2N) a layer, the conv
+channels ``mamba2_block`` reads on its heads. The reference's spec
+(``_mamba_state_spec``: ``P(b, None, "model")``) cuts the din + 2N
+channels evenly, not by component, which would leave B and C on the last
+rank alone. B and C are repeated m times: they are state, written alike
+by every rank, so the copies stay equal; a rank holds din/m + 2N channels
+where the reference's holds (din + 2N)/m (mamba2-1.3b at m = 16: 512
+against 272). The SSM state keeps the reference's layout, heads along
+``"model"``.
 """
 from __future__ import annotations
 
@@ -266,17 +281,40 @@ def tp_cache(cfg: ArchConfig, mesh, cache: dict) -> tuple[dict, dict]:
     spec tree on ``mesh``: ``cache_specs``'s, except where the
     tensor-parallel plan is "kv_replicated", whose K and V become (L, B,
     S, m, hd), each KV head repeated for the m / Hkv ranks that attend
-    with it, the head dim sharded along ``"model"`` (the module's
-    docstring says why)."""
+    with it, the head dim sharded along ``"model"``, and where the SSM
+    heads are local, whose conv tail becomes (..., B, K-1, m (din/m +
+    2N)), each rank's x channels then B and C (``ssm_tail_layout``), the
+    last axis sharded along ``"model"`` (the module's docstring says
+    why)."""
     specs = fit_tree(mesh, cache_specs(cfg, mesh), cache)
     plan = tensor_parallel.mesh_plan(cfg, mesh, kind="decode", seq_len=1)
-    if plan is None or plan.heads != "kv_replicated":
+    if plan is None:
         return cache, specs
-    kv = {k: cache[k].repeat_interleave(plan.kv_share, dim=3)
-          for k in ("k", "v")}
-    spec = fit_spec(mesh, P(None, batch_axes(mesh), None, "model", None),
-                    kv["k"].shape)
-    return {**cache, **kv}, {**specs, "k": spec, "v": spec}
+    if plan.heads == "kv_replicated":
+        kv = {k: cache[k].repeat_interleave(plan.kv_share, dim=3)
+              for k in ("k", "v")}
+        spec = fit_spec(mesh, P(None, batch_axes(mesh), None, "model", None),
+                        kv["k"].shape)
+        cache, specs = {**cache, **kv}, {**specs, "k": spec, "v": spec}
+    if plan.ssm == "local":
+        st = cache["state"]
+        tail = ssm_tail_layout(st.conv_tail, plan.model, cfg.d_inner)
+        lead = (None,) * (tail.ndim - 3)
+        spec = fit_spec(mesh, P(*lead, batch_axes(mesh), None, "model"),
+                        tail.shape)
+        cache = {**cache, "state": st._replace(conv_tail=tail)}
+        specs = {**specs, "state": specs["state"]._replace(conv_tail=spec)}
+    return cache, specs
+
+
+def ssm_tail_layout(tail: torch.Tensor, m: int, d_inner: int
+                    ) -> torch.Tensor:
+    """A whole conv tail (..., K-1, din + 2N), channels [x, B, C], as m
+    ranks' blocks side by side: rank r's x channels ``[r din/m, (r+1)
+    din/m)``, then B and C."""
+    bc = tail[..., d_inner:]
+    return torch.cat([torch.cat([x, bc], dim=-1)
+                      for x in tail[..., :d_inner].chunk(m, dim=-1)], dim=-1)
 
 
 def _mamba_state_spec(cfg: ArchConfig, mesh, *, lead: int):
@@ -403,18 +441,22 @@ def train_state_specs(state: dict, opt_name: str, pspecs) -> dict:
 
 
 def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
-    """Each param leaf of a dense or vlm model under a tensor-parallel
-    ``plan``, as (the placements it is computed in, its gradient's): whole
-    along the data axes, where the gradient is a partial sum (each rank
-    saw its own rows); along ``"model"`` sharded where the plan makes its
-    product local (the gradient is then the shard's own), else whole, its
-    gradient a partial sum where sequence-parallel ranks each saw a slice
-    of the positions or (``wk``/``wv`` under "kv_replicated") each took
-    its KV head's columns (and ``patch_proj`` where the vocab is local: it
-    counts on rank 0 alone, ``Route.embed``), else equal on every rank.
-    Under "q_seq" the attention's leaves are whole, their gradients partial
-    sums (its training is sequence-parallel: each rank saw its own query
-    rows)."""
+    """Each param leaf of a dense, vlm, ssm or hybrid model under a
+    tensor-parallel ``plan``, as (the placements it is computed in, its
+    gradient's): whole along the data axes, where the gradient is a
+    partial sum (each rank saw its own rows); along ``"model"`` sharded
+    where the plan makes its product local (the gradient is then the
+    shard's own), else whole, its gradient a partial sum where
+    sequence-parallel ranks each saw a slice of the positions or each
+    took its own columns (``wk``/``wv`` under "kv_replicated"; a mamba2
+    block's ``in_proj``, ``conv_w`` and ``conv_b`` where its heads are
+    local, ``Route.ssm_slice``) (and ``patch_proj`` where the vocab is
+    local: it counts on rank 0 alone, ``Route.embed``), else equal on
+    every rank. Under "q_seq" the attention's leaves are whole, their
+    gradients partial sums (its training is sequence-parallel: each rank
+    saw its own query rows). Stacked leaves keep their lead axes (the
+    layers; the hybrid's groups and layers), the shared block's have
+    none."""
     names = mesh.mesh_dim_names
     baxes = ("pod", "data") if "pod" in names else ("data",)
     sp = plan.seq_parallel
@@ -427,16 +469,37 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
                 [Partial() if n in baxes else along if n == "model"
                  else Replicate() for n in names])
 
-    h, f = plan.heads_local, plan.mlp_local
-    kv = lay(2, plan.heads == "local",
-             partial=sp or plan.heads == "kv_replicated")
+    def attn(lead: int) -> AttnParams:
+        h = plan.heads_local
+        kv = lay(lead + 1, plan.heads == "local",
+                 partial=sp or plan.heads == "kv_replicated")
+        return AttnParams(lay(lead + 1, h), kv, kv, lay(lead, h))
+
+    def mlp(lead: int) -> MLPParams:
+        f = plan.mlp_local
+        return MLPParams(lay(lead + 1, f), lay(lead + 1, f), lay(lead, f))
+
+    def mamba(lead: int) -> Mamba2Params:
+        s = plan.ssm == "local"
+        cols, heads = lay(0, False, partial=sp or s), lay(lead, s)
+        return Mamba2Params(in_proj=cols, conv_w=cols, conv_b=cols,
+                            dt_bias=heads, A_log=heads, D=heads,
+                            norm_w=heads, out_proj=heads)
+
     out = {"embed": lay(0, plan.vocab_local),
-           "layers": DenseLayer(
-               attn=AttnParams(lay(2, h), kv, kv, lay(1, h)),
-               mlp=MLPParams(lay(2, f), lay(2, f), lay(1, f)),
-               norm1=lay(0, False), norm2=lay(0, False)),
            "final_norm": lay(0, False),
            "lm_head": lay(1, plan.vocab_local, partial=False)}
+    if cfg.family in ("dense", "vlm"):
+        out["layers"] = DenseLayer(attn=attn(1), mlp=mlp(1),
+                                   norm1=lay(0, False), norm2=lay(0, False))
+    elif cfg.family == "ssm":
+        out["layers"] = SSMLayer(mamba=mamba(1), norm=lay(0, False))
+    elif cfg.family == "hybrid":
+        out.update(layers=SSMLayer(mamba=mamba(2), norm=lay(0, False)),
+                   shared_attn=attn(0), shared_mlp=mlp(0),
+                   shared_norm1=lay(0, False), shared_norm2=lay(0, False))
+    else:
+        raise ValueError(f"no tensor-parallel layout for {cfg.family}")
     if cfg.family == "vlm":
         out["patch_proj"] = lay(0, False, partial=sp or plan.vocab_local)
     return out
@@ -445,7 +508,7 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
 class _LocalLoss:
     """``model.loss_fn`` on this rank's rows of a global batch. Each
     DTensor leaf is redistributed by a differentiable redistribute: for
-    the dense and vlm families into its ``tp_layouts`` placements under
+    the tensor-parallel families into its ``tp_layouts`` placements under
     the tensor-parallel plan of the batch, with the logical policy (and so
     the ``"model"`` group) installed around the model's loss; for the
     others gathered whole. Its gradient comes back in the placements
@@ -511,8 +574,9 @@ def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
     back as DTensors in the params' placements, the optimizer and
     ``compress`` run on them (DTensor reduces the global norm, Adafactor's
     means and the int8 scale over whole leaves), and the metrics are the
-    global loss and the norm over whole gradients. The dense and vlm
-    families compute tensor-parallel along ``"model"`` (``_LocalLoss``).
+    global loss and the norm over whole gradients. The dense, vlm, ssm and
+    hybrid families compute tensor-parallel along ``"model"``
+    (``_LocalLoss``).
 
     The MoE loss adds an auxiliary term that is not a mean over tokens, so
     an MoE model trains here only with the batch on one rank."""

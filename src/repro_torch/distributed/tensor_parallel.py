@@ -1,7 +1,9 @@
-"""Tensor-parallel compute along ``"model"`` for the dense and vlm
-families: the port's counterpart of GSPMD's partitioning of the
-reference's ``DenseLM`` under ``param_specs`` and its ``constrain`` sites
-(``repro/models/transformer.py``, ``repro/distributed/logical.py``).
+"""Tensor-parallel compute along ``"model"`` for the dense, vlm, ssm and
+hybrid families: the port's counterpart of GSPMD's partitioning of the
+reference's ``DenseLM``, ``MambaLM`` and ``HybridLM`` under
+``param_specs`` and their ``constrain`` sites
+(``repro/models/transformer.py``, ``repro/models/mamba2.py``,
+``repro/distributed/logical.py``).
 
 ``plan`` derives, from the config and the ``"model"`` axis size m, what a
 rank computes locally:
@@ -36,6 +38,20 @@ rank computes locally:
       and keeps its slice;
   * the MLP, when m divides ``d_ff``: ``w_gate``/``w_up`` column-parallel,
     ``w_down`` row-parallel; otherwise gathered;
+  * the mamba2 block (``Plan.ssm``), "local" where m divides the SSM
+    heads H: rank r computes heads ``[r H/m, (r+1) H/m)``. ``in_proj``,
+    ``conv_w`` and ``conv_b`` are whole along ``"model"`` and each rank
+    takes the columns of its heads' z, x and dt and B and C whole (one
+    group: every head reads them, ``Route.ssm_slice``), so their gradient
+    is a partial sum along ``"model"``; ``dt_bias``, ``A_log``, ``D``,
+    ``norm_w`` and ``out_proj``'s rows are the rank's; the scan and the
+    decode recurrence run on H/m heads, the state is the rank's heads. The
+    gated RMSNorm normalises over the whole ``d_inner``: the rank's fp32
+    sum of squares is all-reduced before the rsqrt (``norm_sum``), and,
+    since that sum feeds every rank's own math, its backward all-reduces
+    the gradient too. Otherwise "gathered": every rank computes the block
+    whole. A family without attention or an MLP has no mode for them
+    (``Plan.heads`` and ``Plan.mlp_local`` None);
   * the vocab, when m divides it: the embedding lookup and the logits are
     this rank's rows and columns, and the loss is
     ``vocab_parallel_cross_entropy``; otherwise whole;
@@ -62,8 +78,8 @@ import torch.nn.functional as F
 
 from . import logical
 
-#: the families whose layers are attention and an MLP only
-TP_FAMILIES = ("dense", "vlm")
+#: the families whose layers compute tensor-parallel along "model"
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 
 _c10d = torch.ops._c10d_functional
 
@@ -76,17 +92,22 @@ class Plan:
     """What one rank of a ``"model"`` axis of size ``model`` holds and
     computes for a step whose residual stream is ``seq_len`` long;
     ``heads`` is the attention's mode ("local", "kv_replicated", "q_seq"
-    or "gathered", the module's docstring says which), ``local_heads``
-    the (query, KV) heads a rank attends with, ``kv_share`` the ranks
-    that share one KV head ("kv_replicated"; 1 else)."""
+    or "gathered", the module's docstring says which; None without
+    attention), ``local_heads`` the (query, KV) heads a rank attends with,
+    ``kv_share`` the ranks that share one KV head ("kv_replicated"; 1
+    else), ``mlp_local`` None without an MLP; ``ssm`` the mamba2 block's
+    mode ("local" or "gathered"; None without one) and ``ssm_heads`` the
+    SSM heads a rank computes."""
     model: int
-    heads: str
-    mlp_local: bool
+    heads: str | None
+    mlp_local: bool | None
     vocab_local: bool
     seq_parallel: bool
-    local_heads: tuple[int, int]
+    local_heads: tuple[int, int] | None
     seq_len: int
     kv_share: int
+    ssm: str | None = None
+    ssm_heads: int | None = None
 
     @property
     def heads_local(self) -> bool:
@@ -106,11 +127,15 @@ class Plan:
         """The plan as the dry run writes it; with ``model_rank``, that
         rank's query rows too, and under "q_seq" the last rank's attention
         work over the mean rank's."""
+        mlp = (None if self.mlp_local is None else
+               "local" if self.mlp_local else "gathered")
         out = {"model": self.model, "heads": self.heads,
-               "local_heads": list(self.local_heads),
-               "mlp": "local" if self.mlp_local else "gathered",
-               "vocab": "local" if self.vocab_local else "whole",
+               "local_heads": (None if self.local_heads is None
+                               else list(self.local_heads)),
+               "mlp": mlp, "vocab": "local" if self.vocab_local else "whole",
                "seq_parallel": self.seq_parallel}
+        if self.ssm is not None:
+            out.update(ssm=self.ssm, ssm_heads=self.ssm_heads)
         if model_rank is not None:
             rows = self.q_rows(model_rank)
             out.update(model_rank=model_rank,
@@ -128,7 +153,9 @@ def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
     config is "local"."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     share = 1
-    if hq % m == 0 and hkv % m == 0:
+    if not hq:
+        heads, local = None, None
+    elif hq % m == 0 and hkv % m == 0:
         heads, local = "local", (hq // m, hkv // m)
     elif hq % m == 0 and m % hkv == 0:
         heads, local, share = "kv_replicated", (hq // m, 1), m // hkv
@@ -136,10 +163,16 @@ def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
         heads, local = "q_seq", (hq, hkv)
     else:
         heads, local = "gathered", (hq, hkv)
-    return Plan(model=m, heads=heads, mlp_local=cfg.d_ff % m == 0,
+    ssm = ssm_heads = None
+    if cfg.family in ("ssm", "hybrid"):
+        h = cfg.ssm_heads
+        ssm, ssm_heads = ("local", h // m) if h % m == 0 else ("gathered", h)
+    return Plan(model=m, heads=heads,
+                mlp_local=cfg.d_ff % m == 0 if cfg.d_ff else None,
                 vocab_local=cfg.vocab_size % m == 0,
                 seq_parallel=kind == "train" and seq_len % m == 0,
-                local_heads=local, seq_len=seq_len, kv_share=share)
+                local_heads=local, seq_len=seq_len, kv_share=share,
+                ssm=ssm, ssm_heads=ssm_heads)
 
 
 def mesh_plan(cfg, mesh, *, kind: str, seq_len: int) -> Plan | None:
@@ -192,6 +225,21 @@ class _CopyIn(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """An all-reduce whose sum feeds rank-local math on every rank (the
+    gated RMSNorm's statistic): each rank's gradient is its own math's
+    share, so the backward all-reduces the gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, "sum", group)
 
     @staticmethod
     def backward(ctx, g):
@@ -414,22 +462,80 @@ class Route:
         return vocab_parallel_cross_entropy(
             logits, labels, self.rank * logits.shape[-1], self.group)
 
+    def ssm(self, fn, p, x: torch.Tensor) -> torch.Tensor:
+        """The mamba2 block ``fn(p, x, norm_sum)`` (``p`` its params, a
+        ``Mamba2Params``; ``norm_sum`` what the gated RMSNorm's sum of
+        squares goes through, None where the block is whole) on the normed
+        residual ``x``, in the plan's mode (``Plan.ssm``): "local", the
+        rank's heads of ``p`` (``ssm_slice``) column- then row-parallel;
+        else whole on every rank. Returns the output in the residual's
+        layout."""
+        if self.plan.ssm != "local":
+            return self.sublayer(lambda h: fn(p, h, None), x, False)
+        return self.sublayer(
+            lambda h: fn(self.ssm_slice(p), h, self.norm_sum), x, True)
+
+    def norm_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a statistic each rank's own math
+        reads (``_SumOverRanks``)."""
+        return _SumOverRanks.apply(x, self.group) if self._many else x
+
+    def ssm_slice(self, p):
+        """This rank's columns of a mamba2 block's ``in_proj`` ([z, x, B,
+        C, dt]: its heads' z, x and dt, B and C whole) and of ``conv_w``
+        and ``conv_b`` ([x, B, C]: its heads' x, B and C whole), each
+        whole along ``"model"``; the slices' gradients are zero outside
+        them, and B's and C's are this rank's heads' share. The other
+        leaves are the rank's already. Over one rank, ``p`` itself."""
+        if self.plan.ssm != "local" or not self._many:
+            return p
+        m, r = self.plan.model, self.rank
+        n_heads = self.plan.ssm_heads * m
+        ch = p.conv_w.shape[-1]
+        din = p.in_proj.shape[-1] - ch - n_heads
+        xw, hw = din // m, self.plan.ssm_heads
+
+        def cols(w, spans):
+            return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+        conv = [(r * xw, (r + 1) * xw), (din, ch)]
+        proj = [(r * xw, (r + 1) * xw),
+                (din + r * xw, din + (r + 1) * xw), (2 * din, din + ch),
+                (din + ch + r * hw, din + ch + (r + 1) * hw)]
+        return p._replace(in_proj=cols(p.in_proj, proj),
+                          conv_w=cols(p.conv_w, conv),
+                          conv_b=cols(p.conv_b, conv))
+
     def check(self, cfg, params: dict) -> None:
         """Raises unless the local leaves have the widths the plan says
-        (``wk`` whole unless the heads are "local")."""
+        (``wk`` whole unless the heads are "local"; a mamba2 block's
+        ``in_proj`` whole, its heads' leaves the rank's where local)."""
         p, hd, m = self.plan, cfg.hd, self.plan.model
-        attn, mlp = params["layers"].attn, params["layers"].mlp
-        want = {"embed rows": (params["embed"].shape[0],
-                               cfg.vocab_size // (m if p.vocab_local else 1)),
-                "lm_head columns": (params["lm_head"].shape[-1],
-                                    cfg.vocab_size // (m if p.vocab_local
-                                                       else 1)),
-                "wq columns": (attn.wq.shape[-1], p.local_heads[0] * hd),
-                "wk columns": (attn.wk.shape[-1],
-                               (p.local_heads[1] if p.heads == "local"
-                                else cfg.n_kv_heads) * hd),
-                "w_gate columns": (mlp.w_gate.shape[-1],
-                                   cfg.d_ff // (m if p.mlp_local else 1))}
+        vocab = cfg.vocab_size // (m if p.vocab_local else 1)
+        want = {"embed rows": (params["embed"].shape[0], vocab),
+                "lm_head columns": (params["lm_head"].shape[-1], vocab)}
+        if cfg.family == "hybrid":
+            attn, mlp = params["shared_attn"], params["shared_mlp"]
+        elif p.ssm is None:
+            attn, mlp = params["layers"].attn, params["layers"].mlp
+        else:
+            attn = mlp = None
+        if attn is not None:
+            want["wq columns"] = (attn.wq.shape[-1], p.local_heads[0] * hd)
+            want["wk columns"] = (attn.wk.shape[-1],
+                                  (p.local_heads[1] if p.heads == "local"
+                                   else cfg.n_kv_heads) * hd)
+        if mlp is not None:
+            want["w_gate columns"] = (mlp.w_gate.shape[-1],
+                                      cfg.d_ff // (m if p.mlp_local else 1))
+        if p.ssm is not None:
+            mamba = params["layers"].mamba
+            want["A_log heads"] = (mamba.A_log.shape[-1], p.ssm_heads)
+            want["out_proj rows"] = (mamba.out_proj.shape[-2],
+                                     p.ssm_heads * cfg.ssm_head_dim)
+            want["in_proj columns"] = (
+                mamba.in_proj.shape[-1], 2 * cfg.d_inner
+                + 2 * cfg.ssm_state + cfg.ssm_heads)
         bad = {k: v for k, v in want.items() if v[0] != v[1]}
         if bad:
             raise ValueError(f"leaves not laid out as {p}: {bad}")

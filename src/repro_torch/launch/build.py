@@ -127,8 +127,9 @@ class Cell:
     grad_accum: int = 1
     rows: int = 0               # this rank's rows of the global batch
     chips: int = 1              # ranks of the mesh
-    tp: dict | None = None      # the tensor-parallel plan's record (dense
-    #                             and vlm), else None: computed whole
+    tp: dict | None = None      # the tensor-parallel plan's record (the
+    #                             families of TP_FAMILIES), else None:
+    #                             computed whole
 
 
 def _tree_bytes(tree) -> float:
@@ -204,28 +205,33 @@ def serve_step(model, mesh, kind: str) -> Callable:
     ``decode``; the cache comes back in its placements. Returns (this
     rank's logits, cache).
 
-    The dense and vlm families compute tensor-parallel along ``"model"``
-    (``tensor_parallel``), with the logical policy installed around the
-    model's step: each leaf in its ``sharding.tp_layouts`` placements, the
-    cache kept local along ``"model"`` where the heads are "local" or
-    "kv_replicated" (its KV heads are sharded there: the cache's layout is
-    ``sharding.tp_cache``'s), else gathered (a "q_seq" prefill writes every
-    row; the layouts of a "q_seq" and a "gathered" step are the same, so
-    the plan is read at one position); the logits are this rank's vocab
-    columns where the vocab is local, as the reference's ``out_shardings``
-    (``P(batch, None, "model")``) leave them. The other families gather
-    every leaf and the cache whole along ``"model"`` and run with no
-    policy installed: ``moe_block_ep`` takes the whole batch on every
-    rank, and a rank here holds its own rows, so an MoE layer routes them
-    by ``moe_block``'s grouped dispatch, one group a rank, as
-    ``moe_groups`` (the batch ranks) groups the tokens in the
-    reference."""
+    The dense, vlm, ssm and hybrid families compute tensor-parallel along
+    ``"model"`` (``tensor_parallel``), with the logical policy installed
+    around the model's step: each leaf in its ``sharding.tp_layouts``
+    placements; the KV cache kept local along ``"model"`` where the heads
+    are "local" or "kv_replicated" (its KV heads are sharded there: the
+    cache's layout is ``sharding.tp_cache``'s), else gathered (a "q_seq"
+    prefill writes every row; the layouts of a "q_seq" and a "gathered"
+    step are the same, so the plan is read at one position); the SSM state
+    and conv tail kept local where the SSM heads are (the tail in
+    ``tp_cache``'s layout), else gathered; the logits are this rank's
+    vocab columns where the vocab is local, as the reference's
+    ``out_shardings`` (``P(batch, None, "model")``) leave them. The MoE
+    and enc-dec families gather every leaf and the cache whole along
+    ``"model"`` and run with no policy installed: ``moe_block_ep`` takes
+    the whole batch on every rank, and a rank here holds its own rows, so
+    an MoE layer routes them by ``moe_block``'s grouped dispatch, one
+    group a rank, as ``moe_groups`` (the batch ranks) groups the tokens in
+    the reference."""
     baxes = data_axes(mesh)
     names = mesh.mesh_dim_names
     full = [Replicate()] * mesh.ndim
     plan = tensor_parallel.mesh_plan(model.cfg, mesh, kind=kind, seq_len=1)
     layouts = None if plan is None else shd.tp_layouts(model.cfg, mesh, plan)
-    keep_heads = plan is not None and plan.heads_local
+    # the cache leaves kept in their placements along "model"
+    keep = {"k": plan is not None and plan.heads_local,
+            "v": plan is not None and plan.heads_local,
+            "state": plan is not None and plan.ssm == "local"}
 
     def rows(t: DTensor) -> list:
         return [p if names[j] in baxes else Replicate()
@@ -238,8 +244,8 @@ def serve_step(model, mesh, kind: str) -> Callable:
 
     def step(params, inputs: dict, cache: dict):
         mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
-        have = tree_map(lambda t: list(t.placements) if keep_heads
-                        else rows(t), cache)
+        have = {k: tree_map(lambda t: list(t.placements) if keep.get(k)
+                            else rows(t), v) for k, v in cache.items()}
         held = tree_map(_local, cache, have)
         if plan is None:
             logits, held = run(tree_map(lambda t: _local(t, full), params),

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .common import ArchConfig, dense_init, rmsnorm
+from .common import ArchConfig, dense_init
 
 G = 1   # number of B/C groups (mamba2-1.3b uses 1)
 
@@ -131,18 +131,39 @@ def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device=None,
                      cfg.ssm_head_dim), dtype=torch.float32, device=device))
 
 
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float, width: int, norm_sum: Callable | None = None
+                  ) -> torch.Tensor:
+    """``rmsnorm(y * silu(z), w)`` over a ``width`` of which ``y`` holds
+    all or a slice: its fp32 sum of squares goes through ``norm_sum`` (the
+    sum over the ranks that hold the rest; none where ``y`` is whole)
+    before the rsqrt."""
+    h = y * F.silu(z)
+    dt = h.dtype
+    h = h.float()
+    ss = (h * h).sum(dim=-1, keepdim=True)
+    if norm_sum is not None:
+        ss = norm_sum(ss)
+    return (h * torch.rsqrt(ss / width + eps) * w.float()).to(dt)
+
+
 def mamba2_block(p: Mamba2Params, x: torch.Tensor, cfg: ArchConfig, *,
                  state: MambaState | None = None, return_state: bool = False,
-                 ssd_scan: Callable = kops.ssd_scan):
+                 ssd_scan: Callable = kops.ssd_scan,
+                 norm_sum: Callable | None = None):
     """Full block (no residual/outer norm). x: (B,T,d). A one-token call
     with a state steps the recurrence; any other runs the chunked scan
-    from the state (zeros without one)."""
+    from the state (zeros without one). The heads are ``p``'s (``A_log``'s
+    length): all of them, or a tensor-parallel rank's with ``norm_sum``,
+    the gated RMSNorm's sum over the ranks (``Route.ssm``)."""
     Bsz, T, d = x.shape
-    din, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = p.A_log.shape[-1]
+    din = H * P
     cd = cfg.compute_dtype
     proj = x @ p.in_proj.to(cd)                           # (B,T,dp)
     z, xbc, dt_raw = torch.split(
-        proj, [din, conv_channels(cfg), H], dim=-1)
+        proj, [din, din + 2 * G * N, H], dim=-1)
     xbc, new_tail = _depthwise_conv(
         xbc, p.conv_w.to(cd), p.conv_b.to(cd),
         tail=None if state is None else state.conv_tail.to(cd))
@@ -165,7 +186,7 @@ def mamba2_block(p: Mamba2Params, x: torch.Tensor, cfg: ArchConfig, *,
         y, ssm = out if return_state else (out, None)
     y = y + p.D[None, None, :, None] * xs4                # skip connection
     y = y.reshape(Bsz, T, din).to(cd)
-    y = rmsnorm(y * F.silu(z), p.norm_w, cfg.norm_eps)
+    y = gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps, cfg.d_inner, norm_sum)
     out = y @ p.out_proj.to(cd)
     if return_state or (T == 1 and state is not None):
         return out, MambaState(new_tail.to(x.dtype), ssm)

@@ -55,8 +55,8 @@ def unstack(tree):
 
 
 def _routes(tp) -> tuple:
-    """The trunk's extra arguments: the route where there is one (only
-    the dense and vlm families get one), else none."""
+    """The trunk's extra arguments: the route where there is one (the
+    families of ``tensor_parallel.TP_FAMILIES`` get one), else none."""
     return () if tp is None else (tp,)
 
 
@@ -77,6 +77,15 @@ def _attention(tp, fn, p: AttnParams, x: torch.Tensor) -> torch.Tensor:
     return tp.attention(fn, p, x)
 
 
+def _ssm(tp, fn, p: Mamba2Params, x: torch.Tensor) -> torch.Tensor:
+    """``fn(p, x, None)`` (the mamba2 block on its normed input); under a
+    route, in the plan's mode (``Route.ssm``: the rank's heads of ``p``
+    and the gated RMSNorm's sum over the ranks)."""
+    if tp is None:
+        return fn(p, x, None)
+    return tp.ssm(fn, p, x)
+
+
 class DecoderLM:
     """What the families share: the embedding lookup, the trunk without a
     cache (``_layer`` per stacked layer), the loss, prefill and decode
@@ -95,8 +104,9 @@ class DecoderLM:
         return layer(*args)
 
     def _tp(self, kind: str, seq_len: int):
-        """The ``tensor_parallel.Route`` of an installed policy (the dense
-        and vlm families on a mesh with a ``"model"`` axis), else None."""
+        """The ``tensor_parallel.Route`` of an installed policy (a family
+        of ``tensor_parallel.TP_FAMILIES`` on a mesh with a ``"model"``
+        axis), else None."""
         return tensor_parallel.route(self.cfg, kind=kind, seq_len=seq_len)
 
     def _trunk(self, params: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
@@ -356,13 +366,22 @@ class SSMLayer(NamedTuple):
 
 
 def _ssm_step(cfg: ArchConfig, lp: SSMLayer, x: torch.Tensor,
-              state: MambaState, ssd_scan: Callable) -> torch.Tensor:
-    """One SSM layer against its cached state, which it updates in place;
+              state: MambaState, ssd_scan: Callable, tp=None
+              ) -> torch.Tensor:
+    """One SSM layer against its cached state, which it updates in place
+    (under a route whose SSM heads are local, the rank's heads' state);
     returns the residual stream after the layer."""
-    m, new = mamba2_block(lp.mamba, rmsnorm(x, lp.norm, cfg.norm_eps), cfg,
-                          state=state, return_state=True, ssd_scan=ssd_scan)
-    state.conv_tail.copy_(new.conv_tail)
-    state.ssm.copy_(new.ssm)
+    new = []
+
+    def block(p, h, norm_sum):
+        out, st = mamba2_block(p, h, cfg, state=state, return_state=True,
+                               ssd_scan=ssd_scan, norm_sum=norm_sum)
+        new.append(st)
+        return out
+
+    m = _ssm(tp, block, lp.mamba, rmsnorm(x, lp.norm, cfg.norm_eps))
+    state.conv_tail.copy_(new[0].conv_tail)
+    state.ssm.copy_(new[0].ssm)
     return x + m
 
 
@@ -396,11 +415,18 @@ class MambaLM(DecoderLM):
                                          dtype=cfg.param_dtype, device=dev),
                 "lm_head": lm_head}
 
-    def _layer(self, x: torch.Tensor, lp: SSMLayer) -> torch.Tensor:
+    def _layer(self, x: torch.Tensor, lp: SSMLayer, tp=None
+               ) -> torch.Tensor:
+        """One SSM layer; under a route the block in its tensor-parallel
+        form (``Route.ssm``)."""
         cfg = self.cfg
-        m, _ = mamba2_block(lp.mamba, rmsnorm(x, lp.norm, cfg.norm_eps), cfg,
-                            ssd_scan=self.ssd_scan)
-        return x + m
+
+        def block(p, h, norm_sum):
+            return mamba2_block(p, h, cfg, ssd_scan=self.ssd_scan,
+                                norm_sum=norm_sum)[0]
+
+        return x + _ssm(tp, block, lp.mamba,
+                        rmsnorm(x, lp.norm, cfg.norm_eps))
 
     # -- serving: O(1) state --------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -413,11 +439,14 @@ class MambaLM(DecoderLM):
     def cache_slot_axes(self) -> dict:
         return {"state": MambaState(1, 1)}
 
-    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict
-                      ) -> tuple[torch.Tensor, dict]:
+    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict,
+                      tp=None) -> tuple[torch.Tensor, dict]:
+        """Every layer against its state, in place. Under a route whose
+        SSM heads are local the states are the rank's heads' (and its
+        conv channels, ``sharding.tp_cache``), else whole."""
         cfg, st = self.cfg, cache["state"]
         for lp, state in zip(unstack(params["layers"]), unstack(st)):
-            h = _ssm_step(cfg, lp, h, state, self.ssd_scan)
+            h = _ssm_step(cfg, lp, h, state, self.ssd_scan, tp)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"state": st, "index": cache["index"] + h.shape[1]}
 
@@ -464,31 +493,39 @@ class HybridLM(MambaLM):
                 "lm_head": lm_head}
 
     def _shared_block(self, params: dict, x: torch.Tensor, *, kv_cache=None,
-                      cache_index=None) -> torch.Tensor:
+                      cache_index=None, tp=None) -> torch.Tensor:
+        """The shared attention and MLP; under a route each in its
+        tensor-parallel form, as ``DenseLM._layer``'s."""
         cfg = self.cfg
-        a, _ = attention_block(
-            params["shared_attn"],
-            rmsnorm(x, params["shared_norm1"], cfg.norm_eps), cfg,
-            kv_cache=kv_cache, cache_index=cache_index,
-            decode_attention=self.decode_attention,
-            flash_attention=self.flash_attention)
-        x = x + a
-        return x + swiglu(params["shared_mlp"],
-                          rmsnorm(x, params["shared_norm2"], cfg.norm_eps),
-                          cfg.compute_dtype)
 
-    def _group(self, x: torch.Tensor, params: dict,
-               glp: SSMLayer) -> torch.Tensor:
-        x = self._shared_block(params, x)
+        def attn(p, h, rows):
+            return attention_block(
+                p, h, cfg, kv_cache=kv_cache, cache_index=cache_index,
+                q_rows=rows, decode_attention=self.decode_attention,
+                flash_attention=self.flash_attention)[0]
+
+        x = x + _attention(tp, attn, params["shared_attn"],
+                           rmsnorm(x, params["shared_norm1"], cfg.norm_eps))
+        return x + _mlp(tp, lambda h: swiglu(params["shared_mlp"], h,
+                                             cfg.compute_dtype),
+                        rmsnorm(x, params["shared_norm2"], cfg.norm_eps))
+
+    def _group(self, x: torch.Tensor, params: dict, glp: SSMLayer,
+               tp=None) -> torch.Tensor:
+        x = self._shared_block(params, x, tp=tp)
         for lp in unstack(glp):
-            x = self._layer(x, lp)
+            x = self._layer(x, lp, tp)
         return x
 
-    def _trunk(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, params: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
         """Every group without a cache; ``remat="block"`` checkpoints each
-        group, as the reference remats its group scan."""
+        group, as the reference remats its group scan. Under a route the
+        groups get it as an argument, so a checkpoint's recompute in the
+        backward runs the same route."""
+        group = self._group if tp is None else functools.partial(
+            self._group, tp=tp)
         for glp in unstack(params["layers"]):
-            h = self._remat(self._group, h, params, glp)
+            h = self._remat(group, h, params, glp)
         return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
     # -- serving: SSM states + per-group KV cache for the shared block --------
@@ -505,16 +542,19 @@ class HybridLM(MambaLM):
     def cache_slot_axes(self) -> dict:
         return {"state": MambaState(2, 2), "k": 1, "v": 1}
 
-    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict
-                      ) -> tuple[torch.Tensor, dict]:
+    def _cached_trunk(self, params: dict, h: torch.Tensor, cache: dict,
+                      tp=None) -> tuple[torch.Tensor, dict]:
+        """Every group against its KV cache and states, in place; under a
+        route each leaf holds what ``DenseLM._cached_trunk`` and
+        ``MambaLM._cached_trunk`` say of it."""
         cfg, idx, st = self.cfg, cache["index"], cache["state"]
         for g, (glp, gst) in enumerate(zip(unstack(params["layers"]),
                                            unstack(st))):
             h = self._shared_block(params, h,
                                    kv_cache=(cache["k"][g], cache["v"][g]),
-                                   cache_index=idx)
+                                   cache_index=idx, tp=tp)
             for lp, state in zip(unstack(glp), unstack(gst)):
-                h = _ssm_step(cfg, lp, h, state, self.ssd_scan)
+                h = _ssm_step(cfg, lp, h, state, self.ssd_scan, tp)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"state": st, "k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}

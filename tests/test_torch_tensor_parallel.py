@@ -37,7 +37,9 @@ sequence length)):
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
 steps from the initial weights. A fake world of 16 ranks on ``meta``
 counts a reduced dense cell on (4, 4) under each attention mode, the
-q_seq one on its last rank along "model".
+q_seq one on its last rank along "model". The plan table at m = 16 takes
+the ssm and hybrid configs too; ``test_torch_tensor_parallel_ssm.py``
+runs this harness over their cases.
 """
 import datetime
 import json
@@ -101,10 +103,10 @@ def reduced(arch: str, over: dict):
 # ---------------------------------------------------------------------------
 # inputs, made with numpy from seeds
 # ---------------------------------------------------------------------------
-def make_inputs() -> dict:
-    rng = np.random.default_rng(17)
+def make_inputs(cases: dict = CASES, seed: int = 17) -> dict:
+    rng = np.random.default_rng(seed)
     out = {}
-    for name, (arch, over, _, seq) in CASES.items():
+    for name, (arch, over, _, seq) in cases.items():
         cfg = reduced(arch, over)
         vlm = cfg.family == "vlm"
         for i in range(STEPS):
@@ -175,8 +177,9 @@ REF_CODE = textwrap.dedent("""
 """)
 
 
-def run_reference(inputs_path: str, out_path: str) -> None:
-    consts = repr((CASES, STEPS, DECODES, MAX_LEN))
+def run_reference(inputs_path: str, out_path: str,
+                  cases: dict = CASES) -> None:
+    consts = repr((cases, STEPS, DECODES, MAX_LEN))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run(
         [sys.executable, "-c", REF_CODE.format(consts=consts), inputs_path,
@@ -204,9 +207,11 @@ def counting_routes(plans: list):
     return lambda: setattr(tensor_parallel, "route", route)
 
 
-def case_run(inp: dict, name: str, record: dict) -> None:
+def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
+             ) -> None:
     """3 sharded AdamW steps and the served prefill and decode steps of
-    one case on its mesh, into ``record``."""
+    one case of ``cases`` on its mesh, into ``record`` (with the shapes of
+    a rank's SSM state and conv tail where the model has them)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -215,9 +220,14 @@ def case_run(inp: dict, name: str, record: dict) -> None:
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.transformer import build_model
     from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
-    from repro_torch.weights import dense_params_from_flat
-    arch, over, shape, _ = CASES[name]
+    from repro_torch.weights import (dense_params_from_flat,
+                                     hybrid_params_from_flat,
+                                     ssm_params_from_flat)
+    arch, over, shape, _ = cases[name]
     cfg = reduced(arch, over)
+    bridge = {"ssm": ssm_params_from_flat,
+              "hybrid": hybrid_params_from_flat}.get(cfg.family,
+                                                     dense_params_from_flat)
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
     flat = {k[len(f"{name}/params/"):]: v for k, v in inp.items()
             if k.startswith(f"{name}/params/")}
@@ -231,7 +241,7 @@ def case_run(inp: dict, name: str, record: dict) -> None:
         return shd.place(tree, shd.to_named(mesh, shd.fit_tree(mesh, specs,
                                                                tree)))
 
-    params = dense_params_from_flat(flat, cfg, "cpu")
+    params = bridge(flat, cfg, "cpu")
     opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
     state = {"params": params, "opt": opt.init(params)}
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), params)
@@ -256,8 +266,7 @@ def case_run(inp: dict, name: str, record: dict) -> None:
         def whole(logits):
             return DTensor.from_local(logits, mesh, vocab).full_tensor()
 
-        ps = placed(dense_params_from_flat(flat, cfg, "cpu"),
-                    shd.param_specs(cfg, mesh))
+        ps = placed(bridge(flat, cfg, "cpu"), shd.param_specs(cfg, mesh))
         prompt = part(f"{name}/prompt/")
         cache, cspecs = shd.tp_cache(cfg, mesh,
                                      model.init_cache(BATCH, MAX_LEN))
@@ -269,6 +278,9 @@ def case_run(inp: dict, name: str, record: dict) -> None:
             logits, cache = prefill(ps, placed(prompt, shd.batch_specs(
                 cfg, mesh, prompt)), cache)
             record[f"{name}/local_logits"] = np.array(logits.shape)
+            if "state" in cache:
+                record[f"{name}/local_state"] = np.array(json.dumps(
+                    [list(t.to_local().shape) for t in cache["state"]]))
             record[f"{name}/logits0"] = whole(logits).numpy()
             for j in range(DECODES):
                 tok = torch.from_numpy(record[f"{name}/logits{j}"][:, -1]
@@ -284,7 +296,7 @@ def case_run(inp: dict, name: str, record: dict) -> None:
 
 
 def _rank_main(rank: int, world: int, store: str, inputs: str,
-               out_dir: str) -> None:
+               out_dir: str, cases: dict) -> None:
     torch.set_num_threads(1)
     # DTensor warns that a norm over a leaf sharded on both axes takes two
     # all-reduces
@@ -296,22 +308,23 @@ def _rank_main(rank: int, world: int, store: str, inputs: str,
     try:
         inp = dict(np.load(inputs))
         record = {}
-        for name in CASES:
-            case_run(inp, name, record)
+        for name in cases:
+            case_run(inp, name, record, cases)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **record)
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, tmp, inputs: str) -> list[dict]:
-    """``_rank_main`` on ``world`` gloo processes; a rank's exception fails
-    the caller with its traceback, and a run past ``RANK_TIMEOUT_S`` is
-    killed and fails."""
+def spawn_ranks(world: int, tmp, inputs: str, cases: dict = CASES
+                ) -> list[dict]:
+    """``_rank_main`` over ``cases`` on ``world`` gloo processes; a rank's
+    exception fails the caller with its traceback, and a run past
+    ``RANK_TIMEOUT_S`` is killed and fails."""
     out_dir = tmp / f"world{world}"
     out_dir.mkdir()
     ctx = mp.start_processes(
         _rank_main, args=(world, str(tmp / f"store{world}"), inputs,
-                          str(out_dir)),
+                          str(out_dir), cases),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + RANK_TIMEOUT_S
     while not ctx.join(timeout=5):
@@ -425,31 +438,38 @@ def test_the_steps_take_the_plan(runs, name):
 # the plan and the pieces, in this process
 # ---------------------------------------------------------------------------
 # the attention's mode in train_4k, prefill_32k and decode_32k, its local
-# (query, KV) heads in train_4k, and the MLP and the vocab at m = 16 for
-# every dense and vlm config: heads local only where 16 divides both head
-# counts, the KV heads replicated where 16 divides the query heads and the
-# KV heads divide 16, else the query rows split where 16 divides the
-# sequence (never in decode)
-AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local"),
-         "llama-3.1-8b": (("kv_replicated",) * 3, [2, 1], "local", "local"),
-         "llama-3.2-1b": (("kv_replicated",) * 3, [2, 1], "local", "local"),
+# (query, KV) heads in train_4k, the MLP, the vocab, and the SSM block's
+# mode and heads a rank at m = 16 for every dense, vlm, ssm and hybrid
+# config: heads local only where 16 divides both head counts, the KV heads
+# replicated where 16 divides the query heads and the KV heads divide 16,
+# else the query rows split where 16 divides the sequence (never in
+# decode); None where the model has no attention or MLP; SSM heads local
+# where 16 divides them (mamba2's 64, zamba2's 80)
+AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local", None),
+         "llama-3.1-8b": (("kv_replicated",) * 3, [2, 1], "local", "local",
+                          None),
+         "llama-3.2-1b": (("kv_replicated",) * 3, [2, 1], "local", "local",
+                          None),
          "minitron-4b": (("q_seq", "q_seq", "gathered"), [24, 8], "local",
-                         "local"),
+                         "local", None),
          "llava-next-34b": (("q_seq", "q_seq", "gathered"), [56, 8],
-                            "local", "local"),
+                            "local", "local", None),
          "smollm-135m": (("q_seq", "q_seq", "gathered"), [9, 3], "local",
-                         "local"),
+                         "local", None),
          "smollm-360m": (("q_seq", "q_seq", "gathered"), [15, 5], "local",
-                         "local")}
+                         "local", None),
+         "mamba2-1.3b": ((None,) * 3, None, None, "whole", ("local", 4)),
+         "zamba2-2.7b": (("local",) * 3, [2, 2], "local", "local",
+                         ("local", 5))}
 
 
 @pytest.mark.parametrize("arch", sorted(AT_16))
 def test_plan_at_sixteen(arch):
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.distributed.tensor_parallel import plan
+    from repro_torch.distributed.tensor_parallel import TP_FAMILIES, plan
     cfg = get_config(arch)
-    assert cfg.family in ("dense", "vlm")
-    modes, local_heads, mlp, vocab = AT_16[arch]
+    assert cfg.family in TP_FAMILIES
+    modes, local_heads, mlp, vocab, ssm = AT_16[arch]
     got = []
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         cell = SHAPES[shape]
@@ -459,6 +479,8 @@ def test_plan_at_sixteen(arch):
     p = got[0]
     assert (p["local_heads"], p["mlp"], p["vocab"]) == (local_heads, mlp,
                                                         vocab)
+    for q in got:
+        assert ((q["ssm"], q["ssm_heads"]) if "ssm" in q else None) == ssm
     assert p["seq_parallel"] is True
     for kind, seq in (("train", 4095), ("prefill", 4096), ("decode", 1)):
         assert plan(cfg, 16, kind=kind, seq_len=seq).seq_parallel is False
@@ -466,7 +488,9 @@ def test_plan_at_sixteen(arch):
     assert plan(cfg, 16, kind="train", seq_len=4095).heads == \
         ("gathered" if modes[0] == "q_seq" else modes[0])
     # at m = 1 every config takes the route of one rank
-    assert plan(cfg, 1, kind="train", seq_len=4096).heads == "local"
+    one = plan(cfg, 1, kind="train", seq_len=4096)
+    assert one.heads == ("local" if modes[0] else None)
+    assert one.ssm == (ssm and "local")
 
 
 def test_q_rows_tile_the_sequence():
@@ -552,9 +576,10 @@ def test_attention_rows_are_rows_of_the_whole(cached):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
                                   "zamba2-2.7b", "whisper-tiny",
                                   "smollm-135m"])
-def test_route_only_for_dense_and_vlm_under_a_policy(arch):
+def test_route_only_for_tp_families_under_a_policy(arch):
     """No policy: no route for any family. Under a policy on a mesh with
-    a ``"model"`` axis, a route for the dense and vlm families alone."""
+    a ``"model"`` axis, a route for the dense, vlm, ssm and hybrid
+    families alone (not MoE or enc-dec)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import logical, tensor_parallel
 
@@ -568,7 +593,8 @@ def test_route_only_for_dense_and_vlm_under_a_policy(arch):
     assert tensor_parallel.route(cfg, kind="train", seq_len=8) is None
     with logical.policy(Mesh()):
         r = tensor_parallel.route(cfg, kind="train", seq_len=8)
-        assert (r is not None) == (cfg.family in ("dense", "vlm"))
+        assert (r is not None) == (cfg.family in ("dense", "vlm", "ssm",
+                                                  "hybrid"))
     assert logical.model_group() is None
 
 
