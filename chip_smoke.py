@@ -214,8 +214,10 @@ Phases, each fatal on failure (nothing is caught):
      4 microbatches of 2 x 2048, bit-identical to the sequential trunk,
      120 flash forward launches; (c) ``moe_block`` under the policy
      (``moe_block_ep``) against ``moe_block`` on one layer of
-     qwen2-moe-a2.7b (fp32 at a capacity factor where neither drops: 2e-5,
-     aux 1e-4 relative) at 8 and 1536 tokens, and both paths' device ms in
+     qwen2-moe-a2.7b under grad mode (fp32 at a capacity factor where
+     neither drops: the output 2e-5, aux 1e-4 relative, the gradients of
+     the router, the expert stacks and x 2e-5 of each one's largest) at 8
+     and 1536 tokens, and both paths' forward and backward device ms in
      bf16 at the config's capacity factor; (d) ``launch.build.serve_step``
      on the (1, 1) mesh (run after (a): a prefill of 8 x 256 tokens into a
      cache of 512, then 4 greedy decode steps) through the route, its
@@ -223,15 +225,22 @@ Phases, each fatal on failure (nothing is caught):
      (e) mamba2-1.3b's sharded step on the (1, 1) mesh at 4 of its 48
      layers (full width, 3 steps of 8 x 2048) through the route (SSM heads
      "local" over one rank) bit-identical to the unsharded step, 2 x 4
-     forward and 4 backward scan launches a step;
+     forward and 4 backward scan launches a step; (f) qwen2-moe-a2.7b's
+     sharded step on the (1, 1) mesh at 4 of its 24 layers (full width,
+     fp32, 3 steps of 2 x 1024, capacity factor E / k) through the route
+     (its MoE layers by expert parallelism over the one rank) against the
+     unsharded step's grouped dispatch: losses and grad norms within 1e-5
+     relative, 2 x 4 forward and 4 backward flash launches a step;
  23. the launch tooling (run last): (a) ``python -m
-     repro_torch.launch.dryrun`` in a process per cell (at the same time
-     as (b)'s predictions; the processes start after phase 21's timed
-     trainings and count on the host while the card runs phase 21's
-     parity checks and (c)'s kernel checks)
+     repro_torch.launch.dryrun`` in a process per cell (after (b)'s
+     predictions; the processes start after phase 21's timed trainings
+     and count on the host while the card runs phase 21's parity checks,
+     (c)'s kernel checks and (b))
      for llava-next-34b x ``train_4k`` on both
-     production meshes, mamba2-1.3b x ``train_4k`` and (c)'s seven cells
-     on (c)'s ranks, a ``[dryrun]`` line each with its tensor-parallel plan
+     production meshes, mamba2-1.3b x ``train_4k``, kimi-k2-1t-a32b x
+     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s nine
+     cells on (c)'s ranks, a ``[dryrun]`` line each with its
+     tensor-parallel plan
      (the other cells are counted on the CPU: ``--all`` and
      ``tests/test_torch_launch.py``);
      (b) two table cells built by ``launch.build.build_cell`` on the card on a
@@ -244,11 +253,12 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of seven
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of nine
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
      a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
-     9 and 9 flash, 2 x 54 and 54 scan), each decode cell 3 steps (32
-     ``decode_attention`` launches a step; zamba2 9):
+     9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24), each
+     decode cell 3 steps (32 ``decode_attention`` launches a step; zamba2
+     9, qwen2-moe 24):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
      "local"), llama-3.1-8b x ``train_4k`` and x ``decode_32k``
      ("kv_replicated": 2 query heads on one KV head a rank, the rank's KV
@@ -256,7 +266,11 @@ Phases, each fatal on failure (nothing is caught):
      "model" ("q_seq": query rows 3840 to 4096, flash at that offset) and
      zamba2-2.7b x ``train_4k`` and x ``decode_32k`` (the shared block's
      2/2 heads and 5 of the 80 SSM heads "local", the rank's SSM state and
-     conv channels), built by ``build_cell`` on the card in a fake world
+     conv channels) and qwen2-moe-a2.7b x ``train_4k`` and x
+     ``decode_32k`` (1/1 heads and 352 of the shared experts' 5632
+     columns "local", one of the 256 padded experts a rank, its block of
+     tokens sent by all-to-all), built by ``build_cell`` on the card in a
+     fake world
      of 256 ranks on the (16, 16) mesh (the collectives move no data, so
      no value is checked), a ``[launch] tp`` line each beside the dry run
      of the same cell and rank (run in (a)'s pool), the peak within
@@ -1615,10 +1629,11 @@ def train_full_width(cfg):
     return stats, launches
 
 
-def fresh_training(cfg, mesh=None, compress=None, graphed=False):
-    """(model, train state, step, data) from the seed; on ``mesh`` the
-    state is placed by its specs and the step is the sharded one;
-    ``graphed``: the state and compiled step of ``make_training``."""
+def fresh_training(cfg, mesh=None, compress=None, graphed=False,
+                   B=TRAIN_B, T=TRAIN_T):
+    """(model, train state, step, data of B x T batches) from the seed; on
+    ``mesh`` the state is placed by its specs and the step is the sharded
+    one; ``graphed``: the state and compiled step of ``make_training``."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.transformer import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -1629,8 +1644,8 @@ def fresh_training(cfg, mesh=None, compress=None, graphed=False):
     model = build_model(cfg, device=DEV)
     opt_cfg = OptimizerConfig(peak_lr=3e-3, warmup=2, total_steps=100)
     generator = torch.Generator(device=DEV).manual_seed(SEED)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_T, TRAIN_B,
-                                  seed=SEED), device=DEV)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, T, B, seed=SEED),
+                       device=DEV)
     if graphed:
         return (model, *make_training(model, opt_cfg, generator), data)
     opt = build_optimizer(opt_cfg)
@@ -3011,6 +3026,12 @@ SERVE_B, SERVE_PROMPT, SERVE_LEN, SERVE_DECODES = 8, 256, 512, 4
 EP_SHAPES = (("decode", B), ("prefill_1536", 1536))
 EP_OUT_ATOL, EP_AUX_RTOL = 2e-5, 1e-4
 EP_TIMED = 5
+EP_GRADS = ("router", "w_gate", "w_up", "w_down", "x")
+# (f) qwen2-moe-a2.7b's sharded step at this many of its 24 layers, fp32,
+# on 2 x 1024 tokens; the bound of tests/test_torch_moe_parallel.py's
+# losses
+DIST_MOE_LAYERS, DIST_MOE_B, DIST_MOE_T = 4, 2, 1024
+DIST_MOE_RTOL = 1e-5
 
 
 @contextlib.contextmanager
@@ -3363,14 +3384,30 @@ def distributed_pipeline(cfg) -> int:
     return timed
 
 
+def ep_grads(fn, p, x, cot) -> dict:
+    """The output, the aux and the gradients (router, the three expert
+    stacks, x) of ``(out * cot).sum() + aux`` under grad mode, ``fn(p,
+    x)`` giving (out, aux)."""
+    leaves = [p.router, p.w_gate, p.w_up, p.w_down, x]
+    with torch.enable_grad():
+        out, aux = fn(p, x)
+        grads = torch.autograd.grad((out.float() * cot).sum() + aux, leaves)
+    return {"out": out.detach(), "aux": aux.detach(),
+            **dict(zip(EP_GRADS, grads))}
+
+
 def distributed_ep(cfg, mesh) -> None:
     """(c) ``moe_block`` under an installed policy (so ``moe_block_ep``
     over the one-rank group) against ``moe_block`` without one, on one
     layer's weights of qwen2-moe-a2.7b (60 experts of d 2048, ff 1408,
-    top-4, 4 shared; 2.1 GB in fp32) at ``EP_SHAPES``: fp32 at a capacity
-    factor where neither drops (E / k: C reaches every token) within
-    ``EP_OUT_ATOL`` and aux within ``EP_AUX_RTOL`` relative; then the
-    device ms of both in bf16 at the config's capacity factor."""
+    top-4, 4 shared; 2.1 GB in fp32) at ``EP_SHAPES``, under grad mode:
+    fp32 at a capacity factor where neither drops (E / k: C reaches every
+    token) the output within ``EP_OUT_ATOL``, the aux within
+    ``EP_AUX_RTOL`` relative, and the gradients of ``(out * cot).sum() +
+    aux`` (the router, the three expert stacks, x) within ``EP_OUT_ATOL``
+    of each gradient's largest magnitude; then the device ms of both
+    forwards and of both backwards in bf16 at the config's capacity
+    factor."""
     from repro_torch.distributed import logical
     from repro_torch.models import ffn, moe_ep
     from repro_torch.models.common import tree_map
@@ -3381,40 +3418,144 @@ def distributed_ep(cfg, mesh) -> None:
     pb = ffn.MoEParams(p.router, *tree_map(lambda t: t.to(cfg.param_dtype),
                                            tuple(p[1:])))
     whole = replace(cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    p = tree_map(lambda t: t.requires_grad_(True), p)
+    pb = tree_map(lambda t: t.detach().requires_grad_(True), pb)
     rows = []
     for shape, n in EP_SHAPES:
-        x = torch.randn((1, n, cfg.d_model), generator=gen, device=DEV)
-        want, want_aux = ffn.moe_block(p, x, whole)
+        x = torch.randn((1, n, cfg.d_model), generator=gen, device=DEV,
+                        requires_grad=True)
+        cot = torch.randn((1, n, cfg.d_model), generator=gen, device=DEV)
+        xb = x.detach().to(cfg.compute_dtype).requires_grad_(True)
+        want = ep_grads(lambda p, x: ffn.moe_block(p, x, whole), p, x, cot)
         calls = []
         block = moe_ep.moe_block_ep
         moe_ep.moe_block_ep = lambda *a: calls.append(1) or block(*a)
         try:
             with logical.policy(mesh):
-                got, aux = ffn.moe_block(p, x, whole)
-                xb = x.to(cfg.compute_dtype)
-                ep = profiled_ms(lambda: ffn.moe_block(pb, xb, cfg),
-                                 EP_TIMED)
+                got = ep_grads(lambda p, x: ffn.moe_block(p, x, whole), p, x,
+                               cot)
+                ep = timed_forward_backward(pb, xb, cot, cfg)
         finally:
             moe_ep.moe_block_ep = block
-        local = profiled_ms(lambda: ffn.moe_block(pb, xb, cfg), EP_TIMED)
+        local = timed_forward_backward(pb, xb, cot, cfg)
         row = {"shape": shape, "tokens": n, "ep_calls": len(calls),
-               "fp32_max_abs_err": (got - want).abs().max().item(),
-               "fp32_aux_rel_err": abs(aux.item() - want_aux.item())
-               / abs(want_aux.item()),
-               "bf16_ep_ms": ep["device_ms"], "bf16_ep_nccl_ms": ep["nccl_ms"],
-               "bf16_local_ms": local["device_ms"],
+               "fp32_max_abs_err": (got["out"] - want["out"]).abs().max()
+               .item(),
+               "fp32_aux_rel_err": abs(got["aux"].item() - want["aux"].item())
+               / abs(want["aux"].item()),
+               "fp32_grad_err": {k: ((got[k] - want[k]).abs().max()
+                                     / want[k].abs().max()).item()
+                                 for k in EP_GRADS},
+               "bf16_ep_ms": ep["fwd"]["device_ms"],
+               "bf16_ep_nccl_ms": ep["fwd"]["nccl_ms"],
+               "bf16_local_ms": local["fwd"]["device_ms"],
+               "bf16_ep_bwd_ms": ep["bwd"]["device_ms"],
+               "bf16_ep_bwd_nccl_ms": ep["bwd"]["nccl_ms"],
+               "bf16_local_bwd_ms": local["bwd"]["device_ms"],
                "ep_capacity": moe_ep._capacity(n, cfg, p.w_gate.shape[0]),
                "local_capacity": ffn._capacity(n, cfg)}
         rows.append(row)
         require_device_time(f"[distributed] ep {shape}",
-                            {"ep": ep["device_ms"],
-                             "local": local["device_ms"]})
-        # the fp32 call, then the timed calls and their warm-up
-        if (row["ep_calls"] != 2 + EP_TIMED
+                            {"ep": ep["fwd"]["device_ms"],
+                             "local": local["fwd"]["device_ms"],
+                             "ep_bwd": ep["bwd"]["device_ms"],
+                             "local_bwd": local["bwd"]["device_ms"]})
+        # the fp32 call, then the timed forwards and their warm-up, then
+        # the forward the timed backwards differentiate
+        if (row["ep_calls"] != 3 + EP_TIMED
                 or row["fp32_max_abs_err"] > EP_OUT_ATOL
-                or row["fp32_aux_rel_err"] > EP_AUX_RTOL):
+                or row["fp32_aux_rel_err"] > EP_AUX_RTOL
+                or max(row["fp32_grad_err"].values()) > EP_OUT_ATOL):
             raise AssertionError(f"moe_block_ep: {row}")
+        del x, xb, cot, want, got
     log(f"[distributed] ep {json.dumps({'arch': cfg.name, 'rows': rows})}")
+
+
+def timed_forward_backward(p, x, cot, cfg) -> dict:
+    """``moe_block``'s device ms in bf16 (``profiled_ms``): the forward
+    alone, and the backward of ``(out * cot).sum() + aux`` from one
+    forward (its graph kept for the repeats)."""
+    from repro_torch.models import ffn
+    with torch.no_grad():
+        fwd = profiled_ms(lambda: ffn.moe_block(p, x, cfg), EP_TIMED)
+    with torch.enable_grad():
+        out, aux = ffn.moe_block(p, x, cfg)
+        loss = (out.float() * cot).sum() + aux
+        leaves = [p.router, p.w_gate, p.w_up, p.w_down, x]
+        bwd = profiled_ms(lambda: torch.autograd.grad(
+            loss, leaves, retain_graph=True), EP_TIMED)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def distributed_train_moe(cfg, mesh) -> tuple[int, int]:
+    """(f) The sharded train step of qwen2-moe-a2.7b at ``DIST_MOE_LAYERS``
+    of its 24 layers (full width, fp32, remat "block", AdamW, 3 steps of
+    ``DIST_MOE_B`` x ``DIST_MOE_T``) on the (1, 1) mesh against the
+    unsharded step from the same seed, at a capacity factor where neither
+    path drops (E / k): the sharded one through the tensor-parallel route
+    (a route a step; its MoE layers by expert parallelism over the one
+    rank, ``moe_block_tp``), the unsharded one by the grouped dispatch,
+    each step's loss and grad norm within ``DIST_MOE_RTOL`` relative (the
+    two paths sum a few gradients in another order, a last-bit
+    difference); 2 x layers forward and layers backward flash launches a
+    step in each. The params' largest difference after 3 steps is printed,
+    not held: AdamW scales each element's update by its own gradient's
+    size, so an element whose gradient is near zero (an embedding row a
+    few positions reach) can move by up to the learning rate for that
+    last bit. Returns the flash launches (forward, backward) in it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_leaves
+    cfg = replace(cfg, n_layers=DIST_MOE_LAYERS, param_dtype=torch.float32,
+                  compute_dtype=torch.float32,
+                  capacity_factor=cfg.n_experts / cfg.top_k)
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    total = np.zeros(2, dtype=int)
+    runs = {}
+    for label, on in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        _, state, step, data = fresh_training(cfg, mesh=on, B=DIST_MOE_B,
+                                               T=DIST_MOE_T)
+        flash_launches(reset=True)
+        metrics = []
+        t0 = time.perf_counter()
+        with counting_routes() as plans:
+            for i in range(DIST_STEPS):
+                state, m = step(state, data.batch(i))
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        seconds = time.perf_counter() - t0
+        require_routes(f"[distributed] train moe {label}", plans,
+                       DIST_STEPS if on is not None else 0)
+        launches = flash_launches()
+        want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
+        if launches != want:
+            raise AssertionError(f"{label} qwen2-moe step: flash launches "
+                                 f"{launches}, want {want}")
+        total += launches
+        # the unsharded run's params wait on the host (11.6 GB) while the
+        # sharded run trains; the sharded run's stay on the card
+        runs[label] = {"metrics": metrics, "seconds": seconds,
+                       "params": [whole(p).to("cpu" if on is None else DEV)
+                                  for p in tree_leaves(state["params"])]}
+        del state, step
+    got, want = runs["sharded"], runs["unsharded"]
+    metric_err = max(abs(a - b) / abs(b) for g, w in zip(
+        got["metrics"], want["metrics"]) for a, b in zip(g, w))
+    param_err = max((a - b.to(DEV)).abs().max().item()
+                    for a, b in zip(got["params"], want["params"]))
+    same = got["metrics"] == want["metrics"] and param_err == 0.0
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+             "capacity_factor": cfg.capacity_factor, "B": DIST_MOE_B,
+             "T": DIST_MOE_T, "steps": DIST_STEPS, "bit_identical": same,
+             "metric_rel_err": metric_err, "param_max_abs_err": param_err,
+             "loss_grad_norm": got["metrics"],
+             "unsharded_loss_grad_norm": want["metrics"],
+             "seconds": {k: r["seconds"] for k, r in runs.items()},
+             "flash_launches_a_step": [2 * cfg.n_layers, cfg.n_layers]}
+    log(f"[distributed] train moe {json.dumps(stats)}")
+    if metric_err > DIST_MOE_RTOL:
+        raise AssertionError(f"sharded qwen2-moe step: {stats}")
+    return tuple(int(n) for n in total)
 
 
 def distributed_phase(smollm, qwen, mamba
@@ -3439,6 +3580,9 @@ def distributed_phase(smollm, qwen, mamba
         torch.cuda.empty_cache()
         scan_fwd, scan_bwd = distributed_train_ssm(mamba, mesh)
         torch.cuda.empty_cache()
+        moe_fwd, moe_bwd = distributed_train_moe(qwen, mesh)
+        fwd, bwd = fwd + moe_fwd, bwd + moe_bwd
+        torch.cuda.empty_cache()
     if logical.active():
         raise AssertionError("a logical policy outlived phase 22")
     log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, decode "
@@ -3457,18 +3601,24 @@ def distributed_phase(smollm, qwen, mamba
 # (c) runs one rank's share of each of these (arch, shape, rank): phi3-mini
 # (attention "local"), llama-3.1-8b ("kv_replicated"), minitron-4b's last
 # rank along "model" ("q_seq": rank 15 of the (16, 16) mesh is data 0,
-# model 15, the rank with the most attention) and zamba2-2.7b (its shared
-# block's heads and its SSM heads "local")
+# model 15, the rank with the most attention), zamba2-2.7b (its shared
+# block's heads and its SSM heads "local") and qwen2-moe-a2.7b (heads and
+# shared experts "local", one of the 256 padded experts a rank, its tokens
+# by all-to-all over the fake world); kimi-k2-1t-a32b x train_4k is dry-run
+# alone (its share does not fit the card by the dry run)
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
             ("llama-3.1-8b", "decode_32k", 0),
             ("minitron-4b", "train_4k", 15),
             ("zamba2-2.7b", "train_4k", 0),
-            ("zamba2-2.7b", "decode_32k", 0)]
+            ("zamba2-2.7b", "decode_32k", 0),
+            ("qwen2-moe-a2.7b", "train_4k", 0),
+            ("qwen2-moe-a2.7b", "decode_32k", 0)]
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
+                ("kimi-k2-1t-a32b", "train_4k", False, 0),
                 *((arch, shape, False, rank)
                   for arch, shape, rank in TP_CELLS)]
 # (c) the shares run in a fake world of this many ranks on the (16, 16)
@@ -3481,14 +3631,16 @@ TP_DECODE_S = 32768         # decode_32k's cache
 # q_offset]): 2 of phi3-mini's 32 heads (heads local; the plain version's
 # fp32 scores are 2.1 GB), minitron-4b's last rank along "model" (q_seq: all
 # 24/8 heads, query rows 3840 to 4096 against keys 0 to 4096), llama-3.1-8b's
-# 2 query heads on their one KV head (kv_replicated), and a ragged offset
-# (rows and keys that no tile divides)
+# 2 query heads on their one KV head (kv_replicated), zamba2-2.7b's 2 of 32
+# heads, qwen2-moe-a2.7b's 1 of 16, and a ragged offset (rows and keys that
+# no tile divides)
 TP_FLASH_SHAPES = [
     ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True),
     ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
      3840),
     ("llama-3.1-8b kv_replicated share", 16, 4096, 4096, 2, 1, 128, True),
     ("zamba2-2.7b TP share", 16, 4096, 4096, 2, 2, 80, True),
+    ("qwen2-moe-a2.7b TP share", 16, 4096, 4096, 1, 1, 128, True),
     ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
 # the scan at the SSM shares' shapes (name, B, T, H, P, N, Q, h0): a rank's
 # 5 of zamba2-2.7b's 80 heads (N 64) in train_4k, and 4 of mamba2-1.3b's 64
@@ -3565,32 +3717,32 @@ with open(sys.argv[1], "w") as f:
 """
 
 
-def run_dryruns(jobs) -> dict:
-    """Runs each job's command (label, argv, JSON it writes) in a process
-    of its own, ``DRYRUN_WORKERS`` at a time, its output into a log beside
-    the JSON; raises on a nonzero exit or a process over
-    ``DRYRUN_TIMEOUT_S`` (which is killed). Returns {label: (JSON,
-    seconds)}."""
+def run_dryrun(job) -> tuple:
+    """Runs a job's command (label, argv, JSON it writes) in a process of
+    its own, its output into a log beside the JSON; raises on a nonzero
+    exit or a process over ``DRYRUN_TIMEOUT_S`` (which is killed).
+    Returns (JSON, seconds)."""
     import os
-    from concurrent.futures import ThreadPoolExecutor
+    label, argv, out = job
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    with open(f"{out}.log", "w") as f:
+        rc = subprocess.run(argv, cwd=ROOT, env=env, stdout=f,
+                            stderr=subprocess.STDOUT,
+                            timeout=DRYRUN_TIMEOUT_S).returncode
+    if rc != 0:
+        raise AssertionError(f"dry run {label}: exit {rc}, see {out}.log")
+    with open(out) as f:
+        return json.load(f), time.perf_counter() - t0
 
-    def one(job):
-        label, argv, out = job
-        t0 = time.perf_counter()
-        with open(f"{out}.log", "w") as f:
-            rc = subprocess.run(argv, cwd=ROOT, env=env, stdout=f,
-                                stderr=subprocess.STDOUT,
-                                timeout=DRYRUN_TIMEOUT_S).returncode
-        if rc != 0:
-            raise AssertionError(f"dry run {label}: exit {rc}, see "
-                                 f"{out}.log")
-        with open(out) as f:
-            return label, json.load(f), time.perf_counter() - t0
 
+def run_dryruns(jobs) -> dict:
+    """``run_dryrun`` over ``jobs``, ``DRYRUN_WORKERS`` at a time. Returns
+    {label: (JSON, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
-        return {label: (result, s) for label, result, s in
-                pool.map(one, jobs)}
+        return dict(zip((job[0] for job in jobs), pool.map(run_dryrun,
+                                                           jobs)))
 
 
 def predict_job(arch, shape, k):
@@ -3607,12 +3759,11 @@ def peak_reading_job():
             str(out))
 
 
-def production_dryruns(extra) -> dict:
-    """(a) and the first (1, 1) predictions of (b), ``extra``, in one pool.
-    Prints a ``[dryrun]`` line per production cell; fails on a cell that
-    neither ran nor was skipped by the table. Returns the (1, 1)
-    results."""
+def production_jobs() -> list:
+    """(a)'s jobs: ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_CELLS``."""
     from repro_torch.launch.dryrun import OUT_DIR, _outfile
+    (ROOT / OUT_DIR).mkdir(parents=True, exist_ok=True)
     jobs = []
     for arch, shape, multi, rank in DRYRUN_CELLS:
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3620,12 +3771,15 @@ def production_dryruns(extra) -> dict:
                     ["--multi-pod"] if multi else [])
         jobs.append(((arch, shape, multi, rank), argv,
                      str(ROOT / _outfile(arch, shape, multi, rank=rank))))
-    (ROOT / OUT_DIR).mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    done = run_dryruns(jobs + extra)
-    seconds = time.perf_counter() - t0
-    for arch, shape, multi, rank in DRYRUN_CELLS:
-        r, s = done[(arch, shape, multi, rank)]
+    return jobs
+
+
+def production_dryruns(futures: dict, started: float) -> dict:
+    """(a)'s results from their futures: a ``[dryrun]`` line per
+    production cell; fails on a cell that neither ran nor was skipped by
+    the table. Returns {cell: JSON}."""
+    done = {cell: f.result() for cell, f in futures.items()}
+    for (arch, shape, multi, rank), (r, s) in done.items():
         row = {"arch": arch, "shape": shape, "mesh": r["mesh"],
                "rank": rank, "status": r["status"], "seconds": s}
         if r["status"] == "ok":
@@ -3637,10 +3791,9 @@ def production_dryruns(extra) -> dict:
         log(f"[dryrun] {json.dumps(row)}")
         if r["status"] not in ("ok", "skipped"):
             raise AssertionError(f"dry run of {arch} x {shape}: {row}")
-    log(f"[dryrun] {len(jobs)} production cells and {len(extra)} (1, 1) "
-        f"jobs in {seconds:.1f} s")
-    return ({label: done[label][0] for label, _, _ in extra},
-            {cell: done[cell][0] for cell in DRYRUN_CELLS})
+    log(f"[dryrun] {len(done)} production cells, all done "
+        f"{time.perf_counter() - started:.1f} s after the dry runs began")
+    return {cell: r for cell, (r, _) in done.items()}
 
 
 def smallest_fitting_grad_accum(first: dict) -> tuple[int, dict]:
@@ -3916,8 +4069,9 @@ def tp_share_kernels() -> None:
     shares give them, with phases 3, 7, 10 and 21's tolerances:
     ``decode_attention`` at 8 slots of 32768 (the decode shares' split
     plan) with phi3-mini's 2 of 32 heads, llama-3.1-8b's 2 query heads on
-    one KV head and zamba2's 2 of 32 heads at hd 80 (the last two timed
-    too), lengths 0, S and ragged ones; flash, forward and backward, fp32
+    one KV head, zamba2's 2 of 32 heads at hd 80 (these two timed too) and
+    qwen2-moe's 1 of 16, lengths 0, S and ragged ones; flash, forward and
+    backward, fp32
     and bf16, at ``TP_FLASH_SHAPES``, the q_seq share's timing beside the
     same call at offset 0 and zamba2's share's beside SDPA; the scan,
     forward and backward (fp32, the route's only dtype), at
@@ -3931,7 +4085,8 @@ def tp_share_kernels() -> None:
     # and 84 MB each, past the 50 MB L2)
     for arch, (hq, hkv), timed in (("phi3-mini-3.8b", (2, 2), 0),
                                    ("llama-3.1-8b", (2, 1), 2),
-                                   ("zamba2-2.7b", (2, 2), 2)):
+                                   ("zamba2-2.7b", (2, 2), 2),
+                                   ("qwen2-moe-a2.7b", (1, 1), 0)):
         c = get_config(arch)
         check_and_time_decode_attention(
             f"{c.name} TP share", hq, hkv, c.hd, timed,
@@ -4064,36 +4219,44 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
 
 
 def start_dryruns(pool):
-    """Phase 23 (a) and (b)'s (1, 1) predictions, submitted to ``pool``:
-    the dry-run processes count on the host while the card runs phase
-    21's parity checks and the kernel checks of (c), whose times are
-    graph replays and profiled device time (only their eager columns can
-    feel the host's load). Fails at once without the fake process group.
-    Returns the future of ``production_dryruns``."""
+    """Phase 23 (b)'s (1, 1) predictions, then (a)'s cells, submitted to
+    ``pool`` (``DRYRUN_WORKERS`` threads, first come first run): the
+    dry-run processes count on the host while the card runs phase 21's
+    parity checks and the kernel checks of (c), whose times are graph
+    replays and profiled device time (only their eager columns can feel
+    the host's load), and (a)'s last cells while (b) runs. Fails at once
+    without the fake process group. Returns ({label: future} of (b)'s
+    predictions, {cell: future} of (a)'s, the time they began)."""
     from repro_torch.launch.mesh import _FAKE_PG, fake_pg_available
     present = fake_pg_available()
     log(f"[launch] {_FAKE_PG} in torch {torch.__version__}: {present}")
     if not present:
         raise AssertionError("the fake process group is missing")
-    return pool.submit(production_dryruns, [
-        predict_job("smollm-135m", "train_4k", k)
-        for k in GRAD_ACCUM_FIRST] + [
+    started = time.perf_counter()
+    first = [predict_job("smollm-135m", "train_4k", k)
+             for k in GRAD_ACCUM_FIRST] + [
         predict_job("zamba2-2.7b", "long_500k", 1),
-        predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()])
+        predict_job("smollm-135m", "decode_32k", 1), peak_reading_job()]
+    return ({job[0]: pool.submit(run_dryrun, job) for job in first},
+            {job[0]: pool.submit(run_dryrun, job)
+             for job in production_jobs()}, started)
 
 
 def launch_phase(dryruns) -> tuple[int, int, int, int, int]:
     """Phase 23: the dry runs (a) (``dryruns``, from ``start_dryruns``),
-    the two table cells on the card (b) and one rank's share of each
-    tensor-parallel cell of ``TP_CELLS`` (c). Returns the decode launches,
-    the flash launches (forward, backward) and the scan launches (forward,
-    backward) in it."""
+    the two table cells on the card (b), which start once their (1, 1)
+    predictions are in (the rest of (a) counts on the host meanwhile: (b)'s
+    host ms are taken beside it, its device ms are the card's), and one
+    rank's share of each tensor-parallel cell of ``TP_CELLS`` (c). Returns
+    the decode launches, the flash launches (forward, backward) and the
+    scan launches (forward, backward) in it."""
     from torch.distributed.device_mesh import init_device_mesh
     t0 = time.perf_counter()
     tp_share_kernels()
-    first, production = dryruns.result()
-    log(f"[launch] (a) done {time.perf_counter() - t0:.1f} s into the "
-        f"phase")
+    predictions, cells, started = dryruns
+    first = {label: f.result()[0] for label, f in predictions.items()}
+    log(f"[launch] (b)'s predictions done {time.perf_counter() - t0:.1f} s "
+        f"into the phase")
     reading = first.pop("peak reading")
     log(f"[launch] peak of one smollm-135m train step (B 2, T 4096) on "
         f"(1, 1), torch {torch.__version__}: {json.dumps(reading)}")
@@ -4111,6 +4274,9 @@ def launch_phase(dryruns) -> tuple[int, int, int, int, int]:
         decode = long_decode_cell(mesh, long_pred)
         fwd, bwd = train_cell(mesh, k, train_pred)
     log(f"[launch] (b) done {time.perf_counter() - t0:.1f} s into the "
+        f"phase")
+    production = production_dryruns(cells, started)
+    log(f"[launch] (a) done {time.perf_counter() - t0:.1f} s into the "
         f"phase")
     scan = np.zeros(2, dtype=int)
     for arch, shape, rank in TP_CELLS:
@@ -4263,7 +4429,7 @@ def main() -> int:
     fwd_launches += fwd
     bwd_launches += bwd
     torch.cuda.empty_cache()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(DRYRUN_WORKERS) as pool:
         # checks only from here until (b), and device times
         dryruns = start_dryruns(pool)
         for cfg, depth in ((mamba, 4), (zamba, 6)):

@@ -17,13 +17,15 @@ Spec trees have the exact structure of the trees they describe
 
 ``to_named`` gives each spec its DTensor placements, ``place`` lays a
 tree out by them, and ``shard_train_step`` trains on the placed state.
-Every leaf is gathered along the data axes for the step (FSDP). Along
-``"model"`` the dense, vlm, ssm and hybrid families compute
-tensor-parallel (``tensor_parallel.plan``: attention in one of its four
-modes, ``d_ff``, the SSM heads and vocab local to a rank where m divides
-them, ``tp_layouts`` the leaves' layouts for it); the MoE and enc-dec
-families gather each leaf whole along ``"model"`` too, so their ranks
-along it compute the same rows.
+Every leaf is gathered along the data axes for the step (FSDP), but the
+expert-parallel MoE stacks. Along ``"model"`` the dense, vlm, ssm, hybrid
+and expert-parallel MoE families compute tensor-parallel
+(``tensor_parallel.plan``: attention in one of its four modes, ``d_ff``
+(the MoE's shared experts), the SSM heads and vocab local to a rank where
+m divides them, the routed experts by expert parallelism over every axis,
+``tp_layouts`` the leaves' layouts for it); the enc-dec family and a
+grouped-dispatch MoE gather each leaf whole along ``"model"`` too, so
+their ranks along it compute the same rows.
 
 A serve cell's KV cache under the "kv_replicated" plan (m divides the
 query heads, the KV heads divide m) is the port's own layout, ``tp_cache``:
@@ -441,7 +443,7 @@ def train_state_specs(state: dict, opt_name: str, pspecs) -> dict:
 
 
 def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
-    """Each param leaf of a dense, vlm, ssm or hybrid model under a
+    """Each param leaf of a dense, vlm, ssm, hybrid or MoE model under a
     tensor-parallel ``plan``, as (the placements it is computed in, its
     gradient's): whole along the data axes, where the gradient is a
     partial sum (each rank saw its own rows); along ``"model"`` sharded
@@ -454,9 +456,13 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     local: it counts on rank 0 alone, ``Route.embed``), else equal on
     every rank. Under "q_seq" the attention's leaves are whole, their
     gradients partial sums (its training is sequence-parallel: each rank
-    saw its own query rows). Stacked leaves keep their lead axes (the
-    layers; the hybrid's groups and layers), the shared block's have
-    none."""
+    saw its own query rows). An MoE layer's expert stacks stay in
+    ``moe_specs``' expert-parallel placement, each rank's experts whole
+    and never gathered, their gradients the experts' own; its router is
+    whole, its gradient a partial sum over every axis (each rank routed
+    its own block of tokens); its shared experts are laid out as the MLP.
+    Stacked leaves keep their lead axes (the layers; the hybrid's groups
+    and layers), the shared block's have none."""
     names = mesh.mesh_dim_names
     baxes = ("pod", "data") if "pod" in names else ("data",)
     sp = plan.seq_parallel
@@ -479,6 +485,13 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
         f = plan.mlp_local
         return MLPParams(lay(lead + 1, f), lay(lead + 1, f), lay(lead, f))
 
+    def moe(lead: int) -> MoEParams:
+        stack = [Shard(lead)] * len(names)
+        return MoEParams(router=lay(0, False, partial=True),
+                         w_gate=(stack, stack), w_up=(stack, stack),
+                         w_down=(stack, stack),
+                         shared=mlp(lead) if cfg.n_shared_experts else None)
+
     def mamba(lead: int) -> Mamba2Params:
         s = plan.ssm == "local"
         cols, heads = lay(0, False, partial=sp or s), lay(lead, s)
@@ -492,6 +505,9 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     if cfg.family in ("dense", "vlm"):
         out["layers"] = DenseLayer(attn=attn(1), mlp=mlp(1),
                                    norm1=lay(0, False), norm2=lay(0, False))
+    elif cfg.family == "moe":
+        out["layers"] = MoELayer(attn=attn(1), moe=moe(1),
+                                 norm1=lay(0, False), norm2=lay(0, False))
     elif cfg.family == "ssm":
         out["layers"] = SSMLayer(mamba=mamba(1), norm=lay(0, False))
     elif cfg.family == "hybrid":
@@ -551,7 +567,8 @@ class _LocalLoss:
         cfg = self.model.cfg
         plan = tensor_parallel.mesh_plan(
             cfg, self.mesh, kind="train",
-            seq_len=tensor_parallel.residual_len(cfg, mb))
+            seq_len=tensor_parallel.residual_len(cfg, mb),
+            rows=mb["tokens"].shape[0])
         if plan is None:
             local = tree_map(lambda t: t.redistribute(self.mesh, self.full)
                              .to_local(grad_placements=self.partial), params)
@@ -574,16 +591,24 @@ def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
     back as DTensors in the params' placements, the optimizer and
     ``compress`` run on them (DTensor reduces the global norm, Adafactor's
     means and the int8 scale over whole leaves), and the metrics are the
-    global loss and the norm over whole gradients. The dense, vlm, ssm and
-    hybrid families compute tensor-parallel along ``"model"``
-    (``_LocalLoss``).
+    global loss and the norm over whole gradients. The dense, vlm, ssm,
+    hybrid and expert-parallel MoE families compute tensor-parallel along
+    ``"model"`` (``_LocalLoss``). An MoE loss adds the aux over every
+    rank's tokens, the same on every rank, to each rank's NLL; weighed by
+    the rank's token share, the sum over the batch ranks is the
+    reference's loss, and the aux's statistics take each batch rank's
+    gradient once (``tensor_parallel.stat_sum``).
 
-    The MoE loss adds an auxiliary term that is not a mean over tokens, so
-    an MoE model trains here only with the batch on one rank."""
+    A grouped-dispatch MoE (``moe_impl="gspmd"``) computes whole, its aux
+    over a rank's own rows, so it trains here only with the batch on one
+    rank."""
     loss = _LocalLoss(model, mesh)
-    if model.cfg.family == "moe" and loss.n_rows > 1:
+    cfg = model.cfg
+    if (cfg.family == "moe" and not tensor_parallel.computes_tp(cfg)
+            and loss.n_rows > 1):
         raise NotImplementedError(
-            "the MoE auxiliary loss over a batch split across ranks")
+            "a grouped-dispatch MoE's auxiliary loss over a batch split "
+            "across ranks")
     step = build_train_step(loss, opt, grad_accum=grad_accum,
                             compress=compress)
 

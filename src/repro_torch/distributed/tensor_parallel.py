@@ -1,9 +1,9 @@
-"""Tensor-parallel compute along ``"model"`` for the dense, vlm, ssm and
-hybrid families: the port's counterpart of GSPMD's partitioning of the
-reference's ``DenseLM``, ``MambaLM`` and ``HybridLM`` under
+"""Tensor-parallel compute along ``"model"`` for the dense, vlm, ssm,
+hybrid and MoE families: the port's counterpart of GSPMD's partitioning of
+the reference's ``DenseLM``, ``MambaLM``, ``HybridLM`` and ``MoELM`` under
 ``param_specs`` and their ``constrain`` sites
 (``repro/models/transformer.py``, ``repro/models/mamba2.py``,
-``repro/distributed/logical.py``).
+``repro/models/moe_ep.py``, ``repro/distributed/logical.py``).
 
 ``plan`` derives, from the config and the ``"model"`` axis size m, what a
 rank computes locally:
@@ -37,7 +37,28 @@ rank computes locally:
       holds, T not divisible by m): every rank computes the sublayer whole
       and keeps its slice;
   * the MLP, when m divides ``d_ff``: ``w_gate``/``w_up`` column-parallel,
-    ``w_down`` row-parallel; otherwise gathered;
+    ``w_down`` row-parallel; otherwise gathered. In the MoE family the MLP
+    is the shared experts, ``n_shared_experts * d_ff`` wide;
+  * the MoE family's routed experts (``Route.moe``; expert-parallel
+    configs, ``moe_impl="ep"``, alone): expert parallelism over every mesh
+    axis, the reference's ``moe_block_ep``. Each rank holds ``E_pad / ep``
+    whole experts (``ep`` the world, experts padded to a multiple of it);
+    its tokens are the m contiguous blocks of its data rows' flattened
+    (rows x T) tokens, block r on rank r along ``"model"`` (the rows whole:
+    gathered along ``"model"`` first where the residual is
+    sequence-parallel). Where m divides the rows' tokens these are the
+    reference's blocks of the global tokens (its ``shard_map`` cuts them
+    into ``ep`` blocks in mesh order). Where it does not, each data rank
+    pads its tokens with zero rows to a multiple of m: the same number of
+    tokens a rank and of zero rows as the reference's padding at the end,
+    so the same capacity and the aux's statistics over the same tokens;
+    the blocks then differ from the reference's, which cross the data
+    ranks, and a token's output is the reference's wherever no pair can
+    drop, a block no longer than the capacity (every decode step: one
+    token a rank). A padded block longer than the capacity raises. Two
+    all-to-alls over the world a layer (tokens to their experts and back),
+    an all-reduce of the aux's statistics; the output all-gathered along
+    ``"model"`` into the residual's layout;
   * the mamba2 block (``Plan.ssm``), "local" where m divides the SSM
     heads H: rank r computes heads ``[r H/m, (r+1) H/m)``. ``in_proj``,
     ``conv_w`` and ``conv_b`` are whole along ``"model"`` and each rank
@@ -66,8 +87,10 @@ A ``Route`` is a plan and the process group it runs over. The model code
 computes on plain local tensors and calls the route at the sublayer
 boundaries; the collectives are ``torch.autograd.Function`` pairs over the
 functional collectives (Megatron's f and g, and the all-gather and
-reduce-scatter along the sequence). Over a group of one rank, or with no
-route, each is the identity. Nothing here imports the models.
+reduce-scatter along the sequence; EP's all-to-all, whose backward is the
+same all-to-all, and the aux's all-reduce). Over a group of one rank, or
+with no route, each of the first four is the identity. Nothing here
+imports the models.
 """
 from __future__ import annotations
 
@@ -78,8 +101,9 @@ import torch.nn.functional as F
 
 from . import logical
 
-#: the families whose layers compute tensor-parallel along "model"
-TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+#: the families whose layers compute tensor-parallel along "model" (MoE:
+#: its expert-parallel configs)
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
 
 _c10d = torch.ops._c10d_functional
 
@@ -97,7 +121,10 @@ class Plan:
     ``kv_share`` the ranks that share one KV head ("kv_replicated"; 1
     else), ``mlp_local`` None without an MLP; ``ssm`` the mamba2 block's
     mode ("local" or "gathered"; None without one) and ``ssm_heads`` the
-    SSM heads a rank computes."""
+    SSM heads a rank computes; for the MoE family ``ep`` the expert-
+    parallel group's size (the world), ``ep_experts`` the experts a rank
+    holds and ``capacity`` a source rank's slots an expert (None where the
+    rows are not known), else None."""
     model: int
     heads: str | None
     mlp_local: bool | None
@@ -108,6 +135,9 @@ class Plan:
     kv_share: int
     ssm: str | None = None
     ssm_heads: int | None = None
+    ep: int | None = None
+    ep_experts: int | None = None
+    capacity: int | None = None
 
     @property
     def heads_local(self) -> bool:
@@ -136,6 +166,9 @@ class Plan:
                "seq_parallel": self.seq_parallel}
         if self.ssm is not None:
             out.update(ssm=self.ssm, ssm_heads=self.ssm_heads)
+        if self.ep is not None:
+            out.update(ep=self.ep, ep_experts=self.ep_experts,
+                       capacity=self.capacity)
         if model_rank is not None:
             rows = self.q_rows(model_rank)
             out.update(model_rank=model_rank,
@@ -146,11 +179,21 @@ class Plan:
         return out
 
 
-def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
+def ep_capacity(n_loc: int, cfg) -> int:
+    """A source rank's slots an expert under expert parallelism for its
+    ``n_loc`` tokens: rounded up to 4, at least 4 (the reference's EP
+    capacity, not the grouped dispatch's 8)."""
+    cap = int(cfg.capacity_factor * n_loc * cfg.top_k / cfg.n_experts)
+    return max(4, -(-cap // 4) * 4)
+
+
+def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
+         rows: int | None = None) -> Plan:
     """The plan of a ``kind`` step ("train", "prefill" or "decode") whose
     residual stream is ``seq_len`` positions long (a vlm's patches
     included), for a ``"model"`` axis of ``m`` ranks. At m = 1 every
-    config is "local"."""
+    config is "local". The MoE family needs ``ep``, the world's size, and
+    takes ``rows``, a data rank's rows, for its capacity."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     share = 1
     if not hq:
@@ -167,21 +210,42 @@ def plan(cfg, m: int, *, kind: str, seq_len: int) -> Plan:
     if cfg.family in ("ssm", "hybrid"):
         h = cfg.ssm_heads
         ssm, ssm_heads = ("local", h // m) if h % m == 0 else ("gathered", h)
+    ff = cfg.d_ff
+    moe = {}
+    if cfg.family == "moe":
+        if ep is None:
+            raise ValueError("an MoE plan needs the expert-parallel group")
+        ff = cfg.d_ff * cfg.n_shared_experts       # the shared experts
+        moe = dict(ep=ep, ep_experts=-(-cfg.n_experts // ep),
+                   capacity=None if rows is None else ep_capacity(
+                       -(-rows * seq_len // m), cfg))
     return Plan(model=m, heads=heads,
-                mlp_local=cfg.d_ff % m == 0 if cfg.d_ff else None,
+                mlp_local=ff % m == 0 if ff else None,
                 vocab_local=cfg.vocab_size % m == 0,
                 seq_parallel=kind == "train" and seq_len % m == 0,
                 local_heads=local, seq_len=seq_len, kv_share=share,
-                ssm=ssm, ssm_heads=ssm_heads)
+                ssm=ssm, ssm_heads=ssm_heads, **moe)
 
 
-def mesh_plan(cfg, mesh, *, kind: str, seq_len: int) -> Plan | None:
-    """``plan`` on ``mesh``'s ``"model"`` axis, or None: a family that
-    computes whole, or a mesh without that axis."""
+def computes_tp(cfg) -> bool:
+    """Whether ``cfg``'s layers compute tensor-parallel along "model" under
+    a mesh: the families of ``TP_FAMILIES``, an MoE model only where it is
+    expert-parallel (``moe_impl="ep"``; a grouped-dispatch MoE gathers
+    every leaf and computes whole)."""
+    return cfg.family in TP_FAMILIES and (cfg.family != "moe"
+                                          or cfg.moe_impl == "ep")
+
+
+def mesh_plan(cfg, mesh, *, kind: str, seq_len: int,
+              rows: int | None = None) -> Plan | None:
+    """``plan`` on ``mesh``'s ``"model"`` axis (the EP group its every
+    rank), or None: a family that computes whole, or a mesh without that
+    axis."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if cfg.family not in TP_FAMILIES or "model" not in sizes:
+    if not computes_tp(cfg) or "model" not in sizes:
         return None
-    return plan(cfg, sizes["model"], kind=kind, seq_len=seq_len)
+    return plan(cfg, sizes["model"], kind=kind, seq_len=seq_len,
+                ep=mesh.size() if cfg.family == "moe" else None, rows=rows)
 
 
 def residual_len(cfg, batch: dict) -> int:
@@ -290,6 +354,77 @@ class _ReduceScatterSeq(torch.autograd.Function):
         return _all_gather_seq(g, ctx.group), None
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block j of ``x``'s equal blocks along axis 0 to rank j; block i of
+    the result from rank i."""
+    n = group.size()
+    split = [x.shape[0] // n] * n
+    return _c10d.wait_tensor(_c10d.all_to_all_single(
+        x.contiguous(), split, split, group.group_name))
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all over equal blocks; its backward is the same
+    all-to-all (each block goes back to the rank it came from, to the
+    place it left)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+class _StatSum(torch.autograd.Function):
+    """The sum over the ranks of a statistic that every rank's loss reads
+    (EP's aux statistics). Ranks that repeat one loss (the ranks along
+    ``"model"``, or every rank where each computes the whole) would each
+    send the same gradient, so only the rank whose ``counts`` is set sends
+    its own: the backward sums ``g`` over the ranks that count, zeros over
+    the others, and the statistic's gradient counts each distinct loss
+    once."""
+
+    @staticmethod
+    def forward(ctx, x, group, counts):
+        ctx.group, ctx.counts = group, counts
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g if ctx.counts else torch.zeros_like(g)
+        return _all_reduce(g, "sum", ctx.group), None, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``_AllToAll`` over ``group`` (any size: over one rank a copy)."""
+    return _AllToAll.apply(x, group)
+
+
+def stat_sum(x: torch.Tensor, group, counts: bool) -> torch.Tensor:
+    """``_StatSum`` over ``group``; ``counts``: this rank's loss is one
+    whose gradient the sum takes."""
+    return _StatSum.apply(x, group, counts)
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f over ``group``: the identity, the gradient summed over
+    the ranks (each rank's use of ``x`` is its own share)."""
+    return _CopyIn.apply(x, group) if group.size() > 1 else x
+
+
+def gather_blocks(x: torch.Tensor, group, reduce_grad: bool) -> torch.Tensor:
+    """The ranks' (n, ...) blocks as one (ranks x n, ...), rank-major;
+    backward each rank's block of the gradient, summed over the ranks with
+    ``reduce_grad`` (each rank's gradient is its own share), else this
+    rank's (the gradients are equal on every rank)."""
+    if group.size() == 1:
+        return x
+    return _GatherSeq.apply(x[None], group, reduce_grad)[0]
+
+
 # ---------------------------------------------------------------------------
 # the vocab-parallel embedding and loss
 # ---------------------------------------------------------------------------
@@ -352,13 +487,14 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 class Route:
     """A plan and the ``"model"`` group it runs over: the model calls it
-    where the reference pins an activation's sharding."""
+    where the reference pins an activation's sharding. ``mesh``: the mesh
+    whose every rank is the MoE family's expert-parallel group."""
 
-    def __init__(self, plan: Plan, group) -> None:
+    def __init__(self, plan: Plan, group, mesh=None) -> None:
         if group is not None and group.size() != plan.model:
             raise ValueError(f"a plan for {plan.model} ranks on a group of "
                              f"{group.size()}")
-        self.plan, self.group = plan, group
+        self.plan, self.group, self.mesh = plan, group, mesh
         self.rank = group.rank() if group is not None else 0
         self.sp = plan.seq_parallel
 
@@ -428,6 +564,43 @@ class Route:
         if self.sp:
             return self.split_seq(fn(self.gather_seq(x)))
         return fn(x)
+
+    def moe(self, routed, shared, x: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The MoE sublayer on the normed residual ``x``: its data rows'
+        tokens whole on every rank along ``"model"`` (gathered where the
+        residual is sequence-parallel), flattened, padded with zero rows
+        to a multiple of m and cut into m blocks; ``routed(tokens, padded,
+        counts)`` the routed experts on this rank's block (n, d) by
+        expert parallelism, ``padded`` whether zero rows were added,
+        ``counts`` whether this rank's loss is one the aux's gradient
+        takes (rank 0 along ``"model"``: the others repeat its loss),
+        returning (its output (n, d), the aux); the blocks' outputs
+        gathered along ``"model"``. ``shared(h)`` the shared experts (None
+        without them), column- then row-parallel where the plan's MLP is
+        local, as ``sublayer``. The two outputs add in the residual's
+        layout. Returns (the output, the aux)."""
+        m, r = self.plan.model, self.rank
+        rows = self.gather_seq(x) if self.sp else self.copy_in(x)
+        B, T, d = rows.shape
+        n = B * T
+        n_loc = -(-n // m)
+        tokens = F.pad(rows.reshape(n, d), (0, 0, 0, m * n_loc - n))
+        out, aux = routed(tokens[r * n_loc:(r + 1) * n_loc],
+                          padded=m * n_loc != n, counts=r == 0)
+        out = gather_blocks(out, self.group, reduce_grad=self.sp) if \
+            self._many else out
+        out = out[:n].reshape(B, T, d)
+        if self.sp:
+            out = self.split_seq(out)
+        if shared is None:
+            return out, aux
+        if self.plan.mlp_local:
+            s = shared(rows)
+            s = self.scatter_seq(s) if self.sp else self.reduce_out(s)
+        else:
+            s = self.sublayer(shared, x, False)
+        return out + s, aux
 
     def embed(self, tokens: torch.Tensor, table: torch.Tensor,
               prefix: torch.Tensor | None = None) -> torch.Tensor:
@@ -509,13 +682,20 @@ class Route:
     def check(self, cfg, params: dict) -> None:
         """Raises unless the local leaves have the widths the plan says
         (``wk`` whole unless the heads are "local"; a mamba2 block's
-        ``in_proj`` whole, its heads' leaves the rank's where local)."""
+        ``in_proj`` whole, its heads' leaves the rank's where local; an
+        MoE layer's router whole, its expert stacks the rank's experts,
+        its shared experts as the MLP)."""
         p, hd, m = self.plan, cfg.hd, self.plan.model
         vocab = cfg.vocab_size // (m if p.vocab_local else 1)
         want = {"embed rows": (params["embed"].shape[0], vocab),
                 "lm_head columns": (params["lm_head"].shape[-1], vocab)}
         if cfg.family == "hybrid":
             attn, mlp = params["shared_attn"], params["shared_mlp"]
+        elif cfg.family == "moe":
+            moe = params["layers"].moe
+            attn, mlp = params["layers"].attn, moe.shared
+            want["router columns"] = (moe.router.shape[-1], cfg.n_experts)
+            want["experts a rank"] = (moe.w_gate.shape[-3], p.ep_experts)
         elif p.ssm is None:
             attn, mlp = params["layers"].attn, params["layers"].mlp
         else:
@@ -526,8 +706,10 @@ class Route:
                                   (p.local_heads[1] if p.heads == "local"
                                    else cfg.n_kv_heads) * hd)
         if mlp is not None:
+            ff = cfg.d_ff * (cfg.n_shared_experts if cfg.family == "moe"
+                             else 1)
             want["w_gate columns"] = (mlp.w_gate.shape[-1],
-                                      cfg.d_ff // (m if p.mlp_local else 1))
+                                      ff // (m if p.mlp_local else 1))
         if p.ssm is not None:
             mamba = params["layers"].mamba
             want["A_log heads"] = (mamba.A_log.shape[-1], p.ssm_heads)
@@ -541,11 +723,16 @@ class Route:
             raise ValueError(f"leaves not laid out as {p}: {bad}")
 
 
-def route(cfg, *, kind: str, seq_len: int) -> Route | None:
+def route(cfg, *, kind: str, seq_len: int, rows: int | None = None
+          ) -> Route | None:
     """The installed policy's route for a ``kind`` step of ``cfg`` (its
-    ``"model"`` group's size is m), or None: no policy, a mesh without a
-    ``"model"`` axis, or a family that computes whole."""
+    ``"model"`` group's size is m) on ``rows`` rows a data rank, or None:
+    no policy, a mesh without a ``"model"`` axis, or a family that
+    computes whole."""
     group = logical.model_group()
-    if cfg.family not in TP_FAMILIES or group is None:
+    if not computes_tp(cfg) or group is None:
         return None
-    return Route(plan(cfg, group.size(), kind=kind, seq_len=seq_len), group)
+    mesh = logical.current_mesh()
+    ep = mesh.size() if cfg.family == "moe" else None
+    return Route(plan(cfg, group.size(), kind=kind, seq_len=seq_len, ep=ep,
+                      rows=rows), group, mesh)

@@ -15,7 +15,7 @@ from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs import (SHAPES, ShapeCell, cell_inputs,
                                  cell_runnable, get_config)
@@ -148,17 +148,45 @@ def param_shapes(cfg: ArchConfig) -> dict:
                                           device="meta"), fake)
 
 
-def _place(tree, shardings):
+def _place(tree, shardings, shapes=None):
     """Each leaf as a DTensor holding this rank's block of it. Every rank
     holds the whole leaf (empty on meta, drawn from the same seed on the
-    card), so this is ``sharding.place`` without its scatter from rank 0."""
-    def block(t, s):
-        local = shd.local_shard(s.mesh, t, s.placements)
-        if local.numel() != t.numel():
-            local = local.clone()
+    card), so this is ``sharding.place`` without its scatter from rank 0.
+    ``shapes``: the leaves' whole shapes, where a leaf is drawn shorter
+    (the experts before their padding): its block is cut from the leaf
+    padded with zeros at the end, which is never built whole."""
+    def block(t, s, like=None):
+        like = t if like is None else like
+        if t.shape != like.shape:
+            local = _padded_block(s.mesh, t, like.shape, s.placements)
+        else:
+            local = shd.local_shard(s.mesh, t, s.placements)
+            if local.numel() != t.numel():
+                local = local.clone()
         return DTensor.from_local(local, s.mesh, list(s.placements),
-                                  shape=t.shape, stride=t.stride())
-    return tree_map(block, tree, shardings)
+                                  shape=like.shape, stride=like.stride())
+    if shapes is None:
+        return tree_map(block, tree, shardings)
+    return tree_map(block, tree, shardings, shapes)
+
+
+def _padded_block(mesh, t: torch.Tensor, shape, placements) -> torch.Tensor:
+    """This rank's block under ``placements`` of ``t`` padded with zeros at
+    the end of each dim to ``shape`` (even shards, cut as
+    ``sharding.local_shard`` cuts them)."""
+    span = [[0, n] for n in shape]
+    for j, p in enumerate(placements):
+        if isinstance(p, Shard):
+            a, b = span[p.dim]
+            n = (b - a) // mesh.size(j)
+            a += mesh.get_local_rank(j) * n
+            span[p.dim] = [a, a + n]
+    out = t.new_zeros([b - a for a, b in span])
+    have = [min(b, n) - a for (a, b), n in zip(span, t.shape)]
+    if min(have) > 0:
+        out[tuple(slice(0, h) for h in have)] = t[tuple(
+            slice(a, a + h) for (a, _), h in zip(span, have))]
+    return out
 
 
 def _zeros_placed(tree, shardings, device) -> dict:
@@ -205,9 +233,10 @@ def serve_step(model, mesh, kind: str) -> Callable:
     ``decode``; the cache comes back in its placements. Returns (this
     rank's logits, cache).
 
-    The dense, vlm, ssm and hybrid families compute tensor-parallel along
-    ``"model"`` (``tensor_parallel``), with the logical policy installed
-    around the model's step: each leaf in its ``sharding.tp_layouts``
+    The dense, vlm, ssm, hybrid and expert-parallel MoE families compute
+    tensor-parallel along ``"model"`` (``tensor_parallel``), with the
+    logical policy installed around the model's step: each leaf in its
+    ``sharding.tp_layouts``
     placements; the KV cache kept local along ``"model"`` where the heads
     are "local" or "kv_replicated" (its KV heads are sharded there: the
     cache's layout is ``sharding.tp_cache``'s), else gathered (a "q_seq"
@@ -216,13 +245,13 @@ def serve_step(model, mesh, kind: str) -> Callable:
     and conv tail kept local where the SSM heads are (the tail in
     ``tp_cache``'s layout), else gathered; the logits are this rank's
     vocab columns where the vocab is local, as the reference's
-    ``out_shardings`` (``P(batch, None, "model")``) leave them. The MoE
-    and enc-dec families gather every leaf and the cache whole along
-    ``"model"`` and run with no policy installed: ``moe_block_ep`` takes
-    the whole batch on every rank, and a rank here holds its own rows, so
-    an MoE layer routes them by ``moe_block``'s grouped dispatch, one
-    group a rank, as ``moe_groups`` (the batch ranks) groups the tokens in
-    the reference."""
+    ``out_shardings`` (``P(batch, None, "model")``) leave them; an MoE
+    layer's routed experts by expert parallelism over every rank, on each
+    rank's block of its rows' tokens (``Route.moe``), which needs the
+    batch split over the batch ranks. The enc-dec family and a
+    grouped-dispatch MoE gather every leaf and the cache whole along
+    ``"model"`` and run with no policy installed (the MoE's layers by
+    ``moe_block``'s grouped dispatch, one group a rank)."""
     baxes = data_axes(mesh)
     names = mesh.mesh_dim_names
     full = [Replicate()] * mesh.ndim
@@ -243,6 +272,13 @@ def serve_step(model, mesh, kind: str) -> Callable:
         return model.prefill(local, mine, held)
 
     def step(params, inputs: dict, cache: dict):
+        if plan is not None and plan.ep is not None:
+            for k, v in inputs.items():
+                if any(not isinstance(p, Shard) and mesh.size(j) > 1
+                       for j, p in enumerate(v.placements)
+                       if names[j] in baxes):
+                    raise ValueError(f"input {k}: expert parallelism needs "
+                                     f"the batch split over {baxes}")
         mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
         have = {k: tree_map(lambda t: list(t.placements) if keep.get(k)
                             else rows(t), v) for k, v in cache.items()}
@@ -290,16 +326,22 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     cfg = get_config(arch)
     n_rows = math.prod(mesh.size(j) for j, a in enumerate(mesh.mesh_dim_names)
                        if a in data_axes(mesh))        # the batch shards
-    if cfg.family == "moe":
-        cfg = replace(cfg, moe_groups=n_rows)
-        if cfg.moe_impl == "ep":
-            from repro_torch.models.moe_ep import pad_experts
-            cfg = replace(cfg, moe_pad_experts=pad_experts(cfg, mesh))
     if remat is not None or extra_cfg:
         over = dict(extra_cfg or {})
         if remat is not None:
             over["remat"] = remat
         cfg = replace(cfg, **over)
+    # the grouped dispatch (a grouped-dispatch MoE's step, every MoE's
+    # unsharded semantic step) takes one group a batch shard, as the
+    # reference's; an expert-parallel step pads the experts to the world
+    grouped = cfg
+    if cfg.family == "moe":
+        if cfg.moe_impl == "ep":
+            from repro_torch.models.moe_ep import pad_experts
+            cfg = replace(cfg, moe_pad_experts=pad_experts(cfg, mesh))
+        grouped = replace(cfg, moe_groups=n_rows)
+        if cfg.moe_impl != "ep":
+            cfg = grouped
     shape = resolve_shape(shape_id)
     ok, why = cell_runnable(cfg, shape)
     if not ok:
@@ -314,20 +356,25 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), shapes)
     param_bytes = _tree_bytes(shapes)
     model = build_model(cfg, device=device)
-    params = shapes if on_meta else model.init(
+    # on a device the experts are drawn unpadded: a rank keeps its block
+    # of the padded stacks (``_place``), which whole would not fit a card
+    # (qwen2-moe-a2.7b's 60 experts padded to 256: 99 GB)
+    params = shapes if on_meta else build_model(
+        replace(cfg, moe_pad_experts=0), device=device).init(
         torch.Generator(device=device).manual_seed(seed))
     inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
     plan = tensor_parallel.mesh_plan(cfg, mesh, kind=kind,
-                                     seq_len=1 if kind == "decode" else S)
+                                     seq_len=1 if kind == "decode" else S,
+                                     rows=rows)
     common = dict(n_active=active_params(cfg), grad_accum=grad_accum,
                   rows=rows, chips=mesh.size(),
                   tp=None if plan is None else plan.record(
                       mesh.get_local_rank("model")))
 
     def meta_model():
-        return build_model(cfg, device="meta")
+        return build_model(grouped, device="meta")
 
     if kind == "train":
         opt = build_optimizer(opt_cfg)
@@ -344,7 +391,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
         opt_state = opt.init(shapes)
         specs = shd.to_named(mesh, shd.train_state_specs(
             {"params": shapes, "opt": opt_state}, opt_cfg.name, pspecs))
-        state = {"params": _place(params, specs["params"]),
+        state = {"params": _place(params, specs["params"], shapes),
                  "opt": _zeros_placed(opt_state, specs["opt"], device)}
 
         def semantic():
@@ -367,7 +414,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     cache, cspecs = shd.tp_cache(cfg, mesh, cache)
     bspecs = {k: shd.fit_spec(mesh, v, inputs[k].shape)
               for k, v in shd.batch_specs(cfg, mesh, inputs).items()}
-    placed = (_place(params, shd.to_named(mesh, pspecs)),
+    placed = (_place(params, shd.to_named(mesh, pspecs), shapes),
               _place(inputs, shd.to_named(mesh, bspecs)),
               _zeros_placed(cache, shd.to_named(mesh, cspecs), device))
 

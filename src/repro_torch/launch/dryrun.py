@@ -18,19 +18,21 @@ For each cell it records
     temporaries);
   * the roofline terms, the kernel-adjusted memory term and ``fits_h100``.
 
-The dense, vlm, ssm and hybrid families compute tensor-parallel along
-"model" (``distributed/tensor_parallel.py``); the record's ``"tp"`` is the
-plan (the attention's mode, "local", "kv_replicated", "q_seq" or
-"gathered", and its local heads, None without attention, the counted
-rank's index along "model" and its query rows, with
-``q_seq_heaviest_over_mean`` under "q_seq", the MLP local, gathered or
-None, the vocab local or whole, the residuals sequence-parallel or not,
-and for the ssm and hybrid families the mamba2 block's mode, "local" or
-"gathered", and its SSM heads a rank), None for the MoE and enc-dec
-families, whose step gathers each leaf whole, so the FLOPs the
-cards execute (the counted rank's times the chips, ``hlo_flops``) repeat
-their work along "model"; ``useful_fraction`` shows it, and the semantic
-count is kept beside it.
+The dense, vlm, ssm, hybrid and expert-parallel MoE families compute
+tensor-parallel along "model" (``distributed/tensor_parallel.py``); the
+record's ``"tp"`` is the plan (the attention's mode, "local",
+"kv_replicated", "q_seq" or "gathered", and its local heads, None without
+attention, the counted rank's index along "model" and its query rows, with
+``q_seq_heaviest_over_mean`` under "q_seq", the MLP (the MoE's shared
+experts) local, gathered or None, the vocab local or whole, the residuals
+sequence-parallel or not, for the ssm and hybrid families the mamba2
+block's mode, "local" or "gathered", and its SSM heads a rank, and for the
+MoE family the expert-parallel group ``ep``, the experts a rank
+``ep_experts`` and a rank's ``capacity``; the EP all-to-alls count as
+``coll_by_kind["all-to-all"]``), None for the enc-dec family, whose step
+gathers each leaf whole, so the FLOPs the cards execute (the counted
+rank's times the chips, ``hlo_flops``) repeat its work along "model";
+``useful_fraction`` shows it, and the semantic count is kept beside it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k

@@ -8,7 +8,8 @@ product over E, and each token gathers its k weighted results back. No
 (T, E, C) one-hot dispatch tensor is built. The expert-parallel configs
 (``moe_impl="ep"``) take ``moe_ep.moe_block_ep`` under an installed
 ``distributed.logical`` policy, and this path without one, as the
-reference does.
+reference does; the MoE LM under a tensor-parallel route takes
+``moe_ep.moe_block_tp``.
 """
 from __future__ import annotations
 

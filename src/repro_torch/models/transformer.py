@@ -36,6 +36,7 @@ from .ffn import (MLPParams, MoEParams, init_mlp, init_moe, moe_block,
                   swiglu)
 from .mamba2 import (Mamba2Params, MambaState, init_mamba2, init_mamba_state,
                      mamba2_block)
+from .moe_ep import moe_block_tp
 
 
 class DenseLayer(NamedTuple):
@@ -103,11 +104,12 @@ class DecoderLM:
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
-    def _tp(self, kind: str, seq_len: int):
+    def _tp(self, kind: str, seq_len: int, rows: int):
         """The ``tensor_parallel.Route`` of an installed policy (a family
         of ``tensor_parallel.TP_FAMILIES`` on a mesh with a ``"model"``
-        axis), else None."""
-        return tensor_parallel.route(self.cfg, kind=kind, seq_len=seq_len)
+        axis) for a step of ``rows`` rows, else None."""
+        return tensor_parallel.route(self.cfg, kind=kind, seq_len=seq_len,
+                                     rows=rows)
 
     def _trunk(self, params: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
         """Every layer without a cache, each through ``_remat``; under a
@@ -149,9 +151,9 @@ class DecoderLM:
             h = tp.head_input(h)
         return h @ params["lm_head"].to(self.cfg.compute_dtype)
 
-    def _routed(self, params: dict, kind: str, seq_len: int):
+    def _routed(self, params: dict, kind: str, seq_len: int, rows: int):
         """``_tp``, with the leaves checked against its plan."""
-        tp = self._tp(kind, seq_len)
+        tp = self._tp(kind, seq_len, rows)
         if tp is not None:
             tp.check(self.cfg, params)
         return tp
@@ -162,7 +164,8 @@ class DecoderLM:
         cfg = self.cfg
         patches = self._patches(batch)
         tp = self._routed(params, "train",
-                          tensor_parallel.residual_len(cfg, batch))
+                          tensor_parallel.residual_len(cfg, batch),
+                          batch["tokens"].shape[0])
         h = self._trunk(params, self._embed(params, batch["tokens"], patches,
                                             tp), *_routes(tp))
         if tp is not None:
@@ -180,14 +183,15 @@ class DecoderLM:
         advances by every position written. Under a route, the logits are
         this rank's vocab columns where the vocab is local."""
         tp = self._routed(params, "prefill",
-                          tensor_parallel.residual_len(self.cfg, batch))
+                          tensor_parallel.residual_len(self.cfg, batch),
+                          batch["tokens"].shape[0])
         h = self._embed(params, batch["tokens"], self._patches(batch), tp)
         h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
         return self._logits(params, h[:, -1:], tp), cache
 
     def decode(self, params: dict, tokens: torch.Tensor, cache: dict
                ) -> tuple[torch.Tensor, dict]:
-        tp = self._routed(params, "decode", 1)
+        tp = self._routed(params, "decode", 1, tokens.shape[0])
         h = self._embed(params, tokens, tp=tp)                 # (B,1,d)
         h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
         return self._logits(params, h, tp), cache
@@ -245,6 +249,12 @@ class DenseLM(DecoderLM):
         """The layer's feed-forward on its normed input."""
         return swiglu(lp.mlp, x, self.cfg.compute_dtype)
 
+    def _feed_forward(self, lp: DenseLayer, x: torch.Tensor, tp=None
+                      ) -> torch.Tensor:
+        """The feed-forward sublayer on its normed input; under a route in
+        its tensor-parallel form (``_mlp``)."""
+        return _mlp(tp, functools.partial(self._ffn, lp), x)
+
     def _layer(self, x: torch.Tensor, lp: DenseLayer, tp=None
                ) -> torch.Tensor:
         """One layer; under a route each sublayer in its tensor-parallel
@@ -257,8 +267,8 @@ class DenseLM(DecoderLM):
 
         x = x + _attention(tp, attn, lp.attn,
                            rmsnorm(x, lp.norm1, cfg.norm_eps))
-        return x + _mlp(tp, functools.partial(self._ffn, lp),
-                        rmsnorm(x, lp.norm2, cfg.norm_eps))
+        return x + self._feed_forward(lp, rmsnorm(x, lp.norm2, cfg.norm_eps),
+                                      tp)
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -290,8 +300,8 @@ class DenseLM(DecoderLM):
 
             h = h + _attention(tp, attn, lp.attn,
                                rmsnorm(h, lp.norm1, cfg.norm_eps))
-            h = h + _mlp(tp, functools.partial(self._ffn, lp),
-                         rmsnorm(h, lp.norm2, cfg.norm_eps))
+            h = h + self._feed_forward(
+                lp, rmsnorm(h, lp.norm2, cfg.norm_eps), tp)
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return h, {"k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}
@@ -314,7 +324,10 @@ class MoELayer(NamedTuple):
 class MoELM(DenseLM):
     """``DenseLM`` with a routed MoE block for every MLP. The loss adds
     ``AUX_WEIGHT`` times the mean over layers of the Switch auxiliary loss;
-    prefill and decode drop it, as the reference's cached trunk does."""
+    prefill and decode drop it, as the reference's cached trunk does.
+    Under a tensor-parallel route (an expert-parallel config on a mesh)
+    each layer's MoE block is ``moe_ep.moe_block_tp`` and its aux the
+    global one, the same on every rank."""
 
     AUX_WEIGHT = 0.01
     _layer_type = MoELayer
@@ -325,36 +338,57 @@ class MoELM(DenseLM):
         dtype (``init_moe``), so full width fits on the card."""
         return init_moe(generator, self.cfg, self.device, lead=lead)
 
-    def _ffn(self, lp: MoELayer, x: torch.Tensor) -> torch.Tensor:
-        return moe_block(lp.moe, x, self.cfg)[0]
+    def _moe(self, lp: MoELayer, x: torch.Tensor, tp=None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(the MoE sublayer's output on its normed input, its aux): under
+        a route in its expert- and tensor-parallel form."""
+        if tp is None:
+            return moe_block(lp.moe, x, self.cfg)
+        return moe_block_tp(lp.moe, x, self.cfg, tp)
 
-    def _layer(self, x: torch.Tensor, lp: MoELayer
+    def _feed_forward(self, lp: MoELayer, x: torch.Tensor, tp=None
+                      ) -> torch.Tensor:
+        return self._moe(lp, x, tp)[0]
+
+    def _layer(self, x: torch.Tensor, lp: MoELayer, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
-                               cfg, flash_attention=self.flash_attention)
-        x = x + a
-        m, aux = moe_block(lp.moe, rmsnorm(x, lp.norm2, cfg.norm_eps), cfg)
+
+        def attn(p, h, rows):
+            return attention_block(p, h, cfg, q_rows=rows,
+                                   flash_attention=self.flash_attention)[0]
+
+        x = x + _attention(tp, attn, lp.attn,
+                           rmsnorm(x, lp.norm1, cfg.norm_eps))
+        m, aux = self._moe(lp, rmsnorm(x, lp.norm2, cfg.norm_eps), tp)
         return x + m, aux
 
-    def _trunk(self, params: dict, h: torch.Tensor
+    def _trunk(self, params: dict, h: torch.Tensor, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """(normed h, mean aux over the layers); ``remat="block"``
-        checkpoints each layer with both outputs."""
-        cfg = self.cfg
+        checkpoints each layer with both outputs. Under a route the layers
+        get it as an argument, as ``DecoderLM._trunk``'s."""
+        layer = self._layer if tp is None else functools.partial(
+            self._layer, tp=tp)
         auxes = []
         for lp in unstack(params["layers"]):
-            h, aux = self._remat(self._layer, h, lp)
+            h, aux = self._remat(layer, h, lp)
             auxes.append(aux)
-        return (rmsnorm(h, params["final_norm"], cfg.norm_eps),
+        return (rmsnorm(h, params["final_norm"], self.cfg.norm_eps),
                 torch.stack(auxes).mean())
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
-        cfg = self.cfg
-        h, aux = self._trunk(params, self._embed(params, batch["tokens"]))
-        logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        return cross_entropy(logits, batch["labels"],
-                             batch.get("loss_mask")) + self.AUX_WEIGHT * aux
+        """Mean next-token NLL plus ``AUX_WEIGHT`` times the layers' mean
+        aux; under a route the NLL vocab-parallel where the vocab is
+        local."""
+        tokens = batch["tokens"]
+        tp = self._routed(params, "train", tokens.shape[1], tokens.shape[0])
+        h, aux = self._trunk(params, self._embed(params, tokens, tp=tp),
+                             *_routes(tp))
+        vocab_tp = tp if tp is not None and tp.plan.vocab_local else None
+        return cross_entropy(self._logits(params, h, tp), batch["labels"],
+                             batch.get("loss_mask"), tp=vocab_tp
+                             ) + self.AUX_WEIGHT * aux
 
 
 # ===========================================================================

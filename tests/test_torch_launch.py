@@ -6,8 +6,8 @@ The 40-cell table, ``input_specs`` and ``cache_specs`` are compared entry
 for entry (exact: shapes, dtypes and skip reasons are data). The dry run
 itself runs in subprocesses, each with its own time limit: a fake world
 of 16 ranks on an (8, 2) mesh counts reduced smollm-135m's train and
-decode cells, and the CLI writes the table's skip and the port's refusal
-of an MoE train cell over several batch ranks.
+decode cells, and the CLI writes the table's skip and counts an
+expert-parallel MoE train cell over several batch ranks.
 """
 import dataclasses
 import json
@@ -267,8 +267,12 @@ def test_dryrun_extends_microbatches_exactly(dryrun_records):
 
 def test_dryrun_cli_skips_and_refuses(tmp_path):
     """A dense long_500k cell: ``skipped`` with the reference's reason. A
-    reduced MoE train cell on 8 data ranks: ``error`` with
-    ``shard_train_step``'s refusal."""
+    reduced expert-parallel MoE train cell on 8 data ranks (the batch over
+    all of them, which ``shard_train_step`` refused before it trained the
+    MoE family by expert parallelism): counted, its plan recorded, and its
+    all-to-all bytes those of the buffers ``moe_ep.expert_parallel``
+    sends, E_pad x C x d each: the tokens out and the results back in the
+    forward, their gradients in the backward, each layer."""
     run_python("""
         import sys
         from repro_torch.launch import dryrun
@@ -290,19 +294,28 @@ def test_dryrun_cli_skips_and_refuses(tmp_path):
                 with fake_world(8):
                     mesh = init_device_mesh("cpu", (8, 1),
                                             mesh_dim_names=("data", "model"))
+                    over = reduced(arch)
+                    del over["moe_impl"]          # expert-parallel
                     return dryrun.count_cell(
                         arch, ShapeCell(shape_id, "train", 64, 16), mesh,
-                        mesh_name="8x1", extra_cfg=reduced(arch))
+                        mesh_name="8x1", extra_cfg=over)
             dryrun.run_cell = small
             sys.exit(dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape",
                                   "train_4k"]))
         """)], cwd=tmp_path, capture_output=True, text=True,
         timeout=SUBPROCESS_S,
         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
-    assert out.returncode == 1, out.stderr[-4000:]
+    assert out.returncode == 0, out.stderr[-4000:]
     with open(tmp_path / "experiments/dryrun_torch/"
               "qwen2-moe-a2.7b__train_4k__pod16x16.json") as f:
         r = json.load(f)
-    assert r["status"] == "error"
-    assert r["error"] == ("NotImplementedError: the MoE auxiliary loss over "
-                          "a batch split across ranks")
+    from repro_torch.distributed.tensor_parallel import ep_capacity
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              moe_impl="ep")
+    rows, e_pad = 16 // 8, 8                 # 4 experts padded to 8 ranks
+    capacity = ep_capacity(rows * 64, cfg)   # one rank along "model"
+    assert r["status"] == "ok" and r["chips"] == 8
+    assert (r["tp"]["ep"], r["tp"]["ep_experts"], r["tp"]["capacity"]) == (
+        8, 1, capacity)
+    buffer = e_pad * capacity * cfg.d_model * 4       # fp32
+    assert r["coll_by_kind"]["all-to-all"] == 8 * cfg.n_layers * 4 * buffer

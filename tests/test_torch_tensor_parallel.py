@@ -579,7 +579,10 @@ def test_attention_rows_are_rows_of_the_whole(cached):
 def test_route_only_for_tp_families_under_a_policy(arch):
     """No policy: no route for any family. Under a policy on a mesh with
     a ``"model"`` axis, a route for the dense, vlm, ssm and hybrid
-    families alone (not MoE or enc-dec)."""
+    families and the expert-parallel MoE configs (qwen2-moe-a2.7b; not a
+    grouped-dispatch MoE, not enc-dec)."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.distributed import logical, tensor_parallel
 
@@ -589,12 +592,19 @@ def test_route_only_for_tp_families_under_a_policy(arch):
         def get_group(self, name):
             return _Group()
 
+        def size(self):
+            return 1
+
     cfg = get_config(arch)
     assert tensor_parallel.route(cfg, kind="train", seq_len=8) is None
     with logical.policy(Mesh()):
-        r = tensor_parallel.route(cfg, kind="train", seq_len=8)
+        r = tensor_parallel.route(cfg, kind="train", seq_len=8, rows=2)
         assert (r is not None) == (cfg.family in ("dense", "vlm", "ssm",
-                                                  "hybrid"))
+                                                  "hybrid", "moe"))
+        if cfg.family == "moe":
+            assert r.plan.ep == 1 and r.plan.capacity is not None
+            assert tensor_parallel.route(replace(cfg, moe_impl="gspmd"),
+                                         kind="train", seq_len=8) is None
     assert logical.model_group() is None
 
 
