@@ -18,9 +18,17 @@ Phases, each fatal on failure (nothing is caught):
      group of 7) and whisper-tiny (6/6, hd 64, S 448), and at the head dims
      of phi3-mini (96) and kimi-k2 (112)
      (B 8, S 2048; lengths 0, 1, S and past S among them), fp32 at 1e-4 and
-     bf16 at 2e-2, repeated calls bit-identical, and times kernel, plain
-     version and a library call (with the split plan, the achieved GB/s
-     and the kernel on a head-major copy of the cache); and at zamba2's
+     bf16 at 2e-2, repeated calls bit-identical, the call with
+     ``return_lse`` (its fp32 output and log-sum-exp, -inf at length 0)
+     against the plain version's too, and times kernel, plain version, a
+     library call and the ``return_lse`` call beside the served one (with
+     the split plan, the achieved GB/s and the kernel on a head-major copy
+     of the cache); the tensor-parallel "kv_seq" split of
+     llava-next-34b x ``decode_32k`` emulated on the card: 16 calls on
+     blocks of 2048 positions of one cache of 32768 (B 8, 56/8, hd 128;
+     fp32 and bf16), merged by the route's merge
+     (``ref.merge_attention_partials``) against one whole call, and one
+     rank's call timed (``[kernel] decode_attention kv_seq split``); and at zamba2's
      ``long_500k`` cell (S 524288, 32/32, hd 80: checked at B 3 with
      lengths 0, S and a ragged one, timed at B 1 with its split plan);
   4. serves 16 requests at the full width of smollm-135m in bf16 through
@@ -238,7 +246,7 @@ Phases, each fatal on failure (nothing is caught):
      (c)'s kernel checks and (b))
      for llava-next-34b x ``train_4k`` on both
      production meshes, mamba2-1.3b x ``train_4k``, kimi-k2-1t-a32b x
-     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s nine
+     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s ten
      cells on (c)'s ranks, a ``[dryrun]`` line each with its
      tensor-parallel plan
      (the other cells are counted on the CPU: ``--all`` and
@@ -253,12 +261,12 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of nine
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of ten
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
      a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
      9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24), each
      decode cell 3 steps (32 ``decode_attention`` launches a step; zamba2
-     9, qwen2-moe 24):
+     9, qwen2-moe 24, llava-next-34b 60):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
      "local"), llama-3.1-8b x ``train_4k`` and x ``decode_32k``
      ("kv_replicated": 2 query heads on one KV head a rank, the rank's KV
@@ -269,7 +277,10 @@ Phases, each fatal on failure (nothing is caught):
      conv channels) and qwen2-moe-a2.7b x ``train_4k`` and x
      ``decode_32k`` (1/1 heads and 352 of the shared experts' 5632
      columns "local", one of the 256 padded experts a rank, its block of
-     tokens sent by all-to-all), built by ``build_cell`` on the card in a
+     tokens sent by all-to-all) and llava-next-34b x ``decode_32k``
+     ("kv_seq": all 56/8 heads on the rank's 2048 of the cache's 32768
+     positions, its partials merged across the ranks; 60
+     ``decode_attention`` launches a step), built by ``build_cell`` on the card in a
      fake world
      of 256 ranks on the (16, 16) mesh (the collectives move no data, so
      no value is checked), a ``[launch] tp`` line each beside the dry run
@@ -504,6 +515,93 @@ def log_dynamic_smem(build) -> None:
 
 
 # --------------------------------------------------------------- phase 3 --
+# the log-sum-exp of the ``return_lse`` call against the plain version's:
+# both in fp32 from the same inputs, the kernel's in log2 units (exp2 of
+# pre-scaled scores) then M ln 2 + ln(den), so they differ by sums in
+# another order (an H100 run: 9.5e-7 at most on values near 8, at
+# smollm-135m's and llava-next-34b's shapes and merged over 16 blocks)
+LSE_TOL = 1e-4
+
+
+def lse_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of a log-sum-exp where finite; raises unless -inf
+    sits at the same places (length 0) and the rest is within
+    ``LSE_TOL``."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)) or \
+            not torch.all(got[torch.isinf(got)] < 0):
+        raise AssertionError("the log-sum-exp's -inf (length 0) differs")
+    fin = torch.isfinite(want)
+    return max_err(got[fin], want[fin], LSE_TOL)
+
+
+def check_kv_seq_split(m=16, S=32768, B=8, L=8):
+    """The "kv_seq" decode of llava-next-34b x ``decode_32k`` emulated on
+    one card: m calls with ``return_lse`` on m blocks of S / m positions
+    of one cache (B 8, 56/8 heads, hd 128), each with its own lengths, as
+    m ranks along ``"model"`` run it, merged in rank order by the route's
+    merge (``ref.merge_attention_partials``) against one whole call: the
+    output within phase 3's bounds (fp32 and bf16) and the merged
+    log-sum-exp within ``LSE_TOL``. Lengths 0, 1, a block's end and one
+    past it, S, past S and ragged ones. Then one rank's call (S / m
+    positions, every slot full, as rank 0's in phase 23's share) timed
+    over L layers, served and with ``return_lse``, with its bound."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    dev = torch.device(DEV)
+    Hq, Hkv, hd, n = 56, 8, 128, S // m
+    lengths = torch.tensor([0, 1, n, n + 1, S, S + 5, 20001, 4097],
+                           dtype=torch.int32, device=dev)[:B]
+    row = {"shape": "llava-next-34b kv_seq split", "ranks": m, "B": B,
+           "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "positions_a_rank": n,
+           "lengths": lengths.tolist()}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(dtype)
+        kv = torch.randn((2, B, S, Hkv, hd), generator=gen, device=dev
+                         ).to(dtype)
+        parts = [dk.decode_attention(
+            q, kv[0][:, r * n:(r + 1) * n], kv[1][:, r * n:(r + 1) * n],
+            (lengths - r * n).clamp(0, n).to(torch.int32), return_lse=True)
+            for r in range(m)]
+        outs = torch.stack([o for o, _ in parts])
+        lses = torch.stack([lse for _, lse in parts])
+        merged = ref.merge_attention_partials(outs, lses)
+        whole, whole_lse = dk.decode_attention(q, kv[0], kv[1], lengths,
+                                               return_lse=True)
+        torch.cuda.synchronize()
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        row[f"merged_max_abs_err_{name}"] = max_err(merged, whole,
+                                                    TOL[dtype])
+        row[f"merged_lse_max_abs_err_{name}"] = lse_err(
+            torch.logsumexp(lses, dim=0), whole_lse)
+        if not torch.all(merged[0] == 0):
+            raise AssertionError("length 0 must merge to zeros")
+        del q, kv, parts, outs, lses, merged, whole, whole_lse
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q = torch.randn((L, B, Hq, hd), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn((L, B, n, Hkv, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    full = torch.full((B,), n, dtype=torch.int32, device=dev)
+    row["rank_ms"] = device_ms(
+        lambda i: dk.decode_attention(q[i % L], k[i % L], v[i % L], full),
+        3 * L)
+    row["rank_lse_ms"] = device_ms(
+        lambda i: dk.decode_attention(q[i % L], k[i % L], v[i % L], full,
+                                      return_lse=True), 3 * L)
+    # the return_lse call's bytes: K/V and q read, fp32 output and lse
+    nbytes = 2 * B * n * Hkv * hd * 2 + B * Hq * hd * (2 + 4) + 4 * B * Hq
+    flops = 4 * B * n * Hq * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    row.update(rank_bound_ms=max(bytes_ms, ops_ms),
+               rank_bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"[kernel] decode_attention kv_seq split {json.dumps(row)}")
+    return row
+
+
 def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
                                     lengths=None, timed_lengths=None):
     """Kernel against plain on the card in fp32 and bf16, then timings in
@@ -529,22 +627,35 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
         kv = torch.randn((2, B, S, Hkv, hd), generator=gen, device=dev
                          ).to(dtype)
         got = decode_attention(q, kv[0], kv[1], lens)
+        got32, got_lse = decode_attention(q, kv[0], kv[1], lens,
+                                          return_lse=True)
         torch.cuda.synchronize()
-        want = ref.decode_attention_ref(q, kv[0], kv[1], lens)
+        want32, want_lse = ref.decode_attention_ref(q, kv[0], kv[1], lens,
+                                                    return_lse=True)
         torch.cuda.synchronize()
-        errs[dtype] = max_err(got, want, TOL[dtype])
-        if not torch.all(got[0] == 0):
+        errs[dtype] = max_err(got, want32.to(dtype), TOL[dtype])
+        errs[f"fp32_out_{dtype}"] = max_err(got32, want32, TOL[dtype])
+        errs[f"lse_{dtype}"] = lse_err(got_lse, want_lse)
+        if not (torch.all(got[0] == 0) and torch.all(got32[0] == 0)):
             raise AssertionError("length 0 must give zeros")
+        if not torch.equal(got32.to(dtype), got):
+            raise AssertionError("the served output is not the lse call's "
+                                 "fp32 output rounded")
         for _ in range(2):
             if not torch.equal(decode_attention(q, kv[0], kv[1], lens), got):
                 raise AssertionError("repeated decode_attention calls differ")
-        del q, kv, got, want
+        del q, kv, got, got32, got_lse, want32, want_lse
     splits, tps = dk.split_plan(B, Hkv, S, dk._sm_count(dev))
     row = {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
            "splits": splits, "tiles_per_split": tps,
            "lengths": lengths.tolist(),
            "max_abs_err_fp32": errs[torch.float32],
-           "max_abs_err_bf16": errs[torch.bfloat16]}
+           "max_abs_err_bf16": errs[torch.bfloat16],
+           "lse_call_max_abs_err": {
+               "out_fp32": errs[f"fp32_out_{torch.float32}"],
+               "out_bf16": errs[f"fp32_out_{torch.bfloat16}"],
+               "lse_fp32": errs[f"lse_{torch.float32}"],
+               "lse_bf16": errs[f"lse_{torch.bfloat16}"]}}
     if not L:
         log(f"[kernel] decode_attention check {json.dumps(row)}")
         return row
@@ -567,6 +678,8 @@ def check_and_time_decode_attention(name, Hq, Hkv, hd, L, rng, B=B, S=S,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     calls = {
         "": lambda i: decode_attention(q[i % L], k[i % L], v[i % L], lens),
+        "lse_": lambda i: decode_attention(q[i % L], k[i % L], v[i % L],
+                                           lens, return_lse=True),
         "plain_": lambda i: ref.decode_attention_ref(q[i % L], k[i % L],
                                                      v[i % L], lens),
         "library_": lambda i: sdpa(q[i % L][:, :, None],
@@ -3604,8 +3717,11 @@ def distributed_phase(smollm, qwen, mamba
 # model 15, the rank with the most attention), zamba2-2.7b (its shared
 # block's heads and its SSM heads "local") and qwen2-moe-a2.7b (heads and
 # shared experts "local", one of the 256 padded experts a rank, its tokens
-# by all-to-all over the fake world); kimi-k2-1t-a32b x train_4k is dry-run
-# alone (its share does not fit the card by the dry run)
+# by all-to-all over the fake world) and llava-next-34b x decode_32k
+# ("kv_seq": the cache split over its positions, the ranks' decode
+# partials merged; before it the share did not fit the card); kimi-k2-1t-
+# a32b x train_4k is dry-run alone (its share does not fit the card by the
+# dry run)
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
@@ -3614,7 +3730,8 @@ TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("zamba2-2.7b", "train_4k", 0),
             ("zamba2-2.7b", "decode_32k", 0),
             ("qwen2-moe-a2.7b", "train_4k", 0),
-            ("qwen2-moe-a2.7b", "decode_32k", 0)]
+            ("qwen2-moe-a2.7b", "decode_32k", 0),
+            ("llava-next-34b", "decode_32k", 0)]
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
@@ -3833,33 +3950,42 @@ def local_tree(tree):
     return tree_map(lambda t: t.to_local(), tree)
 
 
-def busy_ms(prof) -> float:
+def busy_ms(prof, top: list | None = None) -> float:
     """Device busy ms of a profile: the summed durations of its events on
     the card (kernels, copies, sets; not the ranges of user annotations),
     read from the raw trace. ``device_kernels`` builds the profiler's
     event tree first: with it phase 23 (b) took 132.8 s and a train share
     of (c) 17.5 to 26.6 s, without it 48.6 s and 4.9 to 7.7 s (H100
-    runs)."""
+    runs). ``top``: a list that gets the five event names with the most
+    device ms, each [name, events, ms]."""
     cuda = torch.autograd.DeviceType.CUDA
 
     def flag(e, name):
         return getattr(e, name, lambda: False)()
 
-    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda
-               and not flag(e, "is_user_annotation")
-               and not flag(e, "is_hidden_event")) / 1e6
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and not flag(e, "is_user_annotation") \
+                and not flag(e, "is_hidden_event"):
+            row = by_name.setdefault(e.name()[:60], [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+    if top is not None:
+        top.extend([name, n, ns / 1e6] for name, (n, ns) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])[:5])
+    return sum(ns for _, ns in by_name.values()) / 1e6
 
 
-def profiled_step_ms(fn) -> float:
-    """Device busy ms of one ``fn()`` under the profiler (no warm-up)."""
+def profiled_step_ms(fn, top: list | None = None) -> float:
+    """Device busy ms of one ``fn()`` under the profiler (no warm-up);
+    ``top`` as ``busy_ms``'s."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return busy_ms(prof)
+    return busy_ms(prof, top)
 
 
 def predicted_against_measured(pred: dict, measured: dict) -> dict:
@@ -4120,10 +4246,11 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
     and backward (2 x SSM layers, and SSM layers), a decode step's
     ``decode_attention`` (attention layers). Prints a ``[launch] tp``
     line: the plan, its local heads, SSM mode and SSM heads and the rank's
-    query rows, the card's peak beside the dry run's ``bytes_per_device``
-    of the same cell and rank (failing above ``PEAK_MARGIN``), host ms and
-    device busy ms. Returns the decode, flash (forward, backward) and scan
-    (forward, backward) launches."""
+    query rows (its cache positions under "kv_seq"), the card's peak
+    beside the dry run's ``bytes_per_device`` of the same cell and rank
+    (failing above ``PEAK_MARGIN``), host ms and device busy ms (a decode
+    step's five costliest device events too). Returns the decode, flash
+    (forward, backward) and scan (forward, backward) launches."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.build import build_cell
@@ -4150,6 +4277,7 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
         launch_counts(reset=True)
         flash_launches(reset=True)
         scan_launches(reset=True)
+        top = []                # a decode step's costliest device events
         with counting_routes() as plans:
             if cell.kind == "train":
                 state, batch = args
@@ -4185,7 +4313,8 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                 per = (launch_counts()["decode_attention"]
                        / TP_DECODE_STEPS,)
                 want = (attn,)
-                busy = profiled_step_ms(lambda: step(params, inputs, cache))
+                busy = profiled_step_ms(lambda: step(params, inputs, cache),
+                                        top)
         peak = torch.cuda.max_memory_allocated() - base
         launches = (launch_counts()["decode_attention"], *flash_launches(),
                     *scan_launches())
@@ -4197,7 +4326,8 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "local_heads": cell.tp["local_heads"],
                "ssm": cell.tp.get("ssm"),
                "ssm_heads": cell.tp.get("ssm_heads"),
-               "q_rows": cell.tp["q_rows"], "routes": len(plans),
+               "q_rows": cell.tp["q_rows"],
+               "kv_rows": cell.tp.get("kv_rows"), "routes": len(plans),
                "values_checked": False,
                "launches_a_step": list(per),
                "logits": None if out is None else list(out.shape),
@@ -4206,6 +4336,7 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "peak_over_predicted": peak / pred["bytes_per_device"],
                "peak_margin": PEAK_MARGIN,
                "host_ms": host, "device_busy_ms": busy,
+               "top_device_ms": top,
                "seconds": time.perf_counter() - started}
         log(f"[launch] tp {json.dumps(row)}")
         require_device_time(f"[launch] tp {arch} x {shape}", {"step": busy})
@@ -4351,6 +4482,7 @@ def main() -> int:
         1, rng, B=3, S=LONG_S, lengths=[0, LONG_S, 300001],
         timed_lengths=[LONG_S])
     torch.cuda.empty_cache()
+    check_kv_seq_split()
     mark("phases 1 to 3")
 
     model, params, reqs, records, counts = serve_full_width(smollm, rng)

@@ -50,8 +50,8 @@ def main() -> int:
                                      B * Hkv)
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, Hq,
-                 Hkv, S, hd, 1, splits, tps, q.stride(0), q.stride(1),
+                 out.data_ptr(), None, ws.data_ptr(), counters.data_ptr(), B,
+                 Hq, Hkv, S, hd, 1, splits, tps, q.stride(0), q.stride(1),
                  k.stride(0), k.stride(1), k.stride(2), v.stride(0),
                  v.stride(1), v.stride(2), 1.0 / hd ** 0.5,
                  torch.cuda.current_stream().cuda_stream)

@@ -4,6 +4,7 @@ or another's, device ms from CUDA-graph replays:
 
     python3 scripts/kernel_sweep.py flash [--hd 80 128] [--src OTHER/src]
     python3 scripts/kernel_sweep.py scan-bwd [--src OTHER/src]
+    python3 scripts/kernel_sweep.py decode [--src OTHER/src]
 
 ``flash``: the flash kernels' forward and backward beside SDPA at each
 bf16 head dim and at fp32 hd 64, the shapes of ``chip_smoke.ROUTE_SHAPES``
@@ -12,6 +13,11 @@ route timing`` JSON line a shape. ``scan-bwd``: the SSD scan's backward,
 each of its passes by kernel name and the plain version at mamba2-1.3b's
 training shape, as phase 21 times it (the passes' kernels keep their
 names from PR 22 on); one ``[kernel] ssd_scan backward timing`` line.
+``decode``: the served ``decode_attention`` call (no log-sum-exp) at
+phase 3's shapes and lengths of smollm-135m and llava-next-34b (B 8, S
+2048, bf16, over the models' layers of cache), through the wrapper's
+served signature alone, so any checkout's kernel times alike; one
+``[kernel] decode_attention served timing`` line a shape.
 
 With ``--src`` the kernels and their wrappers come from another checkout's
 ``src`` (built into that checkout's ``build/``), so that two versions are
@@ -22,14 +28,49 @@ spills of the kernels built; exits 1 without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = {"flash": "flash_attention", "scan-bwd": "ssd_scan"}
+KERNELS = {"flash": "flash_attention", "scan-bwd": "ssd_scan",
+           "decode": "decode_attention"}
+
+
+def time_served_decode(smoke) -> None:
+    """The served decode call as ``chip_smoke`` phase 3 times it: the
+    lengths phase 3 draws first (0, 1, S, past S and four from its seed),
+    q, K and V drawn from ``SEED + 1`` in fp32 and cast to bf16, device ms
+    of CUDA-graph replays over the model's layers of cache."""
+    from repro_torch.kernels import decode_attention as dk
+    dev = torch.device("cuda")
+    B, S = smoke.B, smoke.S
+    rng = np.random.default_rng(smoke.SEED)
+    lengths = np.concatenate([[0, 1, S, S + 5],
+                              rng.integers(8, 1533, B - 4)]).astype(np.int32)
+    lens = torch.from_numpy(lengths).to(dev)
+    for name, Hq, Hkv, hd, L in (("smollm-135m", 9, 3, 64, 30),
+                                 ("llava-next-34b", 56, 8, 128, 60)):
+        gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
+        q = torch.randn((L, B, Hq, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k = torch.randn((L, B, S, Hkv, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        v = torch.randn((L, B, S, Hkv, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        ms = smoke.device_ms(
+            lambda i: dk.decode_attention(q[i % L], k[i % L], v[i % L], lens),
+            3 * L)
+        print("[kernel] decode_attention served timing " + json.dumps(
+            {"shape": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+             "layers": L, "lengths": lengths.tolist(), "ms": ms}),
+            flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -62,6 +103,8 @@ def main(argv=None) -> int:
         for dtype, shape in chip_smoke.ROUTE_SHAPES:
             if not args.hd or shape[6] in args.hd:
                 chip_smoke.time_flash_route(dtype, shape)
+    elif args.what == "decode":
+        time_served_decode(chip_smoke)
     else:
         chip_smoke.time_ssd_scan_bwd()
     return 0

@@ -20,7 +20,7 @@ tree out by them, and ``shard_train_step`` trains on the placed state.
 Every leaf is gathered along the data axes for the step (FSDP), but the
 expert-parallel MoE stacks. Along ``"model"`` the dense, vlm, ssm, hybrid
 and expert-parallel MoE families compute tensor-parallel
-(``tensor_parallel.plan``: attention in one of its four modes, ``d_ff``
+(``tensor_parallel.plan``: attention in one of its five modes, ``d_ff``
 (the MoE's shared experts), the SSM heads and vocab local to a rank where
 m divides them, the routed experts by expert parallelism over every axis,
 ``tp_layouts`` the leaves' layouts for it); the enc-dec family and a
@@ -38,6 +38,22 @@ kernel that takes whole heads without an all-to-all each step. So a rank
 holds 1/Hkv of the cache's heads where the reference holds 1/m of its
 ``head_dim``: m / Hkv times the reference's bytes a rank (twice for
 llama-3.1-8b and llama-3.2-1b, 8 KV heads, at m = 16).
+
+A serve cell's KV cache where the decode plan is "kv_seq" (the dense and
+vlm families, m dividing neither the query heads nor, with the KV heads
+dividing m, leaving them whole, and m dividing the cache's positions S:
+minitron-4b, llava-next-34b and the smollms at m = 16) is split over its
+positions, ``tp_cache``: the spec ``P(None, batch, "model", None, None)``,
+so rank r holds positions ``[r S/m, (r+1) S/m)`` of every KV head, whole
+in ``head_dim``, (B/data, S/m, Hkv, hd) a layer, and decode runs
+``decode_attention`` on them and merges the ranks' partials by their
+log-sum-exp. The reference's spec shards ``head_dim`` there (``_kv_spec``:
+Hkv < m): the same bytes a rank, 1/m of the cache, split by position, not
+by ``head_dim``, so the kernel keeps whole heads and RoPE's pairs (i, i +
+hd/2) stay on one rank, and the ranks exchange a (B, Hq, hd + 1) fp32
+partial a layer where a ``head_dim`` split would all-reduce the (B, Hq,
+S) scores. The cache's layout follows the decode plan for the same S
+whatever step writes it, a prefill too.
 
 A serve cell's mamba2 conv tail where the SSM heads are local (m divides
 them) is the port's own layout too, ``tp_cache``: (..., B, K-1, m (din/m +
@@ -281,17 +297,25 @@ def cache_specs(cfg: ArchConfig, mesh):
 def tp_cache(cfg: ArchConfig, mesh, cache: dict) -> tuple[dict, dict]:
     """A serve cell's cache tree (``model.init_cache``'s) and its fitted
     spec tree on ``mesh``: ``cache_specs``'s, except where the
-    tensor-parallel plan is "kv_replicated", whose K and V become (L, B,
-    S, m, hd), each KV head repeated for the m / Hkv ranks that attend
-    with it, the head dim sharded along ``"model"``, and where the SSM
+    tensor-parallel decode plan is "kv_replicated", whose K and V become
+    (L, B, S, m, hd), each KV head repeated for the m / Hkv ranks that
+    attend with it, the head dim sharded along ``"model"``, where it is
+    "kv_seq", whose K and V are sharded on their positions along
+    ``"model"`` (every head whole), and where the SSM
     heads are local, whose conv tail becomes (..., B, K-1, m (din/m +
     2N)), each rank's x channels then B and C (``ssm_tail_layout``), the
     last axis sharded along ``"model"`` (the module's docstring says
     why)."""
     specs = fit_tree(mesh, cache_specs(cfg, mesh), cache)
-    plan = tensor_parallel.mesh_plan(cfg, mesh, kind="decode", seq_len=1)
+    plan = tensor_parallel.mesh_plan(
+        cfg, mesh, kind="decode", seq_len=1,
+        cache_len=cache["k"].shape[2] if "k" in cache else None)
     if plan is None:
         return cache, specs
+    if plan.heads == "kv_seq":
+        spec = fit_spec(mesh, P(None, batch_axes(mesh), "model", None, None),
+                        cache["k"].shape)
+        specs = {**specs, "k": spec, "v": spec}
     if plan.heads == "kv_replicated":
         kv = {k: cache[k].repeat_interleave(plan.kv_share, dim=3)
               for k in ("k", "v")}

@@ -7,7 +7,7 @@ the reference's ``DenseLM``, ``MambaLM``, ``HybridLM`` and ``MoELM`` under
 
 ``plan`` derives, from the config and the ``"model"`` axis size m, what a
 rank computes locally:
-  * attention, in one of four modes (``Plan.heads``):
+  * attention, in one of five modes (``Plan.heads``):
     - ``"local"``, where m divides both head counts: ``wq``/``wk``/``wv``
       column-parallel, ``wo`` row-parallel, the rank's KV cache heads
       local;
@@ -33,7 +33,21 @@ rank computes locally:
       ``[a, b)``, then the rows all-gathered (forward only). The rows are
       contiguous, so the last rank does (2m - 1)/m times the mean rank's
       attention work (1.94 at m = 16);
-    - ``"gathered"`` otherwise (decode where neither of the first two
+    - ``"kv_seq"``, a decode step of the dense and vlm families where
+      neither of the first two holds and m divides the cache's positions
+      S: rank r holds positions ``[r S/m, (r+1) S/m)`` of every KV head,
+      whole in ``head_dim`` (``Plan.kv_rows``; ``sharding.tp_cache``).
+      Every rank computes q, k and v of the new token from whole weights,
+      the rank that owns the written row writes it, each rank runs
+      ``decode_attention`` with every query head over its positions and
+      returns its log-sum-exp, the ranks' (output, lse) partials are
+      all-gathered along ``"model"`` and merged in rank order on every
+      rank (``KVSplit.merge``), and ``wo`` runs whole on the merged
+      output. The cache's layout follows this decode plan for the same S
+      whatever step writes it: a "q_seq" or "gathered" prefill of such a
+      config computes K/V over every row, writes the rows the rank owns
+      and attends over the fresh K/V (``Plan.cache_len``);
+    - ``"gathered"`` otherwise (decode where none of the first three
       holds, T not divisible by m): every rank computes the sublayer whole
       and keeps its slice;
   * the MLP, when m divides ``d_ff``: ``w_gate``/``w_up`` column-parallel,
@@ -88,7 +102,8 @@ computes on plain local tensors and calls the route at the sublayer
 boundaries; the collectives are ``torch.autograd.Function`` pairs over the
 functional collectives (Megatron's f and g, and the all-gather and
 reduce-scatter along the sequence; EP's all-to-all, whose backward is the
-same all-to-all, and the aux's all-reduce). Over a group of one rank, or
+same all-to-all, and the aux's all-reduce), and the forward-only
+all-gather of the "kv_seq" decode partials. Over a group of one rank, or
 with no route, each of the first four is the identity. Nothing here
 imports the models.
 """
@@ -98,6 +113,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ref import merge_attention_partials
 
 from . import logical
 
@@ -115,11 +132,15 @@ _c10d = torch.ops._c10d_functional
 class Plan:
     """What one rank of a ``"model"`` axis of size ``model`` holds and
     computes for a step whose residual stream is ``seq_len`` long;
-    ``heads`` is the attention's mode ("local", "kv_replicated", "q_seq"
-    or "gathered", the module's docstring says which; None without
-    attention), ``local_heads`` the (query, KV) heads a rank attends with,
-    ``kv_share`` the ranks that share one KV head ("kv_replicated"; 1
-    else), ``mlp_local`` None without an MLP; ``ssm`` the mamba2 block's
+    ``heads`` is the attention's mode ("local", "kv_replicated", "q_seq",
+    "kv_seq" or "gathered", the module's docstring says which; None
+    without attention), ``local_heads`` the (query, KV) heads a rank
+    attends with, ``kv_share`` the ranks that share one KV head
+    ("kv_replicated"; 1 else), ``cache_len`` the cache's positions S where
+    the KV cache is split over its positions along ``"model"`` (the decode
+    plan for S is "kv_seq"; a prefill's plan carries it too, since it
+    writes that layout), else None, ``mlp_local`` None without an MLP;
+    ``ssm`` the mamba2 block's
     mode ("local" or "gathered"; None without one) and ``ssm_heads`` the
     SSM heads a rank computes; for the MoE family ``ep`` the expert-
     parallel group's size (the world), ``ep_experts`` the experts a rank
@@ -135,6 +156,7 @@ class Plan:
     kv_share: int
     ssm: str | None = None
     ssm_heads: int | None = None
+    cache_len: int | None = None
     ep: int | None = None
     ep_experts: int | None = None
     capacity: int | None = None
@@ -153,10 +175,21 @@ class Plan:
         n = self.seq_len // self.model
         return rank * n, (rank + 1) * n
 
+    def kv_rows(self, rank: int) -> tuple[int, int] | None:
+        """The cache positions [r S/m, (r+1) S/m) that the ``"model"``
+        rank ``rank`` holds where the cache is split over its positions
+        (``cache_len`` set), else None (the cache's every position)."""
+        if self.cache_len is None:
+            return None
+        n = self.cache_len // self.model
+        return rank * n, (rank + 1) * n
+
     def record(self, model_rank: int | None = None) -> dict:
         """The plan as the dry run writes it; with ``model_rank``, that
         rank's query rows too, and under "q_seq" the last rank's attention
-        work over the mean rank's."""
+        work over the mean rank's. Where the cache is split over its
+        positions, its ``cache_len`` and, with ``model_rank``, the rank's
+        ``kv_rows``."""
         mlp = (None if self.mlp_local is None else
                "local" if self.mlp_local else "gathered")
         out = {"model": self.model, "heads": self.heads,
@@ -169,6 +202,8 @@ class Plan:
         if self.ep is not None:
             out.update(ep=self.ep, ep_experts=self.ep_experts,
                        capacity=self.capacity)
+        if self.cache_len is not None:
+            out["cache_len"] = self.cache_len
         if model_rank is not None:
             rows = self.q_rows(model_rank)
             out.update(model_rank=model_rank,
@@ -176,6 +211,8 @@ class Plan:
             if rows is not None:
                 out["q_seq_heaviest_over_mean"] = \
                     (2 * self.model - 1) / self.model
+            if self.cache_len is not None:
+                out["kv_rows"] = list(self.kv_rows(model_rank))
         return out
 
 
@@ -187,15 +224,38 @@ def ep_capacity(n_loc: int, cfg) -> int:
     return max(4, -(-cap // 4) * 4)
 
 
+def _heads_local(cfg, m: int) -> bool:
+    """Whether the attention's heads split over m ranks ("local" or
+    "kv_replicated"), whatever the step."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    return hq % m == 0 and (hkv % m == 0 or m % hkv == 0)
+
+
+def cache_split(cfg, m: int, cache_len: int | None) -> bool:
+    """Whether a serve cell's KV cache of ``cache_len`` positions is
+    split over its positions along a ``"model"`` axis of m ranks: the
+    decode plan is "kv_seq" (the dense and vlm families, heads that do not
+    split over m, m dividing the positions). A rule of the plan, not a
+    fallback: where m does not divide S the cache is gathered."""
+    return (cache_len is not None and m > 1
+            and cfg.family in ("dense", "vlm") and bool(cfg.n_heads)
+            and not _heads_local(cfg, m) and cache_len % m == 0)
+
+
 def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
-         rows: int | None = None) -> Plan:
+         rows: int | None = None, cache_len: int | None = None) -> Plan:
     """The plan of a ``kind`` step ("train", "prefill" or "decode") whose
     residual stream is ``seq_len`` positions long (a vlm's patches
     included), for a ``"model"`` axis of ``m`` ranks. At m = 1 every
     config is "local". The MoE family needs ``ep``, the world's size, and
-    takes ``rows``, a data rank's rows, for its capacity."""
+    takes ``rows``, a data rank's rows, for its capacity. A prefill or
+    decode step takes ``cache_len``, the KV cache's positions S (None: a
+    cache whole on every rank along ``"model"``): where ``cache_split``
+    holds, a decode step is "kv_seq" and either step's ``cache_len`` is
+    S."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     share = 1
+    split = kind != "train" and cache_split(cfg, m, cache_len)
     if not hq:
         heads, local = None, None
     elif hq % m == 0 and hkv % m == 0:
@@ -204,6 +264,8 @@ def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
         heads, local, share = "kv_replicated", (hq // m, 1), m // hkv
     elif seq_len > 1 and seq_len % m == 0:
         heads, local = "q_seq", (hq, hkv)
+    elif kind == "decode" and split:
+        heads, local = "kv_seq", (hq, hkv)
     else:
         heads, local = "gathered", (hq, hkv)
     ssm = ssm_heads = None
@@ -224,7 +286,8 @@ def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
                 vocab_local=cfg.vocab_size % m == 0,
                 seq_parallel=kind == "train" and seq_len % m == 0,
                 local_heads=local, seq_len=seq_len, kv_share=share,
-                ssm=ssm, ssm_heads=ssm_heads, **moe)
+                ssm=ssm, ssm_heads=ssm_heads,
+                cache_len=cache_len if split else None, **moe)
 
 
 def computes_tp(cfg) -> bool:
@@ -237,7 +300,8 @@ def computes_tp(cfg) -> bool:
 
 
 def mesh_plan(cfg, mesh, *, kind: str, seq_len: int,
-              rows: int | None = None) -> Plan | None:
+              rows: int | None = None, cache_len: int | None = None
+              ) -> Plan | None:
     """``plan`` on ``mesh``'s ``"model"`` axis (the EP group its every
     rank), or None: a family that computes whole, or a mesh without that
     axis."""
@@ -245,7 +309,8 @@ def mesh_plan(cfg, mesh, *, kind: str, seq_len: int,
     if not computes_tp(cfg) or "model" not in sizes:
         return None
     return plan(cfg, sizes["model"], kind=kind, seq_len=seq_len,
-                ep=mesh.size() if cfg.family == "moe" else None, rows=rows)
+                ep=mesh.size() if cfg.family == "moe" else None, rows=rows,
+                cache_len=cache_len)
 
 
 def residual_len(cfg, batch: dict) -> int:
@@ -425,6 +490,34 @@ def gather_blocks(x: torch.Tensor, group, reduce_grad: bool) -> torch.Tensor:
     return _GatherSeq.apply(x[None], group, reduce_grad)[0]
 
 
+@dataclass(frozen=True)
+class KVSplit:
+    """A rank's block of a KV cache split over its positions along
+    ``"model"`` (the "kv_seq" layout): positions ``[start, start + rows)``
+    of the whole cache's ``cache_len``, every KV head whole in
+    ``head_dim``; ``group`` the ``"model"`` group. The attention block
+    (``models/attention.py``) writes the rows it owns and attends over
+    them; ``merge`` makes the whole decode attention of the ranks'
+    partials."""
+    start: int
+    rows: int
+    cache_len: int
+    group: object
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The ranks' decode partials, this rank's ``out`` (B, Hq, hd)
+        fp32 and ``lse`` (B, Hq), all-gathered along ``"model"`` as one
+        (B, Hq, hd + 1) tensor a rank and merged in rank order 0, 1, ...,
+        m - 1 (``merge_attention_partials``), so every rank holds the same
+        bits. Forward only (a decode step). Returns (B, Hq, hd) fp32."""
+        m = self.group.size()
+        part = torch.cat([out.float(), lse.float()[..., None]], dim=-1)
+        every = _c10d.wait_tensor(_c10d.all_gather_into_tensor(
+            part.contiguous(), m, self.group.group_name))
+        every = every.reshape(m, *part.shape)
+        return merge_attention_partials(every[..., :-1], every[..., -1])
+
+
 # ---------------------------------------------------------------------------
 # the vocab-parallel embedding and loss
 # ---------------------------------------------------------------------------
@@ -526,6 +619,17 @@ class Route:
         """This rank's query rows under "q_seq", else None."""
         return self.plan.q_rows(self.rank)
 
+    @property
+    def kv_split(self) -> KVSplit | None:
+        """This rank's block of a KV cache split over its positions
+        (``Plan.cache_len`` set: a "kv_seq" decode, or a prefill that
+        writes that layout), else None."""
+        rows = self.plan.kv_rows(self.rank)
+        if rows is None:
+            return None
+        return KVSplit(rows[0], rows[1] - rows[0], self.plan.cache_len,
+                       self.group)
+
     def kv_slice(self, w: torch.Tensor) -> torch.Tensor:
         """The columns of this rank's KV head in a whole ``wk`` or ``wv``
         (d, Hkv * hd) under "kv_replicated"; the slice's gradient is zero
@@ -540,7 +644,11 @@ class Route:
         """The attention sublayer ``fn(p, x, q_rows)`` (``p`` its params,
         an ``AttnParams``; ``q_rows`` the rows it returns, None for all) on
         the normed residual ``x``, in the plan's mode (``Plan.heads``).
-        Returns the output in the residual's layout."""
+        Under "kv_seq", as under "gathered", ``fn`` runs whole on every
+        rank: the attention block reads the rank's positions of the cache
+        and the merge of the ranks' partials from ``kv_split``, which a
+        cached trunk passes it. Returns the output in the residual's
+        layout."""
         mode = self.plan.heads
         if mode == "kv_replicated":
             p = p._replace(wk=self.kv_slice(p.wk), wv=self.kv_slice(p.wv))
@@ -723,16 +831,16 @@ class Route:
             raise ValueError(f"leaves not laid out as {p}: {bad}")
 
 
-def route(cfg, *, kind: str, seq_len: int, rows: int | None = None
-          ) -> Route | None:
+def route(cfg, *, kind: str, seq_len: int, rows: int | None = None,
+          cache_len: int | None = None) -> Route | None:
     """The installed policy's route for a ``kind`` step of ``cfg`` (its
-    ``"model"`` group's size is m) on ``rows`` rows a data rank, or None:
-    no policy, a mesh without a ``"model"`` axis, or a family that
-    computes whole."""
+    ``"model"`` group's size is m) on ``rows`` rows a data rank, against a
+    KV cache of ``cache_len`` positions (``plan``'s), or None: no policy,
+    a mesh without a ``"model"`` axis, or a family that computes whole."""
     group = logical.model_group()
     if not computes_tp(cfg) or group is None:
         return None
     mesh = logical.current_mesh()
     ep = mesh.size() if cfg.family == "moe" else None
     return Route(plan(cfg, group.size(), kind=kind, seq_len=seq_len, ep=ep,
-                      rows=rows), group, mesh)
+                      rows=rows, cache_len=cache_len), group, mesh)

@@ -11,6 +11,12 @@
 // cache, no copy), last dimension contiguous; lengths (B,) int32 on the
 // device; out (B, Hq, hd) contiguous, allocated by the caller. Positions at
 // or past min(length, S) are masked and not read; length == 0 gives zeros.
+// Optionally lse (B, Hq) fp32: the natural log of sum_j exp(scale q.k_j)
+// over the valid keys, -inf at length 0; with it the output is written in
+// fp32 whatever the inputs' dtype, so that partials of one query over
+// several blocks of the cache (the tensor-parallel "kv_seq" ranks) merge
+// before any rounding. Without it (a null lse) the output is in the
+// inputs' dtype and the launch is the served one.
 // bf16 or fp32; hd 32, 64, 80, 96, 112 or 128 (the head dims of the repo's
 // configs); a group g = Hq / Hkv of at most 8.
 //
@@ -41,7 +47,9 @@
 //   shared memory and writes its partial (m, l, acc[g][hd]) in fp32 to the
 //   workspace. Then it adds 1 to the (b, kv head) counter; the block that
 //   arrives last merges every split's partial in split order 0, 1, 2, ...,
-//   writes the output and sets the counter back to 0. The order is fixed,
+//   writes the output (and the log-sum-exp, M ln 2 + ln den from the merge's
+//   maximum M, in log2 units, and denominator) and sets the counter back to
+//   0. The order is fixed,
 //   so a call's output is bit-identical from run to run, and no second
 //   launch is needed. The wrapper owns the workspace and the counters (zeros
 //   at rest), so a call allocates nothing and stays valid in a CUDA graph.
@@ -60,6 +68,7 @@ constexpr int kMaxSplits = 256;              // the merge's (m, l, w) fit the ri
 constexpr int kRingBudget = 72 * 1024;       // bytes for the stage ring
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -132,7 +141,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ out,
+                        const int* __restrict__ lengths,
+                        void* __restrict__ out, float* __restrict__ lse,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int* __restrict__ counters,
                         int S, int g, int tps, long long q_sb, long long q_sh,
@@ -356,6 +366,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       den += ls * c;
     }
     den_s[tid] = den;
+    if (lse != nullptr)
+      lse[(long long)b * gridDim.y * g + h * g + tid] =
+          den > 0.f ? M * kLn2 + logf(den) : __int_as_float(0xff800000u);
   }
   __syncthreads();
   for (int i = tid; i < g * HD; i += kThreads) {
@@ -366,15 +379,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int sp = 0; sp < splits; ++sp)       // in split order
       num += __ldcg(acc_r + (long long)sp * g * HD) * w_s[sp * g + r];
     const float den = den_s[r];
-    out[((long long)b * gridDim.y * g + h * g + r) * HD + d] =
-        from_float<T>(den > 0.f ? num / den : 0.f);
+    const float o = den > 0.f ? num / den : 0.f;
+    const long long at = ((long long)b * gridDim.y * g + h * g + r) * HD + d;
+    if (lse != nullptr)         // fp32 partials for a merge across blocks
+      static_cast<float*>(out)[at] = o;
+    else
+      static_cast<T*>(out)[at] = from_float<T>(o);
   }
   if (tid == 0) *counter = 0;            // zero at rest for the next call
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, float* ws, int* counters,
+                   const int* lengths, void* out, float* lse, float* ws,
+                   int* counters,
                    int B, int Hkv, int S, int g, int splits, int tps,
                    const long long* st, float scale, cudaStream_t stream) {
   using G = Geom<T, HD>;
@@ -387,7 +405,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid(splits, Hkv, B);
   decode_attention_kernel<T, HD><<<grid, kThreads, G::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), ws, part_ml,
+      static_cast<const T*>(v), lengths, out, lse, ws, part_ml,
       counters, S, g, tps, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], scale);
   return cudaGetLastError();
@@ -395,13 +413,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      const int* lengths, void* out, float* ws, int* counters,
+                      const int* lengths, void* out, float* lse, float* ws,
+                      int* counters,
                       int B, int Hkv, int S, int g, int splits, int tps,
                       const long long* st, float scale, cudaStream_t stream) {
 #define REPRO_DECODE_HD(HD)                                                  \
   case HD:                                                                   \
-    return launch<T, HD>(q, k, v, lengths, out, ws, counters, B, Hkv, S, g,  \
-                         splits, tps, st, scale, stream);
+    return launch<T, HD>(q, k, v, lengths, out, lse, ws, counters, B, Hkv,  \
+                         S, g, splits, tps, st, scale, stream);
   switch (hd) {
     REPRO_DECODE_HD(32)
     REPRO_DECODE_HD(64)
@@ -416,7 +435,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. strides (in elements): q batch, q head,
+// dtype: 0 = fp32, 1 = bf16. out: (B, Hq, hd) in dtype, or fp32 where lse
+// is not null; lse: null, or (B, Hq) fp32 for the log-sum-exp of each
+// query's scaled scores. strides (in elements): q batch, q head,
 // k batch, k seq, k head, v batch, v seq, v head. ws: fp32 workspace of
 // B * Hkv * splits * g * (hd + 2) floats (partial accumulators, then (m, l)
 // pairs); counters: B * Hkv int32, zero at rest and left zero by the call.
@@ -424,8 +445,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 // * 64 >= S. Returns the CUDA error of the launch (0 when it was accepted).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* ws, void* counters, int B, int Hq, int Hkv, int S,
-    int hd, int dtype, int splits, int tps, long long q_sb, long long q_sh,
+    void* out, void* lse, void* ws, void* counters, int B, int Hq, int Hkv,
+    int S, int hd, int dtype, int splits, int tps, long long q_sb,
+    long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxGroup || B <= 0 ||
@@ -437,15 +459,16 @@ extern "C" int repro_decode_attention(
   const int g = Hq / Hkv;
   const int* len = static_cast<const int*>(lengths);
   float* w = static_cast<float*>(ws);
+  float* ls = static_cast<float*>(lse);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_hd<float>(hd, q, k, v, len, out, w, cnt, B, Hkv, S, g,
+    err = launch_hd<float>(hd, q, k, v, len, out, ls, w, cnt, B, Hkv, S, g,
                            splits, tps, st, scale, s);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, k, v, len, out, w, cnt, B, Hkv, S,
-                                   g, splits, tps, st, scale, s);
+    err = launch_hd<__nv_bfloat16>(hd, q, k, v, len, out, ls, w, cnt, B, Hkv,
+                                   S, g, splits, tps, st, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -9,7 +9,11 @@ wrapper there is no transposed copy per call. It splits each sequence over
 ``split_plan``'s blocks and merges their partials in the same launch, in a
 workspace and counters this module owns (one set per device and size, zeros
 at rest, never freed, so a captured CUDA graph keeps valid pointers; calls
-share them, so they run on one stream at a time). The plain version is
+share them, so they run on one stream at a time). With ``return_lse`` it
+also returns each query's log-sum-exp and the output in fp32: a partial
+over one block of the cache's positions, which
+``ref.merge_attention_partials`` merges with the other blocks' (the
+tensor-parallel "kv_seq" ranks). The plain version is
 ``repro_torch.kernels.ref.decode_attention_ref``
 (``decode_attention_split_ref`` computes the kernel's partials and merge);
 ``ops.decode_attention`` picks between the two by the device of the tensors.
@@ -39,7 +43,7 @@ def _function():
     lib = build.load(KERNEL)
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 8 + [_L] * 8 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_L] * 8 + [ctypes.c_float, _P]
         fn.restype = _I
     return fn
 
@@ -123,10 +127,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, return_lse: bool = False
+                     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, hd); k/v: (B, S, Hkv, hd) with any batch, sequence and
     head strides; lengths: (B,) int32, ``length > S`` read as S and
-    ``length == 0`` giving zeros. Returns (B, Hq, hd) in q's dtype.
+    ``length == 0`` giving zeros. Returns (B, Hq, hd) in q's dtype; with
+    ``return_lse``, (that output in fp32, (B, Hq) fp32 log-sum-exp of the
+    scaled scores over the valid keys, -inf at length 0).
 
     Launches on the current stream without synchronising; raises on any
     input the kernel does not take and when the launch is refused."""
@@ -135,12 +142,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, S, Hkv, _ = k.shape
     splits, tps = split_plan(B, Hkv, S, _sm_count(q.device))
     ws, counters = _workspace(q.device, B * Hq * splits * (hd + 2), B * Hkv)
-    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Hq, hd), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _function()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), ws.data_ptr(),
                  counters.data_ptr(), B, Hq, Hkv, S, hd, _DTYPES[q.dtype],
                  splits, tps, q.stride(0), q.stride(1), k.stride(0),
                  k.stride(1), k.stride(2), v.stride(0), v.stride(1),
@@ -148,7 +159,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     decode_attention.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 decode_attention.launches = 0

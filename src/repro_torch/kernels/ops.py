@@ -38,10 +38,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, return_lse: bool = False):
+    """``return_lse``: (the output in fp32, its (B, Hq) log-sum-exp), a
+    partial that ``ref.merge_attention_partials`` merges."""
     if q.device.type in PLAIN:
-        return ref.decode_attention_ref(q, k, v, lengths)
-    return _decode_cuda(q, k, v, lengths)
+        return ref.decode_attention_ref(q, k, v, lengths,
+                                        return_lse=return_lse)
+    return _decode_cuda(q, k, v, lengths, return_lse=return_lse)
 
 
 def ssd_scan(u: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,

@@ -48,10 +48,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, *, return_lse: bool = False
+                         ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Single-token GQA decode. q: (B, Hq, hd); k/v: (B, S, Hkv, hd);
     lengths: (B,) valid KV prefix, where ``length > S`` means S.
-    Returns (B, Hq, hd) in q's dtype.
+    Returns (B, Hq, hd) in q's dtype; with ``return_lse``, (that output in
+    fp32, the (B, Hq) fp32 natural log of sum_j exp(q.k_j / sqrt(hd)) over
+    the valid keys, -inf at length 0), a partial for
+    ``merge_attention_partials``.
 
     A row with ``length == 0`` gives zeros, as the Pallas kernel does
     (``repro.kernels.ref.decode_attention_ref`` gives the mean of V there;
@@ -67,7 +71,36 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    if not return_lse:
+        return out.reshape(B, Hq, hd).to(q.dtype)
+    lse = torch.where((lengths > 0)[:, None, None],
+                      torch.logsumexp(scores, dim=-1), -math.inf)
+    return out.reshape(B, Hq, hd), lse.reshape(B, Hq)
+
+
+def merge_attention_partials(outs: torch.Tensor, lses: torch.Tensor
+                             ) -> torch.Tensor:
+    """One query's attention from m partials over disjoint blocks of its
+    keys: ``outs`` (m, ..., hd) each block's normalised output, ``lses``
+    (m, ...) each block's log-sum-exp (``decode_attention_ref(...,
+    return_lse=True)``'s, the kernel's). Weighted by exp(lse_r - max_r
+    lse_r) and summed in block order 0, 1, ..., m - 1; a block at -inf
+    (no valid key) adds nothing, and where every block is at -inf the
+    result is zeros, as one call at length 0 gives. Returns (..., hd) in
+    fp32."""
+    outs, lses = outs.float(), lses.float()
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    num = torch.zeros(outs.shape[1:], dtype=torch.float32,
+                      device=outs.device)
+    den = torch.zeros(lses.shape[1:], dtype=torch.float32,
+                      device=outs.device)
+    for out, lse in zip(outs, lses):                # in block order
+        w = torch.where(torch.isfinite(lse), torch.exp(lse - top), 0.0)
+        num = num + out * w[..., None]
+        den = den + w
+    return torch.where(den[..., None] > 0,
+                       num / den.clamp_min(1e-30)[..., None], 0.0)
 
 
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,

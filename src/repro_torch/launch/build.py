@@ -130,6 +130,14 @@ class Cell:
     tp: dict | None = None      # the tensor-parallel plan's record (the
     #                             families of TP_FAMILIES), else None:
     #                             computed whole
+    cache_bytes: float = 0.0    # a serve cell's whole cache (0 in train)
+
+    def rank_cache_bytes(self) -> float:
+        """The bytes of this rank's block of a serve cell's cache (its
+        placed args' third), 0 for a train cell."""
+        if self.kind == "train":
+            return 0.0
+        return _tree_bytes(tree_map(lambda t: t.to_local(), self.args[2]))
 
 
 def _tree_bytes(tree) -> float:
@@ -237,11 +245,14 @@ def serve_step(model, mesh, kind: str) -> Callable:
     tensor-parallel along ``"model"`` (``tensor_parallel``), with the
     logical policy installed around the model's step: each leaf in its
     ``sharding.tp_layouts``
-    placements; the KV cache kept local along ``"model"`` where the heads
-    are "local" or "kv_replicated" (its KV heads are sharded there: the
-    cache's layout is ``sharding.tp_cache``'s), else gathered (a "q_seq"
-    prefill writes every row; the layouts of a "q_seq" and a "gathered"
-    step are the same, so the plan is read at one position); the SSM state
+    placements; the cache's layout follows the decode plan for the cache's
+    positions S (``sharding.tp_cache``'s), whichever step runs: the KV
+    cache kept local along ``"model"`` where that plan's heads are
+    "local" or "kv_replicated" (its KV heads are sharded there) or
+    "kv_seq" (its positions are; the model gets S as ``cache_len``, so a
+    prefill writes the rank's positions and a decode step merges the
+    ranks' partials), else gathered (a "q_seq" or "gathered" prefill then
+    writes every row); the SSM state
     and conv tail kept local where the SSM heads are (the tail in
     ``tp_cache``'s layout), else gathered; the logits are this rank's
     vocab columns where the vocab is local, as the reference's
@@ -257,19 +268,16 @@ def serve_step(model, mesh, kind: str) -> Callable:
     full = [Replicate()] * mesh.ndim
     plan = tensor_parallel.mesh_plan(model.cfg, mesh, kind=kind, seq_len=1)
     layouts = None if plan is None else shd.tp_layouts(model.cfg, mesh, plan)
-    # the cache leaves kept in their placements along "model"
-    keep = {"k": plan is not None and plan.heads_local,
-            "v": plan is not None and plan.heads_local,
-            "state": plan is not None and plan.ssm == "local"}
 
     def rows(t: DTensor) -> list:
         return [p if names[j] in baxes else Replicate()
                 for j, p in enumerate(t.placements)]
 
-    def run(local, mine, held):
+    def run(local, mine, held, cache_len=None):
+        kw = {} if cache_len is None else {"cache_len": cache_len}
         if kind == "decode":
-            return model.decode(local, mine["tokens"], held)
-        return model.prefill(local, mine, held)
+            return model.decode(local, mine["tokens"], held, **kw)
+        return model.prefill(local, mine, held, **kw)
 
     def step(params, inputs: dict, cache: dict):
         if plan is not None and plan.ep is not None:
@@ -280,6 +288,15 @@ def serve_step(model, mesh, kind: str) -> Callable:
                     raise ValueError(f"input {k}: expert parallelism needs "
                                      f"the batch split over {baxes}")
         mine = {k: _local(v, rows(v)) for k, v in inputs.items()}
+        # the cache leaves kept in their placements along "model": the
+        # decode plan's for the cache's positions
+        cache_len = cache["k"].shape[2] if "k" in cache else None
+        kv = None if plan is None else tensor_parallel.mesh_plan(
+            model.cfg, mesh, kind="decode", seq_len=1, cache_len=cache_len)
+        keep = {"k": kv is not None and (kv.heads_local
+                                         or kv.cache_len is not None),
+                "state": plan is not None and plan.ssm == "local"}
+        keep["v"] = keep["k"]
         have = {k: tree_map(lambda t: list(t.placements) if keep.get(k)
                             else rows(t), v) for k, v in cache.items()}
         held = tree_map(_local, cache, have)
@@ -290,7 +307,7 @@ def serve_step(model, mesh, kind: str) -> Callable:
             local = tree_map(lambda t, lay: _local(t, lay[0]), params,
                              layouts)
             with logical.policy(mesh):
-                logits, held = run(local, mine, held)
+                logits, held = run(local, mine, held, cache_len)
         return logits, tree_map(_put_back, held, cache, have)
 
     return step
@@ -365,9 +382,9 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
-    plan = tensor_parallel.mesh_plan(cfg, mesh, kind=kind,
-                                     seq_len=1 if kind == "decode" else S,
-                                     rows=rows)
+    plan = tensor_parallel.mesh_plan(
+        cfg, mesh, kind=kind, seq_len=1 if kind == "decode" else S,
+        rows=rows, cache_len=None if kind == "train" else S)
     common = dict(n_active=active_params(cfg), grad_accum=grad_accum,
                   rows=rows, chips=mesh.size(),
                   tp=None if plan is None else plan.record(
@@ -427,7 +444,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
                     m.init_cache(B, S))
 
     return Cell(arch, shape.name, cfg, kind, serve_step(model, mesh, kind),
-                placed, semantic,
+                placed, semantic, cache_bytes=cache_bytes,
                 tokens_processed=B * S if kind == "prefill" else B,
                 min_bytes=min_step_bytes(
                     kind, param_bytes=param_bytes, cache_bytes=cache_bytes,

@@ -16,20 +16,25 @@ For each cell it records
     and its peak bytes (``analysis.StepCounter``: the params' and optimizer
     state's shards, the leaves gathered for the step, activations and
     temporaries);
-  * the roofline terms, the kernel-adjusted memory term and ``fits_h100``.
+  * the roofline terms, the kernel-adjusted memory term and ``fits_h100``;
+  * a serve cell's ``cache_bytes``: the whole cache's and the counted
+    rank's block of it.
 
 The dense, vlm, ssm, hybrid and expert-parallel MoE families compute
 tensor-parallel along "model" (``distributed/tensor_parallel.py``); the
 record's ``"tp"`` is the plan (the attention's mode, "local",
-"kv_replicated", "q_seq" or "gathered", and its local heads, None without
-attention, the counted rank's index along "model" and its query rows, with
+"kv_replicated", "q_seq", "kv_seq" or "gathered", and its local heads,
+None without attention, the counted rank's index along "model" and its
+query rows, with
 ``q_seq_heaviest_over_mean`` under "q_seq", the MLP (the MoE's shared
 experts) local, gathered or None, the vocab local or whole, the residuals
 sequence-parallel or not, for the ssm and hybrid families the mamba2
 block's mode, "local" or "gathered", and its SSM heads a rank, and for the
 MoE family the expert-parallel group ``ep``, the experts a rank
 ``ep_experts`` and a rank's ``capacity``; the EP all-to-alls count as
-``coll_by_kind["all-to-all"]``), None for the enc-dec family, whose step
+``coll_by_kind["all-to-all"]``; under "kv_seq" the rank's ``kv_rows``
+and the cache's ``cache_len``, the decode partials' merge counting as an
+all-gather), None for the enc-dec family, whose step
 gathers each leaf whole, so the FLOPs the cards execute (the counted
 rank's times the chips, ``hlo_flops``) repeat its work along "model";
 ``useful_fraction`` shows it, and the semantic count is kept beside it.
@@ -128,6 +133,7 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
                                     remat=remat, extra_cfg=extra_cfg)
     t0 = time.time()
     cell = build(shape, grad_accum)
+    rank_cache = cell.rank_cache_bytes()
     c = cell_counts(cell, shape, build)
     t_count = time.time() - t0
     by_kind = {k[5:]: v * chips for k, v in c.items()
@@ -176,6 +182,9 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
         fits_h100=bool(bytes_per_device <= HBM_BYTES),
         tp=cell.tp, rank=dist.get_rank(),
     )
+    if cell.kind != "train":
+        result["cache_bytes"] = {"whole": cell.cache_bytes,
+                                 "rank": rank_cache}
     print(f"[dryrun] {arch} x {cell.shape} x {mesh_name}: "
           f"{bytes_per_device / 1e9:.2f} GB/device "
           f"(fits_h100={result['fits_h100']}); dominant={r.dominant}; "

@@ -119,6 +119,7 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
                     decode_attention: Callable = kops.decode_attention,
                     flash_attention: Callable = kops.flash_attention,
                     q_rows: tuple[int, int] | None = None,
+                    kv_split=None,
                     ) -> tuple[torch.Tensor,
                                tuple[torch.Tensor, torch.Tensor] | None]:
     """One attention sublayer (no residual/norm). Modes:
@@ -142,6 +143,18 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     Q, its RoPE positions and the attention run on those rows; K/V on rows
     [0, b) without a cache, on every row where the cache is written; the
     causal mask puts query row i at position a + i (flash's ``q_offset``).
+
+    ``kv_split`` (a ``tensor_parallel.KVSplit``; the tensor-parallel
+    "kv_seq" layout): ``kv_cache`` is this rank's block of the cache's
+    positions, ``[start, start + rows)`` of ``cache_len``. A decode step
+    writes the clamped row ``idx.clamp(0, cache_len - 1)`` where the rank
+    owns it (elsewhere the block's row is written back as it was, so no
+    host synchronisation: the step can be captured), attends over the
+    block with lengths ``(idx + 1 - start).clamp(0, rows)`` through
+    ``decode_attention(..., return_lse=True)`` and merges the ranks'
+    partials (``kv_split.merge``). A prefill, which starts at index 0 (the
+    engine's contract; a nonzero index raises ``ValueError``), writes the
+    rows it owns and attends over the fresh K/V, rows [0, b).
     """
     B, T, d = x.shape
     a, b = (0, T) if q_rows is None else q_rows
@@ -175,7 +188,11 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, sin[:, :tk], cos[:, :tk])
 
     new_cache = None
-    if kv_cache is None:
+    if kv_split is not None:
+        out = _split_cache_attention(q, k, v, kv_cache, idx, kv_split, a,
+                                     decode_attention)
+        new_cache = kv_cache
+    elif kv_cache is None:
         if causal and (q_rows is not None or q.shape[1] == k.shape[1]):
             # the training hot path: the flash kernel on the card
             out = flash_attention(q, k, v, causal=True, q_offset=a)
@@ -202,3 +219,40 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
                                        kv_len=idx + T)
     out = out.reshape(B, b - a, hq * hd) @ p.wo.to(cd)
     return out, new_cache
+
+
+def _split_cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_cache: tuple[torch.Tensor, torch.Tensor],
+                           idx: torch.Tensor, split, a: int,
+                           decode_attention: Callable) -> torch.Tensor:
+    """``attention_block``'s cache write and attention where the cache is
+    this rank's block of positions (``split``, a ``KVSplit``): q (B, Tq,
+    Hq, hd) the rows from ``a`` on, k/v (B, T, Hkv, hd) the new positions'
+    from index ``idx`` (B,). Returns the attention (B, Tq, Hq, hd)."""
+    ck, cv = kv_cache                       # (B, rows, Hkv, hd)
+    B, T = k.shape[:2]
+    n, start = split.rows, split.start
+    if T == 1:
+        row = idx.clamp(0, split.cache_len - 1).long() - start
+        own = ((row >= 0) & (row < n))[:, None, None]
+        row = row.clamp(0, n - 1)
+        batch = torch.arange(B, device=k.device)
+        ck[batch, row] = torch.where(own, k[:, 0], ck[batch, row])
+        cv[batch, row] = torch.where(own, v[:, 0], cv[batch, row])
+        lengths = (idx + 1 - start).clamp(0, n).to(torch.int32)
+        out, lse = decode_attention(q[:, 0], ck, cv, lengths,
+                                    return_lse=True)
+        return split.merge(out, lse).to(q.dtype)[:, None]
+    if idx.device.type != "meta" and bool((idx != 0).any()):
+        raise ValueError("a prefill into a cache split over its positions "
+                         "starts at index 0")
+    lo, hi = min(max(start, 0), T), min(start + n, T)
+    if hi > lo:
+        ck[:, lo - start:hi - start] = k[:, lo:hi]
+        cv[:, lo - start:hi - start] = v[:, lo:hi]
+    b = a + q.shape[1]
+    if T >= 1024:
+        return chunked_attention(q, k[:, :b], v[:, :b], causal=True,
+                                 q_offset=a)
+    return gqa_scores_attention(q, k[:, :b], v[:, :b], causal=True,
+                                q_offset=a)

@@ -104,12 +104,14 @@ class DecoderLM:
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
-    def _tp(self, kind: str, seq_len: int, rows: int):
+    def _tp(self, kind: str, seq_len: int, rows: int,
+            cache_len: int | None = None):
         """The ``tensor_parallel.Route`` of an installed policy (a family
         of ``tensor_parallel.TP_FAMILIES`` on a mesh with a ``"model"``
-        axis) for a step of ``rows`` rows, else None."""
+        axis) for a step of ``rows`` rows against a cache of ``cache_len``
+        positions, else None."""
         return tensor_parallel.route(self.cfg, kind=kind, seq_len=seq_len,
-                                     rows=rows)
+                                     rows=rows, cache_len=cache_len)
 
     def _trunk(self, params: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
         """Every layer without a cache, each through ``_remat``; under a
@@ -151,9 +153,10 @@ class DecoderLM:
             h = tp.head_input(h)
         return h @ params["lm_head"].to(self.cfg.compute_dtype)
 
-    def _routed(self, params: dict, kind: str, seq_len: int, rows: int):
+    def _routed(self, params: dict, kind: str, seq_len: int, rows: int,
+                cache_len: int | None = None):
         """``_tp``, with the leaves checked against its plan."""
-        tp = self._tp(kind, seq_len, rows)
+        tp = self._tp(kind, seq_len, rows, cache_len)
         if tp is not None:
             tp.check(self.cfg, params)
         return tp
@@ -177,21 +180,26 @@ class DecoderLM:
         return cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
                              tp=vocab_tp)
 
-    def prefill(self, params: dict, batch: dict, cache: dict
-                ) -> tuple[torch.Tensor, dict]:
+    def prefill(self, params: dict, batch: dict, cache: dict, *,
+                cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
         """The prompt (after its patches, for vlm) into the cache; ``index``
         advances by every position written. Under a route, the logits are
-        this rank's vocab columns where the vocab is local."""
+        this rank's vocab columns where the vocab is local; ``cache_len``
+        is the whole cache's positions where ``cache`` is a rank's block
+        of a cache laid out by the plan (``launch.build.serve_step``'s),
+        None where it is whole."""
         tp = self._routed(params, "prefill",
                           tensor_parallel.residual_len(self.cfg, batch),
-                          batch["tokens"].shape[0])
+                          batch["tokens"].shape[0], cache_len)
         h = self._embed(params, batch["tokens"], self._patches(batch), tp)
         h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
         return self._logits(params, h[:, -1:], tp), cache
 
-    def decode(self, params: dict, tokens: torch.Tensor, cache: dict
-               ) -> tuple[torch.Tensor, dict]:
-        tp = self._routed(params, "decode", 1, tokens.shape[0])
+    def decode(self, params: dict, tokens: torch.Tensor, cache: dict, *,
+               cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+        """One token a slot against the cache; ``cache_len`` as
+        ``prefill``'s."""
+        tp = self._routed(params, "decode", 1, tokens.shape[0], cache_len)
         h = self._embed(params, tokens, tp=tp)                 # (B,1,d)
         h, cache = self._cached_trunk(params, h, cache, *_routes(tp))
         return self._logits(params, h, tp), cache
@@ -287,15 +295,19 @@ class DenseLM(DecoderLM):
         and ``cache["v"]`` in place; the returned cache holds those same
         tensors and a new ``index`` advanced by the number of tokens.
         Under a route whose heads are "local" the cache holds this rank's
-        KV heads, under "kv_replicated" its one KV head, else every head
-        (a "q_seq" prefill writes every row and attends from its own)."""
+        KV heads, under "kv_replicated" its one KV head; where the plan
+        splits it over its positions (``Route.kv_split``: "kv_seq", and a
+        prefill into that layout) the rank's positions of every head, else
+        every head and position (a "q_seq" prefill writes every row and
+        attends from its own)."""
         cfg = self.cfg
         idx = cache["index"]
+        split = None if tp is None else tp.kv_split
         for i, lp in enumerate(unstack(params["layers"])):
             def attn(p, x, rows, i=i):
                 return attention_block(
                     p, x, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
-                    cache_index=idx, q_rows=rows,
+                    cache_index=idx, q_rows=rows, kv_split=split,
                     decode_attention=self.decode_attention)[0]
 
             h = h + _attention(tp, attn, lp.attn,

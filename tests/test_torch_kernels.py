@@ -106,6 +106,82 @@ def test_cpu_tensors_never_reach_the_kernel():
 
 
 # ---------------------------------------------------------------------------
+# the log-sum-exp output and the merge of partials ("kv_seq" decode)
+# ---------------------------------------------------------------------------
+def split_calls(q, k, v, lengths, m, call):
+    """``call`` (the seam or the kernel, with ``return_lse=True``) on m
+    equal blocks of the cache's positions, each with its own lengths, as
+    the "kv_seq" ranks run it; returns the stacked (outs, lses)."""
+    n = k.shape[1] // m
+    parts = [call(q, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n],
+                  (lengths - r * n).clamp(0, n).to(torch.int32),
+                  return_lse=True) for r in range(m)]
+    return (torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_lse_is_the_logsumexp_of_the_scores(dtype):
+    """``return_lse``: the output in fp32 (the same values as the served
+    call's before its rounding) and the natural log-sum-exp of q.k /
+    sqrt(hd) over the valid keys (``length > S`` read as S), -inf at
+    length 0."""
+    S, hd = 48, 32
+    q, k, v, lengths = make_inputs(5, S, 6, 2, hd, seed=11,
+                                   lengths=[0, 1, 17, S, S + 4])
+    t = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))
+    lens = torch.from_numpy(lengths)
+    out, lse = ops.decode_attention(t(q), t(k), t(v), lens, return_lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == (5, 6, hd) and lse.shape == (5, 6)
+    served = ops.decode_attention(t(q), t(k), t(v), lens)
+    assert torch.equal(out.to(served.dtype), served)
+    qf, kf = t(q).float(), t(k).float()
+    scores = torch.einsum("bhd,bshd->bhs", qf,
+                          kf.repeat_interleave(3, dim=2)) / hd ** 0.5
+    for b, n in enumerate(lengths):
+        n = min(int(n), S)
+        want = (torch.logsumexp(scores[b, :, :n], dim=-1) if n
+                else torch.full((6,), -torch.inf))
+        torch.testing.assert_close(lse[b], want, rtol=1e-6, atol=1e-6)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+def test_merged_slices_are_one_call(m):
+    """m blocks of a cache of 256 positions, each a call with its own
+    lengths (0, 1, a block boundary, one past it, S, past S, ragged), and
+    their partials merged in block order (``merge_attention_partials``)
+    give one whole call within 1e-6 in fp32: a block past a slot's length
+    adds nothing, length 0 gives zeros."""
+    S = 256
+    n = S // m
+    lengths = [0, 1, n, n + 1, S, S + 3, 77, 200]
+    q, k, v, lengths = make_inputs(8, S, 9, 3, 64, seed=m, lengths=lengths)
+    q, k, v, lens = (torch.from_numpy(a) for a in (q, k, v, lengths))
+    outs, lses = split_calls(q, k, v, lens, m, ops.decode_attention)
+    assert torch.all(lses[1:, 0] == -torch.inf)        # length 0
+    merged = ref.merge_attention_partials(outs, lses)
+    whole, whole_lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    torch.testing.assert_close(merged, whole, rtol=0, atol=1e-6)
+    torch.testing.assert_close(torch.logsumexp(lses, dim=0), whole_lse,
+                               rtol=1e-6, atol=1e-6)
+    assert torch.all(merged[0] == 0)
+
+
+def test_merge_of_empty_blocks_is_zeros():
+    """Length 0 on every slot: every block's lse is -inf, and the merge
+    gives zeros (no NaN), as one call at length 0 gives."""
+    q, k, v, _ = make_inputs(3, 64, 4, 2, 32, seed=5)
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    lens = torch.zeros(3, dtype=torch.int32)
+    outs, lses = split_calls(q, k, v, lens, 4, ops.decode_attention)
+    assert torch.all(lses == -torch.inf)
+    merged = ref.merge_attention_partials(outs, lses)
+    assert torch.equal(merged, torch.zeros_like(merged))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -230,3 +306,36 @@ def test_kernel_bit_identical_and_under_graph_replay(cuda):
                                     lengths)
     np.testing.assert_allclose(static_out.float().cpu(),
                                want.float().cpu(), **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [(8, 2048, 9, 3, 64),
+                                           (8, 2048, 56, 8, 128)])
+def test_kernel_lse_matches_plain_on_card(cuda, B, S, Hq, Hkv, hd, dtype):
+    """The kernel's ``return_lse``: its fp32 output and log-sum-exp
+    against the plain version's on the same inputs (lengths 0, 1, a split
+    edge, S and past S among them), the served call's output its fp32
+    output rounded; 16 blocks of the cache merged against one whole call
+    (the "kv_seq" split of llava-next-34b's share, emulated on one
+    card)."""
+    lengths = np.arange(B) * (S // max(B - 1, 1))
+    lengths[1], lengths[-1] = 1, S + 3
+    q, k, v, lengths = make_inputs(B, S, Hq, Hkv, hd, seed=S + hd,
+                                   lengths=lengths)
+    t = lambda a: torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+    q, k, v = t(q), t(k), t(v)
+    lens = torch.from_numpy(lengths).to(cuda)
+    out, lse = dk.decode_attention(q, k, v, lens, return_lse=True)
+    want, want_lse = ref.decode_attention_ref(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu(), want.cpu(), **TOL[dtype])
+    np.testing.assert_allclose(lse.cpu(), want_lse.cpu(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.all(lse[0] == -torch.inf) and torch.all(out[0] == 0)
+    assert torch.equal(dk.decode_attention(q, k, v, lens),
+                       out.to(q.dtype))
+    outs, lses = split_calls(q, k, v, lens, 16, dk.decode_attention)
+    merged = ref.merge_attention_partials(outs, lses)
+    np.testing.assert_allclose(merged.cpu(), out.cpu(), **TOL[dtype])

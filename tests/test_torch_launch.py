@@ -224,7 +224,7 @@ KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
 @pytest.mark.parametrize("kind", ["train", "decode"])
 def test_dryrun_record(dryrun_records, kind):
     r = dryrun_records[kind]
-    assert set(r) == KEYS
+    assert set(r) == KEYS | ({"cache_bytes"} if kind == "decode" else set())
     assert r["status"] == "ok" and r["chips"] == 16 and r["mesh"] == "8x2"
     assert r["rank0"]["rows"] == 2
     assert r["bytes_per_device"] == r["peak_by_kind"]["Total"] > 0
@@ -246,6 +246,11 @@ def test_dryrun_record(dryrun_records, kind):
     # reduce-scatters the gradients back
     assert r["coll_by_kind"]["all-gather"] > 0
     assert ("reduce-scatter" in r["coll_by_kind"]) == (kind == "train")
+    if kind == "decode":
+        # a serve cell's cache: K and V a 16th a rank (rows over "data",
+        # KV heads over "model"), the 16 rows' int32 index 2 rows a rank
+        cache = r["cache_bytes"]
+        assert (cache["whole"] - 16 * 4) / 16 + 2 * 4 == cache["rank"] > 0
 
 
 def test_meshes_over_a_fake_world(dryrun_records):

@@ -27,13 +27,18 @@ sequence length)):
   * ``q_seq``: a reduced smollm with 3 heads on 1 KV head on (2, 4), T 32,
     prompt 12: each rank attends from its quarter of the query rows in
     training and prefill (the plan of minitron-4b, llava-next-34b and the
-    smollms at 16 ranks), decode gathered;
+    smollms at 16 ranks); decode "kv_seq": the cache of ``MAX_LEN`` 32
+    split over its positions, 8 a rank, so the prompt lands on ranks 0
+    and 1, the decode steps cross from rank 1 to rank 2 at position 16
+    and rank 3's block stays empty (its log-sum-exp -inf every step);
   * ``q_seq_not_divisible``: the same at T 30, which 4 ranks do not
-    divide: training gathered, prefill q_seq;
+    divide: training gathered, prefill q_seq, decode kv_seq;
   * ``vlm``: a reduced llava-next-34b (8 patch embeddings before the text)
     on (4, 2);
   * ``vlm_q_seq``: the reduced llava with 3 heads on 1 KV head on (4, 2):
-    query rows after the patches, whose RoPE positions count them.
+    query rows after the patches, whose RoPE positions count them; decode
+    kv_seq, 16 positions a rank (the patches and prompt, 20, cross into
+    rank 1).
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
 steps from the initial weights. A fake world of 16 ranks on ``meta``
 counts a reduced dense cell on (4, 4) under each attention mode, the
@@ -74,6 +79,7 @@ CASES = {"heads_local": ("smollm-135m", SMOLLM, (4, 2), 32),
 LOCAL = ("local", [2, 1])
 KV_REPLICATED = ("kv_replicated", [1, 1])
 Q_SEQ, GATHERED = ("q_seq", [3, 1]), ("gathered", [3, 1])
+KV_SEQ = ("kv_seq", [3, 1])
 # each case's plan: the "model" size and the vocab (the MLP is local in
 # every case), then the attention's mode and local heads in training,
 # whether training is sequence-parallel, and the modes of the prefill and
@@ -84,11 +90,11 @@ PLANS = {"heads_local": (2, "local", LOCAL, True, LOCAL, LOCAL),
                            KV_REPLICATED),
          "kv_replicated_vocab_local": (4, "local", KV_REPLICATED, True,
                                        KV_REPLICATED, KV_REPLICATED),
-         "q_seq": (4, "local", Q_SEQ, True, Q_SEQ, GATHERED),
+         "q_seq": (4, "local", Q_SEQ, True, Q_SEQ, KV_SEQ),
          "q_seq_not_divisible": (4, "local", GATHERED, False, Q_SEQ,
-                                 GATHERED),
+                                 KV_SEQ),
          "vlm": (2, "local", LOCAL, True, LOCAL, LOCAL),
-         "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, GATHERED)}
+         "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, KV_SEQ)}
 STEPS, BATCH = 3, 8
 PROMPT, DECODES, MAX_LEN = 12, 8, 32
 TOL = 1e-5
@@ -291,6 +297,12 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
                     cfg, mesh, feed)), cache)
                 record[f"{name}/logits{j + 1}"] = whole(logits).numpy()
         record[f"{name}/serve_plans"] = np.array(json.dumps(plans))
+        if "k" in cache:
+            # which positions of this rank's block of the K cache were
+            # written
+            k = cache["k"].to_local()
+            record[f"{name}/kv_written"] = (k != 0).flatten(3).any(-1).any(
+                1).any(0).numpy()
     finally:
         undo()
 
@@ -404,7 +416,11 @@ def test_the_steps_take_the_plan(runs, name):
     positions, and 8 patches; not 31 or 30); the prefill and each decode
     step one, not sequence-parallel, in their own attention modes. Under
     "q_seq" rank i along "model" attends from rows [i n, (i + 1) n), n the
-    residual length over the ranks. A rank's logits are its batch rows
+    residual length over the ranks. Where the decode is "kv_seq" the
+    prefill's and decode steps' plans carry the cache's ``MAX_LEN`` and
+    rank i's positions [i c, (i + 1) c), c = ``MAX_LEN`` over the ranks,
+    of which it wrote those below the patches, prompt and decode steps
+    (rank 3 of the (2, 4) cases none). A rank's logits are its batch rows
     and, where the vocab is local, its vocab columns."""
     _, ranks = runs
     arch, over, (data, model), seq = CASES[name]
@@ -412,7 +428,10 @@ def test_the_steps_take_the_plan(runs, name):
     cfg = reduced(arch, over)
     patches = cfg.n_patches if cfg.family == "vlm" else 0
 
-    def want(heads, n, sp, rank):
+    split = decode[0] == "kv_seq"
+    per = MAX_LEN // model          # a rank's positions where split
+
+    def want(heads, n, sp, rank, serve=True):
         plan = {"model": m, "heads": heads[0], "local_heads": heads[1],
                 "mlp": "local", "vocab": vocab_mode, "seq_parallel": sp,
                 "model_rank": rank % model, "q_rows": None}
@@ -421,15 +440,23 @@ def test_the_steps_take_the_plan(runs, name):
             plan.update(q_rows=[rows * (rank % model),
                                 rows * (rank % model + 1)],
                         q_seq_heaviest_over_mean=(2 * m - 1) / m)
+        if serve and split:
+            plan.update(cache_len=MAX_LEN,
+                        kv_rows=[per * (rank % model),
+                                 per * (rank % model + 1)])
         return plan
 
     assert m == model
     for rank, rec in enumerate(ranks):
         assert json.loads(str(rec[f"{name}/train_plans"])) == [
-            want(train, seq, seq_parallel, rank)] * STEPS
+            want(train, seq, seq_parallel, rank, serve=False)] * STEPS
         assert json.loads(str(rec[f"{name}/serve_plans"])) == [
             want(prefill, PROMPT, False, rank)] + [
             want(decode, 1, False, rank)] * DECODES
+        if split:
+            filled = PROMPT + patches + DECODES - per * (rank % model)
+            assert rec[f"{name}/kv_written"].tolist() == [
+                i < filled for i in range(per)]
         vocab = cfg.vocab_size // (model if vocab_mode == "local" else 1)
         assert list(rec[f"{name}/local_logits"]) == [BATCH // data, 1, vocab]
 
@@ -443,20 +470,21 @@ def test_the_steps_take_the_plan(runs, name):
 # config: heads local only where 16 divides both head counts, the KV heads
 # replicated where 16 divides the query heads and the KV heads divide 16,
 # else the query rows split where 16 divides the sequence (never in
-# decode); None where the model has no attention or MLP; SSM heads local
-# where 16 divides them (mamba2's 64, zamba2's 80)
+# decode: there the cache's 32768 positions split, "kv_seq"); None where
+# the model has no attention or MLP; SSM heads local where 16 divides them
+# (mamba2's 64, zamba2's 80)
 AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local", None),
          "llama-3.1-8b": (("kv_replicated",) * 3, [2, 1], "local", "local",
                           None),
          "llama-3.2-1b": (("kv_replicated",) * 3, [2, 1], "local", "local",
                           None),
-         "minitron-4b": (("q_seq", "q_seq", "gathered"), [24, 8], "local",
+         "minitron-4b": (("q_seq", "q_seq", "kv_seq"), [24, 8], "local",
                          "local", None),
-         "llava-next-34b": (("q_seq", "q_seq", "gathered"), [56, 8],
+         "llava-next-34b": (("q_seq", "q_seq", "kv_seq"), [56, 8],
                             "local", "local", None),
-         "smollm-135m": (("q_seq", "q_seq", "gathered"), [9, 3], "local",
+         "smollm-135m": (("q_seq", "q_seq", "kv_seq"), [9, 3], "local",
                          "local", None),
-         "smollm-360m": (("q_seq", "q_seq", "gathered"), [15, 5], "local",
+         "smollm-360m": (("q_seq", "q_seq", "kv_seq"), [15, 5], "local",
                          "local", None),
          "mamba2-1.3b": ((None,) * 3, None, None, "whole", ("local", 4)),
          "zamba2-2.7b": (("local",) * 3, [2, 2], "local", "local",
@@ -474,7 +502,9 @@ def test_plan_at_sixteen(arch):
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         cell = SHAPES[shape]
         seq = 1 if cell.kind == "decode" else cell.seq_len
-        got.append(plan(cfg, 16, kind=cell.kind, seq_len=seq).record())
+        got.append(plan(cfg, 16, kind=cell.kind, seq_len=seq,
+                        cache_len=None if cell.kind == "train" else
+                        cell.seq_len).record())
     assert tuple(p["heads"] for p in got) == modes
     p = got[0]
     assert (p["local_heads"], p["mlp"], p["vocab"]) == (local_heads, mlp,
@@ -491,6 +521,43 @@ def test_plan_at_sixteen(arch):
     one = plan(cfg, 1, kind="train", seq_len=4096)
     assert one.heads == ("local" if modes[0] else None)
     assert one.ssm == (ssm and "local")
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "llava-next-34b",
+                                  "smollm-135m", "smollm-360m",
+                                  "llama-3.1-8b", "zamba2-2.7b"])
+def test_kv_seq_only_where_m_divides_the_cache(arch):
+    """At m = 16 a decode step is "kv_seq" only for the dense and vlm
+    configs whose heads do not split over 16 and only where 16 divides the
+    cache's positions: at 32760 positions, or with no cache length, it
+    stays "gathered" (a rule of the plan). A prefill of such a config
+    keeps its own mode and carries the cache's positions (it writes that
+    layout); a train step ignores them. The ranks' positions tile the
+    cache in rank order."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import cache_split, plan
+    cfg = get_config(arch)
+    split = arch not in ("llama-3.1-8b", "zamba2-2.7b")
+    dec = plan(cfg, 16, kind="decode", seq_len=1, cache_len=32768)
+    assert (dec.heads == "kv_seq") == split == cache_split(cfg, 16, 32768)
+    assert dec.cache_len == (32768 if split else None)
+    for cache_len in (32760, None):
+        other = plan(cfg, 16, kind="decode", seq_len=1, cache_len=cache_len)
+        assert other.cache_len is None
+        assert other.heads == ("gathered" if split else dec.heads)
+    pre = plan(cfg, 16, kind="prefill", seq_len=32768, cache_len=32768)
+    assert pre.heads == ("q_seq" if split else dec.heads)
+    assert pre.cache_len == dec.cache_len
+    train = plan(cfg, 16, kind="train", seq_len=4096, cache_len=32768)
+    assert train.cache_len is None and train.heads != "kv_seq"
+    if split:
+        rows = [dec.kv_rows(r) for r in range(16)]
+        assert rows[0] == (0, 2048) and rows[-1] == (30720, 32768)
+        assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+        assert dec.record(15)["kv_rows"] == [30720, 32768]
+        assert not cache_split(cfg, 1, 32768)
+    else:
+        assert dec.kv_rows(0) is None
 
 
 def test_q_rows_tile_the_sequence():
@@ -571,6 +638,98 @@ def test_attention_rows_are_rows_of_the_whole(cached):
         if cached:
             for c, w in zip(cache, whole_cache):
                 assert torch.equal(c, w)
+
+
+class _RecordedMerge:
+    """A ``KVSplit`` stand-in for rank ``rank`` of ``m``: ``merge``
+    records the rank's partial and returns ``merged`` (the ranks' partials
+    merged after a first pass), or zeros in the first pass."""
+
+    def __init__(self, m, rank, cache_len, sink, merged=None):
+        self.rows = cache_len // m
+        self.start, self.cache_len = rank * self.rows, cache_len
+        self.sink, self.merged = sink, merged
+
+    def merge(self, out, lse):
+        assert out.dtype == torch.float32 and lse.dtype == torch.float32
+        self.sink.append((out.clone(), lse.clone()))
+        return torch.zeros_like(out) if self.merged is None else self.merged
+
+
+def _split_inputs(seed=3, S=32, B=4):
+    from repro_torch.models.attention import init_attn
+    cfg = reduced("smollm-135m", THREE)
+    gen = torch.Generator().manual_seed(seed)
+    p = init_attn(gen, cfg, "cpu")
+    cache = [torch.randn((B, S, cfg.n_kv_heads, cfg.hd), generator=gen)
+             for _ in range(2)]
+    return cfg, p, cache, gen
+
+
+def test_split_cache_decode_is_the_whole_decode():
+    """``attention_block`` on 4 ranks' blocks of a cache of 32 positions
+    ("kv_seq"): each rank writes the new token's row only where it owns
+    the clamped index (slot 3's index 40 is past the end: the last row,
+    rank 3's), attends over its block with its own lengths, and the
+    ranks' partials merged in rank order (``merge_attention_partials``)
+    give the whole decode step's output within 1e-6; the blocks equal the
+    whole cache's after its write. A rank with no valid position for a
+    slot (slot 0 at index 3 on ranks 1 to 3) returns zeros and -inf."""
+    from repro_torch.kernels.ref import merge_attention_partials
+    from repro_torch.models.attention import attention_block
+    cfg, p, cache, gen = _split_inputs()
+    m, S = 4, 32
+    idx = torch.tensor([3, 12, 16, 40], dtype=torch.int32)
+    x = torch.randn((4, 1, cfg.d_model), generator=gen)
+    whole = [c.clone() for c in cache]
+    want, _ = attention_block(p, x, cfg, kv_cache=tuple(whole),
+                              cache_index=idx)
+    blocks = [[c[:, r * 8:(r + 1) * 8].clone() for c in cache]
+              for r in range(m)]
+    parts = []
+    for r in range(m):
+        attention_block(p, x, cfg, kv_cache=tuple(
+            c.clone() for c in blocks[r]), cache_index=idx,
+            kv_split=_RecordedMerge(m, r, S, parts))
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([lse for _, lse in parts])
+    assert torch.all(lses[1:, 0] == -torch.inf)
+    assert torch.all(outs[1:, 0] == 0)
+    merged = merge_attention_partials(outs, lses)
+    for r in range(m):
+        got, _ = attention_block(p, x, cfg, kv_cache=tuple(blocks[r]),
+                                 cache_index=idx,
+                                 kv_split=_RecordedMerge(m, r, S, [],
+                                                         merged))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        for blk, w in zip(blocks[r], whole):
+            assert torch.equal(blk, w[:, r * 8:(r + 1) * 8])
+
+
+@pytest.mark.parametrize("rows", [None, (4, 8)])
+def test_split_cache_prefill_writes_the_ranks_rows(rows):
+    """A prefill of 12 tokens into 4 ranks' blocks of 8 positions (every
+    row, or a "q_seq" rank's rows 4 to 8): each rank writes the positions
+    it owns, as the whole cache's prefill writes them, and attends over
+    the fresh K/V, so its output is the whole prefill's rows within
+    1e-6; a prefill from a nonzero index raises."""
+    from repro_torch.models.attention import attention_block
+    cfg, p, cache, gen = _split_inputs(S=32, B=2)
+    cache = [c[:2].zero_() for c in cache]
+    x = torch.randn((2, 12, cfg.d_model), generator=gen)
+    whole = [c.clone() for c in cache]
+    want, _ = attention_block(p, x, cfg, kv_cache=tuple(whole), q_rows=rows)
+    for r in range(4):
+        blk = [c[:, r * 8:(r + 1) * 8].clone() for c in cache]
+        got, _ = attention_block(p, x, cfg, kv_cache=tuple(blk), q_rows=rows,
+                                 kv_split=_RecordedMerge(4, r, 32, []))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        for b, w in zip(blk, whole):
+            assert torch.equal(b, w[:, r * 8:(r + 1) * 8])
+    with pytest.raises(ValueError, match="index 0"):
+        attention_block(p, x, cfg, kv_cache=tuple(blk),
+                        cache_index=torch.tensor([0, 2], dtype=torch.int32),
+                        kv_split=_RecordedMerge(4, 3, 32, []))
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b",
@@ -659,21 +818,23 @@ from repro_torch.configs import ShapeCell
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world
 
-# name -> (query heads, KV heads, T)
-CELLS = {"local": (8, 4, 256), "kv_replicated": (8, 2, 256),
-         "gathered": (6, 2, 250), "q_seq": (6, 2, 256)}
+# name -> (query heads, KV heads, T, kind): the decode cell's T is its
+# cache's positions
+CELLS = {"local": (8, 4, 256, "train"), "kv_replicated": (8, 2, 256, "train"),
+         "gathered": (6, 2, 250, "train"), "q_seq": (6, 2, 256, "train"),
+         "kv_seq": (6, 2, 256, "decode")}
 rank, names = int(sys.argv[1]), sys.argv[2:]
 out = {}
 with fake_world(16, rank=rank):
     mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
     for name in names:
-        hq, kv, seq = CELLS[name]
+        hq, kv, seq, kind = CELLS[name]
         over = dict(n_layers=2, d_model=256, n_heads=hq, n_kv_heads=kv,
                     head_dim=32, d_ff=1024, vocab_size=1024,
                     param_dtype=torch.float32, compute_dtype=torch.float32,
                     remat="none")
         out[name] = dryrun.count_cell(
-            "smollm-135m", ShapeCell("train", "train", seq, 16), mesh,
+            "smollm-135m", ShapeCell(kind, kind, seq, 16), mesh,
             mesh_name="4x4", extra_cfg=over)
 with open(f"records{rank}.json", "w") as f:
     json.dump(out, f)
@@ -681,7 +842,8 @@ with open(f"records{rank}.json", "w") as f:
 # the rank each process counts and its cells, the two processes side by
 # side: rank 3 is the last along "model" of the (4, 4) mesh, whose query
 # rows are the last quarter
-FAKE_RANKS = {0: ("local", "kv_replicated", "gathered"), 3: ("q_seq",)}
+FAKE_RANKS = {0: ("local", "kv_replicated", "gathered", "kv_seq"),
+              3: ("q_seq",)}
 
 
 @pytest.fixture(scope="module")
@@ -705,11 +867,12 @@ def fake_cells(tmp_path_factory):
 FAKE_PLANS = {"local": ([2, 1], None, True),
               "kv_replicated": ([2, 1], None, True),
               "gathered": ([6, 2], None, False),
-              "q_seq": ([6, 2], [192, 256], True)}
+              "q_seq": ([6, 2], [192, 256], True),
+              "kv_seq": ([6, 2], None, False)}
 
 
 @pytest.mark.parametrize("name", ["local", "gathered", "kv_replicated",
-                                  "q_seq"])
+                                  "q_seq", "kv_seq"])
 def test_dry_run_divides_the_work(fake_cells, name):
     """A reduced dense train cell (16 x 256 tokens, d_ff 1024, vocab 1024)
     in a fake world of 16 on a (4, 4) mesh: ``"tp"`` is the plan of the
@@ -718,7 +881,12 @@ def test_dry_run_divides_the_work(fake_cells, name):
     rank 0 counts within 1.25x of the semantic FLOPs over 16; the heaviest
     q_seq rank (6 heads on 2) within (2m - 1)/m x 1.25 of it; with the
     attention gathered (T 250, which 4 ranks do not divide) it repeats
-    attention along "model", and counts more than the local plan."""
+    attention along "model", and counts more than the local plan. A decode
+    step of 16 rows against a cache of 256 positions, 6 heads on 2 KV
+    heads ("kv_seq"): rank 0 holds positions 0 to 64 of its 4 rows, 1/4
+    of its data rows' cache (1/16 of the whole), and the merge of the
+    ranks' (4, 6, 33) fp32 partials a layer counts among the
+    all-gathers."""
     r = fake_cells[name]
     assert r["status"] == "ok" and r["chips"] == 16
     local_heads, rows, sp = FAKE_PLANS[name]
@@ -728,7 +896,18 @@ def test_dry_run_divides_the_work(fake_cells, name):
             "model_rank": rank, "q_rows": rows}
     if rows is not None:
         want["q_seq_heaviest_over_mean"] = 7 / 4
+    if name == "kv_seq":
+        want.update(cache_len=256, kv_rows=[0, 64])
     assert r["tp"] == want and r["rank"] == rank
+    if name == "kv_seq":
+        # K and V (layers x rows x positions x KV heads x hd, fp32) and
+        # the rows' int32 index
+        cache, kv = r["cache_bytes"], 2 * 2 * 16 * 256 * 2 * 32 * 4
+        assert cache["whole"] == kv + 16 * 4
+        assert cache["rank"] == kv / 16 + 4 * 4
+        merge = 16 * 2 * 4 * 6 * 33 * 4       # chips x layers x partial
+        assert r["coll_by_kind"]["all-gather"] >= merge
+        return
     share = r["rank0"]["flops"] / (r["semantic"]["flops"] / 16)
     assert share >= 1.0
     if name in ("local", "kv_replicated"):
