@@ -28,7 +28,9 @@ Phases, each fatal on failure (nothing is caught):
      blocks of 2048 positions of one cache of 32768 (B 8, 56/8, hd 128;
      fp32 and bf16), merged by the route's merge
      (``ref.merge_attention_partials``) against one whole call, and one
-     rank's call timed (``[kernel] decode_attention kv_seq split``); and at zamba2's
+     rank's call timed beside SDPA (``[kernel] decode_attention kv_seq
+     split``), and the same for whisper-tiny x ``decode_32k``'s decoder
+     (6/6, hd 64); and at zamba2's
      ``long_500k`` cell (S 524288, 32/32, hd 80: checked at B 3 with
      lengths 0, S and a ragged one, timed at B 1 with its split plan);
   4. serves 16 requests at the full width of smollm-135m in bf16 through
@@ -238,7 +240,14 @@ Phases, each fatal on failure (nothing is caught):
      fp32, 3 steps of 2 x 1024, capacity factor E / k) through the route
      (its MoE layers by expert parallelism over the one rank) against the
      unsharded step's grouped dispatch: losses and grad norms within 1e-5
-     relative, 2 x 4 forward and 4 backward flash launches a step;
+     relative, 2 x 4 forward and 4 backward flash launches a step; (g)
+     whisper-tiny on the (1, 1) mesh through the route (the decoder's
+     plan with the encoder's): its sharded step (full width, bf16, 3
+     steps of 8 x 448 tokens and 8 x 1500 seeded frames) bit-identical to
+     the unsharded step, 2 x 4 forward and 4 backward flash launches a
+     step, and ``serve_step`` (the frames and 4 tokens into a cache of
+     448, 4 greedy decode steps) bit-identical to ``model.prefill`` and
+     ``decode``, 4 ``decode_attention`` launches a decode step;
  23. the launch tooling (run last): (a) ``python -m
      repro_torch.launch.dryrun`` in a process per cell (after (b)'s
      predictions; the processes start after phase 21's timed trainings
@@ -246,7 +255,7 @@ Phases, each fatal on failure (nothing is caught):
      (c)'s kernel checks and (b))
      for llava-next-34b x ``train_4k`` on both
      production meshes, mamba2-1.3b x ``train_4k``, kimi-k2-1t-a32b x
-     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s ten
+     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s twelve
      cells on (c)'s ranks, a ``[dryrun]`` line each with its
      tensor-parallel plan
      (the other cells are counted on the CPU: ``--all`` and
@@ -261,12 +270,13 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (two steps bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of ten
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of twelve
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
      a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
-     9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24), each
-     decode cell 3 steps (32 ``decode_attention`` launches a step; zamba2
-     9, qwen2-moe 24, llava-next-34b 60):
+     9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24;
+     whisper-tiny 2 x 4 and 4), each decode cell 3 steps (32
+     ``decode_attention`` launches a step; zamba2 9, qwen2-moe 24,
+     llava-next-34b 60, whisper-tiny 4):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
      "local"), llama-3.1-8b x ``train_4k`` and x ``decode_32k``
      ("kv_replicated": 2 query heads on one KV head a rank, the rank's KV
@@ -280,7 +290,11 @@ Phases, each fatal on failure (nothing is caught):
      tokens sent by all-to-all) and llava-next-34b x ``decode_32k``
      ("kv_seq": all 56/8 heads on the rank's 2048 of the cache's 32768
      positions, its partials merged across the ranks; 60
-     ``decode_attention`` launches a step), built by ``build_cell`` on the card in a
+     ``decode_attention`` launches a step) and whisper-tiny x ``train_4k``
+     on rank 15 (the decoder "q_seq" from rows 3840 to 4096, the encoder
+     "gathered", the whole-vocab loss on the rank's own positions) and x
+     ``decode_32k`` ("kv_seq", the cross K/V whole along "model"),
+     built by ``build_cell`` on the card in a
      fake world
      of 256 ranks on the (16, 16) mesh (the collectives move no data, so
      no value is checked), a ``[launch] tp`` line each beside the dry run
@@ -534,24 +548,27 @@ def lse_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return max_err(got[fin], want[fin], LSE_TOL)
 
 
-def check_kv_seq_split(m=16, S=32768, B=8, L=8):
-    """The "kv_seq" decode of llava-next-34b x ``decode_32k`` emulated on
-    one card: m calls with ``return_lse`` on m blocks of S / m positions
-    of one cache (B 8, 56/8 heads, hd 128), each with its own lengths, as
-    m ranks along ``"model"`` run it, merged in rank order by the route's
-    merge (``ref.merge_attention_partials``) against one whole call: the
-    output within phase 3's bounds (fp32 and bf16) and the merged
-    log-sum-exp within ``LSE_TOL``. Lengths 0, 1, a block's end and one
-    past it, S, past S and ragged ones. Then one rank's call (S / m
-    positions, every slot full, as rank 0's in phase 23's share) timed
-    over L layers, served and with ``return_lse``, with its bound."""
+def check_kv_seq_split(name="llava-next-34b", Hq=56, Hkv=8, hd=128, m=16,
+                       S=32768, B=8, L=8):
+    """The "kv_seq" decode of ``name`` x ``decode_32k`` emulated on one
+    card: m calls with ``return_lse`` on m blocks of S / m positions of
+    one cache (B 8; llava-next-34b's 56/8 heads of hd 128, whisper-tiny's
+    decoder's 6/6 of 64), each with its own lengths, as m ranks along
+    ``"model"`` run it, merged in rank order by the route's merge
+    (``ref.merge_attention_partials``) against one whole call: the output
+    within phase 3's bounds (fp32 and bf16) and the merged log-sum-exp
+    within ``LSE_TOL``. Lengths 0, 1, a block's end and one past it, S,
+    past S and ragged ones. Then one rank's call (S / m positions, every
+    slot full, as rank 0's in phase 23's share) timed over L layers,
+    served, with ``return_lse`` and as SDPA (one query row against the
+    block), with its bound."""
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
     dev = torch.device(DEV)
-    Hq, Hkv, hd, n = 56, 8, 128, S // m
+    n = S // m
     lengths = torch.tensor([0, 1, n, n + 1, S, S + 5, 20001, 4097],
                            dtype=torch.int32, device=dev)[:B]
-    row = {"shape": "llava-next-34b kv_seq split", "ranks": m, "B": B,
+    row = {"shape": f"{name} kv_seq split", "ranks": m, "B": B,
            "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "positions_a_rank": n,
            "lengths": lengths.tolist()}
     for dtype in (torch.float32, torch.bfloat16):
@@ -589,6 +606,10 @@ def check_kv_seq_split(m=16, S=32768, B=8, L=8):
     row["rank_lse_ms"] = device_ms(
         lambda i: dk.decode_attention(q[i % L], k[i % L], v[i % L], full,
                                       return_lse=True), 3 * L)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["rank_library_ms"] = device_ms(
+        lambda i: sdpa(q[i % L][:, :, None], k[i % L].transpose(1, 2),
+                       v[i % L].transpose(1, 2), enable_gqa=True), 3 * L)
     # the return_lse call's bytes: K/V and q read, fp32 output and lse
     nbytes = 2 * B * n * Hkv * hd * 2 + B * Hq * hd * (2 + 4) + 4 * B * Hq
     flops = 4 * B * n * Hq * hd
@@ -3145,6 +3166,10 @@ EP_GRADS = ("router", "w_gate", "w_up", "w_down", "x")
 # losses
 DIST_MOE_LAYERS, DIST_MOE_B, DIST_MOE_T = 4, 2, 1024
 DIST_MOE_RTOL = 1e-5
+# (g) whisper-tiny's sharded train step on 8 rows of this many decoder
+# tokens (and 1500 seeded frames), and serve_step on a prompt of this many
+# tokens into its text context
+DIST_ENCDEC_T, DIST_ENCDEC_PROMPT = 448, 4
 
 
 @contextlib.contextmanager
@@ -3449,6 +3474,112 @@ def distributed_serve(cfg, mesh) -> int:
     return launches
 
 
+def distributed_encdec(cfg, mesh) -> tuple[int, int, int]:
+    """(g) whisper-tiny at full width (4 + 4 layers, bf16) on the (1, 1)
+    mesh through the tensor-parallel route (the decoder's plan with the
+    encoder's, each over a "model" axis of one rank, where every
+    collective is the identity): ``sharding.shard_train_step`` against the
+    unsharded step from the same seed (remat "block", AdamW, 3 steps of 8
+    x ``DIST_ENCDEC_T`` tokens with seeded frames), each step's loss and
+    grad norm and the params after 3 steps the same bits, 2 x 4 forward
+    and 4 backward flash launches a step in each; then
+    ``launch.build.serve_step`` against ``model.prefill`` and
+    ``model.decode`` on the same params and a cache of their own (the
+    frames and a prompt of ``DIST_ENCDEC_PROMPT`` tokens into a cache of
+    ``ENCDEC_MAX_LEN``, 4 greedy decode steps), the logits of every step
+    bit-identical, 4 ``decode_attention`` launches a decode step each.
+    Returns the decode launches and the flash launches (forward,
+    backward) in it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.build import serve_step
+    from repro_torch.models.common import tree_leaves
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    frames = torch.randn((TRAIN_B, cfg.enc_len, cfg.d_model), generator=gen,
+                         device=DEV).to(cfg.compute_dtype)
+    total = np.zeros(2, dtype=int)
+    runs = {}
+    for label, on in (("unsharded", None), ("sharded", mesh)):
+        torch.cuda.empty_cache()
+        model, state, step, data = fresh_training(cfg, mesh=on, B=TRAIN_B,
+                                                  T=DIST_ENCDEC_T)
+        flash_launches(reset=True)
+        metrics = []
+        t0 = time.perf_counter()
+        with counting_routes() as plans:
+            for i in range(DIST_STEPS):
+                state, m = step(state, {**data.batch(i), "frames": frames})
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        seconds = time.perf_counter() - t0
+        require_routes(f"[distributed] train encdec {label}", plans,
+                       DIST_STEPS if on is not None else 0)
+        if any(p.encoder is None for p in plans):
+            raise AssertionError(f"an enc-dec train route without the "
+                                 f"encoder's plan: {plans}")
+        launches = flash_launches()
+        want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
+        if launches != want:
+            raise AssertionError(f"{label} whisper step: flash launches "
+                                 f"{launches}, want {want}")
+        total += launches
+        runs[label] = {"metrics": metrics, "seconds": seconds,
+                       "tree": state["params"],
+                       "params": [whole(p) for p in
+                                  tree_leaves(state["params"])]}
+        del state, step
+    got, want = runs["sharded"], runs["unsharded"]
+    same_train = got["metrics"] == want["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
+    train = {"loss_grad_norm": got["metrics"],
+             "seconds": {k: r["seconds"] for k, r in runs.items()}}
+    # serve_step on the unsharded step's final params
+    params = want["tree"]
+    del runs, got, want
+    prompt = torch.randint(0, cfg.vocab_size, (TRAIN_B, DIST_ENCDEC_PROMPT),
+                           generator=gen, device=DEV, dtype=torch.int32)
+
+    def placed(tree, specs):
+        return shd.place(tree, shd.to_named(mesh, shd.fit_tree(mesh, specs,
+                                                               tree)))
+
+    def inputs(batch):
+        return placed(batch, shd.batch_specs(cfg, mesh, batch))
+
+    ps = placed(params, shd.param_specs(cfg, mesh))
+    cache = placed(model.init_cache(TRAIN_B, ENCDEC_MAX_LEN),
+                   shd.cache_specs(cfg, mesh))
+    want_cache = model.init_cache(TRAIN_B, ENCDEC_MAX_LEN)
+    prefill, decode = serve_step(model, mesh, "prefill"), serve_step(
+        model, mesh, "decode")
+    batch = {"tokens": prompt, "frames": frames}
+    launch_counts(reset=True)
+    with torch.no_grad(), counting_routes() as plans:
+        out, cache = prefill(ps, inputs(batch), cache)
+        ref_out, want_cache = model.prefill(params, batch, want_cache)
+        same_serve = [torch.equal(out, ref_out)]
+        for _ in range(SERVE_DECODES):
+            nxt = ref_out.argmax(-1).to(torch.int32)
+            out, cache = decode(ps, inputs({"tokens": nxt}), cache)
+            ref_out, want_cache = model.decode(params, nxt, want_cache)
+            same_serve.append(torch.equal(out, ref_out))
+    decodes = launch_counts()["decode_attention"]
+    require_routes("[distributed] serve encdec", plans, 1 + SERVE_DECODES)
+    stats = {"arch": cfg.name, "B": TRAIN_B, "T": DIST_ENCDEC_T,
+             "enc_len": cfg.enc_len, "steps": DIST_STEPS,
+             "train_bit_identical": same_train, **train,
+             "flash_launches_a_step": [2 * cfg.n_layers, cfg.n_layers],
+             "prompt": DIST_ENCDEC_PROMPT, "cache": ENCDEC_MAX_LEN,
+             "decode_steps": SERVE_DECODES,
+             "serve_bit_identical": same_serve, "decode_launches": decodes}
+    log(f"[distributed] encdec {json.dumps(stats)}")
+    if not (same_train and all(same_serve)) or \
+            decodes != 2 * cfg.n_layers * SERVE_DECODES:
+        raise AssertionError(f"whisper-tiny on (1, 1): {stats}")
+    return decodes, int(total[0]), int(total[1])
+
+
 def distributed_pipeline(cfg) -> int:
     """(b) ``pipeline`` over a one-rank ("stage",) mesh: the 30 layers of
     full-width smollm-135m (bf16, flash forward) on 4 microbatches of 2 x
@@ -3671,7 +3802,7 @@ def distributed_train_moe(cfg, mesh) -> tuple[int, int]:
     return tuple(int(n) for n in total)
 
 
-def distributed_phase(smollm, qwen, mamba
+def distributed_phase(smollm, qwen, mamba, whisper
                       ) -> tuple[int, int, int, int, int]:
     """Phase 22, run after phase 9 (the profiler reads device time there).
     Returns the decode launches, the flash launches (forward, backward)
@@ -3696,6 +3827,9 @@ def distributed_phase(smollm, qwen, mamba
         moe_fwd, moe_bwd = distributed_train_moe(qwen, mesh)
         fwd, bwd = fwd + moe_fwd, bwd + moe_bwd
         torch.cuda.empty_cache()
+        n, encdec_fwd, encdec_bwd = distributed_encdec(whisper, mesh)
+        decode, fwd, bwd = decode + n, fwd + encdec_fwd, bwd + encdec_bwd
+        torch.cuda.empty_cache()
     if logical.active():
         raise AssertionError("a logical policy outlived phase 22")
     log(f"[distributed] phase {time.perf_counter() - t0:.1f} s, decode "
@@ -3719,9 +3853,12 @@ def distributed_phase(smollm, qwen, mamba
 # shared experts "local", one of the 256 padded experts a rank, its tokens
 # by all-to-all over the fake world) and llava-next-34b x decode_32k
 # ("kv_seq": the cache split over its positions, the ranks' decode
-# partials merged; before it the share did not fit the card); kimi-k2-1t-
-# a32b x train_4k is dry-run alone (its share does not fit the card by the
-# dry run)
+# partials merged; before it the share did not fit the card) and
+# whisper-tiny x train_4k on rank 15 (the decoder "q_seq" on its last
+# rows, the encoder "gathered", the whole-vocab loss on the rank's own
+# positions) and x decode_32k ("kv_seq", the cross K/V whole along
+# "model"); kimi-k2-1t-a32b x train_4k is dry-run alone (its share does
+# not fit the card by the dry run)
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
@@ -3731,7 +3868,9 @@ TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("zamba2-2.7b", "decode_32k", 0),
             ("qwen2-moe-a2.7b", "train_4k", 0),
             ("qwen2-moe-a2.7b", "decode_32k", 0),
-            ("llava-next-34b", "decode_32k", 0)]
+            ("llava-next-34b", "decode_32k", 0),
+            ("whisper-tiny", "train_4k", 15),
+            ("whisper-tiny", "decode_32k", 0)]
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
@@ -3749,8 +3888,9 @@ TP_DECODE_S = 32768         # decode_32k's cache
 # fp32 scores are 2.1 GB), minitron-4b's last rank along "model" (q_seq: all
 # 24/8 heads, query rows 3840 to 4096 against keys 0 to 4096), llama-3.1-8b's
 # 2 query heads on their one KV head (kv_replicated), zamba2-2.7b's 2 of 32
-# heads, qwen2-moe-a2.7b's 1 of 16, and a ragged offset (rows and keys that
-# no tile divides)
+# heads, qwen2-moe-a2.7b's 1 of 16, whisper-tiny's decoder on its last rank
+# along "model" (q_seq: all 6/6 heads of hd 64), and a ragged offset (rows
+# and keys that no tile divides)
 TP_FLASH_SHAPES = [
     ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True),
     ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
@@ -3758,6 +3898,8 @@ TP_FLASH_SHAPES = [
     ("llama-3.1-8b kv_replicated share", 16, 4096, 4096, 2, 1, 128, True),
     ("zamba2-2.7b TP share", 16, 4096, 4096, 2, 2, 80, True),
     ("qwen2-moe-a2.7b TP share", 16, 4096, 4096, 1, 1, 128, True),
+    ("whisper-tiny q_seq share, last rank", 16, 256, 4096, 6, 6, 64, True,
+     3840),
     ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
 # the scan at the SSM shares' shapes (name, B, T, H, P, N, Q, h0): a rank's
 # 5 of zamba2-2.7b's 80 heads (N 64) in train_4k, and 4 of mamba2-1.3b's 64
@@ -4198,8 +4340,9 @@ def tp_share_kernels() -> None:
     one KV head, zamba2's 2 of 32 heads at hd 80 (these two timed too) and
     qwen2-moe's 1 of 16, lengths 0, S and ragged ones; flash, forward and
     backward, fp32
-    and bf16, at ``TP_FLASH_SHAPES``, the q_seq share's timing beside the
-    same call at offset 0 and zamba2's share's beside SDPA; the scan,
+    and bf16, at ``TP_FLASH_SHAPES``, the q_seq shares' timings
+    (minitron-4b's and whisper-tiny's last ranks) beside the same call at
+    offset 0 and zamba2's share's beside SDPA; the scan,
     forward and backward (fp32, the route's only dtype), at
     ``TP_SSD_SHAPES``, each timed from CUDA-graph replays, with its
     passes' device ms from the profiler. Run while (a)'s dry runs count on
@@ -4220,6 +4363,7 @@ def tp_share_kernels() -> None:
             lengths=lengths)
     check_flash_attention(TP_FLASH_SHAPES)
     time_flash_offset(TP_FLASH_SHAPES[1])
+    time_flash_offset(TP_FLASH_SHAPES[5])
     time_flash_attention(TP_FLASH_SHAPES[3])
     gc.collect()
     torch.cuda.empty_cache()
@@ -4483,6 +4627,8 @@ def main() -> int:
         timed_lengths=[LONG_S])
     torch.cuda.empty_cache()
     check_kv_seq_split()
+    check_kv_seq_split(whisper.name, whisper.n_heads, whisper.n_kv_heads,
+                       whisper.hd)
     mark("phases 1 to 3")
 
     model, params, reqs, records, counts = serve_full_width(smollm, rng)
@@ -4508,7 +4654,7 @@ def main() -> int:
     train_graphed_against_eager(smollm)
     train_parity(smollm)
     decode, fwd, bwd, ssd_launches, scan_bwd = distributed_phase(
-        smollm, qwen, mamba)
+        smollm, qwen, mamba, whisper)
     launches += decode
     fwd_launches += fwd
     bwd_launches += bwd

@@ -18,14 +18,15 @@ Spec trees have the exact structure of the trees they describe
 ``to_named`` gives each spec its DTensor placements, ``place`` lays a
 tree out by them, and ``shard_train_step`` trains on the placed state.
 Every leaf is gathered along the data axes for the step (FSDP), but the
-expert-parallel MoE stacks. Along ``"model"`` the dense, vlm, ssm, hybrid
-and expert-parallel MoE families compute tensor-parallel
-(``tensor_parallel.plan``: attention in one of its five modes, ``d_ff``
-(the MoE's shared experts), the SSM heads and vocab local to a rank where
-m divides them, the routed experts by expert parallelism over every axis,
-``tp_layouts`` the leaves' layouts for it); the enc-dec family and a
-grouped-dispatch MoE gather each leaf whole along ``"model"`` too, so
-their ranks along it compute the same rows.
+expert-parallel MoE stacks. Along ``"model"`` the dense, vlm, ssm, hybrid,
+enc-dec and expert-parallel MoE families compute tensor-parallel
+(``tensor_parallel.plan``: attention in one of its five modes, the
+enc-dec encoder's by its own plan and the cross-attention by the
+decoder's, ``d_ff`` (the MoE's shared experts), the SSM heads and vocab
+local to a rank where m divides them, the routed experts by expert
+parallelism over every axis, ``tp_layouts`` the leaves' layouts for it); a
+grouped-dispatch MoE gathers each leaf whole along ``"model"`` too, so its
+ranks along it compute the same rows.
 
 A serve cell's KV cache under the "kv_replicated" plan (m divides the
 query heads, the KV heads divide m) is the port's own layout, ``tp_cache``:
@@ -54,6 +55,21 @@ hd/2) stay on one rank, and the ranks exchange a (B, Hq, hd + 1) fp32
 partial a layer where a ``head_dim`` split would all-reduce the (B, Hq,
 S) scores. The cache's layout follows the decode plan for the same S
 whatever step writes it, a prefill too.
+
+An enc-dec serve cell's cross K/V (each decoder layer's K and V of the
+encoder's output, (L, B, enc_len, Hkv, hd)) follow the decoder's heads:
+where they split over m ("local"), the rank's heads, as the reference's
+spec; under "kv_replicated" the repeated layout of the self K/V above;
+otherwise (the decoder's decode plan "kv_seq" or "gathered") the port's
+own layout, ``tp_cache``: ``Replicate()`` along ``"model"``, so every rank
+holds them whole and no step gathers them, and every rank computes the
+cross-attention whole. The reference's spec shards ``head_dim`` there
+(``_kv_spec``: Hkv < m), 1/m of them a rank: whisper-tiny at m = 16 holds
+36.9 MB a data rank of 8 rows (4 layers x 8 x 1500 x 6 x 64 x 2 B, K and
+V) where the reference holds 2.3 MB. A split over the encoder's positions
+with a log-sum-exp merge is not done: 16 does not divide 1500, and the
+cross-attention is no kernel. Its self K/V are laid out as the dense
+family's (split over their positions under "kv_seq").
 
 A serve cell's mamba2 conv tail where the SSM heads are local (m divides
 them) is the port's own layout too, ``tp_cache``: (..., B, K-1, m (din/m +
@@ -301,7 +317,9 @@ def tp_cache(cfg: ArchConfig, mesh, cache: dict) -> tuple[dict, dict]:
     (L, B, S, m, hd), each KV head repeated for the m / Hkv ranks that
     attend with it, the head dim sharded along ``"model"``, where it is
     "kv_seq", whose K and V are sharded on their positions along
-    ``"model"`` (every head whole), and where the SSM
+    ``"model"`` (every head whole), an enc-dec model's cross K/V the rank's
+    heads where they split (repeated as the self K/V under
+    "kv_replicated"), else whole along ``"model"``, and where the SSM
     heads are local, whose conv tail becomes (..., B, K-1, m (din/m +
     2N)), each rank's x channels then B and C (``ssm_tail_layout``), the
     last axis sharded along ``"model"`` (the module's docstring says
@@ -318,10 +336,15 @@ def tp_cache(cfg: ArchConfig, mesh, cache: dict) -> tuple[dict, dict]:
         specs = {**specs, "k": spec, "v": spec}
     if plan.heads == "kv_replicated":
         kv = {k: cache[k].repeat_interleave(plan.kv_share, dim=3)
-              for k in ("k", "v")}
-        spec = fit_spec(mesh, P(None, batch_axes(mesh), None, "model", None),
-                        kv["k"].shape)
-        cache, specs = {**cache, **kv}, {**specs, "k": spec, "v": spec}
+              for k in ("k", "v", "cross_k", "cross_v") if k in cache}
+        cache = {**cache, **kv}
+        specs = {**specs, **{k: fit_spec(
+            mesh, P(None, batch_axes(mesh), None, "model", None), t.shape)
+            for k, t in kv.items()}}
+    elif "cross_k" in cache and not plan.heads_local:
+        spec = fit_spec(mesh, P(None, batch_axes(mesh), None, None, None),
+                        cache["cross_k"].shape)
+        specs = {**specs, "cross_k": spec, "cross_v": spec}
     if plan.ssm == "local":
         st = cache["state"]
         tail = ssm_tail_layout(st.conv_tail, plan.model, cfg.d_inner)
@@ -467,8 +490,8 @@ def train_state_specs(state: dict, opt_name: str, pspecs) -> dict:
 
 
 def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
-    """Each param leaf of a dense, vlm, ssm, hybrid or MoE model under a
-    tensor-parallel ``plan``, as (the placements it is computed in, its
+    """Each param leaf of a dense, vlm, ssm, hybrid, MoE or enc-dec model
+    under a tensor-parallel ``plan``, as (the placements it is computed in, its
     gradient's): whole along the data axes, where the gradient is a
     partial sum (each rank saw its own rows); along ``"model"`` sharded
     where the plan makes its product local (the gradient is then the
@@ -477,16 +500,22 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     took its own columns (``wk``/``wv`` under "kv_replicated"; a mamba2
     block's ``in_proj``, ``conv_w`` and ``conv_b`` where its heads are
     local, ``Route.ssm_slice``) (and ``patch_proj`` where the vocab is
-    local: it counts on rank 0 alone, ``Route.embed``), else equal on
-    every rank. Under "q_seq" the attention's leaves are whole, their
-    gradients partial sums (its training is sequence-parallel: each rank
-    saw its own query rows). An MoE layer's expert stacks stay in
-    ``moe_specs``' expert-parallel placement, each rank's experts whole
-    and never gathered, their gradients the experts' own; its router is
-    whole, its gradient a partial sum over every axis (each rank routed
-    its own block of tokens); its shared experts are laid out as the MLP.
-    Stacked leaves keep their lead axes (the layers; the hybrid's groups
-    and layers), the shared block's have none."""
+    local: it counts on rank 0 alone, ``Route.embed``; ``lm_head`` where
+    the vocab is whole, ``Plan.loss_rows``: each rank's logits are its own
+    positions'), else equal on every rank. Under "q_seq" the attention's
+    leaves are whole, their gradients partial sums (its training is
+    sequence-parallel: each rank saw its own query rows). An MoE layer's
+    expert stacks stay in ``moe_specs``' expert-parallel placement, each
+    rank's experts whole and never gathered, their gradients the experts'
+    own; its router is whole, its gradient a partial sum over every axis
+    (each rank routed its own block of tokens); its shared experts are
+    laid out as the MLP. An enc-dec model's encoder leaves (and ``enc_norm``) follow the
+    encoder's plan (in a decode step, which runs no encoder, the
+    decoder's), its decoder's and its cross-attention's the decoder's (the
+    cross ``wk``/``wv`` as the self-attention's: the rank's heads, its KV
+    head's columns, or whole). Stacked leaves keep their lead axes (the
+    layers; the hybrid's groups and layers), the shared block's have
+    none."""
     names = mesh.mesh_dim_names
     baxes = ("pod", "data") if "pod" in names else ("data",)
     sp = plan.seq_parallel
@@ -499,15 +528,16 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
                 [Partial() if n in baxes else along if n == "model"
                  else Replicate() for n in names])
 
-    def attn(lead: int) -> AttnParams:
-        h = plan.heads_local
-        kv = lay(lead + 1, plan.heads == "local",
-                 partial=sp or plan.heads == "kv_replicated")
-        return AttnParams(lay(lead + 1, h), kv, kv, lay(lead, h))
+    def attn(lead: int, pl=plan) -> AttnParams:
+        h, psp = pl.heads_local, pl.seq_parallel
+        kv = lay(lead + 1, pl.heads == "local",
+                 partial=psp or pl.heads == "kv_replicated")
+        return AttnParams(lay(lead + 1, h, psp), kv, kv, lay(lead, h, psp))
 
-    def mlp(lead: int) -> MLPParams:
-        f = plan.mlp_local
-        return MLPParams(lay(lead + 1, f), lay(lead + 1, f), lay(lead, f))
+    def mlp(lead: int, pl=plan) -> MLPParams:
+        f, psp = pl.mlp_local, pl.seq_parallel
+        return MLPParams(lay(lead + 1, f, psp), lay(lead + 1, f, psp),
+                         lay(lead, f, psp))
 
     def moe(lead: int) -> MoEParams:
         stack = [Shard(lead)] * len(names)
@@ -525,7 +555,7 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
 
     out = {"embed": lay(0, plan.vocab_local),
            "final_norm": lay(0, False),
-           "lm_head": lay(1, plan.vocab_local, partial=False)}
+           "lm_head": lay(1, plan.vocab_local, partial=plan.loss_rows)}
     if cfg.family in ("dense", "vlm"):
         out["layers"] = DenseLayer(attn=attn(1), mlp=mlp(1),
                                    norm1=lay(0, False), norm2=lay(0, False))
@@ -538,6 +568,17 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
         out.update(layers=SSMLayer(mamba=mamba(2), norm=lay(0, False)),
                    shared_attn=attn(0), shared_mlp=mlp(0),
                    shared_norm1=lay(0, False), shared_norm2=lay(0, False))
+    elif cfg.family == "encdec":
+        enc = plan.encoder or plan
+        esp = enc.seq_parallel
+        out.update(enc_layers=EncLayer(attn=attn(1, enc), mlp=mlp(1, enc),
+                                       norm1=lay(0, False, esp),
+                                       norm2=lay(0, False, esp)),
+                   dec_layers=DecLayer(self_attn=attn(1), cross_attn=attn(1),
+                                       mlp=mlp(1), norm1=lay(0, False),
+                                       norm2=lay(0, False),
+                                       norm3=lay(0, False)),
+                   enc_norm=lay(0, False, esp))
     else:
         raise ValueError(f"no tensor-parallel layout for {cfg.family}")
     if cfg.family == "vlm":
@@ -616,12 +657,12 @@ def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
     ``compress`` run on them (DTensor reduces the global norm, Adafactor's
     means and the int8 scale over whole leaves), and the metrics are the
     global loss and the norm over whole gradients. The dense, vlm, ssm,
-    hybrid and expert-parallel MoE families compute tensor-parallel along
-    ``"model"`` (``_LocalLoss``). An MoE loss adds the aux over every
-    rank's tokens, the same on every rank, to each rank's NLL; weighed by
-    the rank's token share, the sum over the batch ranks is the
-    reference's loss, and the aux's statistics take each batch rank's
-    gradient once (``tensor_parallel.stat_sum``).
+    hybrid, enc-dec and expert-parallel MoE families compute
+    tensor-parallel along ``"model"`` (``_LocalLoss``). An MoE loss adds
+    the aux over every rank's tokens, the same on every rank, to each
+    rank's NLL; weighed by the rank's token share, the sum over the batch
+    ranks is the reference's loss, and the aux's statistics take each
+    batch rank's gradient once (``tensor_parallel.stat_sum``).
 
     A grouped-dispatch MoE (``moe_impl="gspmd"``) computes whole, its aux
     over a rank's own rows, so it trains here only with the batch on one

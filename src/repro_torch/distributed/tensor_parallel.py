@@ -1,8 +1,8 @@
-"""Tensor-parallel compute along ``"model"`` for the dense, vlm, ssm,
-hybrid and MoE families: the port's counterpart of GSPMD's partitioning of
-the reference's ``DenseLM``, ``MambaLM``, ``HybridLM`` and ``MoELM`` under
-``param_specs`` and their ``constrain`` sites
-(``repro/models/transformer.py``, ``repro/models/mamba2.py``,
+"""Tensor-parallel compute along ``"model"`` for every family (dense,
+vlm, ssm, hybrid, MoE and enc-dec): the port's counterpart of GSPMD's
+partitioning of the reference's ``DenseLM``, ``MambaLM``, ``HybridLM``,
+``MoELM`` and ``EncDecLM`` under ``param_specs`` and their ``constrain``
+sites (``repro/models/transformer.py``, ``repro/models/mamba2.py``,
 ``repro/models/moe_ep.py``, ``repro/distributed/logical.py``).
 
 ``plan`` derives, from the config and the ``"model"`` axis size m, what a
@@ -33,10 +33,11 @@ rank computes locally:
       ``[a, b)``, then the rows all-gathered (forward only). The rows are
       contiguous, so the last rank does (2m - 1)/m times the mean rank's
       attention work (1.94 at m = 16);
-    - ``"kv_seq"``, a decode step of the dense and vlm families where
-      neither of the first two holds and m divides the cache's positions
-      S: rank r holds positions ``[r S/m, (r+1) S/m)`` of every KV head,
-      whole in ``head_dim`` (``Plan.kv_rows``; ``sharding.tp_cache``).
+    - ``"kv_seq"``, a decode step of the dense, vlm and enc-dec families
+      where neither of the first two holds and m divides the cache's
+      positions S: rank r holds positions ``[r S/m, (r+1) S/m)`` of every
+      KV head, whole in ``head_dim`` (``Plan.kv_rows``;
+      ``sharding.tp_cache``).
       Every rank computes q, k and v of the new token from whole weights,
       the rank that owns the written row writes it, each rank runs
       ``decode_attention`` with every query head over its positions and
@@ -89,13 +90,33 @@ rank computes locally:
     (``Plan.heads`` and ``Plan.mlp_local`` None);
   * the vocab, when m divides it: the embedding lookup and the logits are
     this rank's rows and columns, and the loss is
-    ``vocab_parallel_cross_entropy``; otherwise whole;
+    ``vocab_parallel_cross_entropy``; otherwise whole, and in a
+    sequence-parallel train step (``Plan.loss_rows``) each rank computes
+    the whole-vocab logits and NLL of its own positions alone, their
+    masked sum all-reduced along ``"model"`` (whisper-tiny's 51865 at m =
+    16: a rank's logits are 1/m of its rows', not every row's);
   * sequence-parallel residuals in training where m divides the residual
     sequence (the reference's ``"seq_res"``): RMSNorm on the rank's slice,
     an all-gather before each sublayer and a reduce-scatter after its
     row-parallel product. Otherwise (serving, or T not divisible) the
     residual is whole on every rank and each row-parallel product ends in
-    one all-reduce.
+    one all-reduce;
+  * the enc-dec family (whisper) has two plans. The decoder's is the one
+    above, for its text of T positions against its self-attention cache
+    of S. The encoder's (``Plan.encoder``; a train or prefill step) is the
+    same rules at T = ``enc_len``, non-causal: its attention "local" or
+    "kv_replicated" by the heads, else "q_seq" where m divides
+    ``enc_len`` (a rank's query rows against every key, and, in
+    training, the encoder's residual sequence-parallel), else "gathered".
+    The cross-attention (``Route.cross_attention``) follows the decoder's
+    mode: where its heads split, ``wq``/``wk``/``wv`` column-parallel (the
+    rank's KV head's columns under "kv_replicated"), ``wo`` row-parallel,
+    and the cross K/V the rank's heads; under "q_seq" the rank's query
+    rows against every encoder position, ``wk``/``wv`` whole (their
+    gradient a partial sum), with no reduce in training; otherwise
+    ("kv_seq", "gathered") whole on every rank, against cross K/V held
+    whole along ``"model"`` (``sharding.tp_cache``). The encoder's output
+    is made whole on every rank for the cross K/V (``Route.memory``).
 
 A ``Route`` is a plan and the process group it runs over. The model code
 computes on plain local tensors and calls the route at the sublayer
@@ -109,7 +130,7 @@ imports the models.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
@@ -120,7 +141,7 @@ from . import logical
 
 #: the families whose layers compute tensor-parallel along "model" (MoE:
 #: its expert-parallel configs)
-TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe")
+TP_FAMILIES = ("dense", "vlm", "ssm", "hybrid", "moe", "encdec")
 
 _c10d = torch.ops._c10d_functional
 
@@ -145,7 +166,9 @@ class Plan:
     SSM heads a rank computes; for the MoE family ``ep`` the expert-
     parallel group's size (the world), ``ep_experts`` the experts a rank
     holds and ``capacity`` a source rank's slots an expert (None where the
-    rows are not known), else None."""
+    rows are not known), else None; for an enc-dec train or prefill step
+    ``encoder`` the encoder's plan (``seq_len`` its ``enc_len``), else
+    None."""
     model: int
     heads: str | None
     mlp_local: bool | None
@@ -160,6 +183,14 @@ class Plan:
     ep: int | None = None
     ep_experts: int | None = None
     capacity: int | None = None
+    encoder: Plan | None = None
+
+    @property
+    def loss_rows(self) -> bool:
+        """Whether a train step's logits and NLL are each rank's own
+        positions' alone, over the whole vocab (sequence-parallel, the
+        vocab whole)."""
+        return self.seq_parallel and not self.vocab_local and self.model > 1
 
     @property
     def heads_local(self) -> bool:
@@ -189,7 +220,10 @@ class Plan:
         rank's query rows too, and under "q_seq" the last rank's attention
         work over the mean rank's. Where the cache is split over its
         positions, its ``cache_len`` and, with ``model_rank``, the rank's
-        ``kv_rows``."""
+        ``kv_rows``. An enc-dec step's encoder plan under ``"encoder"``
+        (its attention's mode, local heads, MLP, whether
+        sequence-parallel and, with ``model_rank``, the rank's query
+        rows)."""
         mlp = (None if self.mlp_local is None else
                "local" if self.mlp_local else "gathered")
         out = {"model": self.model, "heads": self.heads,
@@ -213,6 +247,11 @@ class Plan:
                     (2 * self.model - 1) / self.model
             if self.cache_len is not None:
                 out["kv_rows"] = list(self.kv_rows(model_rank))
+        if self.encoder is not None:
+            enc = self.encoder.record(model_rank)
+            out["encoder"] = {k: enc[k] for k in (
+                "heads", "local_heads", "mlp", "seq_parallel", "q_rows")
+                if k in enc}
         return out
 
 
@@ -234,11 +273,13 @@ def _heads_local(cfg, m: int) -> bool:
 def cache_split(cfg, m: int, cache_len: int | None) -> bool:
     """Whether a serve cell's KV cache of ``cache_len`` positions is
     split over its positions along a ``"model"`` axis of m ranks: the
-    decode plan is "kv_seq" (the dense and vlm families, heads that do not
-    split over m, m dividing the positions). A rule of the plan, not a
-    fallback: where m does not divide S the cache is gathered."""
+    decode plan is "kv_seq" (the dense, vlm and enc-dec families, the
+    latter's decoder self-attention cache; heads that do not split over m,
+    m dividing the positions). A rule of the plan, not a fallback: where m
+    does not divide S the cache is gathered."""
     return (cache_len is not None and m > 1
-            and cfg.family in ("dense", "vlm") and bool(cfg.n_heads)
+            and cfg.family in ("dense", "vlm", "encdec")
+            and bool(cfg.n_heads)
             and not _heads_local(cfg, m) and cache_len % m == 0)
 
 
@@ -252,7 +293,20 @@ def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
     decode step takes ``cache_len``, the KV cache's positions S (None: a
     cache whole on every rank along ``"model"``): where ``cache_split``
     holds, a decode step is "kv_seq" and either step's ``cache_len`` is
-    S."""
+    S. An enc-dec train or prefill step's plan carries the encoder's
+    (``Plan.encoder``)."""
+    p = _plan(cfg, m, kind=kind, seq_len=seq_len, ep=ep, rows=rows,
+              cache_len=cache_len)
+    if cfg.family == "encdec" and kind != "decode":
+        p = replace(p, encoder=_plan(cfg, m, kind=kind,
+                                     seq_len=cfg.enc_len))
+    return p
+
+
+def _plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
+          rows: int | None = None, cache_len: int | None = None) -> Plan:
+    """``plan`` of one stack of layers (an enc-dec model's decoder, or its
+    encoder at ``enc_len``)."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     share = 1
     split = kind != "train" and cache_split(cfg, m, cache_len)
@@ -614,6 +668,26 @@ class Route:
         gradient is the slice's alone)."""
         return x.chunk(self.plan.model, 1)[self.rank] if self._many else x
 
+    def rows_nll(self, nll_of, h: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None, skip: int = 0) -> torch.Tensor:
+        """The mean NLL over a data rank's whole rows under ``loss_rows``
+        from this rank's slice ``h`` of the normed residual: ``nll_of(x,
+        labels)`` each token's NLL of the whole-vocab logits of ``x``, on
+        the slice's positions that have labels (the residual's first
+        ``skip``, a vlm's patches, have none); ``labels`` and ``mask`` are
+        the whole rows'. The slice's masked sum is all-reduced along
+        ``"model"`` (each rank's gradient its own positions'), over the
+        whole rows' count."""
+        n = h.shape[1]
+        a = self.rank * n
+        lo, hi = max(a, skip), max(a + n, skip)     # the labelled positions
+        nll = nll_of(h[:, lo - a:], labels[:, lo - skip:hi - skip])
+        if mask is None:
+            return self.reduce_out(nll.sum()) / labels.numel()
+        mask = mask.float()
+        part = (nll * mask[:, lo - skip:hi - skip]).sum()
+        return self.reduce_out(part) / torch.clamp_min(mask.sum(), 1.0)
+
     @property
     def q_rows(self) -> tuple[int, int] | None:
         """This rank's query rows under "q_seq", else None."""
@@ -659,6 +733,39 @@ class Route:
             return self.gather_seq(fn(p, x, self.q_rows), reduce_grad=False)
         return self.sublayer(lambda h: fn(p, h, None), x,
                              self.plan.heads_local)
+
+    @property
+    def encoder(self) -> Route:
+        """An enc-dec step's encoder route: its plan (``Plan.encoder``)
+        over the same group."""
+        return Route(self.plan.encoder, self.group, self.mesh)
+
+    def cross_attention(self, fn, p, x: torch.Tensor) -> torch.Tensor:
+        """The cross-attention sublayer ``fn(p, x, q_rows)`` (``p`` its
+        params, whose ``wk``/``wv`` ``fn`` does not read: its K/V are the
+        encoder's, ``memory``'s) on the normed residual ``x``, in the
+        decoder's mode: its heads' columns and rows of ``wq`` and ``wo``
+        column- then row-parallel where they split; under "q_seq" the
+        rank's query rows (in training its residual slice, so nothing is
+        gathered or reduced); else whole on every rank. Returns the output
+        in the residual's layout."""
+        if self.plan.heads == "q_seq":
+            if self.sp:
+                return fn(p, x, None)
+            return self.gather_seq(fn(p, x, self.q_rows), reduce_grad=False)
+        return self.sublayer(lambda h: fn(p, h, None), x,
+                             self.plan.heads_local)
+
+    def memory(self, enc: Route, h: torch.Tensor) -> torch.Tensor:
+        """The encoder's normed output ``h``, in the residual layout of
+        its route ``enc``, whole on every rank for the cross K/V. Where
+        the decoder's cross-attention is rank-local (its heads split, or
+        its query rows are the rank's) each rank's gradient of it is a
+        share, summed over the ranks; else every rank's is the whole."""
+        share = self.plan.heads_local or self.plan.heads == "q_seq"
+        if enc.sp:
+            return enc.gather_seq(h, reduce_grad=share)
+        return self.copy_in(h) if share else h
 
     def sublayer(self, fn, x: torch.Tensor, local: bool) -> torch.Tensor:
         """``fn`` (attention or the MLP, without its residual) on the
@@ -792,12 +899,26 @@ class Route:
         (``wk`` whole unless the heads are "local"; a mamba2 block's
         ``in_proj`` whole, its heads' leaves the rank's where local; an
         MoE layer's router whole, its expert stacks the rank's experts,
-        its shared experts as the MLP)."""
+        its shared experts as the MLP; an enc-dec model's encoder and
+        decoder layers, the cross-attention's as the self-attention's)."""
         p, hd, m = self.plan, cfg.hd, self.plan.model
         vocab = cfg.vocab_size // (m if p.vocab_local else 1)
-        want = {"embed rows": (params["embed"].shape[0], vocab),
-                "lm_head columns": (params["lm_head"].shape[-1], vocab)}
-        if cfg.family == "hybrid":
+        want = {"lm_head columns": (params["lm_head"].shape[-1], vocab)}
+        if p.vocab_local:     # a whole table may be the rows a step reads
+            want["embed rows"] = (params["embed"].shape[0], vocab)
+        if cfg.family == "encdec":
+            dec = params["dec_layers"]
+            attn, mlp = dec.self_attn, dec.mlp
+            for name, a in (("encoder", params["enc_layers"].attn),
+                            ("cross", dec.cross_attn)):
+                want[f"{name} wq columns"] = (a.wq.shape[-1],
+                                              p.local_heads[0] * hd)
+                want[f"{name} wk columns"] = (a.wk.shape[-1],
+                                              dec.self_attn.wk.shape[-1])
+            want["encoder w_gate columns"] = (
+                params["enc_layers"].mlp.w_gate.shape[-1],
+                dec.mlp.w_gate.shape[-1])
+        elif cfg.family == "hybrid":
             attn, mlp = params["shared_attn"], params["shared_mlp"]
         elif cfg.family == "moe":
             moe = params["layers"].moe

@@ -234,6 +234,34 @@ def _put_back(local: torch.Tensor, t: DTensor, have: list) -> DTensor:
         mesh, t.placements)
 
 
+def _read_rows(table: DTensor, tokens: DTensor) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """A decode step's embedding lookup without gathering the table: for a
+    ``table`` whole along the vocab and sharded on its columns (whisper's
+    51865 rows, which "model" does not divide, under FSDP), the rows the
+    step's ``tokens`` read on every batch rank, whole, and this rank's
+    tokens as indices into them. The tokens are all-gathered over the
+    batch ranks, each rank looks its columns up, and the lookups are
+    all-gathered: a (tokens, d) block where the table would be (V, d). The
+    lookup reads the same values, so its output is the same bits."""
+    mesh = table.device_mesh
+    every = tokens.full_tensor()                            # (B, T)
+    mine = shd.local_shard(mesh, torch.arange(
+        every.numel(), device=every.device).reshape(every.shape),
+        tokens.placements)
+    cols = torch.nn.functional.embedding(every.reshape(-1).long(),
+                                         table.to_local())
+    rows = DTensor.from_local(cols, mesh, table.placements).full_tensor()
+    return rows, mine.to(tokens.dtype)
+
+
+def _read_by_rows(table: DTensor) -> bool:
+    """Whether ``_read_rows`` applies: the table sharded on its columns
+    alone (not along the vocab)."""
+    return (any(p == Shard(1) for p in table.placements)
+            and all(p in (Shard(1), Replicate()) for p in table.placements))
+
+
 def serve_step(model, mesh, kind: str) -> Callable:
     """The prefill or decode step one rank runs on placed params, inputs
     and cache: this rank's rows of the inputs and cache, each param leaf
@@ -241,10 +269,11 @@ def serve_step(model, mesh, kind: str) -> Callable:
     ``decode``; the cache comes back in its placements. Returns (this
     rank's logits, cache).
 
-    The dense, vlm, ssm, hybrid and expert-parallel MoE families compute
-    tensor-parallel along ``"model"`` (``tensor_parallel``), with the
-    logical policy installed around the model's step: each leaf in its
-    ``sharding.tp_layouts``
+    The dense, vlm, ssm, hybrid, enc-dec and expert-parallel MoE families
+    compute tensor-parallel along ``"model"`` (``tensor_parallel``), with
+    the logical policy installed around the model's step: each leaf in its
+    ``sharding.tp_layouts`` (a decode step's whole-vocab embedding table
+    but the rows its tokens read, ``_read_rows``)
     placements; the cache's layout follows the decode plan for the cache's
     positions S (``sharding.tp_cache``'s), whichever step runs: the KV
     cache kept local along ``"model"`` where that plan's heads are
@@ -252,17 +281,18 @@ def serve_step(model, mesh, kind: str) -> Callable:
     "kv_seq" (its positions are; the model gets S as ``cache_len``, so a
     prefill writes the rank's positions and a decode step merges the
     ranks' partials), else gathered (a "q_seq" or "gathered" prefill then
-    writes every row); the SSM state
+    writes every row); an enc-dec model's cross K/V kept in their
+    placements (the rank's heads, or whole along ``"model"``); the SSM state
     and conv tail kept local where the SSM heads are (the tail in
     ``tp_cache``'s layout), else gathered; the logits are this rank's
     vocab columns where the vocab is local, as the reference's
     ``out_shardings`` (``P(batch, None, "model")``) leave them; an MoE
     layer's routed experts by expert parallelism over every rank, on each
     rank's block of its rows' tokens (``Route.moe``), which needs the
-    batch split over the batch ranks. The enc-dec family and a
-    grouped-dispatch MoE gather every leaf and the cache whole along
-    ``"model"`` and run with no policy installed (the MoE's layers by
-    ``moe_block``'s grouped dispatch, one group a rank)."""
+    batch split over the batch ranks. A grouped-dispatch MoE gathers every
+    leaf and the cache whole along ``"model"`` and runs with no policy
+    installed (its layers by ``moe_block``'s grouped dispatch, one group a
+    rank)."""
     baxes = data_axes(mesh)
     names = mesh.mesh_dim_names
     full = [Replicate()] * mesh.ndim
@@ -295,8 +325,9 @@ def serve_step(model, mesh, kind: str) -> Callable:
             model.cfg, mesh, kind="decode", seq_len=1, cache_len=cache_len)
         keep = {"k": kv is not None and (kv.heads_local
                                          or kv.cache_len is not None),
-                "state": plan is not None and plan.ssm == "local"}
-        keep["v"] = keep["k"]
+                "state": plan is not None and plan.ssm == "local",
+                "cross_k": plan is not None}
+        keep["v"], keep["cross_v"] = keep["k"], keep["cross_k"]
         have = {k: tree_map(lambda t: list(t.placements) if keep.get(k)
                             else rows(t), v) for k, v in cache.items()}
         held = tree_map(_local, cache, have)
@@ -304,8 +335,14 @@ def serve_step(model, mesh, kind: str) -> Callable:
             logits, held = run(tree_map(lambda t: _local(t, full), params),
                                mine, held)
         else:
-            local = tree_map(lambda t, lay: _local(t, lay[0]), params,
-                             layouts)
+            rows_read = kind == "decode" and _read_by_rows(params["embed"])
+            local = {k: tree_map(lambda t, lay: _local(t, lay[0]), v,
+                                 layouts[k])
+                     for k, v in params.items()
+                     if not (rows_read and k == "embed")}
+            if rows_read:
+                local["embed"], mine["tokens"] = _read_rows(
+                    params["embed"], inputs["tokens"])
             with logical.policy(mesh):
                 logits, held = run(local, mine, held, cache_len)
         return logits, tree_map(_put_back, held, cache, have)

@@ -20,9 +20,9 @@ For each cell it records
   * a serve cell's ``cache_bytes``: the whole cache's and the counted
     rank's block of it.
 
-The dense, vlm, ssm, hybrid and expert-parallel MoE families compute
-tensor-parallel along "model" (``distributed/tensor_parallel.py``); the
-record's ``"tp"`` is the plan (the attention's mode, "local",
+Every family computes tensor-parallel along "model" (the MoE family where
+expert-parallel; ``distributed/tensor_parallel.py``); the record's
+``"tp"`` is the plan (the attention's mode, "local",
 "kv_replicated", "q_seq", "kv_seq" or "gathered", and its local heads,
 None without attention, the counted rank's index along "model" and its
 query rows, with
@@ -34,10 +34,12 @@ MoE family the expert-parallel group ``ep``, the experts a rank
 ``ep_experts`` and a rank's ``capacity``; the EP all-to-alls count as
 ``coll_by_kind["all-to-all"]``; under "kv_seq" the rank's ``kv_rows``
 and the cache's ``cache_len``, the decode partials' merge counting as an
-all-gather), None for the enc-dec family, whose step
-gathers each leaf whole, so the FLOPs the cards execute (the counted
-rank's times the chips, ``hlo_flops``) repeat its work along "model";
-``useful_fraction`` shows it, and the semantic count is kept beside it.
+all-gather; for the enc-dec family's train and prefill steps the
+encoder's plan under ``"encoder"``), None for a grouped-dispatch MoE,
+whose step gathers each leaf whole, so the FLOPs the cards execute (the
+counted rank's times the chips, ``hlo_flops``) repeat its work along
+"model"; ``useful_fraction`` shows it, and the semantic count is kept
+beside it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k

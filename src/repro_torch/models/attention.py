@@ -138,11 +138,13 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     position is clamped to ``max_len - T``, so an idle slot whose index ran
     past the end overwrites its last row. Returns (out, (K, V) or None).
 
-    ``q_rows=(a, b)`` (causal self-attention, T > 1; a rank's rows under
-    the tensor-parallel "q_seq" plan): the output is rows [a, b) alone.
-    Q, its RoPE positions and the attention run on those rows; K/V on rows
-    [0, b) without a cache, on every row where the cache is written; the
-    causal mask puts query row i at position a + i (flash's ``q_offset``).
+    ``q_rows=(a, b)`` (T > 1; a rank's rows under the tensor-parallel
+    "q_seq" plan): the output is rows [a, b) alone. Q, its RoPE positions
+    and the attention run on those rows; K/V of causal self-attention on
+    rows [0, b) without a cache, on every row where the cache is written
+    or the attention is not causal (the encoder's); the causal mask puts
+    query row i at position a + i (flash's ``q_offset``). Under
+    cross-attention the rows attend to every encoder position.
 
     ``kv_split`` (a ``tensor_parallel.KVSplit``; the tensor-parallel
     "kv_seq" layout): ``kv_cache`` is this rank's block of the cache's
@@ -167,9 +169,10 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     q = (xq @ p.wq.to(cd)).reshape(B, b - a, hq, hd)
     if cross_kv is not None:
         out = gqa_scores_attention(q, *cross_kv, causal=False)
-        return out.reshape(B, T, hq * hd) @ p.wo.to(cd), None
-    # K/V rows: [0, b) where no cache takes them all
-    xkv = x if kv_cache is not None or q_rows is None else x[:, :b]
+        return out.reshape(B, b - a, hq * hd) @ p.wo.to(cd), None
+    # K/V rows: [0, b) where causal attention without a cache reads no more
+    xkv = x if kv_cache is not None or q_rows is None or not causal \
+        else x[:, :b]
     tk = xkv.shape[1]
     k = (xkv @ p.wk.to(cd)).reshape(B, tk, hkv, hd)
     v = (xkv @ p.wv.to(cd)).reshape(B, tk, hkv, hd)

@@ -154,18 +154,20 @@ def tree_map(fn, tree, *rest):
     return None if tree is None else fn(tree, *rest)
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's NLL in fp32 from its whole-vocab logits."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    return logz - gold
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     """Mean token NLL in fp32. labels: integer, mask: optional {0,1}.
     ``tp``: a ``tensor_parallel.Route`` whose vocab is local, under which
     ``logits`` are this rank's vocab columns (the vocab-parallel loss)."""
-    if tp is not None:
-        nll = tp.nll(logits, labels)
-    else:
-        logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
-        nll = logz - gold
+    nll = token_nll(logits, labels) if tp is None else tp.nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()

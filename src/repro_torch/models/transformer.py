@@ -31,7 +31,7 @@ from repro_torch.kernels import ops as kops
 
 from .attention import AttnParams, attention_block, init_attn
 from .common import (ArchConfig, cross_entropy, dense_init, embed_init,
-                     require_device, rmsnorm)
+                     require_device, rmsnorm, token_nll)
 from .ffn import (MLPParams, MoEParams, init_mlp, init_moe, moe_block,
                   swiglu)
 from .mamba2 import (Mamba2Params, MambaState, init_mamba2, init_mamba_state,
@@ -76,6 +76,16 @@ def _attention(tp, fn, p: AttnParams, x: torch.Tensor) -> torch.Tensor:
     if tp is None:
         return fn(p, x, None)
     return tp.attention(fn, p, x)
+
+
+def _cross_attention(tp, fn, p: AttnParams, x: torch.Tensor
+                     ) -> torch.Tensor:
+    """``fn(p, x, None)`` (cross-attention on its normed input, every
+    query row); under a route, in the decoder's mode
+    (``Route.cross_attention``)."""
+    if tp is None:
+        return fn(p, x, None)
+    return tp.cross_attention(fn, p, x)
 
 
 def _ssm(tp, fn, p: Mamba2Params, x: torch.Tensor) -> torch.Tensor:
@@ -161,6 +171,24 @@ class DecoderLM:
             tp.check(self.cfg, params)
         return tp
 
+    def _nll(self, params: dict, h: torch.Tensor, batch: dict, tp=None,
+             skip: int = 0) -> torch.Tensor:
+        """Mean next-token NLL of the normed residual ``h`` over the text
+        (its first ``skip`` positions, a vlm's patches, have no labels).
+        Under a route vocab-parallel where the vocab is local; where it is
+        whole and the residual sequence-parallel (``Plan.loss_rows``), the
+        whole-vocab logits of this rank's own positions alone
+        (``Route.rows_nll``)."""
+        labels, mask = batch["labels"], batch.get("loss_mask")
+        lm_head = params["lm_head"].to(self.cfg.compute_dtype)
+        if tp is not None and tp.plan.loss_rows:
+            return tp.rows_nll(lambda x, y: token_nll(x @ lm_head, y), h,
+                               labels, mask, skip)
+        if tp is not None:
+            h = tp.head_input(h)
+        vocab_tp = tp if tp is not None and tp.plan.vocab_local else None
+        return cross_entropy(h[:, skip:] @ lm_head, labels, mask, tp=vocab_tp)
+
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token NLL over the text positions (the patches'
         positions are sliced off)."""
@@ -171,14 +199,8 @@ class DecoderLM:
                           batch["tokens"].shape[0])
         h = self._trunk(params, self._embed(params, batch["tokens"], patches,
                                             tp), *_routes(tp))
-        if tp is not None:
-            h = tp.head_input(h)
-        if patches is not None:
-            h = h[:, patches.shape[1]:]
-        logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        vocab_tp = tp if tp is not None and tp.plan.vocab_local else None
-        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
-                             tp=vocab_tp)
+        return self._nll(params, h, batch, tp,
+                         0 if patches is None else patches.shape[1])
 
     def prefill(self, params: dict, batch: dict, cache: dict, *,
                 cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
@@ -391,16 +413,12 @@ class MoELM(DenseLM):
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token NLL plus ``AUX_WEIGHT`` times the layers' mean
-        aux; under a route the NLL vocab-parallel where the vocab is
-        local."""
+        aux; under a route the NLL as ``DecoderLM._nll``'s."""
         tokens = batch["tokens"]
         tp = self._routed(params, "train", tokens.shape[1], tokens.shape[0])
         h, aux = self._trunk(params, self._embed(params, tokens, tp=tp),
                              *_routes(tp))
-        vocab_tp = tp if tp is not None and tp.plan.vocab_local else None
-        return cross_entropy(self._logits(params, h, tp), batch["labels"],
-                             batch.get("loss_mask"), tp=vocab_tp
-                             ) + self.AUX_WEIGHT * aux
+        return self._nll(params, h, batch, tp) + self.AUX_WEIGHT * aux
 
 
 # ===========================================================================
@@ -641,7 +659,14 @@ class EncDecLM(DecoderLM):
     the loss, ``decode_attention`` against the slot cache at T == 1), then
     cross-attention to the encoder's output, then SwiGLU. The cache holds
     the decoder's K/V and each decoder layer's cross K/V, (L, B, enc_len,
-    Hkv, hd), which prefill writes in place and decode reads."""
+    Hkv, hd), which prefill writes in place and decode reads.
+
+    Under a tensor-parallel route the decoder takes the decoder's plan and
+    the encoder its own (``Route.encoder``), each sublayer in its mode, the
+    cross-attention in the decoder's (``Route.cross_attention``); the
+    cache then holds what ``sharding.tp_cache`` lays out: the self K/V as
+    ``DenseLM``'s, the cross K/V the rank's heads where they split, else
+    whole."""
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda",
                  decode_attention: Callable = kops.decode_attention,
@@ -670,79 +695,123 @@ class EncDecLM(DecoderLM):
                 "enc_norm": ones(), "final_norm": ones(), "lm_head": lm_head}
 
     # -- encoder --------------------------------------------------------------
-    def _enc_layer(self, x: torch.Tensor, lp: EncLayer) -> torch.Tensor:
+    def _enc_layer(self, x: torch.Tensor, lp: EncLayer, tp=None
+                   ) -> torch.Tensor:
+        """One encoder layer; under the encoder's route each sublayer in
+        its tensor-parallel form."""
         cfg = self.cfg
-        a, _ = attention_block(lp.attn, rmsnorm(x, lp.norm1, cfg.norm_eps),
-                               cfg, causal=False, use_rope=False)
-        x = x + a
-        return x + swiglu(lp.mlp, rmsnorm(x, lp.norm2, cfg.norm_eps),
-                          cfg.compute_dtype)
 
-    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, T_enc, d) precomputed embeddings (stub frontend)."""
+        def attn(p, h, rows):
+            return attention_block(p, h, cfg, causal=False, use_rope=False,
+                                   q_rows=rows)[0]
+
+        x = x + _attention(tp, attn, lp.attn,
+                           rmsnorm(x, lp.norm1, cfg.norm_eps))
+        return x + _mlp(tp, lambda h: swiglu(lp.mlp, h, cfg.compute_dtype),
+                        rmsnorm(x, lp.norm2, cfg.norm_eps))
+
+    def encode(self, params: dict, frames: torch.Tensor, tp=None
+               ) -> torch.Tensor:
+        """frames: (B, T_enc, d) precomputed embeddings (stub frontend).
+        ``tp``: the encoder's route; the output is then in its residual's
+        layout (the rank's slice where sequence-parallel)."""
         cfg = self.cfg
         h = frames.to(cfg.compute_dtype) + _sinusoid(
             frames.shape[1], cfg.d_model, cfg.compute_dtype, frames.device)
+        layer = self._enc_layer
+        if tp is not None:
+            layer = functools.partial(self._enc_layer, tp=tp)
+            if tp.sp:
+                h = tp.split_seq(h)
         for lp in unstack(params["enc_layers"]):
-            h = self._remat(self._enc_layer, h, lp)
+            h = self._remat(layer, h, lp)
         return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
-    def _cross_kv(self, params: dict, enc_out: torch.Tensor
+    def _cross_kv(self, params: dict, enc_out: torch.Tensor, tp=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """Every decoder layer's cross K and V, each (L, B, T_enc, Hkv,
         hd): one product of the encoder's output with the stacked
-        ``cross_attn.wk`` / ``wv``."""
+        ``cross_attn.wk`` / ``wv``. Under a route, the heads the rank's
+        ``wk`` / ``wv`` hold (its KV head's columns under
+        "kv_replicated")."""
         cfg = self.cfg
         B, Te, _ = enc_out.shape
-        shape = (cfg.n_layers, B, Te, cfg.n_kv_heads, cfg.hd)
         ca = params["dec_layers"].cross_attn
+        ws = (ca.wk, ca.wv)
+        if tp is not None and tp.plan.heads == "kv_replicated":
+            ws = tuple(tp.kv_slice(w) for w in ws)
         return tuple((enc_out[None] @ w.to(cfg.compute_dtype)[:, None]
-                      ).reshape(shape) for w in (ca.wk, ca.wv))
+                      ).reshape(cfg.n_layers, B, Te, w.shape[-1] // cfg.hd,
+                                cfg.hd) for w in ws)
+
+    def _encoded(self, params: dict, frames: torch.Tensor, tp=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The cross K/V of ``frames``: the encoder under its route, its
+        output whole on every rank (``Route.memory``)."""
+        if tp is None:
+            return self._cross_kv(params, self.encode(params, frames))
+        enc = tp.encoder
+        return self._cross_kv(
+            params, tp.memory(enc, self.encode(params, frames, enc)), tp)
 
     # -- decoder --------------------------------------------------------------
     def _dec_layer(self, x: torch.Tensor, lp: DecLayer,
                    cross_k: torch.Tensor, cross_v: torch.Tensor,
-                   kv_cache=None, index=None) -> torch.Tensor:
+                   kv_cache=None, index=None, tp=None, split=None
+                   ) -> torch.Tensor:
+        """One decoder layer; under a route each sublayer in its
+        tensor-parallel form, ``split`` the self K/V's block of positions
+        (``Route.kv_split``)."""
         cfg = self.cfg
-        a, _ = attention_block(
-            lp.self_attn, rmsnorm(x, lp.norm1, cfg.norm_eps), cfg,
-            kv_cache=kv_cache, cache_index=index,
-            decode_attention=self.decode_attention,
-            flash_attention=self.flash_attention)
-        x = x + a
-        c, _ = attention_block(lp.cross_attn,
-                               rmsnorm(x, lp.norm2, cfg.norm_eps), cfg,
-                               cross_kv=(cross_k, cross_v))
-        x = x + c
-        return x + swiglu(lp.mlp, rmsnorm(x, lp.norm3, cfg.norm_eps),
-                          cfg.compute_dtype)
+
+        def self_attn(p, h, rows):
+            return attention_block(
+                p, h, cfg, kv_cache=kv_cache, cache_index=index, q_rows=rows,
+                kv_split=split, decode_attention=self.decode_attention,
+                flash_attention=self.flash_attention)[0]
+
+        def cross_attn(p, h, rows):
+            return attention_block(p, h, cfg, cross_kv=(cross_k, cross_v),
+                                   q_rows=rows)[0]
+
+        x = x + _attention(tp, self_attn, lp.self_attn,
+                           rmsnorm(x, lp.norm1, cfg.norm_eps))
+        x = x + _cross_attention(tp, cross_attn, lp.cross_attn,
+                                 rmsnorm(x, lp.norm2, cfg.norm_eps))
+        return x + _mlp(tp, lambda h: swiglu(lp.mlp, h, cfg.compute_dtype),
+                        rmsnorm(x, lp.norm3, cfg.norm_eps))
 
     def _decoder(self, params: dict, h: torch.Tensor,
                  cross_kv: tuple[torch.Tensor, torch.Tensor],
-                 cache: dict | None = None) -> torch.Tensor:
+                 cache: dict | None = None, tp=None) -> torch.Tensor:
         """Every decoder layer: without a cache each through ``_remat``;
         with one, its K/V written in place at ``cache["index"]`` (no remat,
-        as in the reference)."""
+        as in the reference). Under a route the layers get it as an
+        argument, so a checkpoint's recompute in the backward runs it
+        too."""
+        layer = self._dec_layer if tp is None else functools.partial(
+            self._dec_layer, tp=tp)
+        split = None if tp is None else tp.kv_split
         layers = zip(unstack(params["dec_layers"]), *(t.unbind(0)
                                                       for t in cross_kv))
         for i, (lp, ck, cv) in enumerate(layers):
             if cache is None:
-                h = self._remat(self._dec_layer, h, lp, ck, cv)
+                h = self._remat(layer, h, lp, ck, cv)
             else:
-                h = self._dec_layer(h, lp, ck, cv,
-                                    (cache["k"][i], cache["v"][i]),
-                                    cache["index"])
+                h = layer(h, lp, ck, cv, (cache["k"][i], cache["v"][i]),
+                          cache["index"], split=split)
         return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
-        """Mean next-token NLL of the decoder; needs ``batch["frames"]``."""
-        cfg = self.cfg
-        cross_kv = self._cross_kv(params, self.encode(params,
-                                                      batch["frames"]))
-        h = self._decoder(params, self._embed(params, batch["tokens"]),
-                          cross_kv)
-        logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        """Mean next-token NLL of the decoder; needs ``batch["frames"]``.
+        Under a route the NLL as ``DecoderLM._nll``'s (whisper-tiny's
+        vocab is whole at m = 16: each rank's own positions' logits)."""
+        tokens = batch["tokens"]
+        tp = self._routed(params, "train", tokens.shape[1], tokens.shape[0])
+        cross_kv = self._encoded(params, batch["frames"], tp)
+        h = self._decoder(params, self._embed(params, tokens, tp=tp),
+                          cross_kv, tp=tp)
+        return self._nll(params, h, batch, tp)
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -758,32 +827,36 @@ class EncDecLM(DecoderLM):
     def cache_slot_axes(self) -> dict:
         return {"k": 1, "v": 1, "cross_k": 1, "cross_v": 1}
 
-    def prefill(self, params: dict, batch: dict, cache: dict
-                ) -> tuple[torch.Tensor, dict]:
+    def prefill(self, params: dict, batch: dict, cache: dict, *,
+                cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
         """Encodes ``batch["frames"]`` (B, enc_len, d), writes the cross
         K/V into the cache in place, then runs the prompt's tokens through
-        the decoder into the cache; ``index`` advances by T."""
+        the decoder into the cache; ``index`` advances by T. ``cache_len``
+        as ``DecoderLM.prefill``'s."""
         cfg = self.cfg
-        frames = batch["frames"]
+        frames, tokens = batch["frames"], batch["tokens"]
         if frames.shape[1] != cfg.enc_len:
             raise ValueError(f"{frames.shape[1]} frames, the cache holds "
                              f"enc_len {cfg.enc_len}")
+        tp = self._routed(params, "prefill", tokens.shape[1],
+                          tokens.shape[0], cache_len)
         for leaf, new in zip((cache["cross_k"], cache["cross_v"]),
-                             self._cross_kv(params,
-                                            self.encode(params, frames))):
+                             self._encoded(params, frames, tp)):
             leaf.copy_(new)
-        h = self._decoder(params, self._embed(params, batch["tokens"]),
-                          (cache["cross_k"], cache["cross_v"]), cache)
-        logits = h[:, -1:] @ params["lm_head"].to(cfg.compute_dtype)
-        return logits, {**cache, "index": cache["index"] + h.shape[1]}
+        h = self._decoder(params, self._embed(params, tokens, tp=tp),
+                          (cache["cross_k"], cache["cross_v"]), cache, tp)
+        return (self._logits(params, h[:, -1:], tp),
+                {**cache, "index": cache["index"] + h.shape[1]})
 
-    def decode(self, params: dict, tokens: torch.Tensor, cache: dict
-               ) -> tuple[torch.Tensor, dict]:
-        cfg = self.cfg
-        h = self._decoder(params, self._embed(params, tokens),
-                          (cache["cross_k"], cache["cross_v"]), cache)
-        logits = h @ params["lm_head"].to(cfg.compute_dtype)
-        return logits, {**cache, "index": cache["index"] + 1}
+    def decode(self, params: dict, tokens: torch.Tensor, cache: dict, *,
+               cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+        """One token a slot against the cache; ``cache_len`` as
+        ``prefill``'s."""
+        tp = self._routed(params, "decode", 1, tokens.shape[0], cache_len)
+        h = self._decoder(params, self._embed(params, tokens, tp=tp),
+                          (cache["cross_k"], cache["cross_v"]), cache, tp)
+        return (self._logits(params, h, tp),
+                {**cache, "index": cache["index"] + 1})
 
 
 _FAMILIES = {"dense": DenseLM, "vlm": DenseLM, "moe": MoELM, "ssm": MambaLM,

@@ -18,17 +18,17 @@ with numpy from seeds; the smollm weights come from the reference's
 import datetime
 import logging
 import os
-import subprocess
 import sys
 import textwrap
-import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+from torch_worlds import World
+from torch_worlds import run_reference as run_limited
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["phi3-mini-3.8b", "minitron-4b", "smollm-360m", "smollm-135m",
@@ -52,7 +52,8 @@ EP_CASES = {"cf8": (8, 8.0, (8, 4)),          # no drops: the grouped path too
 # port's padding is held to its own local dispatch
 REF_EP_CASES = sorted(set(EP_CASES) - {"ragged"})
 PIPE_L, PIPE_D, PIPE_M = 8, 16, 6
-RANK_TIMEOUT_S = 300
+# each process's limit from its own start (``torch_worlds``)
+REF_LIMIT_S, RANK_LIMIT_S = 600, 450
 
 
 # ---------------------------------------------------------------------------
@@ -194,10 +195,10 @@ def run_reference(inputs_path: str, out_path: str) -> None:
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"))
-    res = subprocess.run(
-        [sys.executable, "-c", REF_CODE.format(consts=consts), inputs_path,
-         out_path], env=env, capture_output=True, text=True, timeout=540)
-    assert res.returncode == 0, f"reference failed:\n{res.stderr[-4000:]}"
+    run_limited("the reference's steps on 8 host devices",
+                [sys.executable, "-c", REF_CODE.format(consts=consts),
+                 inputs_path, out_path], env,
+                os.path.splitext(out_path)[0] + ".log", REF_LIMIT_S)
 
 
 # ---------------------------------------------------------------------------
@@ -442,21 +443,13 @@ def _rank_main(rank: int, world: int, store: str, inputs: str,
 
 def spawn_ranks(world: int, tmp, inputs: str) -> list[dict]:
     """``_rank_main`` on ``world`` gloo processes; a rank's exception fails
-    the caller with its traceback, and a run past ``RANK_TIMEOUT_S`` is
-    killed and fails."""
+    the caller with its traceback, and a run past ``RANK_LIMIT_S`` from its
+    start is killed and fails (``torch_worlds.World``)."""
     out_dir = tmp / f"world{world}"
     out_dir.mkdir()
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp / f"store{world}"), inputs,
-                          str(out_dir)),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            pytest.fail(f"{world} gloo ranks ran past {RANK_TIMEOUT_S} s")
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+    return World(f"the port's world of {world}", _rank_main, world,
+                 (world, str(tmp / f"store{world}"), inputs, str(out_dir)),
+                 out_dir, RANK_LIMIT_S).join()
 
 
 @pytest.fixture(scope="module")

@@ -7,8 +7,9 @@ the vocab tensor-parallel along "model" (``models/moe_ep.py``,
 The reference runs in one subprocess on 8 XLA host devices (as
 ``tests/test_torch_distributed.py`` runs it), its mesh's axes ``Auto``
 (``jax.make_mesh`` makes them ``Explicit`` in this JAX, where the model's
-``constrain`` calls raise); the port in 8 gloo processes, and in one more
-alone for the one-rank case, all side by side. The weights come from the
+``constrain`` calls raise); then the port in 8 gloo processes and in one
+more alone for the one-rank case, side by side. Each runs under a limit of
+its own (``torch_worlds``). The weights come from the
 port's ``init`` (a seed), flattened by path for both; batches and prompts
 are made with numpy from seeds.
 
@@ -46,10 +47,8 @@ import datetime
 import json
 import logging
 import os
-import subprocess
 import sys
 import textwrap
-import time
 from dataclasses import replace
 
 import numpy as np
@@ -57,9 +56,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from test_torch_tensor_parallel import counting_routes
+from torch_worlds import World, run_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MOE = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
@@ -78,7 +77,8 @@ STEPS, BATCH = 3, 8
 PROMPT, DECODES, MAX_LEN = 12, 4, 24
 TOL = 1e-5
 AUX_RTOL = 1e-4
-RANK_TIMEOUT_S = 240
+# each process's limit from its own start (``torch_worlds``)
+REF_LIMIT_S, RANK_LIMIT_S = 450, 300
 
 
 def config(cf: float, remat: str = "none"):
@@ -204,9 +204,29 @@ REF_CODE = textwrap.dedent("""
             sorted_e = flat_e[order]
             first = jnp.searchsorted(sorted_e, jnp.arange(PAD), side="left")
             keep = (jnp.arange(n_loc * cfg.top_k) - first[sorted_e]) < C
-            rows.append(np.asarray(jnp.zeros(n_loc * cfg.top_k, bool)
-                                   .at[order].set(~keep)))
-        return np.stack(rows)
+            rows.append(jnp.zeros(n_loc * cfg.top_k, bool)
+                        .at[order].set(~keep))
+        return jnp.stack(rows)
+
+    def layer_drops(model, ep):
+        # each layer's dropped pairs, under one jit: op by op on the
+        # 8-device mesh these lines took most of the reference's time
+        cfg = model.cfg
+
+        def fn(params, batch):
+            h = model._embed(params, batch)
+            drops = []
+            for l in range(cfg.n_layers):
+                lp = jax.tree_util.tree_map(lambda t: t[l], params["layers"])
+                a, _ = attention_block(lp.attn, rmsnorm(
+                    h, lp.norm1, cfg.norm_eps), cfg)
+                h = h + a
+                xn = rmsnorm(h, lp.norm2, cfg.norm_eps)
+                drops.append(dropped(xn, lp.moe, cfg, ep))
+                h = h + moe_block(lp.moe, xn, cfg)[0]
+            return jnp.stack(drops)
+
+        return jax.jit(fn)
 
     # (b) the loss and its gradients under the policy, where pairs drop
     for name, (shape, cf, _) in DROPS.items():
@@ -221,20 +241,11 @@ REF_CODE = textwrap.dedent("""
                 params, batch)
             _, aux = jax.jit(lambda p, b: model._trunk(
                 p, model._embed(p, b)))(params, batch)
-            h = model._embed(params, batch)
-            drops = []
-            for l in range(cfg.n_layers):
-                lp = jax.tree_util.tree_map(lambda t: t[l], params["layers"])
-                a, _ = attention_block(lp.attn, rmsnorm(
-                    h, lp.norm1, cfg.norm_eps), cfg)
-                h = h + a
-                xn = rmsnorm(h, lp.norm2, cfg.norm_eps)
-                drops.append(dropped(xn, lp.moe, cfg, shape[0] * shape[1]))
-                h = h + moe_block(lp.moe, xn, cfg)[0]
+            drops = layer_drops(model, shape[0] * shape[1])(params, batch)
         logical.clear()
         out[f"{{name}}/loss"], out[f"{{name}}/aux"] = (np.asarray(loss),
                                                        np.asarray(aux))
-        out[f"{{name}}/dropped"] = np.stack(drops)
+        out[f"{{name}}/dropped"] = np.asarray(drops)
         for path, leaf in jax.tree_util.tree_flatten_with_path(grads)[0]:
             out[f"{{name}}/grad/{{key(path)}}"] = np.asarray(leaf)
 
@@ -260,16 +271,16 @@ REF_CODE = textwrap.dedent("""
 """)
 
 
-def start_reference(inputs_path: str, out_path: str) -> subprocess.Popen:
+def reference(inputs_path: str, out_path: str) -> None:
     consts = repr((MOE, PAD, TRAIN, DROPS, SERVE, SERVE_CF, STEPS, PROMPT,
                    DECODES, MAX_LEN))
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"))
-    return subprocess.Popen(
-        [sys.executable, "-c", REF_CODE.format(consts=consts), inputs_path,
-         out_path], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    run_reference("the reference on 8 host devices",
+                  [sys.executable, "-c", REF_CODE.format(consts=consts),
+                   inputs_path, out_path], env,
+                  os.path.splitext(out_path)[0] + ".log", REF_LIMIT_S)
 
 
 # ---------------------------------------------------------------------------
@@ -536,39 +547,25 @@ def _rank_main(rank: int, world: int, store: str, inputs: str,
         dist.destroy_process_group()
 
 
-def spawn(world: int, tmp, inputs: str):
+def spawn(world: int, tmp, inputs: str) -> World:
     out_dir = tmp / f"world{world}"
     out_dir.mkdir()
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp / f"store{world}"), inputs,
-                          str(out_dir)),
-        nprocs=world, join=False, start_method="spawn")
-    return ctx, out_dir
-
-
-def join(ctx, out_dir, world: int, deadline: float) -> list[dict]:
-    while not ctx.join(timeout=2):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            pytest.fail(f"{world} gloo ranks ran past {RANK_TIMEOUT_S} s")
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+    return World(f"the port's world of {world}", _rank_main, world,
+                 (world, str(tmp / f"store{world}"), inputs, str(out_dir)),
+                 out_dir, RANK_LIMIT_S)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the reference's outputs, the 8 ranks' records, the one rank's
-    record); the reference and both worlds run side by side."""
+    record): the reference first, alone, then both worlds side by side."""
     tmp = tmp_path_factory.mktemp("moe_parallel")
     inputs = str(tmp / "inputs.npz")
     np.savez(inputs, **make_inputs())
-    ref = start_reference(inputs, str(tmp / "ref.npz"))
-    deadline = time.monotonic() + RANK_TIMEOUT_S
+    reference(inputs, str(tmp / "ref.npz"))
     eight, one = spawn(8, tmp, inputs), spawn(1, tmp, inputs)
-    ranks = join(*eight, 8, deadline)
-    alone = join(*one, 1, deadline)[0]
-    _, err = ref.communicate(timeout=max(1.0, deadline - time.monotonic()))
-    assert ref.returncode == 0, f"reference failed:\n{err[-4000:]}"
+    ranks = eight.join()
+    alone = one.join()[0]
     return dict(np.load(tmp / "ref.npz")), ranks, alone
 
 

@@ -38,7 +38,12 @@ sequence length)):
   * ``vlm_q_seq``: the reduced llava with 3 heads on 1 KV head on (4, 2):
     query rows after the patches, whose RoPE positions count them; decode
     kv_seq, 16 positions a rank (the patches and prompt, 20, cross into
-    rank 1).
+    rank 1);
+  * ``vlm_vocab_whole``: the reduced llava with 16 patches and vocab 250
+    on (2, 4): the vocab whole in a sequence-parallel step, so each rank's
+    loss is its own 12 positions' (``Plan.loss_rows``), rank 0's all
+    patches (no labels), rank 1's 4 patches then 8 tokens; a decode step
+    reads the embedding's rows by its tokens (``build._read_rows``).
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
 steps from the initial weights. A fake world of 16 ranks on ``meta``
 counts a reduced dense cell on (4, 4) under each attention mode, the
@@ -50,17 +55,17 @@ import datetime
 import json
 import logging
 import os
-import subprocess
 import sys
 import textwrap
-import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+from torch_worlds import Reference, World
+from torch_worlds import run_reference as run_limited
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOLLM = dict(n_layers=2, d_model=64, vocab_size=256, d_ff=128, n_heads=4,
@@ -75,7 +80,10 @@ CASES = {"heads_local": ("smollm-135m", SMOLLM, (4, 2), 32),
          "q_seq_not_divisible": ("smollm-135m", THREE, (2, 4), 30),
          "vlm": ("llava-next-34b", dict(SMOLLM, n_patches=8), (4, 2), 32),
          "vlm_q_seq": ("llava-next-34b", dict(THREE, n_patches=8), (4, 2),
-                       32)}
+                       32),
+         "vlm_vocab_whole": ("llava-next-34b", dict(SMOLLM, n_patches=16,
+                                                    vocab_size=250), (2, 4),
+                             32)}
 LOCAL = ("local", [2, 1])
 KV_REPLICATED = ("kv_replicated", [1, 1])
 Q_SEQ, GATHERED = ("q_seq", [3, 1]), ("gathered", [3, 1])
@@ -94,11 +102,14 @@ PLANS = {"heads_local": (2, "local", LOCAL, True, LOCAL, LOCAL),
          "q_seq_not_divisible": (4, "local", GATHERED, False, Q_SEQ,
                                  KV_SEQ),
          "vlm": (2, "local", LOCAL, True, LOCAL, LOCAL),
-         "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, KV_SEQ)}
+         "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, KV_SEQ),
+         "vlm_vocab_whole": (4, "whole", KV_REPLICATED, True, KV_REPLICATED,
+                             KV_REPLICATED)}
 STEPS, BATCH = 3, 8
 PROMPT, DECODES, MAX_LEN = 12, 8, 32
 TOL = 1e-5
-RANK_TIMEOUT_S = 300
+# each process's limit from its own start (``torch_worlds``)
+REF_LIMIT_S, RANK_LIMIT_S = 600, 450
 
 
 def reduced(arch: str, over: dict):
@@ -126,11 +137,17 @@ def make_inputs(cases: dict = CASES, seed: int = 17) -> dict:
             if vlm:
                 out[f"{name}/batch{i}/patch_embeds"] = rng.standard_normal(
                     (BATCH, cfg.n_patches, cfg.d_model), np.float32)
+            if cfg.family == "encdec":
+                out[f"{name}/batch{i}/frames"] = rng.standard_normal(
+                    (BATCH, cfg.enc_len, cfg.d_model), np.float32)
         out[f"{name}/prompt/tokens"] = rng.integers(
             0, cfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)
         if vlm:
             out[f"{name}/prompt/patch_embeds"] = rng.standard_normal(
                 (BATCH, cfg.n_patches, cfg.d_model), np.float32)
+        if cfg.family == "encdec":
+            out[f"{name}/prompt/frames"] = rng.standard_normal(
+                (BATCH, cfg.enc_len, cfg.d_model), np.float32)
     return out
 
 
@@ -187,10 +204,10 @@ def run_reference(inputs_path: str, out_path: str,
                   cases: dict = CASES) -> None:
     consts = repr((cases, STEPS, DECODES, MAX_LEN))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    res = subprocess.run(
-        [sys.executable, "-c", REF_CODE.format(consts=consts), inputs_path,
-         out_path], env=env, capture_output=True, text=True, timeout=540)
-    assert res.returncode == 0, f"reference failed:\n{res.stderr[-4000:]}"
+    run_limited("the reference's single-device steps",
+                [sys.executable, "-c", REF_CODE.format(consts=consts),
+                 inputs_path, out_path], env,
+                os.path.splitext(out_path)[0] + ".log", REF_LIMIT_S)
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +234,8 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
              ) -> None:
     """3 sharded AdamW steps and the served prefill and decode steps of
     one case of ``cases`` on its mesh, into ``record`` (with the shapes of
-    a rank's SSM state and conv tail where the model has them)."""
+    a rank's SSM state and conv tail, or of its cross K, where the model
+    has them)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -227,12 +245,14 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
     from repro_torch.models.transformer import build_model
     from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
     from repro_torch.weights import (dense_params_from_flat,
+                                     encdec_params_from_flat,
                                      hybrid_params_from_flat,
                                      ssm_params_from_flat)
     arch, over, shape, _ = cases[name]
     cfg = reduced(arch, over)
     bridge = {"ssm": ssm_params_from_flat,
-              "hybrid": hybrid_params_from_flat}.get(cfg.family,
+              "hybrid": hybrid_params_from_flat,
+              "encdec": encdec_params_from_flat}.get(cfg.family,
                                                      dense_params_from_flat)
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
     flat = {k[len(f"{name}/params/"):]: v for k, v in inp.items()
@@ -287,6 +307,9 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
             if "state" in cache:
                 record[f"{name}/local_state"] = np.array(json.dumps(
                     [list(t.to_local().shape) for t in cache["state"]]))
+            if "cross_k" in cache:
+                record[f"{name}/local_cross_k"] = np.array(
+                    cache["cross_k"].to_local().shape)
             record[f"{name}/logits0"] = whole(logits).numpy()
             for j in range(DECODES):
                 tok = torch.from_numpy(record[f"{name}/logits{j}"][:, -1]
@@ -331,20 +354,13 @@ def spawn_ranks(world: int, tmp, inputs: str, cases: dict = CASES
                 ) -> list[dict]:
     """``_rank_main`` over ``cases`` on ``world`` gloo processes; a rank's
     exception fails the caller with its traceback, and a run past
-    ``RANK_TIMEOUT_S`` is killed and fails."""
+    ``RANK_LIMIT_S`` from its start is killed and fails
+    (``torch_worlds.World``)."""
     out_dir = tmp / f"world{world}"
     out_dir.mkdir()
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp / f"store{world}"), inputs,
-                          str(out_dir), cases),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            pytest.fail(f"{world} gloo ranks ran past {RANK_TIMEOUT_S} s")
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+    return World(f"the port's world of {world}", _rank_main, world,
+                 (world, str(tmp / f"store{world}"), inputs, str(out_dir),
+                  cases), out_dir, RANK_LIMIT_S).join()
 
 
 @pytest.fixture(scope="module")
@@ -488,7 +504,13 @@ AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local", None),
                          "local", None),
          "mamba2-1.3b": ((None,) * 3, None, None, "whole", ("local", 4)),
          "zamba2-2.7b": (("local",) * 3, [2, 2], "local", "local",
-                         ("local", 5))}
+                         ("local", 5)),
+         "whisper-tiny": (("q_seq", "q_seq", "kv_seq"), [6, 6], "local",
+                          "whole", None)}
+# the enc-dec encoder's attention in train_4k and prefill_32k (a decode
+# step runs no encoder): 16 divides neither its 6 heads nor its 1500
+# positions
+ENCODER_AT_16 = {"whisper-tiny": ("gathered", "gathered", None)}
 
 
 @pytest.mark.parametrize("arch", sorted(AT_16))
@@ -511,6 +533,8 @@ def test_plan_at_sixteen(arch):
                                                         vocab)
     for q in got:
         assert ((q["ssm"], q["ssm_heads"]) if "ssm" in q else None) == ssm
+    assert tuple(q["encoder"]["heads"] if "encoder" in q else None
+                 for q in got) == ENCODER_AT_16.get(arch, (None,) * 3)
     assert p["seq_parallel"] is True
     for kind, seq in (("train", 4095), ("prefill", 4096), ("decode", 1)):
         assert plan(cfg, 16, kind=kind, seq_len=seq).seq_parallel is False
@@ -640,6 +664,30 @@ def test_attention_rows_are_rows_of_the_whole(cached):
                 assert torch.equal(c, w)
 
 
+@pytest.mark.parametrize("kind", ["cross", "non_causal"])
+def test_cross_and_encoder_rows_are_rows_of_the_whole(kind):
+    """``attention_block`` with ``q_rows=(a, b)`` in the enc-dec family's
+    two other modes: cross-attention (the encoder's K/V of 20 positions)
+    returns (B, b - a, d), rows [a, b) of the whole; the encoder's
+    non-causal self-attention takes K/V from every row, so its rows
+    [a, b) read the keys after b too."""
+    from repro_torch.models.attention import attention_block, init_attn
+    cfg = reduced("smollm-135m", THREE)
+    gen = torch.Generator().manual_seed(4)
+    p = init_attn(gen, cfg, "cpu")
+    x = torch.randn((2, 12, cfg.d_model), generator=gen)
+    kw = dict(causal=False, use_rope=False)
+    if kind == "cross":
+        kw = dict(cross_kv=tuple(torch.randn((2, 20, cfg.n_kv_heads, cfg.hd),
+                                             generator=gen)
+                                 for _ in range(2)))
+    whole, _ = attention_block(p, x, cfg, **kw)
+    for a, b in ((0, 4), (4, 8), (8, 12), (3, 11)):
+        out, _ = attention_block(p, x, cfg, q_rows=(a, b), **kw)
+        assert out.shape == (2, b - a, cfg.d_model)
+        torch.testing.assert_close(out, whole[:, a:b], rtol=1e-5, atol=1e-6)
+
+
 class _RecordedMerge:
     """A ``KVSplit`` stand-in for rank ``rank`` of ``m``: ``merge``
     records the rank's partial and returns ``merged`` (the ranks' partials
@@ -737,9 +785,10 @@ def test_split_cache_prefill_writes_the_ranks_rows(rows):
                                   "smollm-135m"])
 def test_route_only_for_tp_families_under_a_policy(arch):
     """No policy: no route for any family. Under a policy on a mesh with
-    a ``"model"`` axis, a route for the dense, vlm, ssm and hybrid
-    families and the expert-parallel MoE configs (qwen2-moe-a2.7b; not a
-    grouped-dispatch MoE, not enc-dec)."""
+    a ``"model"`` axis, a route for the dense, vlm, ssm, hybrid and
+    enc-dec families (whisper-tiny's with its encoder's plan) and the
+    expert-parallel MoE configs (qwen2-moe-a2.7b; not a grouped-dispatch
+    MoE)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -759,7 +808,10 @@ def test_route_only_for_tp_families_under_a_policy(arch):
     with logical.policy(Mesh()):
         r = tensor_parallel.route(cfg, kind="train", seq_len=8, rows=2)
         assert (r is not None) == (cfg.family in ("dense", "vlm", "ssm",
-                                                  "hybrid", "moe"))
+                                                  "hybrid", "moe", "encdec"))
+        if cfg.family == "encdec":
+            assert r.plan.encoder.seq_len == cfg.enc_len
+            assert r.encoder.plan is r.plan.encoder
         if cfg.family == "moe":
             assert r.plan.ep == 1 and r.plan.capacity is not None
             assert tensor_parallel.route(replace(cfg, moe_impl="gspmd"),
@@ -818,11 +870,12 @@ from repro_torch.configs import ShapeCell
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world
 
-# name -> (query heads, KV heads, T, kind): the decode cell's T is its
-# cache's positions
+# name -> (query heads, KV heads, T, kind): the decode cells' T is their
+# cache's positions; the enc-dec cell's encoder has 100 positions
 CELLS = {"local": (8, 4, 256, "train"), "kv_replicated": (8, 2, 256, "train"),
          "gathered": (6, 2, 250, "train"), "q_seq": (6, 2, 256, "train"),
-         "kv_seq": (6, 2, 256, "decode")}
+         "kv_seq": (6, 2, 256, "decode"),
+         "encdec_kv_seq": (6, 2, 256, "decode")}
 rank, names = int(sys.argv[1]), sys.argv[2:]
 out = {}
 with fake_world(16, rank=rank):
@@ -833,9 +886,13 @@ with fake_world(16, rank=rank):
                     head_dim=32, d_ff=1024, vocab_size=1024,
                     param_dtype=torch.float32, compute_dtype=torch.float32,
                     remat="none")
+        arch = "smollm-135m"
+        if name.startswith("encdec"):
+            arch = "whisper-tiny"
+            over.update(n_enc_layers=2, enc_len=100)
         out[name] = dryrun.count_cell(
-            "smollm-135m", ShapeCell(kind, kind, seq, 16), mesh,
-            mesh_name="4x4", extra_cfg=over)
+            arch, ShapeCell(kind, kind, seq, 16), mesh, mesh_name="4x4",
+            extra_cfg=over)
 with open(f"records{rank}.json", "w") as f:
     json.dump(out, f)
 """
@@ -843,21 +900,21 @@ with open(f"records{rank}.json", "w") as f:
 # side: rank 3 is the last along "model" of the (4, 4) mesh, whose query
 # rows are the last quarter
 FAKE_RANKS = {0: ("local", "kv_replicated", "gathered", "kv_seq"),
-              3: ("q_seq",)}
+              3: ("q_seq", "encdec_kv_seq")}
+FAKE_LIMIT_S = 360
 
 
 @pytest.fixture(scope="module")
 def fake_cells(tmp_path_factory):
     cwd = tmp_path_factory.mktemp("tp_dryrun")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", FAKE, str(rank), *names], cwd=cwd, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for rank, names in FAKE_RANKS.items()]
+    procs = [Reference(f"the fake world's rank {rank}",
+                       [sys.executable, "-c", FAKE, str(rank), *names], env,
+                       cwd / f"rank{rank}.log", FAKE_LIMIT_S, cwd=cwd)
+             for rank, names in FAKE_RANKS.items()]
     out = {}
     for rank, proc in zip(FAKE_RANKS, procs):
-        _, err = proc.communicate(timeout=240)
-        assert proc.returncode == 0, err[-4000:]
+        proc.wait()
         with open(cwd / f"records{rank}.json") as f:
             out.update(json.load(f))
     return out
@@ -917,3 +974,25 @@ def test_dry_run_divides_the_work(fake_cells, name):
     else:
         assert share > fake_cells["local"]["rank0"]["flops"] / (
             fake_cells["local"]["semantic"]["flops"] / 16)
+
+
+def test_dry_run_holds_the_cross_kv_whole(fake_cells):
+    """A reduced enc-dec decode cell (16 rows against a cache of 256
+    positions, 6 heads on 2 KV heads, an encoder of 100 positions) in the
+    fake world of 16 on (4, 4), counted on rank 3: the decoder's decode
+    plan is "kv_seq" (rank 3 holds positions 192 to 256), no encoder plan
+    (a decode step runs none), and the rank's cache is 1/16 of the self
+    K/V and its data rows' cross K/V whole along "model" (1/4 of them)."""
+    r = fake_cells["encdec_kv_seq"]
+    assert r["status"] == "ok" and r["rank"] == 3
+    assert r["tp"] == {"model": 4, "heads": "kv_seq", "local_heads": [6, 2],
+                       "mlp": "local", "vocab": "local",
+                       "seq_parallel": False, "model_rank": 3,
+                       "q_rows": None, "cache_len": 256,
+                       "kv_rows": [192, 256]}
+    # layers x rows x positions x KV heads x hd, fp32, K and V
+    self_kv = 2 * 2 * 16 * 256 * 2 * 32 * 4
+    cross_kv = 2 * 2 * 16 * 100 * 2 * 32 * 4
+    cache = r["cache_bytes"]
+    assert cache["whole"] == self_kv + cross_kv + 16 * 4
+    assert cache["rank"] == self_kv / 16 + cross_kv / 4 + 4 * 4
