@@ -255,7 +255,7 @@ Phases, each fatal on failure (nothing is caught):
      (c)'s kernel checks and (b))
      for llava-next-34b x ``train_4k`` on both
      production meshes, mamba2-1.3b x ``train_4k``, kimi-k2-1t-a32b x
-     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s twelve
+     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s 13
      cells on (c)'s ranks, a ``[dryrun]`` line each with its
      tensor-parallel plan
      (the other cells are counted on the CPU: ``--all`` and
@@ -267,14 +267,15 @@ Phases, each fatal on failure (nothing is caught):
      ``long_500k`` (one token against a populated cache of 524288
      positions, 9 ``decode_attention`` launches, logits bit-identical to
      ``model.decode``) and smollm-135m x ``train_4k`` at the smallest
-     grad_accum that the dry run fits on the card (two steps bit-identical
+     grad_accum that the dry run fits on the card (a step bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of twelve
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of 13
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
      a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
      9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24;
-     whisper-tiny 2 x 4 and 4), each decode cell 3 steps (32
+     whisper-tiny 2 x 4 and 4; llava-next-34b 2 x 60 and 60), each decode
+     cell 3 steps (32
      ``decode_attention`` launches a step; zamba2 9, qwen2-moe 24,
      llava-next-34b 60, whisper-tiny 4):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
@@ -293,13 +294,16 @@ Phases, each fatal on failure (nothing is caught):
      ``decode_attention`` launches a step) and whisper-tiny x ``train_4k``
      on rank 15 (the decoder "q_seq" from rows 3840 to 4096, the encoder
      "gathered", the whole-vocab loss on the rank's own positions) and x
-     ``decode_32k`` ("kv_seq", the cross K/V whole along "model"),
-     built by ``build_cell`` on the card in a
-     fake world
-     of 256 ranks on the (16, 16) mesh (the collectives move no data, so
-     no value is checked), a ``[launch] tp`` line each beside the dry run
-     of the same cell and rank (run in (a)'s pool), the peak within
-     ``PEAK_MARGIN`` of it; first of all (before (b)), ``decode_attention``,
+     ``decode_32k`` ("kv_seq", the cross K/V whole along "model") and
+     llava-next-34b x ``train_4k`` on rank 15 ("q_seq": all 56/8 heads on
+     query rows 3840 to 4096), built by ``build_cell`` on the card in a
+     fake world of 256 ranks on the (16, 16) mesh, each layer's leaves
+     gathered when the layer runs (the collectives move no data, so no
+     value is checked), a ``[launch] tp`` line each beside the dry run of
+     the same cell and rank (run in (a)'s pool), the peak within
+     ``PEAK_MARGIN`` of it, and beside the share's peak, host and device
+     ms when the whole stack was gathered for the step
+     (``PARENT_SHARES``); first of all (before (b)), ``decode_attention``,
      flash (with and without a query offset) and the scan, forward and
      backward, held to their plain versions at the shapes the shares give
      them (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``), and each timed there.
@@ -3857,8 +3861,10 @@ def distributed_phase(smollm, qwen, mamba, whisper
 # whisper-tiny x train_4k on rank 15 (the decoder "q_seq" on its last
 # rows, the encoder "gathered", the whole-vocab loss on the rank's own
 # positions) and x decode_32k ("kv_seq", the cross K/V whole along
-# "model"); kimi-k2-1t-a32b x train_4k is dry-run alone (its share does
-# not fit the card by the dry run)
+# "model") and llava-next-34b x train_4k on rank 15 (the heaviest "q_seq"
+# rank; its share fits the card since each layer's leaves are gathered
+# when the layer runs); kimi-k2-1t-a32b x train_4k is dry-run alone (its
+# share does not fit the card by the dry run)
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
@@ -3870,7 +3876,25 @@ TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("qwen2-moe-a2.7b", "decode_32k", 0),
             ("llava-next-34b", "decode_32k", 0),
             ("whisper-tiny", "train_4k", 15),
-            ("whisper-tiny", "decode_32k", 0)]
+            ("whisper-tiny", "decode_32k", 0),
+            ("llava-next-34b", "train_4k", 15)]
+# each share's card peak (GB), mean host ms and device busy ms a step
+# before the leaves were gathered a layer at a time (the whole stack for
+# the step; PERF.md section 6, an H100 80GB HBM3 at 700 W), printed
+# beside this run's; llava-next-34b x train_4k's share did not run then
+PARENT_SHARES = {
+    ("phi3-mini-3.8b", "train_4k", 0): (4.042, 1101.0, 630.41),
+    ("phi3-mini-3.8b", "decode_32k", 0): (7.040, 102.9, 9.82),
+    ("llama-3.1-8b", "train_4k", 0): (11.920, 1202.6, 921.67),
+    ("llama-3.1-8b", "decode_32k", 0): (6.035, 90.0, 9.15),
+    ("minitron-4b", "train_4k", 15): (20.349, 1140.1, 842.57),
+    ("zamba2-2.7b", "train_4k", 0): (14.683, 1686.7, 1413.09),
+    ("zamba2-2.7b", "decode_32k", 0): (7.535, 246.3, 9.46),
+    ("qwen2-moe-a2.7b", "train_4k", 0): (13.087, 1633.8, 1076.32),
+    ("qwen2-moe-a2.7b", "decode_32k", 0): (3.927, 232.8, 9.49),
+    ("llava-next-34b", "decode_32k", 0): (25.000, 496.4, 63.35),
+    ("whisper-tiny", "train_4k", 15): (5.194, 425.3, 97.91),
+    ("whisper-tiny", "decode_32k", 0): (0.276, 54.5, 2.86)}
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
@@ -3889,8 +3913,9 @@ TP_DECODE_S = 32768         # decode_32k's cache
 # 24/8 heads, query rows 3840 to 4096 against keys 0 to 4096), llama-3.1-8b's
 # 2 query heads on their one KV head (kv_replicated), zamba2-2.7b's 2 of 32
 # heads, qwen2-moe-a2.7b's 1 of 16, whisper-tiny's decoder on its last rank
-# along "model" (q_seq: all 6/6 heads of hd 64), and a ragged offset (rows
-# and keys that no tile divides)
+# along "model" (q_seq: all 6/6 heads of hd 64), llava-next-34b's last
+# rank (q_seq: all 56/8 heads of hd 128), and a ragged offset (rows and
+# keys that no tile divides)
 TP_FLASH_SHAPES = [
     ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True),
     ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
@@ -3900,6 +3925,8 @@ TP_FLASH_SHAPES = [
     ("qwen2-moe-a2.7b TP share", 16, 4096, 4096, 1, 1, 128, True),
     ("whisper-tiny q_seq share, last rank", 16, 256, 4096, 6, 6, 64, True,
      3840),
+    ("llava-next-34b q_seq share, last rank", 16, 256, 4096, 56, 8, 128,
+     True, 3840),
     ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
 # the scan at the SSM shares' shapes (name, B, T, H, P, N, Q, h0): a rank's
 # 5 of zamba2-2.7b's 80 heads (N 64) in train_4k, and 4 of mamba2-1.3b's 64
@@ -3914,6 +3941,10 @@ LONG_S = 524288             # long_500k's cache
 # microbatch only adds memory, so the answer lies above one that does not
 # fit and at or below one that does) and goes on a power of two at a time
 GRAD_ACCUM_FIRST = (8, 16)
+# (b)'s train_4k steps on each side, sharded and unsharded, before the
+# profiled one: a step is 16 microbatches of 16 x 4096, about 11 s of card
+# time, and one a side leaves the smoke's time for (c)'s shares
+TABLE_TRAIN_STEPS = 1
 # The card's peak may exceed the dry run's by this share and no more. The
 # dry run counts every tensor the step holds, at its exact size, on the
 # plain route, which holds more than the kernels (chunked attention's
@@ -4252,11 +4283,12 @@ def expandable_segments():
 
 def train_cell(mesh, k, pred) -> tuple[int, int]:
     """(b) smollm-135m x train_4k (256 x 4096 tokens) built by
-    ``build_cell`` on the card at ``grad_accum`` k: two steps with finite
-    losses, loss and grad norm bit-identical to the unsharded step's from
-    the same seed and batch (and the params after), 2 x 30 flash forward
-    and 30 backward launches a microbatch; its peak, host ms and device
-    busy ms (a third step under the profiler) beside the dry run's.
+    ``build_cell`` on the card at ``grad_accum`` k: ``TABLE_TRAIN_STEPS``
+    steps with finite losses, loss and grad norm bit-identical to the
+    unsharded step's from the same seed and batch (and the params after),
+    2 x 30 flash forward and 30 backward launches a microbatch; its peak,
+    host ms and device busy ms (one more step under the profiler) beside
+    the dry run's.
     Returns the flash launches (forward, backward) in it."""
     from repro_torch.launch.build import OPT_FOR_ARCH, build_cell
     from repro_torch.models.common import tree_leaves
@@ -4289,7 +4321,7 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
                     grad_accum=k)
             flash_launches(reset=True)
             metrics, host = [], []
-            for _ in range(2):
+            for _ in range(TABLE_TRAIN_STEPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
@@ -4316,7 +4348,8 @@ def train_cell(mesh, k, pred) -> tuple[int, int]:
     same = got["metrics"] == want["metrics"] and all(
         torch.equal(a, b) for a, b in zip(got["params"], want["params"]))
     finite = all(np.isfinite(v) for m in got["metrics"] for v in m)
-    per = (2 * n_layers * k * 2, n_layers * k * 2)
+    per = (2 * n_layers * k * TABLE_TRAIN_STEPS,
+           n_layers * k * TABLE_TRAIN_STEPS)
     log(f"[launch] train_4k {json.dumps({'grad_accum': k, 'loss_grad_norm': got['metrics'], 'unsharded': want['metrics'], 'bit_identical': same, 'host_ms': got['host_ms'], 'unsharded_host_ms': want['host_ms'], 'unsharded_peak_bytes': want['peak'], 'held_before_bytes': held, 'peak_reserved_bytes': [got['reserved'], want['reserved']], 'flash_launches': got['launches']})}")
     if (not same or not finite
             or tuple(got["launches"]) != per
@@ -4341,8 +4374,9 @@ def tp_share_kernels() -> None:
     qwen2-moe's 1 of 16, lengths 0, S and ragged ones; flash, forward and
     backward, fp32
     and bf16, at ``TP_FLASH_SHAPES``, the q_seq shares' timings
-    (minitron-4b's and whisper-tiny's last ranks) beside the same call at
-    offset 0 and zamba2's share's beside SDPA; the scan,
+    (minitron-4b's, whisper-tiny's and llava-next-34b's last ranks)
+    beside the same call at offset 0 and zamba2's share's beside SDPA; the
+    scan,
     forward and backward (fp32, the route's only dtype), at
     ``TP_SSD_SHAPES``, each timed from CUDA-graph replays, with its
     passes' device ms from the profiler. Run while (a)'s dry runs count on
@@ -4364,6 +4398,7 @@ def tp_share_kernels() -> None:
     check_flash_attention(TP_FLASH_SHAPES)
     time_flash_offset(TP_FLASH_SHAPES[1])
     time_flash_offset(TP_FLASH_SHAPES[5])
+    time_flash_offset(TP_FLASH_SHAPES[6])
     time_flash_attention(TP_FLASH_SHAPES[3])
     gc.collect()
     torch.cuda.empty_cache()
@@ -4480,7 +4515,10 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "peak_over_predicted": peak / pred["bytes_per_device"],
                "peak_margin": PEAK_MARGIN,
                "host_ms": host, "device_busy_ms": busy,
-               "top_device_ms": top,
+               "top_device_ms": top, **dict(zip(
+                   ("parent_peak_gb", "parent_host_ms",
+                    "parent_device_busy_ms"),
+                   PARENT_SHARES.get((arch, shape, rank), (None,) * 3))),
                "seconds": time.perf_counter() - started}
         log(f"[launch] tp {json.dumps(row)}")
         require_device_time(f"[launch] tp {arch} x {shape}", {"step": busy})

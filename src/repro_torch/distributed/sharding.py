@@ -17,13 +17,19 @@ Spec trees have the exact structure of the trees they describe
 
 ``to_named`` gives each spec its DTensor placements, ``place`` lays a
 tree out by them, and ``shard_train_step`` trains on the placed state.
-Every leaf is gathered along the data axes for the step (FSDP), but the
-expert-parallel MoE stacks. Along ``"model"`` the dense, vlm, ssm, hybrid,
-enc-dec and expert-parallel MoE families compute tensor-parallel
-(``tensor_parallel.plan``: attention in one of its five modes, the
-enc-dec encoder's by its own plan and the cross-attention by the
-decoder's, ``d_ff`` (the MoE's shared experts), the SSM heads and vocab
-local to a rank where m divides them, the routed experts by expert
+Each leaf is gathered along the data axes (FSDP), but the expert-parallel
+MoE stacks, a layer at a time, as the reference's scan over the stacked
+layers leaves XLA to place each layer's collectives in the loop body: the
+step hands the model its leaves as ``Placed`` (the rank's block and its
+layouts), each layer gathers its own slices at its start
+(``gather_layer``) and drops them at its end, and its gradient is reduced
+to the leaf's shard as the backward leaves that layer; the leaves outside
+the stacks are gathered where they are used. Along ``"model"`` the
+dense, vlm, ssm, hybrid, enc-dec and expert-parallel MoE families compute
+tensor-parallel (``tensor_parallel.plan``: attention in one of its five
+modes, the enc-dec encoder's by its own plan and the cross-attention by
+the decoder's, ``d_ff`` (the MoE's shared experts), the SSM heads and
+vocab local to a rank where m divides them, the routed experts by expert
 parallelism over every axis, ``tp_layouts`` the leaves' layouts for it); a
 grouped-dispatch MoE gathers each leaf whole along ``"model"`` too, so its
 ranks along it compute the same rows.
@@ -88,7 +94,7 @@ against 272). The SSM state keeps the reference's layout, heads along
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
@@ -96,12 +102,11 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
 
 from repro_torch.distributed import logical, tensor_parallel
 
+from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.common import ArchConfig, tree_map
 from repro_torch.models.ffn import MLPParams, MoEParams
 from repro_torch.models.mamba2 import Mamba2Params, MambaState
-from repro_torch.models.transformer import (DecLayer, DenseLayer, EncLayer,
-                                            MoELayer, SSMLayer)
 from repro_torch.train.train_step import build_train_step
 
 from .logical import P, placements
@@ -221,8 +226,9 @@ def param_specs(cfg: ArchConfig, mesh):
     if fam in ("dense", "vlm"):
         specs = {
             "embed": P("model", "data"),
-            "layers": DenseLayer(attn=attn_specs(l=0), mlp=mlp_specs(l=0),
-                                 norm1=_norm(0), norm2=_norm(0)),
+            "layers": tfm.DenseLayer(attn=attn_specs(l=0),
+                                     mlp=mlp_specs(l=0), norm1=_norm(0),
+                                     norm2=_norm(0)),
             "final_norm": _norm(),
             "lm_head": P("data", "model"),
         }
@@ -232,16 +238,17 @@ def param_specs(cfg: ArchConfig, mesh):
     if fam == "moe":
         return {
             "embed": P("model", "data"),
-            "layers": MoELayer(attn=attn_specs(l=0),
-                               moe=moe_specs(cfg, mesh, l=0),
-                               norm1=_norm(0), norm2=_norm(0)),
+            "layers": tfm.MoELayer(attn=attn_specs(l=0),
+                                   moe=moe_specs(cfg, mesh, l=0),
+                                   norm1=_norm(0), norm2=_norm(0)),
             "final_norm": _norm(),
             "lm_head": P("data", "model"),
         }
     if fam == "ssm":
         return {
             "embed": P("model", "data"),
-            "layers": SSMLayer(mamba=mamba_specs(cfg, l=0), norm=_norm(0)),
+            "layers": tfm.SSMLayer(mamba=mamba_specs(cfg, l=0),
+                                   norm=_norm(0)),
             "final_norm": _norm(),
             "lm_head": P("data", "model"),
         }
@@ -250,7 +257,7 @@ def param_specs(cfg: ArchConfig, mesh):
         g = map_specs(lambda s: P(None, *s), mamba_specs(cfg, l=0))
         return {
             "embed": P("model", "data"),
-            "layers": SSMLayer(mamba=g, norm=P(None, None, None)),
+            "layers": tfm.SSMLayer(mamba=g, norm=P(None, None, None)),
             "shared_attn": attn_specs(),
             "shared_mlp": mlp_specs(),
             "shared_norm1": _norm(), "shared_norm2": _norm(),
@@ -260,12 +267,13 @@ def param_specs(cfg: ArchConfig, mesh):
     if fam == "encdec":
         return {
             "embed": P("model", "data"),
-            "enc_layers": EncLayer(attn=attn_specs(l=0), mlp=mlp_specs(l=0),
-                                   norm1=_norm(0), norm2=_norm(0)),
-            "dec_layers": DecLayer(self_attn=attn_specs(l=0),
-                                   cross_attn=attn_specs(l=0),
-                                   mlp=mlp_specs(l=0), norm1=_norm(0),
-                                   norm2=_norm(0), norm3=_norm(0)),
+            "enc_layers": tfm.EncLayer(attn=attn_specs(l=0),
+                                       mlp=mlp_specs(l=0), norm1=_norm(0),
+                                       norm2=_norm(0)),
+            "dec_layers": tfm.DecLayer(self_attn=attn_specs(l=0),
+                                       cross_attn=attn_specs(l=0),
+                                       mlp=mlp_specs(l=0), norm1=_norm(0),
+                                       norm2=_norm(0), norm3=_norm(0)),
             "enc_norm": _norm(),
             "final_norm": _norm(),
             "lm_head": P("data", "model"),
@@ -557,27 +565,32 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
            "final_norm": lay(0, False),
            "lm_head": lay(1, plan.vocab_local, partial=plan.loss_rows)}
     if cfg.family in ("dense", "vlm"):
-        out["layers"] = DenseLayer(attn=attn(1), mlp=mlp(1),
-                                   norm1=lay(0, False), norm2=lay(0, False))
+        out["layers"] = tfm.DenseLayer(attn=attn(1), mlp=mlp(1),
+                                       norm1=lay(0, False),
+                                       norm2=lay(0, False))
     elif cfg.family == "moe":
-        out["layers"] = MoELayer(attn=attn(1), moe=moe(1),
-                                 norm1=lay(0, False), norm2=lay(0, False))
+        out["layers"] = tfm.MoELayer(attn=attn(1), moe=moe(1),
+                                     norm1=lay(0, False),
+                                     norm2=lay(0, False))
     elif cfg.family == "ssm":
-        out["layers"] = SSMLayer(mamba=mamba(1), norm=lay(0, False))
+        out["layers"] = tfm.SSMLayer(mamba=mamba(1), norm=lay(0, False))
     elif cfg.family == "hybrid":
-        out.update(layers=SSMLayer(mamba=mamba(2), norm=lay(0, False)),
+        out.update(layers=tfm.SSMLayer(mamba=mamba(2),
+                                       norm=lay(0, False)),
                    shared_attn=attn(0), shared_mlp=mlp(0),
                    shared_norm1=lay(0, False), shared_norm2=lay(0, False))
     elif cfg.family == "encdec":
         enc = plan.encoder or plan
         esp = enc.seq_parallel
-        out.update(enc_layers=EncLayer(attn=attn(1, enc), mlp=mlp(1, enc),
-                                       norm1=lay(0, False, esp),
-                                       norm2=lay(0, False, esp)),
-                   dec_layers=DecLayer(self_attn=attn(1), cross_attn=attn(1),
-                                       mlp=mlp(1), norm1=lay(0, False),
-                                       norm2=lay(0, False),
-                                       norm3=lay(0, False)),
+        out.update(enc_layers=tfm.EncLayer(attn=attn(1, enc),
+                                           mlp=mlp(1, enc),
+                                           norm1=lay(0, False, esp),
+                                           norm2=lay(0, False, esp)),
+                   dec_layers=tfm.DecLayer(self_attn=attn(1),
+                                           cross_attn=attn(1), mlp=mlp(1),
+                                           norm1=lay(0, False),
+                                           norm2=lay(0, False),
+                                           norm3=lay(0, False)),
                    enc_norm=lay(0, False, esp))
     else:
         raise ValueError(f"no tensor-parallel layout for {cfg.family}")
@@ -586,18 +599,118 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     return out
 
 
+def same_layout(mesh, have, want) -> bool:
+    """Placements that differ only on mesh dims of one rank lay a tensor
+    out alike (a one-rank block is the whole)."""
+    return all(a == b or mesh.size(j) == 1
+               for j, (a, b) in enumerate(zip(have, want)))
+
+
+def _drop_lead(placements):
+    """Placements of a stack's slice along its axis 0: its sharded dims
+    one lower (no stack is sharded on its lead axis)."""
+    if placements is None:
+        return None
+    if any(isinstance(p, Shard) and p.dim == 0 for p in placements):
+        raise ValueError(f"a stack sharded on its lead axis: {placements}")
+    return tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                 for p in placements)
+
+
+@dataclass(frozen=True)
+class Placed:
+    """A param leaf as a step hands it to the model: ``local``, the rank's
+    block of it, laid out on ``mesh`` by ``placements`` (its stored
+    ones), with the placements the step computes it in (``compute``: a
+    ``tp_layouts`` entry's first, or whole) and its gradient's (``grad``:
+    the entry's second, or a partial sum over the batch axes; None where
+    no gradient is taken, a serve step). ``unbind(0)`` gives a stacked
+    leaf's layers (views of the rank's block, nothing gathered), each with
+    the layouts less the lead axis, as ``transformer.unstack`` takes a
+    plain stack apart; ``shape`` is the local shape ``gather`` gives, lead
+    axes kept (the widths ``Route.check`` reads).
+
+    The stack is taken apart on the rank's block, not as a DTensor: the
+    layers' gradients stack as plain tensors into the block's, which
+    ``to_local``'s backward lays out in the leaf's placements on the
+    leaf's own mesh. (Under PyTorch 2.11 the gradient of a DTensor
+    ``unbind`` came back on the mesh of an earlier fake world, whose
+    process groups the next world lacks.)"""
+
+    local: torch.Tensor
+    mesh: object
+    placements: tuple
+    compute: tuple
+    grad: tuple | None = None
+
+    @classmethod
+    def of(cls, t: DTensor, compute, grad=None) -> Placed:
+        """``t``'s block (its gradient comes back in ``t``'s placements)
+        with the layouts ``compute`` and ``grad``."""
+        return cls(t.to_local(), t.device_mesh, tuple(t.placements),
+                   tuple(compute), None if grad is None else tuple(grad))
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a stack is taken apart along its axis 0")
+        lead = dict(placements=_drop_lead(self.placements),
+                    compute=_drop_lead(self.compute),
+                    grad=_drop_lead(self.grad))
+        return [replace(self, local=s, **lead)
+                for s in self.local.unbind(0)]
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.local.shape)
+        for j, (have, want) in enumerate(zip(self.placements,
+                                             self.compute)):
+            if isinstance(have, Shard):
+                shape[have.dim] *= self.mesh.size(j)
+            if isinstance(want, Shard):
+                shape[want.dim] //= self.mesh.size(j)
+        return torch.Size(shape)
+
+    def gather(self) -> torch.Tensor:
+        """The local tensor in ``compute``: a differentiable redistribute
+        whose gradient comes back in ``grad`` and is reduced into the
+        stored placements (a reduce-scatter along the data axes); with no
+        gradient, the block itself where it already is that."""
+        if self.grad is None and same_layout(self.mesh, self.placements,
+                                             self.compute):
+            return self.local
+        t = DTensor.from_local(self.local, self.mesh, self.placements,
+                               run_check=False)
+        return t.redistribute(self.mesh, self.compute).to_local(
+            grad_placements=self.grad)
+
+
+def gather_layer(tree):
+    """One layer's leaves as this rank computes with them: each ``Placed``
+    leaf (a layer's slice of a stacked leaf, or a leaf outside the stacks)
+    gathered (``Placed.gather``), every other leaf as it is (the identity
+    on plain tensors: one device, the engine, ``TorchExecutor``). The
+    models call it at the start of each layer, so a layer's gathered copy
+    lives while the layer runs: under ``remat="block"`` it is dropped at
+    the end of the layer's forward and gathered again in its recompute,
+    never saved for the backward; under ``remat="none"`` autograd saves
+    it for the backward, as it saves any operand of a product."""
+    return tree_map(lambda x: x.gather() if isinstance(x, Placed) else x,
+                    tree)
+
+
 class _LocalLoss:
     """``model.loss_fn`` on this rank's rows of a global batch. Each
-    DTensor leaf is redistributed by a differentiable redistribute: for
-    the tensor-parallel families into its ``tp_layouts`` placements under
-    the tensor-parallel plan of the batch, with the logical policy (and so
-    the ``"model"`` group) installed around the model's loss; for the
-    others gathered whole. Its gradient comes back in the placements
-    given to ``to_local`` (a partial sum over the batch axes, as every
-    rank along them saw other rows), so autograd reduces it into the
-    leaf's placements. The local loss is scaled by this rank's share of
-    the global token count, so the sum over ranks is the global mean
-    whatever each rank's mask holds."""
+    DTensor leaf goes to the model as a ``Placed`` leaf, which the model
+    gathers a layer at a time (``gather_layer``): for the tensor-parallel
+    families into its ``tp_layouts`` placements under the tensor-parallel
+    plan of the batch, with the logical policy (and so the ``"model"``
+    group) installed around the model's loss; for the others whole. Its
+    gradient comes back in the placements given to ``to_local`` (a
+    partial sum over the batch axes, as every rank along them saw other
+    rows), so autograd reduces each layer's into the leaf's placements as
+    the backward leaves the layer. The local loss is scaled by this rank's
+    share of the global token count, so the sum over ranks is the global
+    mean whatever each rank's mask holds."""
 
     def __init__(self, model, mesh) -> None:
         self.model, self.mesh = model, mesh
@@ -635,14 +748,13 @@ class _LocalLoss:
             seq_len=tensor_parallel.residual_len(cfg, mb),
             rows=mb["tokens"].shape[0])
         if plan is None:
-            local = tree_map(lambda t: t.redistribute(self.mesh, self.full)
-                             .to_local(grad_placements=self.partial), params)
-            return self.model.loss_fn(local, mb) * share
-        local = tree_map(lambda t, lay: t.redistribute(self.mesh, lay[0])
-                         .to_local(grad_placements=lay[1]),
-                         params, tp_layouts(cfg, self.mesh, plan))
+            placed = tree_map(
+                lambda t: Placed.of(t, self.full, self.partial), params)
+            return self.model.loss_fn(placed, mb) * share
+        placed = tree_map(lambda t, lay: Placed.of(t, *lay), params,
+                          tp_layouts(cfg, self.mesh, plan))
         with logical.policy(self.mesh):
-            return self.model.loss_fn(local, mb) * share
+            return self.model.loss_fn(placed, mb) * share
 
 
 def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
@@ -656,8 +768,11 @@ def shard_train_step(model, opt, mesh, *, compress=None, grad_accum=1):
     back as DTensors in the params' placements, the optimizer and
     ``compress`` run on them (DTensor reduces the global norm, Adafactor's
     means and the int8 scale over whole leaves), and the metrics are the
-    global loss and the norm over whole gradients. The dense, vlm, ssm,
-    hybrid, enc-dec and expert-parallel MoE families compute
+    global loss and the norm over whole gradients. The model gathers each
+    layer's leaves along the data axes when the layer runs and drops them
+    when it ends; each layer's gradient is reduce-scattered to its shard
+    as the backward leaves that layer (``gather_layer``). The dense, vlm,
+    ssm, hybrid, enc-dec and expert-parallel MoE families compute
     tensor-parallel along ``"model"`` (``_LocalLoss``). An MoE loss adds
     the aux over every rank's tokens, the same on every rank, to each
     rank's NLL; weighed by the rank's token share, the sum over the batch

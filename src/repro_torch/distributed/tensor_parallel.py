@@ -895,8 +895,11 @@ class Route:
                           conv_b=cols(p.conv_b, conv))
 
     def check(self, cfg, params: dict) -> None:
-        """Raises unless the local leaves have the widths the plan says
-        (``wk`` whole unless the heads are "local"; a mamba2 block's
+        """Raises unless the leaves, as a layer gathers them, have the
+        local widths the plan says (a sharded step's leaves are
+        ``sharding.Placed``, whose ``shape`` is the gathered layer's, lead
+        axes kept: nothing is gathered here) (``wk`` whole unless the
+        heads are "local"; a mamba2 block's
         ``in_proj`` whole, its heads' leaves the rank's where local; an
         MoE layer's router whole, its expert stacks the rank's experts,
         its shared experts as the MLP; an enc-dec model's encoder and

@@ -23,7 +23,12 @@ Peak bytes: every storage an op makes is counted from the op until its
 last reference goes (a weak reference to the storage, whose Python object
 lives as long as the storage does: views, autograd's saved tensors and
 DTensors' local blocks keep it), so ``peak`` is the most the tracked
-tensors held at once, the step's inputs included.
+tensors held at once, the step's inputs included. ``peak_held`` breaks
+the peak down by what made each storage held then: ``"inputs"``, or the
+phase and the op (``"forward mm"``, ``"backward all_gather_into_tensor"``,
+``"no-grad add"``: the forward under grad mode, the backward with a
+checkpoint's recompute, and what runs without grad mode, the optimizer or
+a serve step).
 
 A ``DTensor`` op is let through (``NotImplemented``), so the mode counts
 the local ops it runs on this rank's shards, and the collectives they
@@ -102,7 +107,8 @@ def _group_size(func, args) -> int:
 class StepCounter(TorchDispatchMode):
     """Counts FLOPs and HBM bytes of the ops run inside it, records every
     collective as (kind, output bytes, group size), and tracks the bytes
-    held: ``inputs`` (the tensors of ``track``), ``live`` and ``peak``."""
+    held: ``inputs`` (the tensors of ``track``), ``live`` and ``peak``,
+    and ``peak_held``, the bytes held at the peak by what made them."""
 
     def __init__(self, track=()) -> None:
         super().__init__()
@@ -110,25 +116,32 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.collectives: list[tuple[str, int, int]] = []
         self.live = self.peak = 0
+        self.held: dict[str, int] = {}
+        self.peak_held: dict[str, int] = {}
         self._refs: dict[int, weakref.ref] = {}
         for t in _tensors(track):
-            self._hold(t._local_tensor if isinstance(t, DTensor) else t)
+            self._hold(t._local_tensor if isinstance(t, DTensor) else t,
+                       "inputs")
         self.inputs = self.live
 
-    def _hold(self, t: torch.Tensor) -> None:
+    def _hold(self, t: torch.Tensor, by: str) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._refs:
             return
         n = st.nbytes()
         self._refs[key] = weakref.ref(st, functools.partial(self._free, key,
-                                                            n))
+                                                            n, by))
         self.live += n
-        self.peak = max(self.peak, self.live)
+        self.held[by] = self.held.get(by, 0) + n
+        if self.live > self.peak:
+            self.peak = self.live
+            self.peak_held = dict(self.held)
 
-    def _free(self, key: int, n: int, _ref) -> None:
+    def _free(self, key: int, n: int, by: str, _ref) -> None:
         self._refs.pop(key, None)
         self.live -= n
+        self.held[by] -= n
 
     def __enter__(self):
         self._fake_on_entry = active_fake_mode()
@@ -141,9 +154,11 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if active_fake_mode() is not self._fake_on_entry:
             return out          # DTensor's sharding propagation
-        for t in _tensors(out):
-            self._hold(t)
         packet = func._overloadpacket
+        phase = ("backward" if torch._C._current_graph_task_id() != -1
+                 else "forward" if torch.is_grad_enabled() else "no-grad")
+        for t in _tensors(out):
+            self._hold(t, f"{phase} {packet.__name__}")
         if func.namespace == "_c10d_functional":
             kind = _COLLECTIVE_OPS.get(packet.__name__)
             if kind is not None:

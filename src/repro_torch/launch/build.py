@@ -210,16 +210,9 @@ def _zeros_placed(tree, shardings, device) -> dict:
     return tree_map(block, tree, shardings)
 
 
-def _same_layout(mesh, have, want) -> bool:
-    """Placements that differ only on mesh dims of one rank lay a tensor
-    out alike (a one-rank block is the whole)."""
-    return all(a == b or mesh.size(j) == 1
-               for j, (a, b) in enumerate(zip(have, want)))
-
-
 def _local(t: DTensor, want: list) -> torch.Tensor:
     """``t``'s local tensor in the placements ``want``."""
-    if _same_layout(t.device_mesh, t.placements, want):
+    if shd.same_layout(t.device_mesh, t.placements, want):
         return t.to_local()
     return t.redistribute(t.device_mesh, want).to_local()
 
@@ -227,7 +220,7 @@ def _local(t: DTensor, want: list) -> torch.Tensor:
 def _put_back(local: torch.Tensor, t: DTensor, have: list) -> DTensor:
     """``local``, laid out by ``have``, as a DTensor in ``t``'s placements."""
     mesh = t.device_mesh
-    if _same_layout(mesh, have, t.placements):
+    if shd.same_layout(mesh, have, t.placements):
         return DTensor.from_local(local, mesh, t.placements, shape=t.shape,
                                   stride=t.stride())
     return DTensor.from_local(local, mesh, have).redistribute(
@@ -264,10 +257,12 @@ def _read_by_rows(table: DTensor) -> bool:
 
 def serve_step(model, mesh, kind: str) -> Callable:
     """The prefill or decode step one rank runs on placed params, inputs
-    and cache: this rank's rows of the inputs and cache, each param leaf
-    gathered along the data axes, then the model's own ``prefill`` or
-    ``decode``; the cache comes back in its placements. Returns (this
-    rank's logits, cache).
+    and cache: this rank's rows of the inputs and cache, then the model's
+    own ``prefill`` or ``decode`` on the params as ``sharding.Placed``
+    leaves, each layer's gathered along the data axes when that layer
+    runs and dropped when it ends (``sharding.gather_layer``), the leaves
+    outside the stacks where they are used; the cache comes back in its
+    placements. Returns (this rank's logits, cache).
 
     The dense, vlm, ssm, hybrid, enc-dec and expert-parallel MoE families
     compute tensor-parallel along ``"model"`` (``tensor_parallel``), with
@@ -289,10 +284,10 @@ def serve_step(model, mesh, kind: str) -> Callable:
     ``out_shardings`` (``P(batch, None, "model")``) leave them; an MoE
     layer's routed experts by expert parallelism over every rank, on each
     rank's block of its rows' tokens (``Route.moe``), which needs the
-    batch split over the batch ranks. A grouped-dispatch MoE gathers every
-    leaf and the cache whole along ``"model"`` and runs with no policy
-    installed (its layers by ``moe_block``'s grouped dispatch, one group a
-    rank)."""
+    batch split over the batch ranks. A grouped-dispatch MoE gathers each
+    layer's leaves and the cache whole along ``"model"`` and runs with no
+    policy installed (its layers by ``moe_block``'s grouped dispatch, one
+    group a rank)."""
     baxes = data_axes(mesh)
     names = mesh.mesh_dim_names
     full = [Replicate()] * mesh.ndim
@@ -332,19 +327,19 @@ def serve_step(model, mesh, kind: str) -> Callable:
                             else rows(t), v) for k, v in cache.items()}
         held = tree_map(_local, cache, have)
         if plan is None:
-            logits, held = run(tree_map(lambda t: _local(t, full), params),
-                               mine, held)
+            logits, held = run(tree_map(
+                lambda t: shd.Placed.of(t, full), params), mine, held)
         else:
             rows_read = kind == "decode" and _read_by_rows(params["embed"])
-            local = {k: tree_map(lambda t, lay: _local(t, lay[0]), v,
-                                 layouts[k])
-                     for k, v in params.items()
-                     if not (rows_read and k == "embed")}
+            placed = {k: tree_map(lambda t, lay: shd.Placed.of(t, lay[0]),
+                                  v, layouts[k])
+                      for k, v in params.items()
+                      if not (rows_read and k == "embed")}
             if rows_read:
-                local["embed"], mine["tokens"] = _read_rows(
+                placed["embed"], mine["tokens"] = _read_rows(
                     params["embed"], inputs["tokens"])
             with logical.policy(mesh):
-                logits, held = run(local, mine, held, cache_len)
+                logits, held = run(placed, mine, held, cache_len)
         return logits, tree_map(_put_back, held, cache, have)
 
     return step

@@ -14,8 +14,8 @@ For each cell it records
   * the counted rank's sharded step (under ``"rank0"``, whichever rank
     ``"rank"`` says): its FLOPs and bytes, its collectives by kind,
     and its peak bytes (``analysis.StepCounter``: the params' and optimizer
-    state's shards, the leaves gathered for the step, activations and
-    temporaries);
+    state's shards, the leaves a layer gathers, activations and
+    temporaries), broken down by what made them (``peak_held_by``);
   * the roofline terms, the kernel-adjusted memory term and ``fits_h100``;
   * a serve cell's ``cache_bytes``: the whole cache's and the counted
     rank's block of it.
@@ -70,7 +70,8 @@ def peak_and_cost(step, args) -> dict:
     """Runs ``step(*args)`` once under ``StepCounter``: rank 0's FLOPs and
     bytes, its collective bytes by kind (``coll:<kind>``) and its peak
     bytes (``peak:Total``; ``peak:Inputs``, the args' tensors, held from
-    the start), as one flat dict."""
+    the start; ``held:<what>``, the peak by what made it), as one flat
+    dict."""
     from .analysis import StepCounter
     from .roofline import collective_bytes
     with StepCounter(track=args) as counter:
@@ -78,6 +79,8 @@ def peak_and_cost(step, args) -> dict:
     out = {"flops": counter.flops, "bytes": counter.bytes,
            "peak:Total": float(counter.peak),
            "peak:Inputs": float(counter.inputs)}
+    out.update({f"held:{k}": float(v) for k, v in counter.peak_held.items()
+                if v})
     for kind, n in collective_bytes(counter.collectives)[1].items():
         out[f"coll:{kind}"] = float(n)
     return out
@@ -141,6 +144,8 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
     by_kind = {k[5:]: v * chips for k, v in c.items()
                if k.startswith("coll:")}
     peak = {k[5:]: v for k, v in c.items() if k.startswith("peak:")}
+    held = dict(sorted(((k[5:], v) for k, v in c.items()
+                        if k.startswith("held:")), key=lambda kv: -kv[1]))
     coll_rank = sum(v for k, v in c.items() if k.startswith("coll:"))
     bytes_per_device = peak["Total"]
 
@@ -177,7 +182,7 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
         semantic={"flops": c["sem_flops"], "bytes_proxy": c["sem_bytes"]},
         rank0={"flops": c["flops"], "bytes": c["bytes"],
                "collective_bytes": coll_rank, "rows": cell.rows},
-        peak_by_kind=peak,
+        peak_by_kind=peak, peak_held_by=held,
         t_count_s=round(t_count, 1),
         grad_accum=grad_accum, remat=remat or cell.cfg.remat,
         hbm_bytes_per_device=HBM_BYTES,
@@ -196,6 +201,8 @@ def count_cell(arch: str, shape_id, mesh, *, mesh_name: str,
           f"frac={result['roofline_fraction_kernel']:.3f} "
           f"({t_count:.1f} s)", flush=True)
     print(f"  tp: {json.dumps(cell.tp)}", flush=True)
+    print("  held at the peak (GB): " + ", ".join(
+        f"{k} {v / 1e9:.2f}" for k, v in list(held.items())[:8]), flush=True)
     print(f"  semantic: flops={c['sem_flops']:.3e} "
           f"bytes={c['sem_bytes']:.3e}; rank {result['rank']}: "
           f"flops={c['flops']:.3e} "

@@ -163,13 +163,14 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg: ArchConfig, *,
     # the head counts of the weights given: under tensor parallelism a
     # rank's own heads (``cfg.hd`` is the same on every rank)
     hd = cfg.hd
-    hq, hkv = p.wq.shape[-1] // hd, p.wk.shape[-1] // hd
+    hq = p.wq.shape[-1] // hd
     cd = cfg.compute_dtype
     xq = x if q_rows is None else x[:, a:b]
     q = (xq @ p.wq.to(cd)).reshape(B, b - a, hq, hd)
-    if cross_kv is not None:
+    if cross_kv is not None:      # ``p.wk``/``p.wv`` are not read
         out = gqa_scores_attention(q, *cross_kv, causal=False)
         return out.reshape(B, b - a, hq * hd) @ p.wo.to(cd), None
+    hkv = p.wk.shape[-1] // hd
     # K/V rows: [0, b) where causal attention without a cache reads no more
     xkv = x if kv_cache is not None or q_rows is None or not causal \
         else x[:, :b]

@@ -15,7 +15,12 @@ and the encoder-decoder (whisper), each with
 Per-layer leaves are stacked on axis 0 (the hybrid's on (groups,
 per_group)), as the reference stacks them for ``lax.scan``; the trunks are
 Python loops over per-layer views of them, so gradients flow back to the
-stacked leaves. Caches are updated in place.
+stacked leaves. A sharded step hands the model its leaves as
+``sharding.Placed`` (a rank's DTensor and its layouts): each layer gathers
+its own leaves at its start (``sharding.gather_layer``, the identity on
+plain tensors) and drops them at its end, and the leaves outside the
+stacks are gathered where they are used, as the reference's scan body
+holds each layer's collectives. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops as kops
 
@@ -49,7 +55,10 @@ class DenseLayer(NamedTuple):
 def unstack(tree):
     """Views along axis 0 of a NamedTuple tree of stacked leaves (the
     layers, or the hybrid's groups): one ``unbind`` per leaf, so each
-    leaf's gradient is gathered by one node."""
+    leaf's gradient is gathered by one node. A ``sharding.Placed`` leaf
+    (a sharded step's) gives its rank's block of each layer with the
+    layer's layouts, nothing gathered: the layer gathers it when it runs
+    (``sharding.gather_layer``) and frees it when it ends."""
     if isinstance(tree, tuple):
         return [type(tree)(*xs) for xs in zip(*(unstack(t) for t in tree))]
     return list(tree.unbind(0))
@@ -131,7 +140,13 @@ class DecoderLM:
             self._layer, tp=tp)
         for lp in unstack(params["layers"]):
             h = self._remat(layer, h, lp)
-        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
+        return self._final_norm(params, h)
+
+    def _final_norm(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """The trunk's last RMSNorm, its weight gathered where it is
+        used."""
+        return rmsnorm(h, shd.gather_layer(params["final_norm"]),
+                       self.cfg.norm_eps)
 
     def _patches(self, batch: dict) -> torch.Tensor | None:
         """The batch's ``patch_embeds`` (B, n_patches, d) where the family
@@ -147,9 +162,10 @@ class DecoderLM:
         embeddings, projected by ``patch_proj``, go before the text. Under
         a route, the residual stream in its layout (``Route.embed``)."""
         cd = self.cfg.compute_dtype
-        table = params["embed"].to(cd)
+        table = shd.gather_layer(params["embed"]).to(cd)
         pe = None if patch_embeds is None else \
-            patch_embeds.to(cd) @ params["patch_proj"].to(cd)
+            patch_embeds.to(cd) @ shd.gather_layer(
+                params["patch_proj"]).to(cd)
         if tp is not None:
             return tp.embed(tokens, table, pe)
         h = F.embedding(tokens.long(), table)
@@ -161,7 +177,8 @@ class DecoderLM:
         route whose vocab is local."""
         if tp is not None:
             h = tp.head_input(h)
-        return h @ params["lm_head"].to(self.cfg.compute_dtype)
+        lm_head = shd.gather_layer(params["lm_head"])
+        return h @ lm_head.to(self.cfg.compute_dtype)
 
     def _routed(self, params: dict, kind: str, seq_len: int, rows: int,
                 cache_len: int | None = None):
@@ -180,7 +197,8 @@ class DecoderLM:
         whole-vocab logits of this rank's own positions alone
         (``Route.rows_nll``)."""
         labels, mask = batch["labels"], batch.get("loss_mask")
-        lm_head = params["lm_head"].to(self.cfg.compute_dtype)
+        lm_head = shd.gather_layer(params["lm_head"]).to(
+            self.cfg.compute_dtype)
         if tp is not None and tp.plan.loss_rows:
             return tp.rows_nll(lambda x, y: token_nll(x @ lm_head, y), h,
                                labels, mask, skip)
@@ -287,9 +305,11 @@ class DenseLM(DecoderLM):
 
     def _layer(self, x: torch.Tensor, lp: DenseLayer, tp=None
                ) -> torch.Tensor:
-        """One layer; under a route each sublayer in its tensor-parallel
-        form (``Route.sublayer``)."""
+        """One layer, its leaves gathered first
+        (``sharding.gather_layer``); under a route each sublayer in its
+        tensor-parallel form (``Route.sublayer``)."""
         cfg = self.cfg
+        lp = shd.gather_layer(lp)
 
         def attn(p, h, rows):
             return attention_block(p, h, cfg, q_rows=rows,
@@ -326,6 +346,8 @@ class DenseLM(DecoderLM):
         idx = cache["index"]
         split = None if tp is None else tp.kv_split
         for i, lp in enumerate(unstack(params["layers"])):
+            lp = shd.gather_layer(lp)
+
             def attn(p, x, rows, i=i):
                 return attention_block(
                     p, x, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
@@ -336,7 +358,7 @@ class DenseLM(DecoderLM):
                                rmsnorm(h, lp.norm1, cfg.norm_eps))
             h = h + self._feed_forward(
                 lp, rmsnorm(h, lp.norm2, cfg.norm_eps), tp)
-        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(params, h)
         return h, {"k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}
 
@@ -386,7 +408,11 @@ class MoELM(DenseLM):
 
     def _layer(self, x: torch.Tensor, lp: MoELayer, tp=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One layer and its aux, its leaves gathered first; an
+        expert-parallel layer's expert stacks are the rank's experts
+        already and keep their placement."""
         cfg = self.cfg
+        lp = shd.gather_layer(lp)
 
         def attn(p, h, rows):
             return attention_block(p, h, cfg, q_rows=rows,
@@ -408,7 +434,7 @@ class MoELM(DenseLM):
         for lp in unstack(params["layers"]):
             h, aux = self._remat(layer, h, lp)
             auxes.append(aux)
-        return (rmsnorm(h, params["final_norm"], self.cfg.norm_eps),
+        return (self._final_norm(params, h),
                 torch.stack(auxes).mean())
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
@@ -434,7 +460,9 @@ def _ssm_step(cfg: ArchConfig, lp: SSMLayer, x: torch.Tensor,
               ) -> torch.Tensor:
     """One SSM layer against its cached state, which it updates in place
     (under a route whose SSM heads are local, the rank's heads' state);
-    returns the residual stream after the layer."""
+    returns the residual stream after the layer. The layer's leaves are
+    gathered first."""
+    lp = shd.gather_layer(lp)
     new = []
 
     def block(p, h, norm_sum):
@@ -481,9 +509,10 @@ class MambaLM(DecoderLM):
 
     def _layer(self, x: torch.Tensor, lp: SSMLayer, tp=None
                ) -> torch.Tensor:
-        """One SSM layer; under a route the block in its tensor-parallel
-        form (``Route.ssm``)."""
+        """One SSM layer, its leaves gathered first; under a route the
+        block in its tensor-parallel form (``Route.ssm``)."""
         cfg = self.cfg
+        lp = shd.gather_layer(lp)
 
         def block(p, h, norm_sum):
             return mamba2_block(p, h, cfg, ssd_scan=self.ssd_scan,
@@ -511,7 +540,7 @@ class MambaLM(DecoderLM):
         cfg, st = self.cfg, cache["state"]
         for lp, state in zip(unstack(params["layers"]), unstack(st)):
             h = _ssm_step(cfg, lp, h, state, self.ssd_scan, tp)
-        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(params, h)
         return h, {"state": st, "index": cache["index"] + h.shape[1]}
 
 
@@ -556,10 +585,17 @@ class HybridLM(MambaLM):
                 "shared_norm2": ones(), "final_norm": ones(),
                 "lm_head": lm_head}
 
+    def _shared(self, params: dict) -> dict:
+        """The shared block's leaves, gathered once a step: every group
+        reuses them, so a rank holds one layer's worth of them whole."""
+        return shd.gather_layer({k: params[k] for k in (
+            "shared_attn", "shared_mlp", "shared_norm1", "shared_norm2")})
+
     def _shared_block(self, params: dict, x: torch.Tensor, *, kv_cache=None,
                       cache_index=None, tp=None) -> torch.Tensor:
-        """The shared attention and MLP; under a route each in its
-        tensor-parallel form, as ``DenseLM._layer``'s."""
+        """The shared attention and MLP (``params``: their leaves,
+        ``_shared``'s); under a route each in its tensor-parallel form, as
+        ``DenseLM._layer``'s."""
         cfg = self.cfg
 
         def attn(p, h, rows):
@@ -574,9 +610,12 @@ class HybridLM(MambaLM):
                                              cfg.compute_dtype),
                         rmsnorm(x, params["shared_norm2"], cfg.norm_eps))
 
-    def _group(self, x: torch.Tensor, params: dict, glp: SSMLayer,
+    def _group(self, x: torch.Tensor, shared: dict, glp: SSMLayer,
                tp=None) -> torch.Tensor:
-        x = self._shared_block(params, x, tp=tp)
+        """One group: the shared block (``shared``, its gathered leaves),
+        then the group's SSM layers, each gathering its own leaves when it
+        runs (``MambaLM._layer``)."""
+        x = self._shared_block(shared, x, tp=tp)
         for lp in unstack(glp):
             x = self._layer(x, lp, tp)
         return x
@@ -588,9 +627,10 @@ class HybridLM(MambaLM):
         backward runs the same route."""
         group = self._group if tp is None else functools.partial(
             self._group, tp=tp)
+        shared = self._shared(params)
         for glp in unstack(params["layers"]):
-            h = self._remat(group, h, params, glp)
-        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
+            h = self._remat(group, h, shared, glp)
+        return self._final_norm(params, h)
 
     # -- serving: SSM states + per-group KV cache for the shared block --------
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -612,14 +652,15 @@ class HybridLM(MambaLM):
         route each leaf holds what ``DenseLM._cached_trunk`` and
         ``MambaLM._cached_trunk`` say of it."""
         cfg, idx, st = self.cfg, cache["index"], cache["state"]
+        shared = self._shared(params)
         for g, (glp, gst) in enumerate(zip(unstack(params["layers"]),
                                            unstack(st))):
-            h = self._shared_block(params, h,
+            h = self._shared_block(shared, h,
                                    kv_cache=(cache["k"][g], cache["v"][g]),
                                    cache_index=idx, tp=tp)
             for lp, state in zip(unstack(glp), unstack(gst)):
                 h = _ssm_step(cfg, lp, h, state, self.ssd_scan, tp)
-        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        h = self._final_norm(params, h)
         return h, {"state": st, "k": cache["k"], "v": cache["v"],
                    "index": idx + h.shape[1]}
 
@@ -697,9 +738,10 @@ class EncDecLM(DecoderLM):
     # -- encoder --------------------------------------------------------------
     def _enc_layer(self, x: torch.Tensor, lp: EncLayer, tp=None
                    ) -> torch.Tensor:
-        """One encoder layer; under the encoder's route each sublayer in
-        its tensor-parallel form."""
+        """One encoder layer, its leaves gathered first; under the
+        encoder's route each sublayer in its tensor-parallel form."""
         cfg = self.cfg
+        lp = shd.gather_layer(lp)
 
         def attn(p, h, rows):
             return attention_block(p, h, cfg, causal=False, use_rope=False,
@@ -725,24 +767,31 @@ class EncDecLM(DecoderLM):
                 h = tp.split_seq(h)
         for lp in unstack(params["enc_layers"]):
             h = self._remat(layer, h, lp)
-        return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+        return rmsnorm(h, shd.gather_layer(params["enc_norm"]), cfg.norm_eps)
 
     def _cross_kv(self, params: dict, enc_out: torch.Tensor, tp=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """Every decoder layer's cross K and V, each (L, B, T_enc, Hkv,
-        hd): one product of the encoder's output with the stacked
-        ``cross_attn.wk`` / ``wv``. Under a route, the heads the rank's
-        ``wk`` / ``wv`` hold (its KV head's columns under
-        "kv_replicated")."""
+        hd): the encoder's output times each layer's ``cross_attn.wk`` /
+        ``wv``, a layer at a time through ``_remat`` (``_cross_layer``).
+        Under a route, the heads the rank's ``wk`` / ``wv`` hold (its KV
+        head's columns under "kv_replicated")."""
+        ca = params["dec_layers"].cross_attn
+        kv = [self._remat(self._cross_layer, enc_out, wk, wv, tp)
+              for wk, wv in zip(unstack(ca.wk), unstack(ca.wv))]
+        return tuple(torch.stack(x) for x in zip(*kv))
+
+    def _cross_layer(self, enc_out: torch.Tensor, wk, wv, tp=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One decoder layer's cross K and V, (B, T_enc, Hkv, hd), its
+        ``wk`` and ``wv`` gathered first."""
         cfg = self.cfg
         B, Te, _ = enc_out.shape
-        ca = params["dec_layers"].cross_attn
-        ws = (ca.wk, ca.wv)
+        ws = shd.gather_layer((wk, wv))
         if tp is not None and tp.plan.heads == "kv_replicated":
             ws = tuple(tp.kv_slice(w) for w in ws)
-        return tuple((enc_out[None] @ w.to(cfg.compute_dtype)[:, None]
-                      ).reshape(cfg.n_layers, B, Te, w.shape[-1] // cfg.hd,
-                                cfg.hd) for w in ws)
+        return tuple((enc_out @ w.to(cfg.compute_dtype)).reshape(
+            B, Te, w.shape[-1] // cfg.hd, cfg.hd) for w in ws)
 
     def _encoded(self, params: dict, frames: torch.Tensor, tp=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -759,10 +808,14 @@ class EncDecLM(DecoderLM):
                    cross_k: torch.Tensor, cross_v: torch.Tensor,
                    kv_cache=None, index=None, tp=None, split=None
                    ) -> torch.Tensor:
-        """One decoder layer; under a route each sublayer in its
+        """One decoder layer, its leaves gathered first but the
+        cross-attention's ``wk`` and ``wv`` (its K/V are ``cross_k`` and
+        ``cross_v``, ``_cross_kv``'s); under a route each sublayer in its
         tensor-parallel form, ``split`` the self K/V's block of positions
         (``Route.kv_split``)."""
         cfg = self.cfg
+        lp = shd.gather_layer(lp._replace(
+            cross_attn=lp.cross_attn._replace(wk=None, wv=None)))
 
         def self_attn(p, h, rows):
             return attention_block(
@@ -800,7 +853,7 @@ class EncDecLM(DecoderLM):
             else:
                 h = layer(h, lp, ck, cv, (cache["k"][i], cache["v"][i]),
                           cache["index"], split=split)
-        return rmsnorm(h, params["final_norm"], self.cfg.norm_eps)
+        return self._final_norm(params, h)
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token NLL of the decoder; needs ``batch["frames"]``.

@@ -203,6 +203,39 @@ def test_step_counter_peak_of_layers(L, remat):
     assert snap["Total"] == c.peak
 
 
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "checkpoint"])
+def test_step_counter_breaks_the_peak_down(remat):
+    """``peak_held`` is the peak by what made each storage: it adds up to
+    the peak; at ``test_step_counter_peak_of_layers``'s peak (the last
+    layer's backward) the inputs hold their 2v, the backward cos of the
+    layer's product and the gradient times it (2N; with checkpoint the
+    recomputed product too, 3N), and the forward the rest: without
+    checkpoint every layer's saved product and the last output, with it
+    the layers' outputs, and the loss and the gradient ``backward`` starts
+    from (4 bytes each). An op run without grad mode is
+    ``"no-grad"``."""
+    n, L = 256, 3
+    N, v = 4 * n * n, 4 * n
+    x, w = meta(n).requires_grad_(True), meta(1, n)
+    with StepCounter(track=(x, w)) as c:
+        layer = lambda h: (h.unsqueeze(1) * w).sin().sum(1)
+        h = x
+        for _ in range(L):
+            h = (checkpoint(layer, h, use_reentrant=False) if remat
+                 else layer(h))
+        h.sum().backward()
+        with torch.no_grad():
+            y = x * 2
+    held = {k: v for k, v in c.peak_held.items() if v}
+    assert sum(held.values()) == c.peak
+    assert held["inputs"] == 2 * v
+    backward = sum(b for k, b in held.items() if k.startswith("backward"))
+    forward = sum(b for k, b in held.items() if k.startswith("forward"))
+    assert backward == (3 if remat else 2) * N
+    assert forward == (L * v if remat else L * N + v) + 8
+    assert c.held["no-grad mul"] == v and y.shape == (n,)
+
+
 # reduced cells built by ``build_cell`` on the meta device, each step run
 # under StepCounter and, built again, under MemTracker (torch's own tracker
 # of the bytes held, by storage), in fake worlds of 1 and 4 ranks

@@ -217,8 +217,8 @@ KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
         "useful_fraction", "roofline_fraction", "bound_s", "status", "tag",
         "shared_memory_kernel_bytes", "memory_kernel_s", "bound_kernel_s",
         "roofline_fraction_kernel", "semantic", "rank0", "peak_by_kind",
-        "t_count_s", "grad_accum", "remat", "hbm_bytes_per_device",
-        "fits_h100", "tp", "rank"}
+        "peak_held_by", "t_count_s", "grad_accum", "remat",
+        "hbm_bytes_per_device", "fits_h100", "tp", "rank"}
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])
@@ -228,6 +228,10 @@ def test_dryrun_record(dryrun_records, kind):
     assert r["status"] == "ok" and r["chips"] == 16 and r["mesh"] == "8x2"
     assert r["rank0"]["rows"] == 2
     assert r["bytes_per_device"] == r["peak_by_kind"]["Total"] > 0
+    # the peak by what holds it adds up to the peak, the inputs among it
+    held = r["peak_held_by"]
+    assert sum(held.values()) == r["bytes_per_device"]
+    assert held["inputs"] == r["peak_by_kind"]["Inputs"]
     assert r["fits_h100"] is True
     # every rank executes its rows, and the step is tensor-parallel along
     # "model" (the reduced smollm's heads, d_ff and vocab divide by 2), so

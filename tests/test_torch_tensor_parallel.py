@@ -43,7 +43,10 @@ sequence length)):
     on (2, 4): the vocab whole in a sequence-parallel step, so each rank's
     loss is its own 12 positions' (``Plan.loss_rows``), rank 0's all
     patches (no labels), rank 1's 4 patches then 8 tokens; a decode step
-    reads the embedding's rows by its tokens (``build._read_rows``).
+    reads the embedding's rows by its tokens (``build._read_rows``);
+  * ``remat_block``: ``heads_local`` under ``remat="block"``, against the
+    reference's steps under its own: each layer gathers its leaves inside
+    the checkpoint, and the backward's recompute gathers them again.
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode
 steps from the initial weights. A fake world of 16 ranks on ``meta``
 counts a reduced dense cell on (4, 4) under each attention mode, the
@@ -83,7 +86,9 @@ CASES = {"heads_local": ("smollm-135m", SMOLLM, (4, 2), 32),
                        32),
          "vlm_vocab_whole": ("llava-next-34b", dict(SMOLLM, n_patches=16,
                                                     vocab_size=250), (2, 4),
-                             32)}
+                             32),
+         "remat_block": ("smollm-135m", dict(SMOLLM, remat="block"), (4, 2),
+                         32)}
 LOCAL = ("local", [2, 1])
 KV_REPLICATED = ("kv_replicated", [1, 1])
 Q_SEQ, GATHERED = ("q_seq", [3, 1]), ("gathered", [3, 1])
@@ -104,7 +109,8 @@ PLANS = {"heads_local": (2, "local", LOCAL, True, LOCAL, LOCAL),
          "vlm": (2, "local", LOCAL, True, LOCAL, LOCAL),
          "vlm_q_seq": (2, "local", Q_SEQ, True, Q_SEQ, KV_SEQ),
          "vlm_vocab_whole": (4, "whole", KV_REPLICATED, True, KV_REPLICATED,
-                             KV_REPLICATED)}
+                             KV_REPLICATED),
+         "remat_block": (2, "local", LOCAL, True, LOCAL, LOCAL)}
 STEPS, BATCH = 3, 8
 PROMPT, DECODES, MAX_LEN = 12, 8, 32
 TOL = 1e-5
