@@ -77,7 +77,11 @@ Phases, each fatal on failure (nothing is caught):
      for bit equal, the graphed peak at most 1.05 times the eager, and the
      last step of each profiled (``[profile train]``: host ms, device ms,
      idle share, peak memory, graphed beside ``eager``; in the graphed
-     step the flash counters equal the profiler's kernel counts);
+     step the flash counters equal the profiler's kernel counts); and the
+     same with Adafactor (kimi-k2's optimizer), 2 steps a side, the
+     graphed step's second call its capture: losses and grad norms bit
+     for bit equal, the graphed peak at most 1.05 times the eager
+     (``[profile train adafactor]``);
   9. train parity: one step's loss and gradients with the kernels against
      the plain attention (fp32 at 4 layers, bf16 at the full config) (two
      identical runs from the seed are phase 8's eager and graphed ones,
@@ -254,8 +258,7 @@ Phases, each fatal on failure (nothing is caught):
      and count on the host while the card runs phase 21's parity checks,
      (c)'s kernel checks and (b))
      for llava-next-34b x ``train_4k`` on both
-     production meshes, mamba2-1.3b x ``train_4k``, kimi-k2-1t-a32b x
-     ``train_4k`` (its ``fits_h100``; not run on the card) and (c)'s 13
+     production meshes, mamba2-1.3b x ``train_4k`` and (c)'s 14
      cells on (c)'s ranks, a ``[dryrun]`` line each with its
      tensor-parallel plan
      (the other cells are counted on the CPU: ``--all`` and
@@ -270,12 +273,14 @@ Phases, each fatal on failure (nothing is caught):
      grad_accum that the dry run fits on the card (a step bit-identical
      to the unsharded step's, 2 x 30 forward and 30 backward flash
      launches a microbatch); the card's peak may exceed the predicted one
-     by ``PEAK_MARGIN`` and no more; (c) one rank's share of 13
+     by ``PEAK_MARGIN`` and no more; (c) one rank's share of 14
      tensor-parallel cells (``TP_CELLS``), each train cell one step after
      a warm-up (2 x 32 forward and 32 backward flash launches; zamba2 2 x
      9 and 9 flash, 2 x 54 and 54 scan; qwen2-moe 2 x 24 and 24;
-     whisper-tiny 2 x 4 and 4; llava-next-34b 2 x 60 and 60), each decode
-     cell 3 steps (32
+     whisper-tiny 2 x 4 and 4; llava-next-34b 2 x 60 and 60; kimi-k2 2 x
+     61 and 61), the flash launches of a profiled step counted by the
+     profiler too, and the optimizer update's device ms, each decode
+     cell 2 steps (32
      ``decode_attention`` launches a step; zamba2 9, qwen2-moe 24,
      llava-next-34b 60, whisper-tiny 4):
      phi3-mini-3.8b x ``train_4k`` and x ``decode_32k`` (attention
@@ -296,17 +301,21 @@ Phases, each fatal on failure (nothing is caught):
      "gathered", the whole-vocab loss on the rank's own positions) and x
      ``decode_32k`` ("kv_seq", the cross K/V whole along "model") and
      llava-next-34b x ``train_4k`` on rank 15 ("q_seq": all 56/8 heads on
-     query rows 3840 to 4096), built by ``build_cell`` on the card in a
+     query rows 3840 to 4096) and kimi-k2-1t-a32b x ``train_4k`` at full
+     depth (61 layers; "kv_replicated": 4 query heads of hd 112 on one KV
+     head, 2 of the 512 padded experts a rank, Adafactor: the first time
+     it runs on the card), built by ``build_cell`` on the card in a
      fake world of 256 ranks on the (16, 16) mesh, each layer's leaves
      gathered when the layer runs (the collectives move no data, so no
      value is checked), a ``[launch] tp`` line each beside the dry run of
      the same cell and rank (run in (a)'s pool), the peak within
      ``PEAK_MARGIN`` of it, and beside the share's peak, host and device
-     ms when the whole stack was gathered for the step
+     ms before the optimizer step ran a layer at a time
      (``PARENT_SHARES``); first of all (before (b)), ``decode_attention``,
      flash (with and without a query offset) and the scan, forward and
      backward, held to their plain versions at the shapes the shares give
-     them (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``), and each timed there.
+     them (``TP_FLASH_SHAPES``, ``TP_SSD_SHAPES``), and each timed there
+     (kimi-k2's hd 112 beside its bound and SDPA).
 
 After each group of phases a ``[time]`` line gives the seconds since the
 start. It then prints the kernels line and, last, the device line as JSON. Exits
@@ -434,11 +443,14 @@ TRAIN_B, TRAIN_T = 8, 2048
 # graph's private pool may raise the step's peak by this factor and no more
 GRAPH_TRAIN_STEPS = 4
 GRAPH_PEAK_RATIO = 1.05
+# phase 8's check with Adafactor: steps a side (the graphed step's second
+# call is its capture and first replay)
+ADAFACTOR_GRAPH_STEPS = 2
 # decode steps that phases 11, 12, 18 and 20 time and profile, graphed and
 # eager (``where_the_time_goes``; phase 4 profiles 10: the later phases'
 # windows are cut to fit phase 23's tensor-parallel shares in the smoke's
 # time)
-LATE_PROFILE_STEPS = 4
+LATE_PROFILE_STEPS = 2
 # Train parity, kernel against the plain attention on the same params and
 # batch. fp32 (4 layers, B 2, T 1024): sums in another order only; per leaf
 # max |dg| <= 1e-4 of the leaf's max |g|, loss within 1e-5 relative. bf16
@@ -1126,8 +1138,11 @@ def decode_steps_timed(model, params, prompts, n_steps, eager: bool
     eng = ServingEngine(model, params, n_slots=B, max_len=S, seed=SEED)
     if eager:
         eng._decode = eng._decode.fn
+    # every slot stays busy through the warm-up, both windows and the
+    # retake of ``hold_launches`` (3 + 3 x n_steps steps, with a margin)
     for p in prompts:
-        eng.submit(Request(p, max_new_tokens=4 * n_steps))
+        eng.submit(Request(p, max_new_tokens=max(4 * n_steps,
+                                                 3 * n_steps + 5)))
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
@@ -1768,10 +1783,11 @@ def train_full_width(cfg):
 
 
 def fresh_training(cfg, mesh=None, compress=None, graphed=False,
-                   B=TRAIN_B, T=TRAIN_T):
+                   B=TRAIN_B, T=TRAIN_T, opt_cfg=None):
     """(model, train state, step, data of B x T batches) from the seed; on
     ``mesh`` the state is placed by its specs and the step is the sharded
-    one; ``graphed``: the state and compiled step of ``make_training``."""
+    one; ``graphed``: the state and compiled step of ``make_training``;
+    ``opt_cfg``: the optimizer (AdamW by default)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.models.transformer import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -1780,7 +1796,8 @@ def fresh_training(cfg, mesh=None, compress=None, graphed=False,
                                               init_train_state,
                                               make_training)
     model = build_model(cfg, device=DEV)
-    opt_cfg = OptimizerConfig(peak_lr=3e-3, warmup=2, total_steps=100)
+    opt_cfg = opt_cfg or OptimizerConfig(peak_lr=3e-3, warmup=2,
+                                         total_steps=100)
     generator = torch.Generator(device=DEV).manual_seed(SEED)
     data = SyntheticLM(DataConfig(cfg.vocab_size, T, B, seed=SEED),
                        device=DEV)
@@ -1792,7 +1809,7 @@ def fresh_training(cfg, mesh=None, compress=None, graphed=False,
         return model, state, build_train_step(model, opt,
                                               compress=compress), data
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), state["params"])
-    specs = shd.train_state_specs(state, "adamw", pspecs)
+    specs = shd.train_state_specs(state, opt_cfg.name, pspecs)
     state = shd.place(state, shd.to_named(mesh, specs))
     return model, state, shd.shard_train_step(model, opt, mesh,
                                               compress=compress), data
@@ -1888,6 +1905,60 @@ def train_graphed_against_eager(cfg, label="[profile train]"):
     if ratio > GRAPH_PEAK_RATIO:
         raise AssertionError(f"{cfg.name}: the graphed step's peak is "
                              f"{ratio:.4f} times the eager step's")
+    return stats
+
+
+def adafactor_graphed_against_eager(cfg) -> dict:
+    """Phase 8's graphed-against-eager check with Adafactor, the optimizer
+    of kimi-k2-1t-a32b (``launch.build.OPT_FOR_ARCH``: no momentum; each
+    stacked leaf updated a layer at a time, its RMS clip over the whole
+    leaf), at ``cfg``'s full width: the eager step and ``make_training``'s
+    (call 1 eager, call 2 its capture and first replay),
+    ``ADAFACTOR_GRAPH_STEPS`` steps each from the seed on the same batches
+    (B 8, T 2048): losses and grad norms bit-identical, the graphed peak at
+    most ``GRAPH_PEAK_RATIO`` times the eager. Adafactor's capture on the
+    card."""
+    from repro_torch.launch.build import OPT_FOR_ARCH
+    opt_cfg = replace(OPT_FOR_ARCH["kimi-k2-1t-a32b"], peak_lr=3e-3,
+                      warmup=2, total_steps=100)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, state, step, data = fresh_training(
+            cfg, graphed=mode == "graphed", opt_cfg=opt_cfg)
+        metrics, host = [], []
+        for i in range(ADAFACTOR_GRAPH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            host.append((time.perf_counter() - t0) * 1e3)
+        if mode == "graphed" and \
+                step.compiled.replays != ADAFACTOR_GRAPH_STEPS - 1:
+            raise AssertionError(f"{step.compiled.replays} replays of "
+                                 f"{ADAFACTOR_GRAPH_STEPS} Adafactor steps")
+        runs[mode] = {"loss_grad_norm": metrics, "step_ms": host,
+                      "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                         - base) / 1e9}
+        del state, step, data, m
+    eager, graphed = runs["eager"], runs["graphed"]
+    ratio = graphed["peak_memory_gb"] / eager["peak_memory_gb"]
+    stats = {"arch": cfg.name, "optimizer": "adafactor", **graphed,
+             "eager": eager, "bit_identical": (graphed["loss_grad_norm"]
+                                               == eager["loss_grad_norm"]),
+             "graphed_over_eager_peak": ratio}
+    log(f"[profile train adafactor] {json.dumps(stats)}")
+    if not stats["bit_identical"] or not all(
+            np.isfinite(eager["loss_grad_norm"]).flat):
+        raise AssertionError(f"{cfg.name}: graphed Adafactor steps "
+                             f"{graphed['loss_grad_norm']}, eager "
+                             f"{eager['loss_grad_norm']}")
+    if ratio > GRAPH_PEAK_RATIO:
+        raise AssertionError(f"{cfg.name}: the graphed Adafactor step's "
+                             f"peak is {ratio:.4f} times the eager step's")
     return stats
 
 
@@ -3863,8 +3934,10 @@ def distributed_phase(smollm, qwen, mamba, whisper
 # positions) and x decode_32k ("kv_seq", the cross K/V whole along
 # "model") and llava-next-34b x train_4k on rank 15 (the heaviest "q_seq"
 # rank; its share fits the card since each layer's leaves are gathered
-# when the layer runs); kimi-k2-1t-a32b x train_4k is dry-run alone (its
-# share does not fit the card by the dry run)
+# when the layer runs) and kimi-k2-1t-a32b x train_4k at full depth (its
+# share fits the card since the optimizer step holds one layer's fp32
+# temporaries, and its build draws the rank's 2 of 512 padded experts a
+# layer, never the 2.06 TB stacks whole)
 TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("phi3-mini-3.8b", "decode_32k", 0),
             ("llama-3.1-8b", "train_4k", 0),
@@ -3877,35 +3950,37 @@ TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("llava-next-34b", "decode_32k", 0),
             ("whisper-tiny", "train_4k", 15),
             ("whisper-tiny", "decode_32k", 0),
-            ("llava-next-34b", "train_4k", 15)]
+            ("llava-next-34b", "train_4k", 15),
+            ("kimi-k2-1t-a32b", "train_4k", 0)]
 # each share's card peak (GB), mean host ms and device busy ms a step
-# before the leaves were gathered a layer at a time (the whole stack for
-# the step; PERF.md section 6, an H100 80GB HBM3 at 700 W), printed
-# beside this run's; llava-next-34b x train_4k's share did not run then
+# before the optimizer step ran a layer at a time (the grad norm twice, the
+# clip a scaled copy of the gradients; PERF.md section 6, a run on an H100
+# 80GB HBM3 at 700 W), printed beside this run's; kimi-k2-1t-a32b x
+# train_4k's share did not run then
 PARENT_SHARES = {
-    ("phi3-mini-3.8b", "train_4k", 0): (4.042, 1101.0, 630.41),
-    ("phi3-mini-3.8b", "decode_32k", 0): (7.040, 102.9, 9.82),
-    ("llama-3.1-8b", "train_4k", 0): (11.920, 1202.6, 921.67),
-    ("llama-3.1-8b", "decode_32k", 0): (6.035, 90.0, 9.15),
-    ("minitron-4b", "train_4k", 15): (20.349, 1140.1, 842.57),
-    ("zamba2-2.7b", "train_4k", 0): (14.683, 1686.7, 1413.09),
-    ("zamba2-2.7b", "decode_32k", 0): (7.535, 246.3, 9.46),
-    ("qwen2-moe-a2.7b", "train_4k", 0): (13.087, 1633.8, 1076.32),
-    ("qwen2-moe-a2.7b", "decode_32k", 0): (3.927, 232.8, 9.49),
-    ("llava-next-34b", "decode_32k", 0): (25.000, 496.4, 63.35),
-    ("whisper-tiny", "train_4k", 15): (5.194, 425.3, 97.91),
-    ("whisper-tiny", "decode_32k", 0): (0.276, 54.5, 2.86)}
+    ("phi3-mini-3.8b", "train_4k", 0): (3.589, 1248.0, 637.1),
+    ("phi3-mini-3.8b", "decode_32k", 0): (6.498, 310.0, 13.65),
+    ("llama-3.1-8b", "train_4k", 0): (10.544, 1399.0, 931.8),
+    ("llama-3.1-8b", "decode_32k", 0): (4.490, 313.0, 14.01),
+    ("minitron-4b", "train_4k", 15): (18.399, 1959.0, 853.4),
+    ("zamba2-2.7b", "train_4k", 0): (9.243, 2265.0, 1430.6),
+    ("zamba2-2.7b", "decode_32k", 0): (1.644, 611.0, 18.56),
+    ("qwen2-moe-a2.7b", "train_4k", 0): (12.933, 2081.0, 1090.0),
+    ("qwen2-moe-a2.7b", "decode_32k", 0): (3.744, 363.0, 12.33),
+    ("llava-next-34b", "decode_32k", 0): (4.645, 1173.0, 64.30),
+    ("whisper-tiny", "train_4k", 15): (5.009, 564.0, 101.98),
+    ("whisper-tiny", "decode_32k", 0): (0.221, 88.0, 3.35),
+    ("llava-next-34b", "train_4k", 15): (11.713, 4216.0, 3763.0)}
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
-                ("kimi-k2-1t-a32b", "train_4k", False, 0),
                 *((arch, shape, False, rank)
                   for arch, shape, rank in TP_CELLS)]
 # (c) the shares run in a fake world of this many ranks on the (16, 16)
 # production mesh; a decode cell takes this many steps against a cache
 # filled to its last positions
 TP_WORLD = 256
-TP_DECODE_STEPS = 3
+TP_DECODE_STEPS = 2
 TP_DECODE_S = 32768         # decode_32k's cache
 # the train shares' attention (name, B, T, S, Hq, Hkv, hd, causal[,
 # q_offset]): 2 of phi3-mini's 32 heads (heads local; the plain version's
@@ -3914,8 +3989,9 @@ TP_DECODE_S = 32768         # decode_32k's cache
 # 2 query heads on their one KV head (kv_replicated), zamba2-2.7b's 2 of 32
 # heads, qwen2-moe-a2.7b's 1 of 16, whisper-tiny's decoder on its last rank
 # along "model" (q_seq: all 6/6 heads of hd 64), llava-next-34b's last
-# rank (q_seq: all 56/8 heads of hd 128), and a ragged offset (rows and
-# keys that no tile divides)
+# rank (q_seq: all 56/8 heads of hd 128), a ragged offset (rows and keys
+# that no tile divides) and kimi-k2-1t-a32b's 4 query heads on their one
+# KV head (kv_replicated, hd 112)
 TP_FLASH_SHAPES = [
     ("phi3-mini-3.8b TP share", 16, 4096, 4096, 2, 2, 96, True),
     ("minitron-4b q_seq share, last rank", 16, 256, 4096, 24, 8, 128, True,
@@ -3927,7 +4003,9 @@ TP_FLASH_SHAPES = [
      3840),
     ("llava-next-34b q_seq share, last rank", 16, 256, 4096, 56, 8, 128,
      True, 3840),
-    ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257)]
+    ("ragged q_offset", 2, 100, 357, 6, 2, 64, True, 257),
+    ("kimi-k2-1t-a32b kv_replicated share", 16, 4096, 4096, 4, 1, 112,
+     True)]
 # the scan at the SSM shares' shapes (name, B, T, H, P, N, Q, h0): a rank's
 # 5 of zamba2-2.7b's 80 heads (N 64) in train_4k, and 4 of mamba2-1.3b's 64
 # (N 128), the cell of (a) whose share is not run
@@ -4052,10 +4130,15 @@ def peak_reading_job():
 def production_jobs() -> list:
     """(a)'s jobs: ``python -m repro_torch.launch.dryrun`` for each of
     ``DRYRUN_CELLS``."""
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.dryrun import OUT_DIR, _outfile
     (ROOT / OUT_DIR).mkdir(parents=True, exist_ok=True)
     jobs = []
-    for arch, shape, multi, rank in DRYRUN_CELLS:
+    # the longest counts first, so that the pool's last jobs are short:
+    # the train cells, the deepest first (kimi-k2-1t-a32b's takes about 90
+    # s on the card's host)
+    for arch, shape, multi, rank in sorted(DRYRUN_CELLS, key=lambda c: (
+            SHAPES[c[1]].kind != "train", -get_config(c[0]).n_layers)):
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                 arch, "--shape", shape, "--rank", str(rank)] + (
                     ["--multi-pod"] if multi else [])
@@ -4124,41 +4207,112 @@ def local_tree(tree):
 
 
 def busy_ms(prof, top: list | None = None) -> float:
-    """Device busy ms of a profile: the summed durations of its events on
-    the card (kernels, copies, sets; not the ranges of user annotations),
-    read from the raw trace. ``device_kernels`` builds the profiler's
-    event tree first: with it phase 23 (b) took 132.8 s and a train share
-    of (c) 17.5 to 26.6 s, without it 48.6 s and 4.9 to 7.7 s (H100
-    runs). ``top``: a list that gets the five event names with the most
-    device ms, each [name, events, ms]."""
+    """Device busy ms of a profile (``trace_summary``'s ``busy``); ``top``
+    as ``trace_summary``'s."""
+    return trace_summary(prof, top)["busy"]
+
+
+def trace_summary(prof, top: list | None = None, kernels: tuple = (),
+                  range_name: str | None = None) -> dict:
+    """One pass over a profile's raw trace. ``busy``: device busy ms, the
+    summed durations of its events on the card (kernels, copies, sets; not
+    the ranges of user annotations). ``device_kernels`` builds the
+    profiler's event tree first: with it phase 23 (b) took 132.8 s and a
+    train share of (c) 17.5 to 26.6 s, without it 48.6 s and 4.9 to 7.7 s
+    (H100 runs). ``launches``: the executions on the card of each of
+    ``kernels`` (names or parts of names, ``PROFILED_KERNEL``'s).
+    ``range``: the device ms of the work launched inside the profiler
+    range ``range_name`` (CPU side): ``busy``, the summed durations of the
+    device events linked to the ops that ran in it (each device event
+    names the op that launched it, ``linked_correlation_id``), and
+    ``span``, from the first of them to the end of the last. ``top``: a
+    list that gets the five event names with the most device ms, each
+    [name, events, ms]."""
     cuda = torch.autograd.DeviceType.CUDA
 
     def flag(e, name):
         return getattr(e, name, lambda: False)()
 
     by_name: dict[str, list] = {}
+    launches = [0] * len(kernels)
+    host, linked = [], []
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda and not flag(e, "is_user_annotation") \
-                and not flag(e, "is_hidden_event"):
-            row = by_name.setdefault(e.name()[:60], [0, 0])
-            row[0] += 1
-            row[1] += e.duration_ns()
+        if e.device_type() != cuda:
+            if range_name is not None:
+                host.append((e.name(), e.correlation_id(), e.start_ns(),
+                             e.duration_ns(), e.start_thread_id()))
+            continue
+        if flag(e, "is_user_annotation") or flag(e, "is_hidden_event"):
+            continue
+        name = e.name()
+        row = by_name.setdefault(name[:60], [0, 0])
+        row[0] += 1
+        row[1] += e.duration_ns()
+        for i, kernel in enumerate(kernels):
+            launches[i] += kernel in name
+        if range_name is not None:
+            linked.append((e.linked_correlation_id(), e.start_ns(),
+                           e.duration_ns()))
     if top is not None:
         top.extend([name, n, ns / 1e6] for name, (n, ns) in sorted(
             by_name.items(), key=lambda kv: -kv[1][1])[:5])
-    return sum(ns for _, ns in by_name.values()) / 1e6
+    out = {"busy": sum(ns for _, ns in by_name.values()) / 1e6,
+           "launches": launches}
+    if range_name is not None:
+        spans = [(t0, t0 + ns, tid) for name, _, t0, ns, tid in host
+                 if name == range_name]
+        ops = {corr for _, corr, t0, _, tid in host
+               if any(a <= t0 <= b and tid == t for a, b, t in spans)}
+        ran = [(t0, ns) for corr, t0, ns in linked if corr in ops]
+        out["range"] = {
+            "busy": sum(ns for _, ns in ran) / 1e6,
+            "span": (max(t0 + ns for t0, ns in ran)
+                     - min(t0 for t0, _ in ran)) / 1e6 if ran else 0.0,
+            "events": len(ran), "ranges": len(spans)}
+    return out
 
 
-def profiled_step_ms(fn, top: list | None = None) -> float:
-    """Device busy ms of one ``fn()`` under the profiler (no warm-up);
-    ``top`` as ``busy_ms``'s."""
+def profile_of(fn):
+    """One ``fn()`` under the profiler (no warm-up): the profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return busy_ms(prof, top)
+    return prof
+
+
+def profiled_step_ms(fn, top: list | None = None) -> float:
+    """Device busy ms of one ``fn()`` under the profiler (no warm-up);
+    ``top`` as ``busy_ms``'s."""
+    return busy_ms(profile_of(fn), top)
+
+
+# the profiler range each optimizer update of phase 23 (c)'s shares runs in
+UPDATE_RANGE = "optimizer update"
+
+
+@contextlib.contextmanager
+def annotated_updates():
+    """``launch.build``'s optimizers, while in this context, with each
+    update run inside the profiler range ``UPDATE_RANGE``."""
+    from repro_torch.launch import build
+    plain = build.build_optimizer
+
+    def annotated(cfg):
+        opt = plain(cfg)
+
+        def update(*args, **kwargs):
+            with torch.profiler.record_function(UPDATE_RANGE):
+                return opt.update(*args, **kwargs)
+        return opt._replace(update=update)
+
+    build.build_optimizer = annotated
+    try:
+        yield
+    finally:
+        build.build_optimizer = plain
 
 
 def predicted_against_measured(pred: dict, measured: dict) -> dict:
@@ -4375,8 +4529,8 @@ def tp_share_kernels() -> None:
     backward, fp32
     and bf16, at ``TP_FLASH_SHAPES``, the q_seq shares' timings
     (minitron-4b's, whisper-tiny's and llava-next-34b's last ranks)
-    beside the same call at offset 0 and zamba2's share's beside SDPA; the
-    scan,
+    beside the same call at offset 0, zamba2's share's beside SDPA and
+    kimi-k2's (hd 112) beside its bound and SDPA; the scan,
     forward and backward (fp32, the route's only dtype), at
     ``TP_SSD_SHAPES``, each timed from CUDA-graph replays, with its
     passes' device ms from the profiler. Run while (a)'s dry runs count on
@@ -4400,6 +4554,7 @@ def tp_share_kernels() -> None:
     time_flash_offset(TP_FLASH_SHAPES[5])
     time_flash_offset(TP_FLASH_SHAPES[6])
     time_flash_attention(TP_FLASH_SHAPES[3])
+    time_flash_route(torch.bfloat16, TP_FLASH_SHAPES[8])
     gc.collect()
     torch.cuda.empty_cache()
     check_ssd_scan(TP_SSD_SHAPES)
@@ -4427,9 +4582,12 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
     line: the plan, its local heads, SSM mode and SSM heads and the rank's
     query rows (its cache positions under "kv_seq"), the card's peak
     beside the dry run's ``bytes_per_device`` of the same cell and rank
-    (failing above ``PEAK_MARGIN``), host ms and device busy ms (a decode
-    step's five costliest device events too). Returns the decode, flash
-    (forward, backward) and scan (forward, backward) launches."""
+    (failing above ``PEAK_MARGIN``), host ms and device busy ms (a step's
+    five costliest device events too); a train step's flash launches as
+    the profiler reads them (failing unless they equal the counters'), and
+    its optimizer update's device ms (``trace_summary``'s ``range``).
+    Returns the decode, flash (forward, backward) and scan (forward,
+    backward) launches."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.build import build_cell
@@ -4441,7 +4599,10 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
         # the production (16, 16) mesh, on the card
         mesh = init_device_mesh(DEV, (16, 16),
                                 mesh_dim_names=("data", "model"))
-        cell = build_cell(arch, shape, mesh, device=DEV, seed=SEED)
+        t0 = time.perf_counter()
+        with annotated_updates():
+            cell = build_cell(arch, shape, mesh, device=DEV, seed=SEED)
+        build_s = time.perf_counter() - t0
         args, cell.args = cell.args, ()
         step, cfg = cell.step, cell.cfg
         # the attention layers (a hybrid's shared block, once a group) and
@@ -4456,7 +4617,8 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
         launch_counts(reset=True)
         flash_launches(reset=True)
         scan_launches(reset=True)
-        top = []                # a decode step's costliest device events
+        top = []                # a step's costliest device events
+        update, seen, readings = None, None, []
         with counting_routes() as plans:
             if cell.kind == "train":
                 state, batch = args
@@ -4471,7 +4633,22 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                 per = tuple(a - b for a, b in zip(
                     flash_launches() + scan_launches(), before))
                 want = (2 * attn, attn, 2 * ssm, ssm)
-                busy = profiled_step_ms(lambda: step(state, batch))
+                # the flash launches a step counted by the profiler too, a
+                # second profiled step where it read others (it has
+                # dropped kernel records late in a run); every reading is
+                # logged
+                for _ in range(2):
+                    top.clear()
+                    read = trace_summary(
+                        profile_of(lambda: step(state, batch)), top,
+                        (PROFILED_KERNEL["flash_attention_fwd"],
+                         PROFILED_KERNEL["flash_attention_bwd"]),
+                        UPDATE_RANGE)
+                    seen = read["launches"]
+                    readings.append(seen)
+                    if tuple(seen) == per[:2]:
+                        break
+                busy, update = read["busy"], read["range"]
                 out = None
             else:
                 params, inputs, cache = args
@@ -4515,19 +4692,27 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "peak_over_predicted": peak / pred["bytes_per_device"],
                "peak_margin": PEAK_MARGIN,
                "host_ms": host, "device_busy_ms": busy,
-               "top_device_ms": top, **dict(zip(
+               "top_device_ms": top, "profiled_flash_launches": seen,
+               "profiled_flash_launches_first": (
+                   readings[0] if len(readings) > 1 else None),
+               "update_device_ms": update, "build_s": build_s, **dict(zip(
                    ("parent_peak_gb", "parent_host_ms",
                     "parent_device_busy_ms"),
                    PARENT_SHARES.get((arch, shape, rank), (None,) * 3))),
                "seconds": time.perf_counter() - started}
         log(f"[launch] tp {json.dumps(row)}")
         require_device_time(f"[launch] tp {arch} x {shape}", {"step": busy})
+        if cell.kind == "train" and (update["ranges"] != 1
+                                     or not update["busy"]):
+            raise AssertionError(f"{arch} x {shape} share: the optimizer "
+                                 f"update's device time {update}")
         if (tuple(per) != want or not route_ok
+                or (seen is not None and tuple(seen) != per[:2])
                 or peak > pred["bytes_per_device"] * (1 + PEAK_MARGIN)):
             raise AssertionError(f"{arch} x {shape} share: launches a step "
-                                 f"{per} (want {want}), routes {plans}, "
-                                 f"peak {peak} against "
-                                 f"{pred['bytes_per_device']}")
+                                 f"{per} (want {want}; the profiler read "
+                                 f"{seen}), routes {plans}, peak {peak} "
+                                 f"against {pred['bytes_per_device']}")
     return launches
 
 
@@ -4690,6 +4875,7 @@ def main() -> int:
     mark("phase 7")
     train_stats, (fwd_launches, bwd_launches) = train_full_width(smollm)
     train_graphed_against_eager(smollm)
+    adafactor_graphed_against_eager(smollm)
     train_parity(smollm)
     decode, fwd, bwd, ssd_launches, scan_bwd = distributed_phase(
         smollm, qwen, mamba, whisper)

@@ -5,8 +5,10 @@ mesh by the port's sharding specs.
 On ``device="meta"`` (the dry run) the params' shapes come from
 ``model.init`` under ``FakeTensorMode`` (no draws: the counterpart of
 ``jax.eval_shape(model.init, key)``) and every input is an empty ``meta``
-tensor; on ``"cuda"`` the params are drawn from ``seed`` and the inputs
-are the card's. Importing this module starts no process group.
+tensor; on ``"cuda"`` each rank draws its block of each param from
+``seed``, a matrix at a time (``model.init`` under
+``common.deferred_draws``), and the inputs are the card's. Importing this
+module starts no process group.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from repro_torch.configs import (SHAPES, ShapeCell, cell_inputs,
 from repro_torch.distributed import logical
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel
-from repro_torch.models.common import ArchConfig, tree_leaves, tree_map
+from repro_torch.models.common import (ArchConfig, Deferred, deferred_draws,
+                                      tree_leaves, tree_map)
 from repro_torch.models.transformer import build_model
 from repro_torch.train.optimizer import OptimizerConfig, build_optimizer
 from repro_torch.train.train_step import build_train_step
@@ -156,31 +159,25 @@ def param_shapes(cfg: ArchConfig) -> dict:
                                           device="meta"), fake)
 
 
-def _place(tree, shardings, shapes=None):
-    """Each leaf as a DTensor holding this rank's block of it. Every rank
-    holds the whole leaf (empty on meta, drawn from the same seed on the
-    card), so this is ``sharding.place`` without its scatter from rank 0.
-    ``shapes``: the leaves' whole shapes, where a leaf is drawn shorter
-    (the experts before their padding): its block is cut from the leaf
-    padded with zeros at the end, which is never built whole."""
-    def block(t, s, like=None):
-        like = t if like is None else like
-        if t.shape != like.shape:
-            local = _padded_block(s.mesh, t, like.shape, s.placements)
-        else:
-            local = shd.local_shard(s.mesh, t, s.placements)
-            if local.numel() != t.numel():
-                local = local.clone()
-        return DTensor.from_local(local, s.mesh, list(s.placements),
-                                  shape=like.shape, stride=like.stride())
-    if shapes is None:
-        return tree_map(block, tree, shardings)
-    return tree_map(block, tree, shardings, shapes)
+def _local_block(t: torch.Tensor, s) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` under ``s`` (a
+    ``NamedSharding``), a copy of its own where it is not all of ``t``."""
+    local = shd.local_shard(s.mesh, t, s.placements)
+    return local.clone() if local.numel() != t.numel() else local
 
 
-def _padded_block(mesh, t: torch.Tensor, shape, placements) -> torch.Tensor:
-    """This rank's block under ``placements`` of ``t`` padded with zeros at
-    the end of each dim to ``shape`` (even shards, cut as
+def _place(tree, shardings):
+    """Each leaf (``meta`` tensors of the whole leaves) as a DTensor
+    holding this rank's block of it: ``sharding.place`` without its
+    scatter from rank 0."""
+    return tree_map(lambda t, s: DTensor.from_local(
+        _local_block(t, s), s.mesh, list(s.placements), shape=t.shape,
+        stride=t.stride()), tree, shardings)
+
+
+def _span(mesh, shape, placements) -> list[list[int]]:
+    """This rank's block of a leaf of ``shape`` under ``placements``, as
+    [start, stop) per dim (even shards, cut major to minor as
     ``sharding.local_shard`` cuts them)."""
     span = [[0, n] for n in shape]
     for j, p in enumerate(placements):
@@ -189,12 +186,31 @@ def _padded_block(mesh, t: torch.Tensor, shape, placements) -> torch.Tensor:
             n = (b - a) // mesh.size(j)
             a += mesh.get_local_rank(j) * n
             span[p.dim] = [a, a + n]
-    out = t.new_zeros([b - a for a, b in span])
-    have = [min(b, n) - a for (a, b), n in zip(span, t.shape)]
-    if min(have) > 0:
-        out[tuple(slice(0, h) for h in have)] = t[tuple(
-            slice(a, a + h) for (a, _), h in zip(span, have))]
-    return out
+    return span
+
+
+def drawn_params(cfg: ArchConfig, device, seed: int) -> dict:
+    """``model.init`` of ``cfg`` from ``seed`` under ``deferred_draws``:
+    the matrices and embeddings as ``Deferred`` leaves, drawn a matrix at a
+    time where a block of them is asked for, the other leaves whole. The
+    experts unpadded: the padding's blocks are zeros."""
+    with deferred_draws(seed):
+        return build_model(replace(cfg, moe_pad_experts=0),
+                           device=device).init(
+            torch.Generator(device=device).manual_seed(seed))
+
+
+def _drawn_placed(shapes, drawn, shardings) -> dict:
+    """The params (``shapes``: their whole shapes as ``meta`` tensors;
+    ``drawn``: ``drawn_params``) as DTensors holding this rank's block:
+    no matrix outside it is drawn (kimi-k2-1t-a32b's routed experts are
+    2.06 TB whole, a rank's block of its padded stacks 10.7 GB)."""
+    def block(t, d, s):
+        local = (d.block(_span(s.mesh, t.shape, s.placements))
+                 if isinstance(d, Deferred) else _local_block(d, s))
+        return DTensor.from_local(local, s.mesh, list(s.placements),
+                                  shape=t.shape, stride=t.stride())
+    return tree_map(block, shapes, drawn, shardings)
 
 
 def _zeros_placed(tree, shardings, device) -> dict:
@@ -405,12 +421,15 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), shapes)
     param_bytes = _tree_bytes(shapes)
     model = build_model(cfg, device=device)
-    # on a device the experts are drawn unpadded: a rank keeps its block
-    # of the padded stacks (``_place``), which whole would not fit a card
-    # (qwen2-moe-a2.7b's 60 experts padded to 256: 99 GB)
-    params = shapes if on_meta else build_model(
-        replace(cfg, moe_pad_experts=0), device=device).init(
-        torch.Generator(device=device).manual_seed(seed))
+
+    drawn = None if on_meta else drawn_params(cfg, device, seed)
+
+    def placed_params(shardings):
+        # on a device each rank draws its block of each leaf, a matrix at
+        # a time (``_drawn_placed``)
+        if on_meta:
+            return _place(shapes, shardings)
+        return _drawn_placed(shapes, drawn, shardings)
     inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
@@ -440,7 +459,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
         opt_state = opt.init(shapes)
         specs = shd.to_named(mesh, shd.train_state_specs(
             {"params": shapes, "opt": opt_state}, opt_cfg.name, pspecs))
-        state = {"params": _place(params, specs["params"], shapes),
+        state = {"params": placed_params(specs["params"]),
                  "opt": _zeros_placed(opt_state, specs["opt"], device)}
 
         def semantic():
@@ -463,7 +482,7 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     cache, cspecs = shd.tp_cache(cfg, mesh, cache)
     bspecs = {k: shd.fit_spec(mesh, v, inputs[k].shape)
               for k, v in shd.batch_specs(cfg, mesh, inputs).items()}
-    placed = (_place(params, shd.to_named(mesh, pspecs), shapes),
+    placed = (placed_params(shd.to_named(mesh, pspecs)),
               _place(inputs, shd.to_named(mesh, bspecs)),
               _zeros_placed(cache, shd.to_named(mesh, cspecs), device))
 

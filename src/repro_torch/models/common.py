@@ -7,6 +7,10 @@ views of them), so that the optimizer sees the same shapes.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import itertools
+import math
 from dataclasses import dataclass, replace
 
 import torch
@@ -178,6 +182,76 @@ def count_params(params) -> int:
     return sum(p.numel() for p in tree_leaves(params))
 
 
+# ``deferred_draws``' state while it is active: [seed, leaves deferred]
+_DEFERRED: list = []
+
+
+@contextlib.contextmanager
+def deferred_draws(seed: int):
+    """While active, ``dense_init`` and ``embed_init`` draw nothing: each
+    returns a ``Deferred`` leaf, whose blocks are drawn on demand. So a
+    rank that runs ``model.init`` this way draws only its block of each
+    leaf (``launch.build``), never a stack whole, and ranks that share a
+    block draw the same values for it. The other leaves (the norms'
+    ones, mamba2's ``conv_w`` and ``dt_bias``) are built as ever, from
+    the generator."""
+    _DEFERRED.append([seed, 0])
+    try:
+        yield
+    finally:
+        _DEFERRED.pop()
+
+
+class Deferred:
+    """A leaf of ``shape`` that ``dense_init`` or ``embed_init`` has not
+    drawn (``deferred_draws``). Its matrices lie on the last two dims; each
+    is drawn by ``draw(generator, shape)`` in fp32, alone, from a generator
+    seeded by (the context's seed, the leaf's place among the deferred
+    ones, the matrix's index), and stored as ``dtype``."""
+
+    def __init__(self, shape, draw, dtype, device) -> None:
+        self.seed, self.leaf = _DEFERRED[-1]
+        _DEFERRED[-1][1] += 1
+        self.shape, self.draw = tuple(shape), draw
+        self.dtype, self.device = dtype, device
+
+    def block(self, span) -> torch.Tensor:
+        """The leaf's block [start, stop) per dim (``span``), drawing only
+        its matrices. A span past the leaf's end on a leading dim (the
+        experts padded for expert parallelism) holds zeros there."""
+        shape, lead = self.shape, max(len(self.shape) - 2, 0)
+        if any(b > n for (_, b), n in zip(span[lead:], shape[lead:])):
+            raise ValueError(f"block {span} past the matrices of {shape}")
+        out = torch.zeros([b - a for a, b in span], dtype=self.dtype,
+                          device=self.device)
+        inner = tuple(slice(a, b) for a, b in span[lead:])
+        generator = torch.Generator(device=self.device)
+        for index in itertools.product(*(range(a, min(b, n)) for (a, b), n
+                                         in zip(span[:lead], shape[:lead]))):
+            # (seed, leaf, matrix) -> a 63-bit seed: fewer than 2^24
+            # matrices a leaf (kimi-k2-1t-a32b's experts: 61 x 384)
+            unit = sum(i * math.prod(shape[k + 1:lead])
+                       for k, i in enumerate(index))
+            generator.manual_seed((((self.seed * 4099 + self.leaf) << 24)
+                                   + unit) & (2 ** 63 - 1))
+            w = self.draw(generator, shape[lead:])
+            out[tuple(i - a for i, (a, _) in zip(index, span))].copy_(
+                w[inner])
+        return out
+
+
+def _dense(generator: torch.Generator, shape, fan_in: int) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in) in fp32, on the generator's device."""
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return w / fan_in ** 0.5
+
+
+def _embed(generator: torch.Generator, shape) -> torch.Tensor:
+    """N(0, 1) * 0.02 in fp32, on the generator's device."""
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return w * 0.02
+
+
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32, device=None,
                n_lead: int = 0) -> torch.Tensor:
@@ -187,20 +261,31 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
     ``in_axis`` counts from after them. Each leading index is drawn alone
     and copied into a preallocated leaf of ``dtype``, so no more than one
     layer's worth of fp32 is in flight: llava-next-34b's stacked (60, 7168,
-    20480) MLP leaf drawn whole would be 35.2 GB of fp32."""
+    20480) MLP leaf drawn whole would be 35.2 GB of fp32. Under
+    ``deferred_draws``, a ``Deferred`` leaf (its fan-in on one of its
+    last two dims)."""
+    fan_in = shape[n_lead + in_axis]
+    if _DEFERRED:
+        if n_lead + in_axis < len(shape) - 2:
+            raise ValueError(f"fan-in axis {n_lead + in_axis} of {shape} "
+                             "is not a matrix's")
+        return Deferred(shape, functools.partial(_dense, fan_in=fan_in),
+                        dtype, generator.device if device is None else
+                        device)
     if n_lead:
         out = torch.empty(shape, dtype=dtype, device=device)
         for view in out.reshape(-1, *shape[n_lead:]):
             view.copy_(dense_init(generator, shape[n_lead:], in_axis,
                                   dtype, device))
         return out
-    fan_in = shape[in_axis]
-    w = torch.randn(shape, generator=generator, device=generator.device)
-    return (w / fan_in ** 0.5).to(device=device, dtype=dtype)
+    return _dense(generator, shape, fan_in).to(device=device, dtype=dtype)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
                device=None) -> torch.Tensor:
-    """N(0, 1) * 0.02, drawn in fp32 on the generator's device."""
-    w = torch.randn(shape, generator=generator, device=generator.device)
-    return (w * 0.02).to(device=device, dtype=dtype)
+    """N(0, 1) * 0.02, drawn in fp32 on the generator's device; under
+    ``deferred_draws``, a ``Deferred`` leaf."""
+    if _DEFERRED:
+        return Deferred(shape, _embed, dtype,
+                        generator.device if device is None else device)
+    return _embed(generator, shape).to(device=device, dtype=dtype)

@@ -19,7 +19,8 @@ import torch
 from repro_torch.graphs import CompiledStep
 from repro_torch.models.common import tree_leaves, tree_map
 
-from .optimizer import Optimizer, OptimizerConfig, build_optimizer
+from .optimizer import (Optimizer, OptimizerConfig, build_optimizer,
+                        global_norm)
 
 
 def init_train_state(model, opt: Optimizer, generator: torch.Generator
@@ -76,9 +77,12 @@ def build_train_step(model, opt: Optimizer, *, grad_accum: int = 1,
 
         if compress is not None:
             grads, new_resid = compress(grads, state.get("compress_residual"))
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
-        new_params, new_opt = opt.update(grads, state["opt"], params)
+        # the norm a slice of a stack at a time, computed once for the
+        # metric and the optimizer's clip (the reference computes the same
+        # value twice)
+        gnorm = global_norm(grads)
+        new_params, new_opt = opt.update(grads, state["opt"], params,
+                                         grad_norm=gnorm)
         new_state = {"params": new_params, "opt": new_opt}
         if compress is not None:
             new_state["compress_residual"] = new_resid

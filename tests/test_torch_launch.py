@@ -11,6 +11,7 @@ expert-parallel MoE train cell over several batch ranks.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -328,3 +329,132 @@ def test_dryrun_cli_skips_and_refuses(tmp_path):
         8, 1, capacity)
     buffer = e_pad * capacity * cfg.d_model * 4       # fp32
     assert r["coll_by_kind"]["all-to-all"] == 8 * cfg.n_layers * 4 * buffer
+
+
+# build_cell on the CPU as on the card, in fake worlds of 8 on (4, 2): a
+# reduced expert-parallel kimi-k2 (6 experts padded to 8), ranks 0, 5 and 7
+DEVICE_BUILD = """
+import json
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from repro_torch.configs import ShapeCell
+from repro_torch.distributed.sharding import local_shard
+from repro_torch.launch import build
+from repro_torch.launch.mesh import fake_world
+from repro_torch.models.common import Deferred, tree_leaves
+
+OVER = dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+            d_ff=32, vocab_size=256, n_experts=6, top_k=2,
+            n_shared_experts=1, moe_impl="ep", param_dtype=torch.float32)
+
+class Largest(TorchDispatchMode):
+    # the largest tensor an op makes on the CPU
+    def __init__(self):
+        super().__init__()
+        self.bytes, self.op = 0, None
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                n = t.untyped_storage().nbytes()
+                if n > self.bytes:
+                    self.bytes, self.op = n, str(func)
+        return out
+
+out = {}
+for rank in (0, 5, 7):
+    with fake_world(8, rank=rank):
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        with Largest() as largest:
+            cell = build.build_cell("kimi-k2-1t-a32b",
+                                    ShapeCell("train", "train", 8, 16), mesh,
+                                    extra_cfg=OVER, device="cpu", seed=3)
+        params = cell.args[0]["params"]
+        shapes = build.param_shapes(cell.cfg)
+        drawn = build.drawn_params(cell.cfg, "cpu", 3)
+        rows = []
+        for t, s, d in zip(tree_leaves(params), tree_leaves(shapes),
+                           tree_leaves(drawn)):
+            deferred = isinstance(d, Deferred)
+            whole = d.block([[0, n] for n in s.shape]) if deferred else d
+            want = local_shard(mesh, whole, t.placements)
+            got = t.to_local()
+            rows.append([list(s.shape), list(d.shape), deferred,
+                         torch.equal(got, want), bool(got.any()),
+                         got.numel()])
+        out[rank] = {"rows": rows, "largest": largest.bytes,
+                     "op": largest.op}
+with open("records.json", "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def device_builds(tmp_path_factory):
+    cwd = tmp_path_factory.mktemp("device_build")
+    run_python(DEVICE_BUILD, cwd)
+    with open(cwd / "records.json") as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("rank", ["0", "5", "7"])
+def test_device_build_draws_no_whole_leaf(device_builds, rank):
+    """``build_cell`` on a device (the CPU here, in a fake world of 8 on
+    (4, 2)): each leaf's local block is the block of the whole leaf drawn
+    the same way (``model.init`` under ``deferred_draws``, its matrices'
+    whole ``Deferred.block``), the routed experts padded with zeros from 6
+    to 8 (ranks 6 and 7 hold padding alone), and no tensor larger than one
+    layer's slice of a leaf (fp32) is made: the whole expert stacks (3 x 6
+    x 64 x 32, 147 KB) never are."""
+    r = device_builds[rank]
+    assert r["rows"] and all(row[3] for row in r["rows"]), \
+        [row for row in r["rows"] if not row[3]]
+    # every matrix and embedding deferred: all but the three norms' ones
+    assert [row[0] for row in r["rows"] if not row[2]] == [
+        [64], [3, 64], [3, 64]]
+    experts = [row for row in r["rows"] if len(row[0]) == 4]
+    assert len(experts) == 3
+    for shape, drawn, deferred, _, nonzero, n in experts:
+        assert deferred and shape[1] == 8 and drawn[1] == 6
+        assert n == shape[0] * 64 * 32
+        assert nonzero == (int(rank) < 6)
+    layer = max(4 * (math.prod(shape) // shape[0] if len(shape) >= 3
+                     else math.prod(shape)) for shape, *_ in r["rows"])
+    stack = min(4 * math.prod(drawn) for _, drawn, *_ in experts)
+    assert layer < stack
+    assert 0 < r["largest"] <= layer, r
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "zamba2-2.7b",
+                                  "whisper-tiny", "llava-next-34b"])
+def test_deferred_draws_follow_model_init(arch):
+    """``model.init`` under ``deferred_draws`` (its reduced config, in
+    fp32) against ``model.init``: the same leaves, shapes and dtypes; the
+    constant leaves (norms, ``D``, ``conv_b``, ``A_log``) equal, the
+    random ones (``dt_bias``, ``conv_w``, the matrices and embeddings,
+    drawn whole by ``Deferred.block``) with their mean and deviation
+    within five standard errors."""
+    from repro_torch.launch import build
+    from repro_torch.models.common import Deferred, tree_leaves
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    drawn = tree_leaves(build.drawn_params(cfg, "cpu", 0))
+    assert len(drawn) == len(tree_leaves(params))
+    assert any(isinstance(d, Deferred) for d in drawn)
+    for i, (d, p) in enumerate(zip(drawn, tree_leaves(params))):
+        got = (d.block([[0, n] for n in d.shape])
+               if isinstance(d, Deferred) else d)
+        assert got.shape == p.shape and got.dtype == p.dtype, i
+        if p.std() == 0 or torch.equal(got, p):
+            assert torch.equal(got, p), i
+            continue
+        # five standard errors of the mean and of the deviation
+        x, y = got.double(), p.double()
+        sd, n = float(y.std()), y.numel()
+        assert abs(float(x.mean() - y.mean())) <= 5 * sd / n ** 0.5, i
+        assert abs(float(x.std()) / sd - 1) <= 5 / (2 * n) ** 0.5, i

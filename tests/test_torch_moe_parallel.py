@@ -21,7 +21,9 @@ expert, vocab 256), ``moe_impl="ep"``:
     grouped dispatch and one group agree there): on (4, 2) at T 16
     (sequence-parallel, remat "block"), at T 15 (not sequence-parallel:
     the rows whole along "model"), and on (2, 4) at T 16 (the KV heads
-    replicated);
+    replicated); and 3 Adafactor steps on (4, 2) at T 16 against the
+    reference's Adafactor (each stacked leaf updated a layer at a time,
+    the RMS over each EP-sharded expert stack reduced across the ranks);
   * (b) at capacity factor 1.25, where pairs drop: the loss and every
     gradient of the port's sharded loss against ``jax.value_and_grad`` of
     the reference's ``MoELM.loss_fn`` under ``repro.distributed.logical.
@@ -67,7 +69,14 @@ PAD = 8                     # the experts padded to the 8 ranks
 # name -> (mesh, capacity factor, T, remat)
 TRAIN = {"sp_42": ((4, 2), 8.0, 16, "block"),
          "rows_whole_42": ((4, 2), 8.0, 15, "none"),
-         "sp_24": ((2, 4), 8.0, 16, "none")}
+         "sp_24": ((2, 4), 8.0, 16, "none"),
+         "adafactor_42": ((4, 2), 8.0, 16, "none")}
+# a train case's optimizer (``OptimizerConfig``'s fields), AdamW unless
+# named: Adafactor without momentum, as kimi-k2-1t-a32b trains, over the
+# EP-sharded expert stacks (its update clipping's RMS over each whole leaf
+# reduced across the ranks)
+OPTS = {"adafactor_42": dict(name="adafactor", peak_lr=1e-3)}
+ADAMW = dict(name="adamw", peak_lr=1e-3)
 DROPS = {"drops_42": ((4, 2), 1.25, 32), "drops_24": ((2, 4), 1.25, 32)}
 # name -> (mesh, rows served)
 SERVE = {"serve_42": ((4, 2), 8), "serve_42_padded": ((4, 2), 4),
@@ -144,8 +153,8 @@ REF_CODE = textwrap.dedent("""
     from repro.train.optimizer import OptimizerConfig, build_optimizer
     from repro.train.train_step import build_train_step
 
-    (MOE, PAD, TRAIN, DROPS, SERVE, SERVE_CF, STEPS, PROMPT, DECODES,
-     MAX_LEN) = {consts}
+    (MOE, PAD, TRAIN, OPTS, ADAMW, DROPS, SERVE, SERVE_CF, STEPS, PROMPT,
+     DECODES, MAX_LEN) = {consts}
     inp = np.load(sys.argv[1])
     out = {{}}
 
@@ -176,7 +185,7 @@ REF_CODE = textwrap.dedent("""
     for name, (_, cf, _, remat) in TRAIN.items():
         model = build_model(config(cf, remat))
         params = weights(model)
-        opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
+        opt = build_optimizer(OptimizerConfig(**OPTS.get(name, ADAMW)))
         state = {{"params": params, "opt": opt.init(params)}}
         step = jax.jit(build_train_step(model, opt))
         for i in range(STEPS):
@@ -272,8 +281,8 @@ REF_CODE = textwrap.dedent("""
 
 
 def reference(inputs_path: str, out_path: str) -> None:
-    consts = repr((MOE, PAD, TRAIN, DROPS, SERVE, SERVE_CF, STEPS, PROMPT,
-                   DECODES, MAX_LEN))
+    consts = repr((MOE, PAD, TRAIN, OPTS, ADAMW, DROPS, SERVE, SERVE_CF,
+                   STEPS, PROMPT, DECODES, MAX_LEN))
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"))
@@ -299,7 +308,8 @@ def part(inp: dict, prefix: str) -> dict:
 
 
 def train_run(inp, name, record) -> None:
-    """(a) 3 sharded AdamW steps; the plans of the routes taken."""
+    """(a) 3 sharded steps (AdamW, or ``OPTS``'s); the plans of the routes
+    taken."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed import sharding as shd
@@ -311,11 +321,12 @@ def train_run(inp, name, record) -> None:
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
     model = build_model(cfg, device="cpu")
     params = port_params(inp, cfg)
-    opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
+    opt_cfg = OptimizerConfig(**OPTS.get(name, ADAMW))
+    opt = build_optimizer(opt_cfg)
     state = {"params": params, "opt": opt.init(params)}
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), params)
     state = shd.place(state, shd.to_named(
-        mesh, shd.train_state_specs(state, "adamw", pspecs)))
+        mesh, shd.train_state_specs(state, opt_cfg.name, pspecs)))
     step = shd.shard_train_step(model, opt, mesh)
     plans = []
     undo = counting_routes(plans)
@@ -574,9 +585,10 @@ def runs(tmp_path_factory):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", sorted(TRAIN))
 def test_sharded_train_step_matches_reference(runs, name):
-    """(a) 3 AdamW steps where no pair drops: losses and grad norms within
-    1e-5 relative of the reference's single-device step, every leaf
-    within 1e-5."""
+    """(a) 3 steps where no pair drops (AdamW; Adafactor in
+    ``adafactor_42``, against the reference's Adafactor): losses and grad
+    norms within 1e-5 relative of the reference's single-device step,
+    every leaf within 1e-5."""
     ref, ranks, _ = runs
     rec = ranks[0]
     for i in range(STEPS):
@@ -724,22 +736,29 @@ class _Mesh:
 
 
 def test_padded_block_is_the_padded_leafs_block():
-    """``build._padded_block``: each rank's block of 5 experts padded with
-    zeros to 16, sharded over both axes of a (4, 2) mesh as the EP stacks
-    are, equals ``local_shard`` of the padded whole (rank 2 holds the last
-    real expert and a zero one, ranks 3 to 7 zeros), without building the
-    whole."""
+    """``Deferred.block``: each rank's block of a stack of 5 experts
+    padded with zeros to 16, sharded over both axes of a (4, 2) mesh as the
+    EP stacks are, equals ``local_shard`` of the padded whole drawn the
+    same way (rank 2 holds the last real expert and a zero one, ranks 3 to
+    7 zeros), drawing only the rank's experts."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed.sharding import local_shard
-    from repro_torch.launch.build import _padded_block
-    t = torch.arange(2 * 5 * 3, dtype=torch.float32).reshape(2, 5, 3) + 1
-    whole = torch.cat([t, t.new_zeros(2, 11, 3)], 1)
+    from repro_torch.launch.build import _span
+    from repro_torch.models.common import deferred_draws, dense_init
+    with deferred_draws(7):
+        leaf = dense_init(torch.Generator(), (2, 5, 3, 4), in_axis=1,
+                          n_lead=1)
+    shape = (2, 16, 3, 4)
+    whole = leaf.block([[0, n] for n in shape])
+    assert bool(whole[:, :5].all()) and not whole[:, 5:].any()
     placements = [Shard(1), Shard(1)]
     for r in range(8):
-        got = _padded_block(_Mesh(r), t, whole.shape, placements)
+        got = leaf.block(_span(_Mesh(r), shape, placements))
         assert torch.equal(got, local_shard(_Mesh(r), whole, placements))
         assert bool(got.any()) == (r <= 2)
+
+
 # arch -> (the attention's mode in train_4k, prefill_32k and decode_32k,
 # its local heads, the shared experts' width, the experts a rank of 256,
 # the capacity in train_4k (16 rows of 4096 a data rank: 4096 tokens a

@@ -219,10 +219,121 @@ def test_adamw_updates_a_stack_as_its_layers():
     for _ in range(3):
         g = torch.from_numpy(rng.standard_normal((3, 4, 5), np.float32))
         gn = torch.from_numpy(rng.standard_normal((3, 4), np.float32))
-        stacked, s_stacked = opt.update({"w": g, "norm": gn}, s_stacked,
-                                        stacked)
-        layers, s_layers = opt.update({"w": list(g), "norm": gn}, s_layers,
-                                      layers)
+        g_stacked, g_layers = {"w": g, "norm": gn}, {"w": list(g),
+                                                     "norm": gn}
+        stacked, s_stacked = opt.update(
+            g_stacked, s_stacked, stacked,
+            optimizer.global_norm(g_stacked))
+        layers, s_layers = opt.update(g_layers, s_layers, layers,
+                                      optimizer.global_norm(g_layers))
     assert torch.equal(stacked["w"], torch.stack(layers["w"]))
     assert torch.equal(stacked["norm"], layers["norm"])
     assert not torch.equal(stacked["norm"], norm)
+
+
+def adafactor_leaves(rng, L=3):
+    """Leaves named so that both packages flatten them in one order: a
+    stack of matrices, a stack of experts, the (L, d) norms and a vector,
+    drawn from ``rng``."""
+    return {"a_stack": rng.standard_normal((L, 6, 7), np.float32),
+            "b_experts": rng.standard_normal((L, 4, 6, 5), np.float32),
+            "c_norm": 1 + 0.1 * rng.standard_normal((L, 8), np.float32),
+            "d_vec": rng.standard_normal((8,), np.float32)}
+
+
+def factored_rms(g: np.ndarray, row, col, decay: float):
+    """The reference's factored statistics of one leaf after a step on
+    ``g`` and the RMS of its update before clipping, in numpy (fp64)."""
+    g2 = g.astype(np.float64) ** 2 + 1e-30
+    row = decay * row + (1 - decay) * g2.mean(-1)
+    col = decay * col + (1 - decay) * g2.mean(-2)
+    rmean = np.maximum(row.mean(-1, keepdims=True), 1e-30)
+    vhat = row[..., None] * col[..., None, :] / rmean[..., None]
+    u = g / np.sqrt(vhat + 1e-8)
+    return row, col, float(np.sqrt((u * u).mean()))
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+def test_adafactor_updates_a_stack_a_layer_at_a_time(momentum):
+    """The port's Adafactor, which updates a stacked leaf a slice of axis 0
+    at a time (its RMS clip over the whole leaf), against the reference's
+    on leaves shaped (L, a, b), (L, E, a, b), (L, d) and (d,): three steps
+    whose gradients (a tenth of the entries ten times the rest) make both the
+    global-norm clip and the update's RMS clip bind on the stacked leaves,
+    as numpy asserts."""
+    cfg = dict(name="adafactor", peak_lr=3e-2, warmup=2, total_steps=10,
+               weight_decay=0.1, grad_clip=1.0, momentum=momentum)
+    ref_o = ref_opt.build_optimizer(ref_opt.OptimizerConfig(**cfg))
+    o = optimizer.build_optimizer(optimizer.OptimizerConfig(**cfg))
+    rng = np.random.default_rng(11)
+    start = adafactor_leaves(rng)
+    ref_params = {k: jnp.asarray(v) for k, v in start.items()}
+    params = {k: torch.from_numpy(v.copy()) for k, v in start.items()}
+    ref_state, state = ref_o.init(ref_params), o.init(params)
+    stats = {k: (0.0, 0.0) for k in ("a_stack", "b_experts")}
+    for step in range(1, 4):
+        raw = adafactor_leaves(rng)
+        grads = {k: v * np.where(rng.random(v.shape) < 0.1, 10.0, 1.0)
+                 .astype(np.float32) for k, v in raw.items()}
+        norm = float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
+                                 for g in grads.values())))
+        assert norm > cfg["grad_clip"]                  # the clip binds
+        scale = cfg["grad_clip"] / norm
+        for k in stats:
+            row, col, rms = factored_rms(grads[k] * scale, *stats[k],
+                                         1.0 - step ** -0.8)
+            stats[k] = row, col
+            assert rms > 1.05, (k, step, rms)           # and the RMS clip
+        ref_params, ref_state = ref_o.update(
+            {k: jnp.asarray(v) for k, v in grads.items()}, ref_state,
+            ref_params)
+        tgrads = {k: torch.from_numpy(v.copy()) for k, v in grads.items()}
+        params, state = o.update(tgrads, state, params,
+                                 optimizer.global_norm(tgrads))
+    for k, want in ref_params.items():
+        np.testing.assert_allclose(params[k].numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5, err_msg=k)
+    ref_slots = jax.tree_util.tree_leaves(ref_state["v"])
+    for got, want in zip(tree_leaves(state["v"]), ref_slots):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=1e-12)
+    if momentum:
+        for k, want in ref_state["m"].items():
+            np.testing.assert_allclose(
+                state["m"][k].float().numpy(),
+                np.asarray(want.astype(jnp.float32)), rtol=1e-2, atol=1e-6)
+    assert int(state["step"]) == 3
+
+
+TAIL_OPTIMIZERS = {"adamw": dict(name="adamw"),
+                   "adafactor": dict(name="adafactor"),
+                   "adafactor_momentum": dict(name="adafactor",
+                                              momentum=True)}
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_OPTIMIZERS))
+def test_optimizer_step_holds_one_layer(name):
+    """The train step's tail (the grad-norm metric, the clip, the update)
+    on the meta device under ``launch/analysis.py``'s ``StepCounter``, on
+    bf16 leaves stacked over L = 2 and L = 8 layers: the most it holds
+    beyond its inputs (params, gradients, optimizer state) is the same at
+    both depths, within 1 KB: its fp32 temporaries are one layer's."""
+    from repro_torch.launch.analysis import StepCounter
+    o = optimizer.build_optimizer(optimizer.OptimizerConfig(
+        **TAIL_OPTIMIZERS[name]))
+    over = {}
+    for L in (2, 8):
+        def leaves():
+            bf16 = dict(dtype=torch.bfloat16, device="meta")
+            return {"embed": torch.empty(96, 32, **bf16),
+                    "experts": torch.empty(L, 4, 32, 24, **bf16),
+                    "norm": torch.empty(L, 32, **bf16),
+                    "stack": torch.empty(L, 32, 96, **bf16)}
+        params, grads = leaves(), leaves()
+        state = o.init(params)
+        with StepCounter(track=(params, grads, state)) as counter:
+            gnorm = optimizer.global_norm(grads)
+            o.update(grads, state, params, grad_norm=gnorm)
+        over[L] = counter.peak - counter.inputs
+    # one slice of the (L, 32, 96) stack in fp32 is 12 KB
+    assert 0 < over[2] and abs(over[8] - over[2]) <= 1024, over
