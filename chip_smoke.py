@@ -290,9 +290,11 @@ Phases, each fatal on failure (nothing is caught):
      "model" ("q_seq": query rows 3840 to 4096, flash at that offset) and
      zamba2-2.7b x ``train_4k`` and x ``decode_32k`` (the shared block's
      2/2 heads and 5 of the 80 SSM heads "local", the rank's SSM state and
-     conv channels) and qwen2-moe-a2.7b x ``train_4k`` and x
-     ``decode_32k`` (1/1 heads and 352 of the shared experts' 5632
-     columns "local", one of the 256 padded experts a rank, its block of
+     conv channels, ``in_proj``, ``conv_w`` and ``conv_b`` stored by rank:
+     the rank's block, B and C all-gathered along "model") and
+     qwen2-moe-a2.7b x ``train_4k`` and x ``decode_32k`` (1/1 heads and
+     352 of the shared experts' 5632 columns "local", one of the 256
+     padded experts a rank, its block of
      tokens sent by all-to-all) and llava-next-34b x ``decode_32k``
      ("kv_seq": all 56/8 heads on the rank's 2048 of the cache's 32768
      positions, its partials merged across the ranks; 60
@@ -310,7 +312,7 @@ Phases, each fatal on failure (nothing is caught):
      value is checked), a ``[launch] tp`` line each beside the dry run of
      the same cell and rank (run in (a)'s pool), the peak within
      ``PEAK_MARGIN`` of it, and beside the share's peak, host and device
-     ms before the optimizer step ran a layer at a time
+     ms before the mamba2 blocks were stored by rank
      (``PARENT_SHARES``); first of all (before (b)), ``decode_attention``,
      flash (with and without a query offset) and the scan, forward and
      backward, held to their plain versions at the shapes the shares give
@@ -1810,7 +1812,7 @@ def fresh_training(cfg, mesh=None, compress=None, graphed=False,
                                               compress=compress), data
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), state["params"])
     specs = shd.train_state_specs(state, opt_cfg.name, pspecs)
-    state = shd.place(state, shd.to_named(mesh, specs))
+    state = shd.place_state(cfg, mesh, state, shd.to_named(mesh, specs))
     return model, state, shd.shard_train_step(model, opt, mesh,
                                               compress=compress), data
 
@@ -3443,14 +3445,14 @@ def distributed_train_ssm(cfg, mesh) -> tuple[int, int]:
     "model" axis of one rank, where each collective is the identity, the
     rank's columns are the whole leaves and the gated RMSNorm is the
     unsharded one), each step's loss and grad norm and the params after 3
-    steps the same bits; 2 x layers forward and layers backward scan
-    launches a step in each. Returns the scan launches (forward,
-    backward) in it."""
-    from torch.distributed.tensor import DTensor
-
+    steps the same bits (the sharded params read back whole in the
+    reference's column order, ``sharding.whole_state``: over one rank the
+    by-rank order is the reference's); 2 x layers forward and layers
+    backward scan launches a step in each. Returns the scan launches
+    (forward, backward) in it."""
+    from repro_torch.distributed import sharding as shd
     from repro_torch.models.common import tree_leaves
     cfg = replace(cfg, n_layers=DIST_SSM_LAYERS)
-    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
     total = np.zeros(2, dtype=int)
     runs = {}
     for label, on in (("unsharded", None), ("sharded", mesh)):
@@ -3466,18 +3468,20 @@ def distributed_train_ssm(cfg, mesh) -> tuple[int, int]:
         seconds = time.perf_counter() - t0
         require_routes(f"[distributed] train ssm {label}", plans,
                        DIST_STEPS if on is not None else 0)
-        if any(p.ssm != "local" for p in plans):
+        if any((p.ssm, p.ssm_layout) != ("local", "by_rank")
+               for p in plans):
             raise AssertionError(f"the sharded mamba2 step's SSM heads are "
-                                 f"not local: {plans}")
+                                 f"not local by rank: {plans}")
         launches = scan_launches()
         want = (2 * cfg.n_layers * DIST_STEPS, cfg.n_layers * DIST_STEPS)
         if launches != want:
             raise AssertionError(f"{label} mamba2 step: scan launches "
                                  f"{launches}, want {want}")
         total += launches
+        if on is not None:
+            state = shd.whole_state(cfg, on, state)
         runs[label] = {"metrics": metrics, "seconds": seconds,
-                       "params": [whole(p) for p in
-                                  tree_leaves(state["params"])]}
+                       "params": tree_leaves(state["params"])}
         del state, step
     got, want = runs["sharded"], runs["unsharded"]
     same = got["metrics"] == want["metrics"] and all(
@@ -3953,24 +3957,24 @@ TP_CELLS = [("phi3-mini-3.8b", "train_4k", 0),
             ("llava-next-34b", "train_4k", 15),
             ("kimi-k2-1t-a32b", "train_4k", 0)]
 # each share's card peak (GB), mean host ms and device busy ms a step
-# before the optimizer step ran a layer at a time (the grad norm twice, the
-# clip a scaled copy of the gradients; PERF.md section 6, a run on an H100
-# 80GB HBM3 at 700 W), printed beside this run's; kimi-k2-1t-a32b x
-# train_4k's share did not run then
+# before a mamba2 block's in_proj, conv_w and conv_b were stored by rank
+# (PERF.md section 6, the optimizer step a layer at a time, a run on an
+# H100 80GB HBM3 at 700 W), printed beside this run's
 PARENT_SHARES = {
-    ("phi3-mini-3.8b", "train_4k", 0): (3.589, 1248.0, 637.1),
-    ("phi3-mini-3.8b", "decode_32k", 0): (6.498, 310.0, 13.65),
-    ("llama-3.1-8b", "train_4k", 0): (10.544, 1399.0, 931.8),
-    ("llama-3.1-8b", "decode_32k", 0): (4.490, 313.0, 14.01),
-    ("minitron-4b", "train_4k", 15): (18.399, 1959.0, 853.4),
-    ("zamba2-2.7b", "train_4k", 0): (9.243, 2265.0, 1430.6),
-    ("zamba2-2.7b", "decode_32k", 0): (1.644, 611.0, 18.56),
-    ("qwen2-moe-a2.7b", "train_4k", 0): (12.933, 2081.0, 1090.0),
-    ("qwen2-moe-a2.7b", "decode_32k", 0): (3.744, 363.0, 12.33),
-    ("llava-next-34b", "decode_32k", 0): (4.645, 1173.0, 64.30),
-    ("whisper-tiny", "train_4k", 15): (5.009, 564.0, 101.98),
-    ("whisper-tiny", "decode_32k", 0): (0.221, 88.0, 3.35),
-    ("llava-next-34b", "train_4k", 15): (11.713, 4216.0, 3763.0)}
+    ("phi3-mini-3.8b", "train_4k", 0): (3.589, 783.0, 635.6),
+    ("phi3-mini-3.8b", "decode_32k", 0): (6.498, 222.0, 13.51),
+    ("llama-3.1-8b", "train_4k", 0): (10.545, 1168.0, 926.8),
+    ("llama-3.1-8b", "decode_32k", 0): (4.490, 282.0, 14.00),
+    ("minitron-4b", "train_4k", 15): (18.398, 1154.0, 852.3),
+    ("zamba2-2.7b", "train_4k", 0): (9.239, 1799.0, 1427.4),
+    ("zamba2-2.7b", "decode_32k", 0): (1.643, 388.0, 18.33),
+    ("qwen2-moe-a2.7b", "train_4k", 0): (12.932, 1425.0, 1085.2),
+    ("qwen2-moe-a2.7b", "decode_32k", 0): (3.743, 265.0, 12.35),
+    ("llava-next-34b", "decode_32k", 0): (4.643, 564.0, 64.07),
+    ("whisper-tiny", "train_4k", 15): (5.010, 329.0, 102.3),
+    ("whisper-tiny", "decode_32k", 0): (0.222, 70.0, 3.35),
+    ("llava-next-34b", "train_4k", 15): (11.712, 3862.0, 3638.0),
+    ("kimi-k2-1t-a32b", "train_4k", 0): (35.095, 10329.0, 8482.0)}
 DRYRUN_CELLS = [("llava-next-34b", "train_4k", False, 0),
                 ("llava-next-34b", "train_4k", True, 0),
                 ("mamba2-1.3b", "train_4k", False, 0),
@@ -4682,6 +4686,7 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                "local_heads": cell.tp["local_heads"],
                "ssm": cell.tp.get("ssm"),
                "ssm_heads": cell.tp.get("ssm_heads"),
+               "ssm_layout": cell.tp.get("ssm_layout"),
                "q_rows": cell.tp["q_rows"],
                "kv_rows": cell.tp.get("kv_rows"), "routes": len(plans),
                "values_checked": False,
@@ -4706,6 +4711,10 @@ def tp_share(arch: str, shape: str, rank: int, pred: dict
                                      or not update["busy"]):
             raise AssertionError(f"{arch} x {shape} share: the optimizer "
                                  f"update's device time {update}")
+        if cell.tp.get("ssm") == "local" and \
+                cell.tp["ssm_layout"] != "by_rank":
+            raise AssertionError(f"{arch} x {shape} share: its mamba2 "
+                                 f"blocks are not stored by rank: {cell.tp}")
         if (tuple(per) != want or not route_ok
                 or (seen is not None and tuple(seen) != per[:2])
                 or peak > pred["bytes_per_device"] * (1 + PEAK_MARGIN)):

@@ -90,6 +90,21 @@ by every rank, so the copies stay equal; a rank holds din/m + 2N channels
 where the reference's holds (din + 2N)/m (mamba2-1.3b at m = 16: 512
 against 272). The SSM state keeps the reference's layout, heads along
 ``"model"``.
+
+A mamba2 block's ``in_proj``, ``conv_w`` and ``conv_b`` are stored under
+the reference's specs (``P("data", "model")``, ``P(None, "model")``,
+``P("model")``), and where the plan's layout is "by_rank" (the SSM heads
+local, m dividing N: ``tensor_parallel.ssm_by_rank``) their columns are
+stored in the by-rank order (``ssm_rank_columns``), so the even cut along
+``"model"`` is each rank's own block, ``[z_r, x_r, B_r, C_r, dt_r]`` and
+``[x_r, B_r, C_r]``: a layer's gather runs along the data axes alone, and
+the rank all-gathers only B and C along ``"model"``
+(``Route.ssm_slice``). The order is a permutation applied where a state
+is placed (``place_state``; ``whole_state`` undoes it), not in the
+leaves' definition: one device, the engine, the weight bridge and a
+checkpoint of whole leaves keep the reference's order. Where m does not
+divide N ("whole") the leaves keep the reference's order and each layer
+gathers them whole along ``"model"``.
 """
 from __future__ import annotations
 
@@ -104,7 +119,8 @@ from repro_torch.distributed import logical, tensor_parallel
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttnParams
-from repro_torch.models.common import ArchConfig, tree_map
+from repro_torch.models.common import (ArchConfig, Deferred, tree_leaves,
+                                      tree_map)
 from repro_torch.models.ffn import MLPParams, MoEParams
 from repro_torch.models.mamba2 import Mamba2Params, MambaState
 from repro_torch.train.train_step import build_train_step
@@ -374,6 +390,109 @@ def ssm_tail_layout(tail: torch.Tensor, m: int, d_inner: int
                       for x in tail[..., :d_inner].chunk(m, dim=-1)], dim=-1)
 
 
+def ssm_rank_columns(cfg: ArchConfig, m: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The by-rank column order of a mamba2 block along a ``"model"`` axis
+    of m ranks (``tensor_parallel.ssm_by_rank``), as index tensors into
+    the reference's columns: ``in_proj``'s ``[z, x, B, C, dt]`` as m
+    blocks ``[z_r, x_r, B_r, C_r, dt_r]`` (rank r's heads' d_inner/m
+    columns of z and of x, its N/m of B's and of C's, its H/m of dt) and
+    the conv channels ``[x, B, C]`` (``conv_w``'s and ``conv_b``'s) as m
+    blocks ``[x_r, B_r, C_r]``. A permutation: the leaves keep their shape
+    and entries, and their even cut along ``"model"`` gives each rank its
+    block (at m = 1 the reference's order)."""
+    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+
+    def blocks(parts):
+        # parts: (start, width a rank) of each component, in block order
+        return torch.cat([torch.arange(a + r * w, a + (r + 1) * w)
+                          for r in range(m) for a, w in parts])
+
+    conv = [(0, din // m), (din, n // m), (din + n, n // m)]
+    proj = [(0, din // m), (din, din // m), (2 * din, n // m),
+            (2 * din + n, n // m), (2 * din + 2 * n, h // m)]
+    return blocks(proj), blocks(conv)
+
+
+def _reorder(state: dict, fn) -> dict:
+    """``state`` with ``fn(leaf, component)`` in place of each leaf whose
+    last axis is a mamba2 block's columns ("proj": ``in_proj``'s; "conv":
+    ``conv_w``'s and ``conv_b``'s). ``state`` is a params tree or a train
+    state ``{"params", "opt"}``: the params and the params-like slots
+    (AdamW's ``m`` and ``v``, Adafactor's momentum) follow their leaf; of Adafactor's
+    factored slots (a list in ``tree_leaves`` order) the column
+    statistic, which keeps the leaf's last axis, follows it, and the row
+    statistic, which drops it, stays; an unfactored slot follows it."""
+    def params(p):
+        layers = p["layers"]
+        mb = layers.mamba
+        mb = mb._replace(in_proj=fn(mb.in_proj, "proj"),
+                         conv_w=fn(mb.conv_w, "conv"),
+                         conv_b=fn(mb.conv_b, "conv"))
+        return {**p, "layers": layers._replace(mamba=mb)}
+
+    if "params" not in state:
+        return params(state)
+    opt = dict(state["opt"])
+    for k in ("m", "v"):
+        if isinstance(opt.get(k), dict):
+            opt[k] = params(opt[k])
+    if isinstance(opt.get("v"), list):
+        kinds = tree_leaves(_reorder(
+            tree_map(lambda t: "", state["params"]), lambda t, c: c))
+        opt["v"] = [v if not kind else
+                    {**v, "col": fn(v["col"], kind)} if "col" in v else
+                    {"v": fn(v["v"], kind)}
+                    for v, kind in zip(opt["v"], kinds)]
+    return {**state, "params": params(state["params"]), "opt": opt}
+
+
+def rank_order(cfg: ArchConfig, mesh, state: dict,
+               inverse: bool = False) -> dict:
+    """``state`` (whole leaves: a params tree or a train state, ``_reorder``'s)
+    with its mamba2 blocks' columns in the by-rank order on ``mesh``
+    (``ssm_rank_columns``), or, with ``inverse``, back in the reference's;
+    ``state`` itself where the blocks are not stored by rank there. A
+    leaf drawn a matrix at a time (``common.Deferred``) takes the order
+    for its draws."""
+    m = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    if m == 1 or not tensor_parallel.ssm_by_rank(cfg, m):
+        return state
+    orders = dict(zip(("proj", "conv"), ssm_rank_columns(cfg, m)))
+    if inverse:
+        orders = {k: torch.argsort(o) for k, o in orders.items()}
+
+    def take(t, kind):
+        if isinstance(t, Deferred):
+            return t.columns(orders[kind])
+        return t.index_select(-1, orders[kind].to(t.device))
+    return _reorder(state, take)
+
+
+def place_state(cfg: ArchConfig, mesh, state: dict, shardings,
+                put=None) -> dict:
+    """``state`` (a params tree or a train state of whole leaves) laid out
+    on ``mesh`` by ``shardings`` (``to_named``'s of its spec tree), its
+    mamba2 blocks' ``in_proj``, ``conv_w`` and ``conv_b`` and their
+    optimizer slots in the by-rank column order where the plan stores them
+    so (``rank_order``): the even cut of their spec along ``"model"`` is
+    then each rank's own block. ``put(tree, shardings)`` lays the
+    reordered tree out (``place`` by default, rank 0's values scattered;
+    ``launch.build`` draws each rank's block instead). Every path that
+    places an ssm or hybrid state goes through here; ``whole_state``
+    undoes it."""
+    return (put or place)(rank_order(cfg, mesh, state), shardings)
+
+
+def whole_state(cfg: ArchConfig, mesh, state: dict) -> dict:
+    """A state placed by ``place_state`` as whole tensors (every DTensor's
+    ``full_tensor``) in the reference's column order: what the unsharded
+    model, the weight bridge and a checkpoint read."""
+    whole = tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                     else t, state)
+    return rank_order(cfg, mesh, whole, inverse=True)
+
+
 def _mamba_state_spec(cfg: ArchConfig, mesh, *, lead: int):
     pre = (None,) * lead
     b = batch_axes(mesh)
@@ -507,8 +626,10 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
     sequence-parallel ranks each saw a slice of the positions or each
     took its own columns (``wk``/``wv`` under "kv_replicated"; a mamba2
     block's ``in_proj``, ``conv_w`` and ``conv_b`` where its heads are
-    local, ``Route.ssm_slice``) (and ``patch_proj`` where the vocab is
-    local: it counts on rank 0 alone, ``Route.embed``; ``lm_head`` where
+    local and the layout is "whole", ``Route.ssm_slice``; under "by_rank"
+    they are sharded on their columns, each rank's block its own) (and
+    ``patch_proj`` where the vocab is local: it counts on rank 0 alone,
+    ``Route.embed``; ``lm_head`` where
     the vocab is whole, ``Plan.loss_rows``: each rank's logits are its own
     positions'), else equal on every rank. Under "q_seq" the attention's
     leaves are whole, their gradients partial sums (its training is
@@ -556,7 +677,13 @@ def tp_layouts(cfg: ArchConfig, mesh, plan) -> dict:
 
     def mamba(lead: int) -> Mamba2Params:
         s = plan.ssm == "local"
-        cols, heads = lay(0, False, partial=sp or s), lay(lead, s)
+        heads = lay(lead, s)
+        if plan.ssm_layout == "by_rank":     # each rank's block, its own
+            mat, vec = lay(lead + 1, True), lay(lead, True)
+            return Mamba2Params(in_proj=mat, conv_w=mat, conv_b=vec,
+                                dt_bias=heads, A_log=heads, D=heads,
+                                norm_w=heads, out_proj=heads)
+        cols = lay(0, False, partial=sp or s)
         return Mamba2Params(in_proj=cols, conv_w=cols, conv_b=cols,
                             dt_bias=heads, A_log=heads, D=heads,
                             norm_w=heads, out_proj=heads)

@@ -75,19 +75,31 @@ rank computes locally:
     an all-reduce of the aux's statistics; the output all-gathered along
     ``"model"`` into the residual's layout;
   * the mamba2 block (``Plan.ssm``), "local" where m divides the SSM
-    heads H: rank r computes heads ``[r H/m, (r+1) H/m)``. ``in_proj``,
-    ``conv_w`` and ``conv_b`` are whole along ``"model"`` and each rank
-    takes the columns of its heads' z, x and dt and B and C whole (one
-    group: every head reads them, ``Route.ssm_slice``), so their gradient
-    is a partial sum along ``"model"``; ``dt_bias``, ``A_log``, ``D``,
-    ``norm_w`` and ``out_proj``'s rows are the rank's; the scan and the
-    decode recurrence run on H/m heads, the state is the rank's heads. The
-    gated RMSNorm normalises over the whole ``d_inner``: the rank's fp32
-    sum of squares is all-reduced before the rsqrt (``norm_sum``), and,
-    since that sum feeds every rank's own math, its backward all-reduces
-    the gradient too. Otherwise "gathered": every rank computes the block
-    whole. A family without attention or an MLP has no mode for them
-    (``Plan.heads`` and ``Plan.mlp_local`` None);
+    heads H: rank r computes heads ``[r H/m, (r+1) H/m)``, reading its
+    heads' z, x and dt columns of ``in_proj`` and x channels of ``conv_w``
+    and ``conv_b``, and B and C whole (one group: every head reads them;
+    ``Route.ssm_slice``). How ``in_proj``, ``conv_w`` and ``conv_b`` are
+    stored is the plan's ``ssm_layout``:
+    - ``"by_rank"``, where m divides N too: in the by-rank column order
+      (``sharding.ssm_rank_columns``: rank r's block ``[z_r, x_r, B_r, C_r,
+      dt_r]``, B_r and C_r its N/m of B's and C's columns), sharded on
+      their columns along ``"model"`` as the reference's spec shards them,
+      so a rank computes from its own block and all-gathers B and C along
+      ``"model"`` (the gather's backward sums each rank's share of their
+      gradient into the rank that holds them); their gradient is the
+      block's own along ``"model"``;
+    - ``"whole"``, where m does not divide N: in the reference's column
+      order, whole along ``"model"``, each rank taking its columns, so
+      their gradient is a partial sum along ``"model"``.
+    ``dt_bias``, ``A_log``, ``D``, ``norm_w`` and ``out_proj``'s rows are
+    the rank's; the scan and the decode recurrence run on H/m heads, the
+    state is the rank's heads. The gated RMSNorm normalises over the whole
+    ``d_inner``: the rank's fp32 sum of squares is all-reduced before the
+    rsqrt (``norm_sum``), and, since that sum feeds every rank's own math,
+    its backward all-reduces the gradient too. Otherwise "gathered": every
+    rank computes the block whole (``ssm_layout`` "whole"). A family
+    without attention or an MLP has no mode for them (``Plan.heads`` and
+    ``Plan.mlp_local`` None);
   * the vocab, when m divides it: the embedding lookup and the logits are
     this rank's rows and columns, and the loss is
     ``vocab_parallel_cross_entropy``; otherwise whole, and in a
@@ -162,8 +174,10 @@ class Plan:
     plan for S is "kv_seq"; a prefill's plan carries it too, since it
     writes that layout), else None, ``mlp_local`` None without an MLP;
     ``ssm`` the mamba2 block's
-    mode ("local" or "gathered"; None without one) and ``ssm_heads`` the
-    SSM heads a rank computes; for the MoE family ``ep`` the expert-
+    mode ("local" or "gathered"; None without one), ``ssm_heads`` the
+    SSM heads a rank computes and ``ssm_layout`` how its ``in_proj``,
+    ``conv_w`` and ``conv_b`` are stored ("by_rank" or "whole", the
+    module's docstring says which); for the MoE family ``ep`` the expert-
     parallel group's size (the world), ``ep_experts`` the experts a rank
     holds and ``capacity`` a source rank's slots an expert (None where the
     rows are not known), else None; for an enc-dec train or prefill step
@@ -179,6 +193,7 @@ class Plan:
     kv_share: int
     ssm: str | None = None
     ssm_heads: int | None = None
+    ssm_layout: str | None = None
     cache_len: int | None = None
     ep: int | None = None
     ep_experts: int | None = None
@@ -223,7 +238,7 @@ class Plan:
         ``kv_rows``. An enc-dec step's encoder plan under ``"encoder"``
         (its attention's mode, local heads, MLP, whether
         sequence-parallel and, with ``model_rank``, the rank's query
-        rows)."""
+        rows). A mamba2 block's mode, heads a rank and layout."""
         mlp = (None if self.mlp_local is None else
                "local" if self.mlp_local else "gathered")
         out = {"model": self.model, "heads": self.heads,
@@ -232,7 +247,8 @@ class Plan:
                "mlp": mlp, "vocab": "local" if self.vocab_local else "whole",
                "seq_parallel": self.seq_parallel}
         if self.ssm is not None:
-            out.update(ssm=self.ssm, ssm_heads=self.ssm_heads)
+            out.update(ssm=self.ssm, ssm_heads=self.ssm_heads,
+                       ssm_layout=self.ssm_layout)
         if self.ep is not None:
             out.update(ep=self.ep, ep_experts=self.ep_experts,
                        capacity=self.capacity)
@@ -283,6 +299,19 @@ def cache_split(cfg, m: int, cache_len: int | None) -> bool:
             and not _heads_local(cfg, m) and cache_len % m == 0)
 
 
+def ssm_by_rank(cfg, m: int) -> bool:
+    """Whether a mamba2 block's ``in_proj``, ``conv_w`` and ``conv_b`` are
+    stored in the by-rank column order along a ``"model"`` axis of m ranks
+    (``Plan.ssm_layout`` "by_rank"): the ssm and hybrid families, m
+    dividing the SSM heads and the state width N (one group of B and C).
+    A rule of the layout, not a fallback: elsewhere they are stored
+    whole. It reads the config and m alone, so every step of a cell
+    (train, prefill, decode) takes the layout its state is stored in; at
+    m = 1 the order is the reference's."""
+    return (cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m == 0
+            and cfg.ssm_state % m == 0)
+
+
 def plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
          rows: int | None = None, cache_len: int | None = None) -> Plan:
     """The plan of a ``kind`` step ("train", "prefill" or "decode") whose
@@ -322,10 +351,11 @@ def _plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
         heads, local = "kv_seq", (hq, hkv)
     else:
         heads, local = "gathered", (hq, hkv)
-    ssm = ssm_heads = None
+    ssm = ssm_heads = layout = None
     if cfg.family in ("ssm", "hybrid"):
         h = cfg.ssm_heads
         ssm, ssm_heads = ("local", h // m) if h % m == 0 else ("gathered", h)
+        layout = "by_rank" if ssm_by_rank(cfg, m) else "whole"
     ff = cfg.d_ff
     moe = {}
     if cfg.family == "moe":
@@ -340,7 +370,7 @@ def _plan(cfg, m: int, *, kind: str, seq_len: int, ep: int | None = None,
                 vocab_local=cfg.vocab_size % m == 0,
                 seq_parallel=kind == "train" and seq_len % m == 0,
                 local_heads=local, seq_len=seq_len, kv_share=share,
-                ssm=ssm, ssm_heads=ssm_heads,
+                ssm=ssm, ssm_heads=ssm_heads, ssm_layout=layout,
                 cache_len=cache_len if split else None, **moe)
 
 
@@ -869,19 +899,28 @@ class Route:
         return _SumOverRanks.apply(x, self.group) if self._many else x
 
     def ssm_slice(self, p):
-        """This rank's columns of a mamba2 block's ``in_proj`` ([z, x, B,
-        C, dt]: its heads' z, x and dt, B and C whole) and of ``conv_w``
-        and ``conv_b`` ([x, B, C]: its heads' x, B and C whole), each
-        whole along ``"model"``; the slices' gradients are zero outside
-        them, and B's and C's are this rank's heads' share. The other
-        leaves are the rank's already. Over one rank, ``p`` itself."""
+        """The columns a mamba2 block computes with on this rank: of
+        ``in_proj`` ``[z_r, x_r, B, C, dt_r]`` (its heads' z, x and dt, B
+        and C whole) and of ``conv_w`` and ``conv_b`` ``[x_r, B, C]``.
+        Under "by_rank" ``p``'s three leaves are the rank's blocks
+        ``[z_r, x_r, B_r, C_r, dt_r]`` and ``[x_r, B_r, C_r]``, and B and C
+        are all-gathered along ``"model"`` (``_whole_bc``); under "whole"
+        they are whole along ``"model"`` and the rank takes its columns
+        (their gradients zero outside them). Either way B's and C's
+        gradients are this rank's heads' share. The other leaves are the
+        rank's already. Over one rank, ``p`` itself."""
         if self.plan.ssm != "local" or not self._many:
             return p
-        m, r = self.plan.model, self.rank
-        n_heads = self.plan.ssm_heads * m
+        m, r, hw = self.plan.model, self.rank, self.plan.ssm_heads
         ch = p.conv_w.shape[-1]
-        din = p.in_proj.shape[-1] - ch - n_heads
-        xw, hw = din // m, self.plan.ssm_heads
+        if self.plan.ssm_layout == "by_rank":
+            xw = p.in_proj.shape[-1] - ch - hw      # x_r's width
+            n = (ch - xw) // 2                      # B_r's and C_r's
+            return p._replace(in_proj=self._whole_bc(p.in_proj, 2 * xw, n),
+                              conv_w=self._whole_bc(p.conv_w, xw, n),
+                              conv_b=self._whole_bc(p.conv_b, xw, n))
+        din = p.in_proj.shape[-1] - ch - hw * m
+        xw = din // m
 
         def cols(w, spans):
             return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
@@ -894,13 +933,30 @@ class Route:
                           conv_w=cols(p.conv_w, conv),
                           conv_b=cols(p.conv_b, conv))
 
+    def _whole_bc(self, w: torch.Tensor, start: int, n: int
+                  ) -> torch.Tensor:
+        """A rank's block ``w`` of a by-rank leaf, whose last axis holds its
+        B_r and C_r (``n`` = N/m columns each) from ``start``, with B and C
+        whole: the ranks' [B_r, C_r] all-gathered along ``"model"`` in one
+        collective, each rank's share of their gradient summed into the
+        rank that holds them (``gather_blocks``)."""
+        m = self.plan.model
+        bc = w[..., start:start + 2 * n].movedim(-1, 0)
+        every = gather_blocks(bc, self.group, reduce_grad=True)
+        every = every.reshape(m, 2, n, *bc.shape[1:])
+        b, c = (every[:, i].reshape(m * n, *bc.shape[1:]).movedim(0, -1)
+                for i in (0, 1))
+        return torch.cat([w[..., :start], b, c, w[..., start + 2 * n:]],
+                         dim=-1)
+
     def check(self, cfg, params: dict) -> None:
         """Raises unless the leaves, as a layer gathers them, have the
         local widths the plan says (a sharded step's leaves are
         ``sharding.Placed``, whose ``shape`` is the gathered layer's, lead
         axes kept: nothing is gathered here) (``wk`` whole unless the
         heads are "local"; a mamba2 block's
-        ``in_proj`` whole, its heads' leaves the rank's where local; an
+        ``in_proj`` the rank's block under "by_rank", else whole, its
+        heads' leaves the rank's where local; an
         MoE layer's router whole, its expert stacks the rank's experts,
         its shared experts as the MLP; an enc-dec model's encoder and
         decoder layers, the cross-attention's as the self-attention's)."""
@@ -948,8 +1004,9 @@ class Route:
             want["out_proj rows"] = (mamba.out_proj.shape[-2],
                                      p.ssm_heads * cfg.ssm_head_dim)
             want["in_proj columns"] = (
-                mamba.in_proj.shape[-1], 2 * cfg.d_inner
-                + 2 * cfg.ssm_state + cfg.ssm_heads)
+                mamba.in_proj.shape[-1], (2 * cfg.d_inner
+                                          + 2 * cfg.ssm_state + cfg.ssm_heads)
+                // (m if p.ssm_layout == "by_rank" else 1))
         bad = {k: v for k, v in want.items() if v[0] != v[1]}
         if bad:
             raise ValueError(f"leaves not laid out as {p}: {bad}")

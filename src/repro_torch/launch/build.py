@@ -7,8 +7,11 @@ On ``device="meta"`` (the dry run) the params' shapes come from
 ``jax.eval_shape(model.init, key)``) and every input is an empty ``meta``
 tensor; on ``"cuda"`` each rank draws its block of each param from
 ``seed``, a matrix at a time (``model.init`` under
-``common.deferred_draws``), and the inputs are the card's. Importing this
-module starts no process group.
+``common.deferred_draws``), and the inputs are the card's. Either way the
+params are placed through ``sharding.place_state``, so a mamba2 block's
+``in_proj``, ``conv_w`` and ``conv_b`` are in the by-rank column order
+where the plan stores them so (a drawn matrix's columns taken in that
+order). Importing this module starts no process group.
 """
 from __future__ import annotations
 
@@ -425,11 +428,14 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
     drawn = None if on_meta else drawn_params(cfg, device, seed)
 
     def placed_params(shardings):
-        # on a device each rank draws its block of each leaf, a matrix at
-        # a time (``_drawn_placed``)
+        # in the stored column order (``sharding.place_state``); on a
+        # device each rank draws its block of each leaf, a matrix at a time
+        # (``_drawn_placed``)
         if on_meta:
-            return _place(shapes, shardings)
-        return _drawn_placed(shapes, drawn, shardings)
+            return shd.place_state(cfg, mesh, shapes, shardings, put=_place)
+        return shd.place_state(
+            cfg, mesh, drawn, shardings,
+            put=lambda tree, named: _drawn_placed(shapes, tree, named))
     inputs = (cell_inputs(cfg, kind, B, S) if on_meta else
               _draw_inputs(cfg, kind, B, S, device, seed))
     opt_cfg = OPT_FOR_ARCH.get(arch, OptimizerConfig())
@@ -455,7 +461,8 @@ def build_cell(arch: str, shape_id: str | ShapeCell, mesh, *,
 
         # the optimizer's state starts at zeros: each rank allocates its
         # block of it alone (whole, llama-3.1-8b's AdamW moments would fill
-        # the card), as the cache below
+        # the card), as the cache below; zeros read alike in any column
+        # order
         opt_state = opt.init(shapes)
         specs = shd.to_named(mesh, shd.train_state_specs(
             {"params": shapes, "opt": opt_state}, opt_cfg.name, pspecs))

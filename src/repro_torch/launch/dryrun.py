@@ -29,7 +29,10 @@ query rows, with
 ``q_seq_heaviest_over_mean`` under "q_seq", the MLP (the MoE's shared
 experts) local, gathered or None, the vocab local or whole, the residuals
 sequence-parallel or not, for the ssm and hybrid families the mamba2
-block's mode, "local" or "gathered", and its SSM heads a rank, and for the
+block's mode, "local" or "gathered", its SSM heads a rank and
+``ssm_layout``, "by_rank" (``in_proj``, ``conv_w`` and ``conv_b`` stored
+as each rank's block, B and C all-gathered along "model") or "whole"
+(gathered whole along "model"), and for the
 MoE family the expert-parallel group ``ep``, the experts a rank
 ``ep_experts`` and a rank's ``capacity``; the EP all-to-alls count as
 ``coll_by_kind["all-to-all"]``; under "kv_seq" the rank's ``kv_rows``

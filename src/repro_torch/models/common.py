@@ -8,6 +8,7 @@ views of them), so that the optimizer sees the same shapes.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import itertools
 import math
@@ -214,6 +215,15 @@ class Deferred:
         _DEFERRED[-1][1] += 1
         self.shape, self.draw = tuple(shape), draw
         self.dtype, self.device = dtype, device
+        self.order = None
+
+    def columns(self, order: torch.Tensor) -> Deferred:
+        """The same leaf with its last axis in ``order`` (an index tensor
+        into its drawn columns, a permutation): each matrix is drawn as
+        before, then its columns taken in that order."""
+        out = copy.copy(self)
+        out.order = order
+        return out
 
     def block(self, span) -> torch.Tensor:
         """The leaf's block [start, stop) per dim (``span``), drawing only
@@ -235,6 +245,8 @@ class Deferred:
             generator.manual_seed((((self.seed * 4099 + self.leaf) << 24)
                                    + unit) & (2 ** 63 - 1))
             w = self.draw(generator, shape[lead:])
+            if self.order is not None:
+                w = w[..., self.order.to(w.device)]
             out[tuple(i - a for i, (a, _) in zip(index, span))].copy_(
                 w[inner])
         return out

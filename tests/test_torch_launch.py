@@ -6,8 +6,10 @@ The 40-cell table, ``input_specs`` and ``cache_specs`` are compared entry
 for entry (exact: shapes, dtypes and skip reasons are data). The dry run
 itself runs in subprocesses, each with its own time limit: a fake world
 of 16 ranks on an (8, 2) mesh counts reduced smollm-135m's train and
-decode cells, and the CLI writes the table's skip and counts an
-expert-parallel MoE train cell over several batch ranks.
+decode cells, the CLI writes the table's skip and counts an
+expert-parallel MoE train cell over several batch ranks, and a fake world
+of 16 on (4, 4) counts a reduced mamba2 decode cell's all-gathers a layer
+in each ``in_proj`` layout.
 """
 import dataclasses
 import json
@@ -331,6 +333,70 @@ def test_dryrun_cli_skips_and_refuses(tmp_path):
     assert r["coll_by_kind"]["all-to-all"] == 8 * cfg.n_layers * 4 * buffer
 
 
+# a reduced mamba2 decode cell (d 128, d_inner 256, 8 SSM heads) on (4, 4)
+# at two depths, its state width N 16 (m divides it: "by_rank") or 18
+# (m does not: "whole")
+SSM_GATHERS = """
+import json
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeCell
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world
+
+out = {}
+with fake_world(16):
+    mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
+    for n in (16, 18):
+        for depth in (2, 4):
+            r = dryrun.count_cell(
+                "mamba2-1.3b", ShapeCell("decode", "decode", 64, 16), mesh,
+                mesh_name="4x4", extra_cfg=dict(
+                    n_layers=depth, d_model=128, vocab_size=512,
+                    ssm_state=n, ssm_head_dim=32))
+            out[f"{n}/{depth}"] = [r["status"], r["tp"],
+                                   r["coll_by_kind"]["all-gather"]]
+with open("records.json", "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def ssm_gathers(tmp_path_factory):
+    cwd = tmp_path_factory.mktemp("ssm_gathers")
+    run_python(SSM_GATHERS, cwd)
+    with open(cwd / "records.json") as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("n", [16, 18])
+def test_dryrun_counts_in_proj_gathers_by_its_layout(ssm_gathers, n):
+    """The dry run's all-gather operand bytes a layer of a reduced mamba2
+    decode step (rank 0 of a fake world of 16 on (4, 4), its params bf16 as
+    mamba2-1.3b's), from the
+    count at 4 layers less the count at 2, against a count by hand. Each
+    layer gathers ``in_proj``'s block (d/4 x d_proj/4) and ``out_proj``'s
+    (d_inner/4 x d/4) along "data". Under "by_rank" (N 16) it gathers along
+    "model" only the rank's B and C: N/4 columns each of ``in_proj`` (d
+    rows), of ``conv_w`` (K rows) and of ``conv_b``. Under "whole" (N 18:
+    4 ranks divide the heads, not N) it gathers along "model" the whole
+    ``in_proj`` from its d/4 x d_proj/4 blocks gathered along "data"
+    (d x d_proj / 4) and ``conv_w``'s and ``conv_b``'s channels."""
+    d, din, h, k = 128, 256, 8, 4
+    dp, ch = 2 * din + 2 * n + h, din + 2 * n
+    lo, hi = ssm_gathers[f"{n}/2"], ssm_gathers[f"{n}/4"]
+    assert lo[0] == hi[0] == "ok"
+    layout = "by_rank" if n == 16 else "whole"
+    assert (lo[1]["ssm"], lo[1]["ssm_heads"], lo[1]["ssm_layout"]) == (
+        "local", 2, layout)
+    per_layer = (hi[2] - lo[2]) / 16 / 2 / 2          # bf16 elements, rank 0
+    data = d * dp // 16 + din * d // 16
+    if layout == "by_rank":
+        model = (d + k + 1) * 2 * n // 4
+    else:
+        model = d * dp // 4 + (k + 1) * ch // 4
+    assert per_layer == data + model
+
+
 # build_cell on the CPU as on the card, in fake worlds of 8 on (4, 2): a
 # reduced expert-parallel kimi-k2 (6 experts padded to 8), ranks 0, 5 and 7
 DEVICE_BUILD = """
@@ -348,6 +414,8 @@ from repro_torch.models.common import Deferred, tree_leaves
 OVER = dict(n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=32, vocab_size=256, n_experts=6, top_k=2,
             n_shared_experts=1, moe_impl="ep", param_dtype=torch.float32)
+SSM = dict(n_layers=2, d_model=128, vocab_size=512, ssm_state=16,
+           ssm_head_dim=32, param_dtype=torch.float32)
 
 class Largest(TorchDispatchMode):
     # the largest tensor an op makes on the CPU
@@ -387,6 +455,32 @@ for rank in (0, 5, 7):
                          got.numel()])
         out[rank] = {"rows": rows, "largest": largest.bytes,
                      "op": largest.op}
+        # a reduced mamba2 (d 128, d_inner 256, 8 SSM heads, N 16), its
+        # in_proj, conv_w and conv_b by rank over "model" (2 ranks): each
+        # rank's block is the whole drawn leaf's columns of its heads' z,
+        # x and dt and its halves of B and C
+        cell = build.build_cell("mamba2-1.3b",
+                                ShapeCell("train", "train", 8, 16), mesh,
+                                extra_cfg=SSM, device="cpu", seed=3)
+        mamba = cell.args[0]["params"]["layers"].mamba
+        whole = build.drawn_params(cell.cfg, "cpu", 3)["layers"].mamba
+        r = mesh.get_local_rank("model")
+        span = lambda a, w: list(range(a + r * w, a + (r + 1) * w))
+        proj = (span(0, 128) + span(256, 128) + span(512, 8)
+                + span(528, 8) + span(544, 4))
+        conv = span(0, 128) + span(256, 8) + span(272, 8)
+        checks = {}
+        for k, cols in (("in_proj", proj), ("conv_w", conv),
+                        ("conv_b", conv)):
+            t, d = getattr(mamba, k), getattr(whole, k)
+            d = d.block([[0, n] for n in d.shape]) if isinstance(
+                d, Deferred) else d
+            block = d[..., cols]
+            if k == "in_proj":         # its rows are cut along "data"
+                block = block.chunk(4, -2)[mesh.get_local_rank("data")]
+            checks[k] = [list(t.to_local().shape),
+                         torch.equal(t.to_local(), block)]
+        out[f"ssm{rank}"] = {"tp": cell.tp, "checks": checks}
 with open("records.json", "w") as f:
     json.dump(out, f)
 """
@@ -426,6 +520,20 @@ def test_device_build_draws_no_whole_leaf(device_builds, rank):
     stack = min(4 * math.prod(drawn) for _, drawn, *_ in experts)
     assert layer < stack
     assert 0 < r["largest"] <= layer, r
+
+
+@pytest.mark.parametrize("rank", ["0", "5", "7"])
+def test_device_build_draws_the_by_rank_blocks(device_builds, rank):
+    """``build_cell`` on a device (the CPU, a fake world of 8 on (4, 2))
+    of a reduced mamba2 whose blocks are stored by rank: each rank's
+    stored ``in_proj`` (its data rows), ``conv_w`` and ``conv_b`` are the
+    whole drawn leaves' columns of its heads' z, x and dt and its halves
+    of B and C, as ``place_state`` lays them out."""
+    r = device_builds[f"ssm{rank}"]
+    assert (r["tp"]["ssm"], r["tp"]["ssm_layout"]) == ("local", "by_rank")
+    assert r["checks"] == {"in_proj": [[2, 32, 276], True],
+                           "conv_w": [[2, 4, 144], True],
+                           "conv_b": [[2, 144], True]}
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "zamba2-2.7b",

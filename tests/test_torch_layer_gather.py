@@ -13,7 +13,8 @@ time limit of its own):
     "model" ("q_seq" in training, "kv_seq" in decode: llava-next-34b's
     plan at 16);
   * a mamba2 train cell under ``remat="block"``, its SSM heads local and
-    its ``in_proj`` whole along "model";
+    its ``in_proj``, ``conv_w`` and ``conv_b`` stored by rank (each rank's
+    block gathered along "data" alone);
   * an enc-dec (whisper) decode cell.
 The widths make one layer's gathered leaves (the bytes its gather makes:
 each leaf whose compute placements differ from its stored ones, in the
@@ -92,7 +93,8 @@ ATTN = dict(d_model=768, n_heads=6, n_kv_heads=2, head_dim=128, d_ff=2048,
 # name -> (arch, config fields, kind, T (a decode cell's cache), rows,
 # depths): the dense cells' attention "q_seq" in training and "kv_seq" in
 # decode, whole along "model"; the mamba2 block's 24 SSM heads local, its
-# in_proj (768 x 3224) whole; whisper's decoder "kv_seq"
+# in_proj (768 x 3224) stored by rank, a layer's gather 768 x 806 of it;
+# whisper's decoder "kv_seq"
 CELLS = {"dense_train": ("smollm-135m", dict(ATTN, remat="block"), "train",
                          64, 16, (4, 8)),
          "dense_decode": ("smollm-135m", ATTN, "decode", 256, 16, (4, 8)),
@@ -142,7 +144,8 @@ def test_peak_grows_by_less_than_a_gathered_layer(counts, name):
         assert plan["heads"] == ("q_seq" if name == "dense_train"
                                  else "kv_seq")
     elif name == "ssm_train":
-        assert (plan["ssm"], plan["ssm_heads"]) == ("local", 6)
+        assert (plan["ssm"], plan["ssm_heads"], plan["ssm_layout"]) == (
+            "local", 6, "by_rank")
     else:
         assert plan["heads"] == "kv_seq"
     above = [c["peak"]["Total"] - c["peak"]["Inputs"] for c in (a, b)]

@@ -241,11 +241,17 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
     """3 sharded AdamW steps and the served prefill and decode steps of
     one case of ``cases`` on its mesh, into ``record`` (with the shapes of
     a rank's SSM state and conv tail, or of its cross K, where the model
-    has them)."""
+    has them). The state is placed by ``sharding.place_state`` and the
+    final leaves read back whole through ``sharding.whole_state``, in the
+    reference's order. Where the model has mamba2 blocks, also a rank's
+    stored ``in_proj`` block's shape and the output bytes of every
+    all-gather over the "model" group (``analysis.StepCounter``) in the
+    first train step and in the prefill."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.analysis import StepCounter
     from repro_torch.launch.build import serve_step
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.transformer import build_model
@@ -273,23 +279,43 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
         return shd.place(tree, shd.to_named(mesh, shd.fit_tree(mesh, specs,
                                                                tree)))
 
+    ssm = cfg.family in ("ssm", "hybrid")
+    model_size = mesh.size(1)
+    gathers = set()
+
+    def counted(fn, *args):
+        # the output bytes of each all-gather over the "model" group
+        if not ssm:
+            return fn(*args)
+        with StepCounter() as counter:
+            out = fn(*args)
+        gathers.update(n for kind, n, size in counter.collectives
+                       if kind == "all-gather" and size == model_size)
+        return out
+
     params = bridge(flat, cfg, "cpu")
     opt = build_optimizer(OptimizerConfig(peak_lr=1e-3))
     state = {"params": params, "opt": opt.init(params)}
     pspecs = shd.fit_tree(mesh, shd.param_specs(cfg, mesh), params)
-    state = shd.place(state, shd.to_named(
+    state = shd.place_state(cfg, mesh, state, shd.to_named(
         mesh, shd.train_state_specs(state, "adamw", pspecs)))
+    if ssm:
+        record[f"{name}/in_proj_block"] = np.array(
+            state["params"]["layers"].mamba.in_proj.to_local().shape)
     step = shd.shard_train_step(model, opt, mesh)
     plans = []
     undo = counting_routes(plans)
     try:
         for i in range(STEPS):
-            state, m = step(state, part(f"{name}/batch{i}/"))
+            batch = part(f"{name}/batch{i}/")
+            state, m = (counted(step, state, batch) if i == 0
+                        else step(state, batch))
             record[f"{name}/loss{i}"] = m["loss"].numpy()
             record[f"{name}/grad_norm{i}"] = m["grad_norm"].numpy()
         record[f"{name}/train_plans"] = np.array(json.dumps(plans))
-        for j, p in enumerate(tree_leaves(state["params"])):
-            record[f"{name}/final{j}"] = p.full_tensor().numpy()
+        finals = shd.whole_state(cfg, mesh, state)["params"]
+        for j, p in enumerate(tree_leaves(finals)):
+            record[f"{name}/final{j}"] = p.numpy()
 
         vocab = [Shard(0) if n == "data" else
                  Shard(2) if cfg.vocab_size % mesh.size(1) == 0 else
@@ -298,7 +324,10 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
         def whole(logits):
             return DTensor.from_local(logits, mesh, vocab).full_tensor()
 
-        ps = placed(bridge(flat, cfg, "cpu"), shd.param_specs(cfg, mesh))
+        whole_params = bridge(flat, cfg, "cpu")
+        ps = shd.place_state(cfg, mesh, whole_params, shd.to_named(
+            mesh, shd.fit_tree(mesh, shd.param_specs(cfg, mesh),
+                               whole_params)))
         prompt = part(f"{name}/prompt/")
         cache, cspecs = shd.tp_cache(cfg, mesh,
                                      model.init_cache(BATCH, MAX_LEN))
@@ -307,8 +336,10 @@ def case_run(inp: dict, name: str, record: dict, cases: dict = CASES
         decode = serve_step(model, mesh, "decode")
         plans.clear()
         with torch.no_grad():
-            logits, cache = prefill(ps, placed(prompt, shd.batch_specs(
-                cfg, mesh, prompt)), cache)
+            logits, cache = counted(prefill, ps, placed(
+                prompt, shd.batch_specs(cfg, mesh, prompt)), cache)
+            if ssm:
+                record[f"{name}/model_gathers"] = np.array(sorted(gathers))
             record[f"{name}/local_logits"] = np.array(logits.shape)
             if "state" in cache:
                 record[f"{name}/local_state"] = np.array(json.dumps(
@@ -494,7 +525,8 @@ def test_the_steps_take_the_plan(runs, name):
 # else the query rows split where 16 divides the sequence (never in
 # decode: there the cache's 32768 positions split, "kv_seq"); None where
 # the model has no attention or MLP; SSM heads local where 16 divides them
-# (mamba2's 64, zamba2's 80)
+# (mamba2's 64, zamba2's 80), stored by rank where 16 divides N too
+# (mamba2's 128, zamba2's 64)
 AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local", None),
          "llama-3.1-8b": (("kv_replicated",) * 3, [2, 1], "local", "local",
                           None),
@@ -508,9 +540,10 @@ AT_16 = {"phi3-mini-3.8b": (("local",) * 3, [2, 2], "local", "local", None),
                          "local", None),
          "smollm-360m": (("q_seq", "q_seq", "kv_seq"), [15, 5], "local",
                          "local", None),
-         "mamba2-1.3b": ((None,) * 3, None, None, "whole", ("local", 4)),
+         "mamba2-1.3b": ((None,) * 3, None, None, "whole",
+                         ("local", 4, "by_rank")),
          "zamba2-2.7b": (("local",) * 3, [2, 2], "local", "local",
-                         ("local", 5)),
+                         ("local", 5, "by_rank")),
          "whisper-tiny": (("q_seq", "q_seq", "kv_seq"), [6, 6], "local",
                           "whole", None)}
 # the enc-dec encoder's attention in train_4k and prefill_32k (a decode
@@ -538,7 +571,8 @@ def test_plan_at_sixteen(arch):
     assert (p["local_heads"], p["mlp"], p["vocab"]) == (local_heads, mlp,
                                                         vocab)
     for q in got:
-        assert ((q["ssm"], q["ssm_heads"]) if "ssm" in q else None) == ssm
+        assert ((q["ssm"], q["ssm_heads"], q["ssm_layout"]) if "ssm" in q
+                else None) == ssm
     assert tuple(q["encoder"]["heads"] if "encoder" in q else None
                  for q in got) == ENCODER_AT_16.get(arch, (None,) * 3)
     assert p["seq_parallel"] is True

@@ -22,13 +22,22 @@ sequence length)):
   * ``hybrid_local``: a reduced zamba2-2.7b (4 query heads on 2 KV heads,
     d_ff 256, 8 SSM heads, two groups of 2 layers, remat "block") on (4,
     2): the shared block's heads and MLP local, 4 SSM heads a rank, each
-    group's recompute in the backward on the same route.
+    group's recompute in the backward on the same route;
+  * ``ssm_layout_whole``: ``ssm_local`` with a state width N of 9, which 2
+    ranks do not divide: the heads local, ``in_proj``, ``conv_w`` and
+    ``conv_b`` stored whole along "model" in the reference's order.
+The first three store ``in_proj``, ``conv_w`` and ``conv_b`` by rank
+(``sharding.ssm_rank_columns``): a rank holds its heads' block of
+``in_proj``, d/data x d_proj/m, and no step all-gathers it along "model".
 Each trains 3 AdamW steps, then serves a prefill and 8 greedy decode steps
 from the initial weights. In this process: the gated RMSNorm's statistic
 summed over 4 ranks (threads) against the whole RMSNorm, values and
 gradient; the block over 2 ranks against the whole block; the plan where
-m does not divide the SSM heads; the slices and the conv tail's layout.
-The plan at m = 16 is ``test_torch_tensor_parallel.py``'s table.
+m does not divide the SSM heads, or N; the by-rank layout, its inverse and
+``ssm_slice`` on it against the whole leaf's slices; an AdamW and an
+Adafactor step on a leaf in the by-rank order against the whole leaf's
+step; the conv tail's layout. The plan at m = 16 is
+``test_torch_tensor_parallel.py``'s table.
 """
 import json
 import threading
@@ -49,17 +58,23 @@ CASES = {"ssm_local": ("mamba2-1.3b", MAMBA, (4, 2), 32),
          "ssm_gathered": ("mamba2-1.3b", dict(MAMBA, d_model=96,
                                               ssm_head_dim=64), (2, 4), 32),
          "hybrid_local": ("zamba2-2.7b", dict(vocab_size=512, remat="block"),
-                          (4, 2), 32)}
+                          (4, 2), 32),
+         "ssm_layout_whole": ("mamba2-1.3b", dict(MAMBA, ssm_state=9),
+                              (4, 2), 32)}
 # each case's plan: the "model" size, the attention's mode and local heads
-# (None without attention), the MLP's, the vocab's, the SSM block's mode
-# and heads a rank, whether training is sequence-parallel; prefill and
-# decode take the same modes, never sequence-parallel
-PLANS = {"ssm_local": (2, None, None, None, "local", "local", 4, True),
+# (None without attention), the MLP's, the vocab's, the SSM block's mode,
+# heads a rank and layout, whether training is sequence-parallel; prefill
+# and decode take the same modes, never sequence-parallel
+PLANS = {"ssm_local": (2, None, None, None, "local", "local", 4, "by_rank",
+                       True),
          "ssm_not_seq_parallel": (2, None, None, None, "local", "local", 4,
-                                  False),
-         "ssm_gathered": (4, None, None, None, "local", "gathered", 3, True),
+                                  "by_rank", False),
+         "ssm_gathered": (4, None, None, None, "local", "gathered", 3,
+                          "whole", True),
          "hybrid_local": (2, "local", [2, 1], "local", "local", "local", 4,
-                          True)}
+                          "by_rank", True),
+         "ssm_layout_whole": (2, None, None, None, "local", "local", 4,
+                              "whole", True)}
 
 
 @pytest.fixture(scope="module")
@@ -136,13 +151,14 @@ def test_the_steps_take_the_plan(runs, name):
     evenly (224 on 4 ranks), gathered for the step."""
     _, ranks = runs
     arch, over, (data, model), _ = CASES[name]
-    m, heads, local_heads, mlp, vocab, ssm, ssm_heads, sp = PLANS[name]
+    m, heads, local_heads, mlp, vocab, ssm, ssm_heads, layout, sp = \
+        PLANS[name]
     cfg = reduced(arch, over)
 
     def want(seq_parallel, rank):
         return {"model": m, "heads": heads, "local_heads": local_heads,
                 "mlp": mlp, "vocab": vocab, "seq_parallel": seq_parallel,
-                "ssm": ssm, "ssm_heads": ssm_heads,
+                "ssm": ssm, "ssm_heads": ssm_heads, "ssm_layout": layout,
                 "model_rank": rank % model, "q_rows": None}
 
     assert m == model
@@ -163,27 +179,69 @@ def test_the_steps_take_the_plan(runs, name):
             lead + [rows, ssm_heads, cfg.ssm_state, cfg.ssm_head_dim]]
 
 
+LOCAL_BY_RANK = ("ssm_local", "ssm_not_seq_parallel", "hybrid_local")
+
+
+@pytest.mark.parametrize("name", LOCAL_BY_RANK + ("ssm_layout_whole",))
+def test_in_proj_is_stored_and_gathered_by_its_layout(runs, name):
+    """Where the layout is "by_rank" a rank's stored ``in_proj`` is its
+    block, d/data x d_proj/m a layer, and no all-gather along "model" in a
+    train step or a prefill makes a layer of it (d x d_proj, or d/data x
+    d_proj): the only such all-gathers of the block are B's and C's, d x
+    2N. Where it is "whole" (m does not divide N) the step gathers it
+    along "model"."""
+    _, ranks = runs
+    arch, over, (data, model), _ = CASES[name]
+    cfg = reduced(arch, over)
+    d, n = cfg.d_model, cfg.ssm_state
+    width = 2 * cfg.d_inner + 2 * n + cfg.ssm_heads
+    lead = [cfg.n_layers] if cfg.family == "ssm" else [
+        cfg.n_layers // cfg.attn_every, cfg.attn_every]
+    layer = {4 * d * width, 4 * d * width // data}        # fp32 bytes
+    for rec in ranks:
+        assert list(rec[f"{name}/in_proj_block"]) == lead + [
+            d // data, width // model]
+        gathers = set(rec[f"{name}/model_gathers"].tolist())
+        if name in LOCAL_BY_RANK:
+            assert not gathers & layer, (gathers, layer)
+            assert 4 * d * 2 * n in gathers, gathers
+        else:
+            assert gathers & layer, (gathers, layer)
+
+
 # ---------------------------------------------------------------------------
 # the pieces, in this process: ranks as threads over a stand-in group
 # ---------------------------------------------------------------------------
 class _Board:
     """The collectives of ``size`` threads, each a rank: an all-reduce
     waits for every rank's tensor and returns their sum (or max) to each,
-    summed in rank order."""
+    summed in rank order; the all-gather and reduce-scatter along axis 1
+    of ``tensor_parallel``'s sequence collectives alike."""
 
     def __init__(self, size: int) -> None:
         self.size, self.parts = size, [None] * size
         self.barrier = threading.Barrier(size, timeout=60)
 
-    def all_reduce(self, x, op, group):
+    def _every(self, x, group) -> list:
         self.parts[group.rank()] = x.detach().clone()
         self.barrier.wait()
         parts = list(self.parts)
         self.barrier.wait()
+        return parts
+
+    def all_reduce(self, x, op, group):
+        parts = self._every(x, group)
         out = parts[0]
         for p in parts[1:]:
             out = out + p if op == "sum" else torch.maximum(out, p)
         return out
+
+    def all_gather_seq(self, x, group):
+        return torch.cat(self._every(x, group), 1)
+
+    def reduce_scatter_seq(self, x, group):
+        return self.all_reduce(x, "sum", group).chunk(
+            self.size, 1)[group.rank()].contiguous()
 
 
 def on_threads(size: int, fn, monkeypatch) -> list:
@@ -193,6 +251,10 @@ def on_threads(size: int, fn, monkeypatch) -> list:
     from repro_torch.distributed import tensor_parallel
     board = _Board(size)
     monkeypatch.setattr(tensor_parallel, "_all_reduce", board.all_reduce)
+    monkeypatch.setattr(tensor_parallel, "_all_gather_seq",
+                        board.all_gather_seq)
+    monkeypatch.setattr(tensor_parallel, "_reduce_scatter_seq",
+                        board.reduce_scatter_seq)
     out, errors = [None] * size, []
 
     def run(r):
@@ -248,15 +310,43 @@ def test_norm_statistic_sums_to_the_whole_rmsnorm(monkeypatch):
                                    leaf.grad, rtol=1e-5, atol=1e-6)
 
 
+def _mesh(data: int, model: int):
+    """A stand-in ("data", "model") mesh: the spec functions read only its
+    names and shape."""
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+        shape = (data, model)
+    return Mesh()
+
+
+def _rank_cols(cfg, m: int, r: int) -> tuple[list, list]:
+    """Rank r's columns of ``in_proj`` and of the conv channels, in the
+    reference's order, in the by-rank block's order: its heads' z, x (and
+    dt), its N/m of B's and of C's."""
+    din, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    xw, nw, hw = din // m, n // m, h // m
+
+    def span(a, w):
+        return list(range(a + r * w, a + (r + 1) * w))
+    proj = (span(0, xw) + span(din, xw) + span(2 * din, nw)
+            + span(2 * din + n, nw) + span(2 * din + 2 * n, hw))
+    conv = span(0, xw) + span(din, nw) + span(din + n, nw)
+    return proj, conv
+
+
 @pytest.mark.parametrize("stateful", [False, True])
 def test_block_over_ranks_is_the_whole_block(monkeypatch, stateful):
     """``Route.ssm`` over 2 ranks (4 of 8 heads each), not
-    sequence-parallel: the output is the whole block's, each rank's state
-    its heads' (and its conv channels), and the gradients of the global
-    loss are the whole's: the input's on every rank, each rank's heads'
-    leaves its slices, and ``in_proj``'s, ``conv_w``'s and ``conv_b``'s
-    the sum of the ranks' (B and C read by every head)."""
-    from repro_torch.distributed.sharding import ssm_tail_layout
+    sequence-parallel, each rank's ``in_proj``, ``conv_w`` and ``conv_b``
+    its block of the by-rank layout (``sharding.ssm_rank_columns``): the
+    output is the whole block's, each rank's state its heads' (and its
+    conv channels), and the gradients of the global loss are the whole's:
+    the input's on every rank, each rank's heads' leaves its slices, and
+    the ranks' blocks of ``in_proj``, ``conv_w`` and ``conv_b``, laid back
+    in the reference's order, the whole leaves' (B's and C's summed over
+    the ranks' heads by the all-gather's backward)."""
+    from repro_torch.distributed.sharding import (ssm_rank_columns,
+                                                  ssm_tail_layout)
     from repro_torch.distributed.tensor_parallel import Route, plan
     from repro_torch.models.mamba2 import (MambaState, init_mamba2,
                                            mamba2_block)
@@ -264,7 +354,8 @@ def test_block_over_ranks_is_the_whole_block(monkeypatch, stateful):
     gen = torch.Generator().manual_seed(5)
     p = init_mamba2(gen, cfg)
     p = p._replace(norm_w=1 + 0.1 * torch.randn(p.norm_w.shape,
-                                               generator=gen))
+                                               generator=gen),
+                   conv_b=0.1 * torch.randn(p.conv_b.shape, generator=gen))
     T = 1 if stateful else 16
     x = torch.randn((2, T, cfg.d_model), generator=gen)
     g = torch.randn((2, T, cfg.d_model), generator=gen)
@@ -284,12 +375,17 @@ def test_block_over_ranks_is_the_whole_block(monkeypatch, stateful):
                                     return_state=True)
     (want * g).sum().backward()
     m, heads = 2, ("dt_bias", "A_log", "D", "norm_w", "out_proj")
+    order = dict(zip(("in_proj", "conv_w", "conv_b"),
+                     (ssm_rank_columns(cfg, m)[i] for i in (0, 1, 1))))
 
     def rank(r, group):
         route = Route(plan(cfg, m, kind="decode" if stateful else "prefill",
                            seq_len=T), group)
+        assert route.plan.ssm_layout == "by_rank"
         mine = p._replace(**{k: getattr(p, k).chunk(m, 0)[r]
-                             for k in heads})
+                             for k in heads},
+                          **{k: getattr(p, k)[..., o].chunk(m, -1)[r]
+                             for k, o in order.items()})
         mine, mx = leaves(mine), x.clone().requires_grad_(True)
         st = None if state is None else MambaState(
             ssm_tail_layout(state.conv_tail, m, cfg.d_inner).chunk(m, -1)[r],
@@ -321,43 +417,184 @@ def test_block_over_ranks_is_the_whole_block(monkeypatch, stateful):
         torch.testing.assert_close(
             torch.cat([getattr(mine, k).grad for _, _, mine, _ in got], 0),
             getattr(wp, k).grad, **tol, msg=k)
-    for k in ("in_proj", "conv_w", "conv_b"):
-        torch.testing.assert_close(
-            sum(getattr(mine, k).grad for _, _, mine, _ in got),
-            getattr(wp, k).grad, **tol, msg=k)
+    for k, o in order.items():
+        blocks = torch.cat([getattr(mine, k).grad for _, _, mine, _ in got],
+                           -1)
+        torch.testing.assert_close(blocks[..., torch.argsort(o)],
+                                   getattr(wp, k).grad, **tol, msg=k)
 
 
-def test_ssm_slice_takes_the_ranks_columns():
-    """Rank r of 4 takes its heads' z, x and dt columns of ``in_proj`` and
-    B and C whole, and its x channels and B and C of ``conv_w``/
-    ``conv_b``; its slice's gradient is zero outside them. Over one rank
-    the params are returned as they are."""
+@pytest.mark.parametrize("m", [2, 4])
+def test_ssm_slice_takes_the_ranks_columns(monkeypatch, m):
+    """The by-rank layout over m ranks (a reduced mamba2: 8 heads, N 16).
+    ``sharding.rank_order`` reorders a train state's ``in_proj``,
+    ``conv_w`` and ``conv_b`` and AdamW's slots of them alike, leaves
+    every other leaf as it is, and its inverse restores the state to the
+    bit. The even cut of a reordered leaf along its columns gives rank r
+    its heads' z, x and dt columns and its N/m of B's and of C's (the conv
+    leaves its x channels and its B and C). On m threads, ``ssm_slice`` of
+    the rank's blocks equals the rank's slice of the whole leaves (the
+    "whole" layout's), and the blocks' gradients, laid back in the
+    reference's order, are the sum of the whole slices' gradients over the
+    ranks. Over one rank the params are returned as they are."""
+    from dataclasses import replace
+
+    from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.tensor_parallel import Route, plan
-    from repro_torch.models.mamba2 import init_mamba2
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import build_model
     cfg = reduced("mamba2-1.3b", {})
-    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    p = init_mamba2(torch.Generator().manual_seed(1), cfg)
-    ch = din + 2 * N
-    assert p.in_proj.shape[-1] == 2 * din + 2 * N + H
-    p1 = Route(plan(cfg, 1, kind="train", seq_len=8), None).ssm_slice(p)
-    assert p1 is p
-    pl = plan(cfg, 4, kind="train", seq_len=8)
-    for r in range(4):
-        leaf = p.in_proj.clone().requires_grad_(True)
-        q = Route(pl, _Group(4, r)).ssm_slice(p._replace(in_proj=leaf))
-        xw, hw = din // 4, H // 4
-        cols = (list(range(r * xw, (r + 1) * xw))
-                + list(range(din + r * xw, din + (r + 1) * xw))
-                + list(range(2 * din, din + ch))
-                + list(range(din + ch + r * hw, din + ch + (r + 1) * hw)))
-        assert torch.equal(q.in_proj, p.in_proj[:, cols])
-        conv = list(range(r * xw, (r + 1) * xw)) + list(range(din, ch))
-        assert torch.equal(q.conv_w, p.conv_w[:, conv])
-        assert torch.equal(q.conv_b, p.conv_b[conv])
-        q.in_proj.sum().backward()
-        mask = torch.zeros_like(p.in_proj)
-        mask[:, cols] = 1
-        assert torch.equal(leaf.grad, mask)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    slot = lambda: tree_map(lambda t: torch.randn(t.shape, generator=gen),
+                            params)
+    state = {"params": params,
+             "opt": {"m": slot(), "v": slot(), "step": torch.tensor(3)}}
+    mesh = _mesh(1, m)
+    ordered = shd.rank_order(cfg, mesh, state)
+    back = shd.rank_order(cfg, mesh, ordered, inverse=True)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                 tree_leaves(state)))
+    moved = [a is not b for a, b in zip(tree_leaves(ordered),
+                                        tree_leaves(state))]
+    assert sum(moved) == 9                  # 3 leaves x (params, m, v)
+    for tree, was in ((ordered["params"], params),
+                      (ordered["opt"]["m"], state["opt"]["m"]),
+                      (ordered["opt"]["v"], state["opt"]["v"])):
+        new, old = tree["layers"].mamba, was["layers"].mamba
+        for r in range(m):
+            proj, conv = _rank_cols(cfg, m, r)
+            assert torch.equal(new.in_proj.chunk(m, -1)[r],
+                               old.in_proj[..., proj])
+            assert torch.equal(new.conv_w.chunk(m, -1)[r],
+                               old.conv_w[..., conv])
+            assert torch.equal(new.conv_b.chunk(m, -1)[r],
+                               old.conv_b[..., conv])
+
+    layer = lambda tree: type(tree)(*(t[0] for t in tree))
+    blocks, whole = (layer(ordered["params"]["layers"].mamba),
+                     layer(params["layers"].mamba))
+    pl = plan(cfg, m, kind="train", seq_len=8)
+    assert pl.ssm_layout == "by_rank"
+    assert Route(plan(cfg, 1, kind="train", seq_len=8),
+                 None).ssm_slice(whole) is whole
+    keys = ("in_proj", "conv_w", "conv_b")
+    outs = [{k: torch.randn(getattr(whole, k).shape[:-1] + (w,),
+                            generator=gen)
+             for k, w in zip(keys, (2 * cfg.d_inner // m + 2 * cfg.ssm_state
+                                    + cfg.ssm_heads // m,
+                                    cfg.d_inner // m + 2 * cfg.ssm_state,
+                                    cfg.d_inner // m + 2 * cfg.ssm_state))}
+            for _ in range(m)]
+
+    def rank(r, group):
+        mine = blocks._replace(**{k: getattr(blocks, k).chunk(m, -1)[r]
+                                  .clone().requires_grad_(True)
+                                  for k in keys})
+        ref = whole._replace(**{k: getattr(whole, k).clone()
+                                .requires_grad_(True) for k in keys})
+        got = Route(pl, group).ssm_slice(mine)
+        want = Route(replace(pl, ssm_layout="whole"), group).ssm_slice(ref)
+        for q in (got, want):
+            sum((getattr(q, k) * outs[r][k]).sum() for k in keys).backward()
+        return ({k: getattr(got, k).detach() for k in keys},
+                {k: getattr(want, k).detach() for k in keys},
+                {k: getattr(mine, k).grad for k in keys},
+                {k: getattr(ref, k).grad for k in keys})
+
+    got = on_threads(m, rank, monkeypatch)
+    order = dict(zip(keys, (shd.ssm_rank_columns(cfg, m)[i]
+                            for i in (0, 1, 1))))
+    for k in keys:
+        for r in range(m):
+            assert torch.equal(got[r][0][k], got[r][1][k]), (k, r)
+        grads = torch.cat([g[2][k] for g in got], -1)[
+            ..., torch.argsort(order[k])]
+        torch.testing.assert_close(grads, sum(g[3][k] for g in got),
+                                   rtol=1e-6, atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+def test_optimizer_steps_commute_with_the_layout(opt_name):
+    """One optimizer step on a reduced mamba2's state in the by-rank order
+    (m = 4) equals the step on the whole state, reordered: AdamW is
+    elementwise, Adafactor's factored slots follow their leaf (the column
+    statistic reordered, the row statistic, a mean over the columns, as
+    it is), and the global norm, the clip, Adafactor's means and its RMS
+    clip are sums, which add in another order (fp32)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import build_model
+    from repro_torch.train.optimizer import (OptimizerConfig,
+                                             build_optimizer, global_norm)
+    cfg = reduced("mamba2-1.3b", {})
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(4)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen), params)
+    opt = build_optimizer(OptimizerConfig(name=opt_name, peak_lr=1e-2,
+                                          warmup=1))
+    mesh = _mesh(1, 4)
+    runs = []
+    for order in (False, True):
+        state = {"params": tree_map(torch.clone, params),
+                 "opt": opt.init(params)}
+        g = grads
+        if order:
+            state = shd.rank_order(cfg, mesh, state)
+            g = shd.rank_order(cfg, mesh, g)
+        for _ in range(2):
+            state["params"], state["opt"] = opt.update(
+                g, state["opt"], state["params"], global_norm(g))
+        if order:
+            state = shd.rank_order(cfg, mesh, state, inverse=True)
+        runs.append(state)
+    whole, by_rank = runs
+    if opt_name == "adafactor":
+        assert any("col" in v for v in whole["opt"]["v"])
+    for a, b in zip(tree_leaves(by_rank), tree_leaves(whole)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_layout_by_rank_only_where_m_divides_n(arch):
+    """The plan's ``ssm_layout``: "by_rank" where m divides the SSM heads
+    and N (the reduced configs' 8 heads and N 16 at m = 2 and 4, and at
+    m = 1, where the order is the reference's), "whole" where it divides
+    the heads and not N (N 9 at m = 2), "whole" where the heads are
+    gathered (m = 16). ``tp_layouts`` computes a by-rank leaf on its
+    columns along "model", its gradient the block's own, a "whole" one
+    whole, its gradient a partial sum; ``rank_order`` leaves a "whole"
+    state as it is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.tensor_parallel import plan
+    from repro_torch.models.transformer import build_model
+    lead = 1 if arch == "mamba2-1.3b" else 2
+    for over, m, layout in (({}, 1, "by_rank"), ({}, 2, "by_rank"),
+                            ({}, 4, "by_rank"),
+                            (dict(ssm_state=9), 2, "whole"),
+                            ({}, 16, "whole")):
+        cfg = reduced(arch, over)
+        p = plan(cfg, m, kind="train", seq_len=32)
+        assert p.ssm_layout == layout, (over, m)
+        assert p.record()["ssm_layout"] == layout
+        mamba = shd.tp_layouts(cfg, _mesh(2, m), p)["layers"].mamba
+        for k, dim in (("in_proj", lead + 1), ("conv_w", lead + 1),
+                       ("conv_b", lead)):
+            compute, grad = getattr(mamba, k)
+            if layout == "by_rank":
+                assert compute == [Replicate(), Shard(dim)], k
+                assert grad == [Partial(), Shard(dim)], k
+            else:
+                assert compute == [Replicate(), Replicate()], k
+                assert grad[1].is_partial(), k
+        if layout == "whole":
+            params = build_model(cfg, device="cpu").init(
+                torch.Generator().manual_seed(0))
+            assert shd.rank_order(cfg, _mesh(2, m), params) is params
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
